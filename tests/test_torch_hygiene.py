@@ -1,0 +1,122 @@
+"""The port stands alone: no JAX and nothing of the JAX package in
+``src/repro_torch/`` or ``chip_smoke.py``; CUDA is the default device
+and its absence is an error; unported options raise."""
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import (
+    AnalyticalSDCM,
+    ExactLRU,
+    MimicProfileBuilder,
+    PredictionRequest,
+    Session,
+)
+from repro_torch.core.trace.types import trace_from_blocks
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.api, repro_torch.interop, "
+        "repro_torch.workloads.polybench\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_session_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MimicProfileBuilder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnalyticalSDCM(backend="batched").hit_rates_grid([])
+
+
+def test_session_binds_its_device_to_its_stages():
+    s = Session(device="cpu", cache_model="batched")
+    assert s.device == torch.device("cpu")
+    assert s.builder.device == torch.device("cpu")
+    assert s.cache_model.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(window_size=4096),
+    dict(binned=True),
+    dict(sampled=0.5),
+    dict(artifact_dir="store"),
+    dict(store=object()),
+    dict(verify_fingerprints=True),
+], ids=lambda kw: next(iter(kw)))
+def test_unported_session_options_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        Session(device="cpu", **kwargs)
+
+
+def _trace():
+    return trace_from_blocks([("b", np.arange(0, 64, 8), True)] * 4)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(window_size=16), dict(sampled_rate=0.5),
+], ids=lambda kw: next(iter(kw)))
+def test_unported_request_options_raise(kwargs):
+    req = PredictionRequest(targets=("i7-5960X",), **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        Session(device="cpu").predict(_trace(), req)
+
+
+def test_unported_stages_raise():
+    with pytest.raises(NotImplementedError, match="ExactLRU"):
+        ExactLRU()
+    s = Session(device="cpu")
+    with pytest.raises(NotImplementedError, match="ExactLRU"):
+        s.ground_truth_hit_rates(_trace(), "i7-5960X", 1)
+    with pytest.raises(NotImplementedError, match="registry names"):
+        s.predict("polybench/atx", PredictionRequest(targets=("i7-5960X",)))
+
+
+def test_window_size_zero_is_the_in_memory_path():
+    req = PredictionRequest(targets=("i7-5960X",), window_size=0)
+    out = Session(device="cpu").predict(_trace(), req)
+    assert len(out) == 1
