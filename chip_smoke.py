@@ -17,14 +17,34 @@ with a non-zero exit:
    inside the batch).
 4. The offline reuse-distance engine on the card against the same
    torch ops on the CPU, bit for bit, at 1M references.
-5. The main path: ``Session(cache_model=AnalyticalSDCM("batched"),
+5. The reuse-histogram kernel (both flags: ``reuse_histogram_moments``
+   and ``reuse_histogram``) against its plain version on 2^24 seeded
+   distances plus every power of two and 2^k - 1 up to 2^30 and values
+   past 2^31, with unit and fractional weights: counts exact, unit-weight
+   masses exact below 2^53, the rest within rtol 1e-12, and two launches
+   bit-identical.
+6. Streaming reuse distances on the card (windows of 2^14 and 2^18) bit
+   for bit against the in-memory engine on the card, at 1M references.
+7. The main path: ``Session(cache_model=AnalyticalSDCM("batched"),
    device="cuda").predict`` on polybench atx at ``validation-xxl``
    (1,082,640 references) over the three Table-5 CPUs x cores
    {1, 2, 4, 8} x round_robin, with the workload's op counts.  The
    SDCM kernel's launch count and the reuse-distance device are read
    around that run; hit rates are held against the float64 oracle
-   (``backend="numpy"``) on the same profiles.  More validation-xxl
-   workloads follow while time allows.
+   (``backend="numpy"``) on the same profiles.
+8. The binned main path: the same request through
+   ``Session(binned=True)``; hit rates within 1e-3 of the exact
+   predict and within 1e-6 of the float64 oracle on the binned
+   profiles, the SDCM kernel against its plain version at this path's
+   row groups, the reuse-histogram kernel's launches read around the
+   run, and the kernel timed on that path's own distance tensor.
+9. The streaming main path: the same request with
+   ``window_size=STREAM_WINDOW``, exact (``to_json()`` equal to the
+   in-memory predict) and binned (profiles equal to the in-memory
+   binned ones, hit rates against the oracle and the SDCM kernel
+   against its plain version as in 8, and the reuse-histogram kernel
+   against its plain version on every window of the 8-core shared
+   stream).  More validation-xxl workloads follow while time allows.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -58,7 +78,12 @@ PEAK_FP64_S = 34e12
 OPS_PER_TERM = 8
 RATE_TOL = 1e-6       # kernel vs plain and vs the float64 oracle, hit rates
 PHIT_TOL = 1e-6       # kernel vs plain, P(h|D) (float32 output)
-TIME_BUDGET_S = 900   # more workloads in phase 4 only while under this
+BINNED_TOL = 1e-3     # binned vs exact hit rates (the reference's gate)
+HIST_RTOL = 1e-12     # reuse histogram, sums that are not exact integers
+EXACT_SUM = float(1 << 53)  # below this, integer sums in double are exact
+HIST_N = 1 << 24      # distances of the reuse-histogram phase
+STREAM_WINDOW = 1 << 16     # window of the streaming main path
+TIME_BUDGET_S = 500   # more workloads at the end only while under this
 
 
 def fail(msg: str) -> None:
@@ -234,7 +259,7 @@ def phase_rates(g: int = 4096, seed: int = 1):
          composition_invariant_rows=g)
 
 
-def main_path_session(workload: str):
+def main_path_session(workload: str, **session_kw):
     from repro_torch.api import AnalyticalSDCM, PredictionRequest, Session
     from repro_torch.workloads.polybench import make_workload
 
@@ -242,19 +267,47 @@ def main_path_session(workload: str):
     req = PredictionRequest(targets=TABLE5, core_counts=CORES,
                             strategies=("round_robin",), counts=w.op_counts)
     sess = Session(cache_model=AnalyticalSDCM(backend="batched"),
-                   device="cuda")
+                   device="cuda", **session_kw)
     return w, req, sess
+
+
+def path_items(sess, w, req) -> list:
+    """(target, artifacts) of every cell of ``req``, as the SDCM stage
+    of ``sess.predict`` sees them."""
+    return [
+        (cell.target, sess.artifacts(w, cell.cores, strategy=cell.strategy,
+                                     line_size=cell.target.levels[0].line_size))
+        for cell in req.cells()
+    ]
+
+
+def path_groups(sess, w, req) -> list:
+    """The SDCM kernel's row groups of one predict of ``req``."""
+    from repro_torch.api.batched import grid_rows, pack_grid
+
+    return pack_grid(grid_rows(path_items(sess, w, req)), device="cuda")
+
+
+def sdcm_at_path_shapes(groups, tag: str) -> float:
+    """``sdcm_rates`` against its plain version on one path's row
+    groups; returns the max |kernel - plain|."""
+    from repro_torch.kernels.sdcm import sdcm_rates, sdcm_rates_plain
+
+    err = 0.0
+    for grp in groups:
+        args = (grp.d, grp.probs, grp.assoc, grp.blocks, grp.a_max)
+        err = max(err, float((sdcm_rates(*args)
+                              - sdcm_rates_plain(*args)).abs().max()))
+    if not err <= RATE_TOL:
+        fail(f"sdcm_rates at {tag} shapes: {err} > {RATE_TOL}")
+    return err
 
 
 def check_against_oracle(sess, w, req, res, tag: str) -> float:
     from repro_torch.api import AnalyticalSDCM
 
-    items = [
-        (cell.target, sess.artifacts(w, cell.cores, strategy=cell.strategy,
-                                     line_size=cell.target.levels[0].line_size))
-        for cell in req.cells()
-    ]
-    oracle = AnalyticalSDCM(backend="numpy").hit_rates_grid(items)
+    oracle = AnalyticalSDCM(backend="numpy").hit_rates_grid(
+        path_items(sess, w, req))
     worst = 0.0
     for pred, want in zip(res, oracle):
         for lvl, rate in want.items():
@@ -270,26 +323,20 @@ def check_against_oracle(sess, w, req, res, tag: str) -> float:
 
 
 def phase_main_path():
-    from repro_torch.api.batched import grid_rows, pack_grid
-    from repro_torch.core.reuse import distance
-    from repro_torch.kernels.sdcm import LAUNCHES, sdcm_rates, sdcm_rates_plain
+    from repro_torch.kernels.sdcm import sdcm_rates, sdcm_rates_plain
 
     w, req, sess = main_path_session(MAIN_WORKLOAD)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    distance.PASSES.clear()
+    reset_counts()
     t0 = time.perf_counter()
     res = sess.predict(w, req)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    passes = dict(distance.PASSES)
+    counts = read_counts()
+    launches, passes = counts["launches"], counts["rd_passes"]
     cold_stages = dict(sess.stage_seconds)
     cold_stats = dict(vars(sess.stats))
-    peak = torch.cuda.max_memory_allocated()
+    peak = counts["max_memory_allocated"]
 
     if launches["sdcm_rates"] <= 0:
         fail(f"main path launched no SDCM kernel: {launches}")
@@ -314,19 +361,12 @@ def phase_main_path():
     print(res.to_table(), flush=True)
 
     # the kernel at the main path's own shapes: one predict's SDCM stage
-    items = [
-        (cell.target, sess.artifacts(w, cell.cores, strategy=cell.strategy,
-                                     line_size=cell.target.levels[0].line_size))
-        for cell in req.cells()
-    ]
-    groups = pack_grid(grid_rows(items), device="cuda")
+    groups = path_groups(sess, w, req)
     ms = plain_ms = 0.0
-    err = 0.0
+    err = sdcm_at_path_shapes(groups, MAIN_WORKLOAD)
     nbytes = ops = 0.0
     for grp in groups:
         args = (grp.d, grp.probs, grp.assoc, grp.blocks, grp.a_max)
-        err = max(err, float((sdcm_rates(*args)
-                              - sdcm_rates_plain(*args)).abs().max()))
         ms += cuda_ms(lambda: sdcm_rates(*args), reps=200, warmup=10)
         plain_ms += cuda_ms(lambda: sdcm_rates_plain(*args), reps=20)
         g, m = grp.d.shape
@@ -335,13 +375,11 @@ def phase_main_path():
         a = np.broadcast_to(grp.assoc.cpu().numpy()[:, None], d.shape)
         b = np.broadcast_to(grp.blocks.cpu().numpy()[:, None], d.shape)
         ops += phit_terms(d, a, b) * OPS_PER_TERM + 2.0 * g * m
-    if err > RATE_TOL:
-        fail(f"sdcm_rates at main-path shapes: {err} > {RATE_TOL}")
     b_ms, b_by = bound_ms(nbytes, ops)
     line("main_path_kernel", groups=[list(g.signature[1:]) for g in groups],
          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
          max_abs_err=err)
-    return {
+    return res, {
         "name": "sdcm_rates",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sdcm/csrc/sdcm.cu",
@@ -354,6 +392,284 @@ def phase_main_path():
         "bound_by": b_by,
         "library_ms": None,
     }
+
+
+# --- the reuse-histogram kernel (B2/B3) --------------------------------------
+
+
+def hist_distances(n: int, seed: int) -> np.ndarray:
+    """``n`` seeded distances, log-uniform below 2^28 with a tenth
+    first touches, then a few hundred edge values: -1, 0, 1, every 2^k
+    and 2^k - 1 up to 2^30, and values past 2^31.  Values >= 2^50
+    appear once each, so every bin's unit-weight sum is an exact integer
+    or the rounding of a sum of two."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 29, n)
+    d = (rng.random(n) * np.exp2(bits)).astype(np.int64)
+    d[rng.random(n) < 0.1] = -1
+    edges = [-1, 0, 1] + [1 << k for k in range(31)] + [
+        (1 << k) - 1 for k in range(2, 31)] + [
+        (1 << 31) + 1, 1 << 32, 3 << 33, (1 << 40) + 7, 1 << 45]
+    tail = [(1 << 52) - 1, 1 << 62, (1 << 63) - 1]
+    extra = np.array(edges * 4 + tail, dtype=np.int64)
+    return np.concatenate([d[: n - extra.size], extra])
+
+
+def check_hist(got: torch.Tensor, want: torch.Tensor, unit: bool,
+               tag: str) -> float:
+    """Counts (and unit-weight sums below 2^53) exact; every other sum
+    within ``HIST_RTOL``.  Returns the max |kernel - plain|."""
+    got, want = got.reshape(-1, 64), want.reshape(-1, 64)
+    if unit:
+        exact = want.abs() < EXACT_SUM
+        exact[0] = True  # counts
+        if not torch.equal(got[exact], want[exact]):
+            fail(f"{tag}: exact sums differ from the plain version")
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-300)).max().item()
+    if not rel <= HIST_RTOL:
+        fail(f"{tag}: relative error {rel} > {HIST_RTOL}")
+    return float((got - want).abs().max())
+
+
+def time_hist(d: torch.Tensor, w, moments: bool) -> dict:
+    """Kernel, plain and library times of one histogram, its bound and
+    its max |kernel - plain|.  The library call is ``torch.bincount``
+    over bins computed beforehand (it leaves the binning pass out)."""
+    from repro_torch.kernels import reuse_hist as rh
+
+    fn = rh.reuse_histogram_moments if moments else rh.reuse_histogram
+    plain = (rh.reuse_histogram_moments_plain if moments
+             else rh.reuse_histogram_plain)
+    err = check_hist(fn(d, w), plain(d, w), w is None,
+                     f"{fn.__name__} n={d.numel()}")
+    bins = rh.bin_ids_plain(d)
+    wt = (torch.ones(d.numel(), dtype=torch.float64, device=d.device)
+          if w is None else w.to(torch.float64))
+    wd = wt * d.clamp_min(0).to(torch.float64)
+
+    def library():
+        torch.bincount(bins, weights=wt, minlength=rh.NUM_BINS)
+        if moments:
+            torch.bincount(bins, weights=wd, minlength=rh.NUM_BINS)
+
+    out_bytes = 8.0 * rh.NUM_BINS * (2 if moments else 1)
+    in_bytes = 8.0 * d.numel() + (0.0 if w is None else 4.0 * d.numel())
+    b_ms, b_by = bound_ms(in_bytes + out_bytes, 0.0)
+    return dict(
+        n=d.numel(), weights="unit" if w is None else "fractional",
+        max_abs_err=err, ms=cuda_ms(lambda: fn(d, w)),
+        plain_ms=cuda_ms(lambda: plain(d, w), reps=5, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(library),
+    )
+
+
+def phase_reuse_hist(seed: int = 3):
+    from repro_torch.kernels import reuse_hist as rh
+
+    d = torch.from_numpy(hist_distances(HIST_N, seed)).cuda()
+    w = torch.from_numpy(np.random.default_rng(seed + 1).random(
+        HIST_N).astype(np.float32)).cuda()
+    for moments in (True, False):
+        fn = rh.reuse_histogram_moments if moments else rh.reuse_histogram
+        first, second = fn(d), fn(d)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f"{fn.__name__}: two launches differ on unit weights")
+        for weights in (None, w):
+            line("reuse_hist", kernel=fn.__name__, bit_reproducible=True,
+                 **time_hist(d, weights, moments))
+
+
+def phase_streaming_distances(n: int = 1 << 20, seed: int = 4):
+    """Streaming reuse distances on the card against the in-memory
+    offline engine on the card, bit for bit."""
+    from repro_torch.core.reuse.distance import (
+        reuse_distances,
+        reuse_distances_streaming,
+    )
+
+    rng = np.random.default_rng(seed)
+    addrs = rng.integers(0, n // 8, n) * 8
+    whole = reuse_distances(addrs, 64, device="cuda")
+    for ws in (1 << 14, 1 << 18):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = reuse_distances_streaming(addrs, 64, window_size=ws,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if got.device.type != "cuda" or not torch.equal(got, whole):
+            fail(f"streaming reuse distances (window {ws}) differ from "
+                 "the in-memory pass")
+        line("streaming_distances", n=n, window_size=ws,
+             bit_identical=True, seconds=secs)
+
+
+# --- binned and streaming main paths -----------------------------------------
+
+
+def reset_counts():
+    from repro_torch.core.reuse import distance
+    from repro_torch.kernels import reuse_hist, sdcm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (sdcm.LAUNCHES, reuse_hist.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    distance.PASSES.clear()
+    distance.WINDOWS.clear()
+
+
+def read_counts() -> dict:
+    from repro_torch.core.reuse import distance
+    from repro_torch.kernels import reuse_hist, sdcm
+
+    torch.cuda.synchronize()
+    return dict(launches={**sdcm.LAUNCHES, **reuse_hist.LAUNCHES},
+                rd_passes=dict(distance.PASSES),
+                rd_windows=dict(distance.WINDOWS),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def drive(tag: str, needs: tuple, **session_kw):
+    """One cold and one warm predict of the main request through
+    ``Session(**session_kw)``, with every count set to 0 just before
+    the cold run and read just after it."""
+    w, req, sess = main_path_session(MAIN_WORKLOAD, **session_kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sess.predict(w, req)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = read_counts()
+    cold_stages = dict(sess.stage_seconds)
+    for name in needs:
+        if counts["launches"][name] <= 0:
+            fail(f"{tag} launched no {name} kernel: {counts['launches']}")
+    passes = counts["rd_passes"]
+    if passes.get("cuda", 0) <= 0 or passes.get("cpu", 0):
+        fail(f"{tag}: reuse distances not computed on the GPU: {passes}")
+    t0 = time.perf_counter()
+    res_warm = sess.predict(w, req)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if res_warm.to_json() != res.to_json():
+        fail(f"{tag}: warm predict differs from cold predict")
+    line(tag, workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
+         session=session_kw, cells=len(res), cold_s=cold_s, warm_s=warm_s,
+         cold_stage_s=cold_stages,
+         warm_stage_s={k: v - cold_stages.get(k, 0.0)
+                       for k, v in sess.stage_seconds.items()},
+         stats=dict(vars(sess.stats)), **counts)
+    return w, req, sess, res, counts
+
+
+def close_to_exact(res, exact, tag: str) -> float:
+    worst = 0.0
+    for got, want in zip(res, exact):
+        for lvl, rate in want.hit_rates.items():
+            diff = abs(got.hit_rates[lvl] - rate)
+            worst = max(worst, diff)
+            if not np.isfinite(got.hit_rates[lvl]) or diff >= BINNED_TOL:
+                fail(f"{tag} {got.target} cores={got.cores} {lvl}: "
+                     f"{got.hit_rates[lvl]} vs exact {rate}")
+    return worst
+
+
+def path_checks(sess, w, req, res, tag: str) -> dict:
+    """The SDCM stage of one path held against the float64 oracle on
+    that path's own profiles, and the kernel against its plain version
+    at that path's row groups."""
+    groups = path_groups(sess, w, req)
+    return dict(
+        max_abs_err_vs_oracle=check_against_oracle(sess, w, req, res, tag),
+        sdcm_groups=[list(g.signature[1:]) for g in groups],
+        sdcm_max_abs_err=sdcm_at_path_shapes(groups, tag),
+    )
+
+
+def phase_binned_main_path(exact):
+    from repro_torch.core.reuse.distance import reuse_distances
+
+    w, req, sess, res, counts = drive(
+        "binned_main_path", ("reuse_hist_moments", "sdcm_rates"),
+        binned=True)
+    worst = close_to_exact(res, exact, "binned")
+    checks = path_checks(sess, w, req, res, "binned")
+    line("binned_vs_exact", max_abs_diff=worst, tol=BINNED_TOL, **checks)
+    # the kernel on the path's own input: one profile's distance tensor
+    d = reuse_distances(sess.load(w)[1].addresses, 64, device="cuda")
+    records = []
+    for moments, name, src_line in ((True, "reuse_hist_moments", 74),
+                                    (False, "reuse_hist", 39)):
+        rec = time_hist(d, None, moments)
+        line("binned_main_path_kernel", kernel=name, **rec)
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/reuse_hist/csrc/reuse_hist.cu",
+            "replaces": f"src/repro/kernels/reuse_hist/reuse_hist.py:{src_line}",
+            "launches": counts["launches"][name],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        })
+    return sess, records, {"sdcm_rates": checks["sdcm_max_abs_err"]}
+
+
+def window_hist_checks(sess, w, cores: int) -> dict:
+    """``reuse_hist_moments`` against its plain version on every window
+    of the ``cores``-core shared stream of the streaming path, at the
+    windows' own sizes (counts and sums exact)."""
+    from repro_torch.core.reuse.distance import reuse_distance_windows_device
+    from repro_torch.core.trace.interleave import interleave_windows
+    from repro_torch.kernels import reuse_hist as rh
+
+    art = sess.artifacts(w, cores, strategy="round_robin", line_size=64)
+    wins = interleave_windows(art.privates, "round_robin",
+                              window_size=STREAM_WINDOW)
+    err, sizes = 0.0, []
+    for d in reuse_distance_windows_device(wins, 64,
+                                           window_size=STREAM_WINDOW,
+                                           device="cuda"):
+        sizes.append(d.numel())
+        err = max(err, check_hist(rh.reuse_histogram_moments(d),
+                                  rh.reuse_histogram_moments_plain(d), True,
+                                  f"streaming window {len(sizes)}"))
+    return dict(cores=cores, windows=len(sizes), smallest=min(sizes),
+                largest=max(sizes), max_abs_err=err)
+
+
+def phase_streaming_main_path(exact, binned_sess) -> dict:
+    """Both streaming paths; returns each kernel's worst |kernel -
+    plain| at these paths' own inputs."""
+    _, _, _, res, _ = drive("streaming_main_path", ("sdcm_rates",),
+                            window_size=STREAM_WINDOW)
+    if res.to_json() != exact.to_json():
+        fail("exact streaming predict differs from the in-memory one")
+    line("streaming_vs_in_memory", bit_identical=True)
+    w, req, sess, res_b, _ = drive(
+        "binned_streaming_main_path", ("reuse_hist_moments", "sdcm_rates"),
+        binned=True, window_size=STREAM_WINDOW)
+    for cell in req.cells():
+        kw = dict(strategy=cell.strategy,
+                  line_size=cell.target.levels[0].line_size)
+        a = sess.artifacts(w, cell.cores, **kw)
+        b = binned_sess.artifacts(w, cell.cores, **kw)
+        for pa, pb in ((a.prd, b.prd), (a.crd, b.crd)):
+            if not (np.array_equal(pa.distances, pb.distances)
+                    and np.array_equal(pa.counts, pb.counts)):
+                fail(f"binned streaming profile (cores={cell.cores}) "
+                     "differs from the in-memory binned one")
+    checks = path_checks(sess, w, req, res_b, "binned streaming")
+    hist = window_hist_checks(sess, w, max(CORES))
+    line("binned_streaming_vs_binned", profiles_equal=True,
+         max_abs_diff_vs_exact=close_to_exact(res_b, exact,
+                                              "binned streaming"),
+         window_hist=hist, **checks)
+    return {"sdcm_rates": checks["sdcm_max_abs_err"],
+            "reuse_hist_moments": hist["max_abs_err"]}
 
 
 def phase_more_workloads(t_start: float):
@@ -386,9 +702,18 @@ def main() -> int:
     probs = phase_hit_probs()
     phase_rates()
     phase_reuse_distances()
-    kernel = phase_main_path()
+    phase_reuse_hist()
+    phase_streaming_distances()
+    exact, sdcm_kernel = phase_main_path()
+    binned_sess, hist_kernels, binned_errs = phase_binned_main_path(exact)
+    streaming_errs = phase_streaming_main_path(exact, binned_sess)
     phase_more_workloads(t_start)
-    record = {"kernels": [kernel]}
+    kernels = [sdcm_kernel] + hist_kernels
+    for rec in kernels:  # the worst error over every path's own inputs
+        for errs in (binned_errs, streaming_errs):
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     errs.get(rec["name"], 0.0))
+    record = {"kernels": kernels}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(

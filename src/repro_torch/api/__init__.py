@@ -13,11 +13,15 @@
     print(result.to_table())
 
 ``Session()`` runs on the GPU and raises without one; pass
-``device="cpu"`` to run on the host.
+``device="cpu"`` to run on the host.  ``Session(window_size=W)``
+builds the profiles window by window (bit-identical, the interleaved
+trace never materialized); ``Session(binned=True)`` builds log2-binned
+profiles through the reuse-histogram kernel.
 """
 from repro_torch.api.request import GridCell, PredictionRequest
 from repro_torch.api.results import CellPrediction, PredictionSet
 from repro_torch.api.session import Session, SessionStats
+from repro_torch.core.trace.types import ChunkedTraceSource
 from repro_torch.api.stages import (
     AnalyticalSDCM,
     ArrayTraceSource,
@@ -42,6 +46,7 @@ __all__ = [
     "AnalyticalSDCM",
     "ArrayTraceSource",
     "CacheModel",
+    "ChunkedTraceSource",
     "CellPrediction",
     "ECMRuntimeModel",
     "EqRuntimeModel",

@@ -52,11 +52,11 @@ class PredictionRequest:
     keep_profiles: bool = False
     # drop grid cells asking for more cores than the target has
     respect_core_limit: bool = True
-    # the reference's streaming window and SHARDS sampling rate; kept
-    # for request parity, but the port's Session raises
-    # NotImplementedError for any value but None (or window_size=0,
-    # the in-memory path) until they are ported (ROADMAP queue A)
+    # streaming: profile passes in windows of this many references
+    # (None -> the Session default; 0 forces the in-memory path)
     window_size: int | None = None
+    # SHARDS sampling rate: kept for request parity; the port's Session
+    # raises NotImplementedError for it (ROADMAP queue A)
     sampled_rate: float | None = None
 
     def __post_init__(self):

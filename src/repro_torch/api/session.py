@@ -20,10 +20,15 @@ of the kernels on the host.  Stages built by the Session, and an
 ``AnalyticalSDCM`` passed without a device, run on the Session's
 device.
 
+``window_size=W`` (on the Session, the builder, or per request)
+builds each cell's profiles window by window: bit-identical to the
+in-memory path, and the interleaved trace of a deterministic strategy
+is never materialized.  ``binned=True`` builds log2-binned profiles
+through the reuse-histogram kernel; the two combine.
+
 Not ported yet (ROADMAP queue A), and raising ``NotImplementedError``:
-``window_size`` (streaming), ``binned=True``, ``sampled=``,
-``store=``/``artifact_dir=``, ``verify_fingerprints``, and
-``ground_truth_hit_rates`` (ExactLRU).
+``sampled=``, ``store=``/``artifact_dir=``, ``verify_fingerprints``,
+and ``ground_truth_hit_rates`` (ExactLRU).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ class SessionStats:
     interleave_builds: int = 0
     profile_builds: int = 0
     profile_hits: int = 0
+    streaming_builds: int = 0
     kernel_shapes: int = 0  # NEW SDCM launch shapes this session
     # (``repro_torch.api.batched``); a warm session re-running an
     # identical sweep leaves it unchanged.
@@ -71,6 +77,11 @@ class Session:
     Stages are injectable: pass a different ``cache_model`` or
     ``profile_builder`` and the same request produces an
     alternative-model grid.  ``cache=False`` disables artifact reuse.
+
+    ``window_size`` and ``binned`` configure the default builder;
+    ``binned=True`` with a builder of one's own needs that builder to
+    be binned.  ``window_size=0`` (here or per request) forces the
+    in-memory path.
     """
 
     def __init__(
@@ -88,10 +99,6 @@ class Session:
         artifact_dir=None,
         verify_fingerprints: bool = False,
     ):
-        if window_size:
-            raise not_in_slice("window_size (streaming)", "streaming")
-        if binned:
-            raise not_in_slice("binned=True", "binned profiles (B2/B3)")
         if sampled is not None:
             raise not_in_slice("sampled=", "sampled profiles")
         if store is not None or artifact_dir is not None:
@@ -99,7 +106,17 @@ class Session:
         if verify_fingerprints:
             raise not_in_slice("verify_fingerprints", "registry names")
         self.device = resolve_device(device)
-        self.builder = profile_builder or MimicProfileBuilder(self.device)
+        if profile_builder is None:
+            profile_builder = MimicProfileBuilder(
+                self.device, window_size=window_size, binned=binned
+            )
+        elif binned and not getattr(profile_builder, "binned", False):
+            raise ValueError(
+                "binned=True only configures the default builder; pass a "
+                "builder with binned profile support instead"
+            )
+        self.builder = profile_builder
+        self.window_size = window_size
         if isinstance(cache_model, str):
             # shorthand for the analytical backends ("batched"/"numpy")
             cache_model = AnalyticalSDCM(backend=cache_model)
@@ -193,29 +210,50 @@ class Session:
             self._shared[key] = shared
         return shared
 
+    def _resolve_window(self, window_size: int | None) -> int | None:
+        """Explicit override > session default > builder default."""
+        if window_size is not None:
+            return window_size or None  # 0 forces the in-memory path
+        if self.window_size is not None:
+            return self.window_size or None  # normalized: one cache key
+        return getattr(self.builder, "window_size", None)
+
     def artifacts(self, source, cores: int, *, strategy: str = "round_robin",
                   seed: int = 0, line_size: int = 64,
                   window_size: int | None = None,
                   sampled: float | None = None) -> ProfileArtifacts:
-        """PRD/CRD profiles (+ underlying traces) for one grid cell."""
-        if window_size:
-            raise not_in_slice("window_size (streaming)", "streaming")
+        """PRD/CRD profiles (+ underlying traces) for one grid cell.
+
+        ``window_size`` (or the Session/builder default) routes the
+        reuse-distance passes through the streaming layer: bit-identical
+        profiles, scan memory bounded by the window and the lines seen,
+        and the interleaved shared trace never materialized for the
+        deterministic strategies — ``artifacts.shared`` is ``None``.
+        """
         if sampled is not None:
             raise not_in_slice("sampled=", "sampled profiles")
+        ws = self._resolve_window(window_size)
         tid, trace = self.load(source)
-        key = (tid, line_size, cores, strategy, seed)
+        key = (tid, line_size, cores, strategy, seed, ws)
         if self.cache_enabled and key in self._profiles:
             self.stats.profile_hits += 1
             return self._profiles[key]
-        if cores == 1:
+        binned = bool(getattr(self.builder, "binned", False))
+        if ws:
+            art = self._streaming_artifacts(
+                tid, trace, cores, strategy, seed, line_size, ws
+            )
+        elif cores == 1:
             with self._stage("reuse_profile"):
-                prof = profile_from_distances(
-                    self._reuse_distances(tid, trace, line_size)
-                )
+                rds = self._reuse_distances(tid, trace, line_size)
+                if hasattr(self.builder, "profile_of_distances"):
+                    prof = self.builder.profile_of_distances(rds)
+                else:
+                    prof = profile_from_distances(rds)
             art = ProfileArtifacts(
                 trace_id=tid, cores=1, strategy=strategy, seed=seed,
                 line_size=line_size, privates=[trace], shared=trace,
-                prd=prof, crd=prof,
+                prd=prof, crd=prof, binned=binned,
             )
         else:
             privs = self._private_traces(tid, trace, cores)
@@ -227,12 +265,63 @@ class Session:
             art = ProfileArtifacts(
                 trace_id=tid, cores=cores, strategy=strategy, seed=seed,
                 line_size=line_size, privates=privs, shared=shared,
-                prd=prd, crd=crd,
+                prd=prd, crd=crd, binned=binned,
             )
         self.stats.profile_builds += 1
         if self.cache_enabled:
             self._profiles[key] = art
         return art
+
+    def _streaming_artifacts(self, tid, trace, cores, strategy, seed,
+                             line_size, ws) -> ProfileArtifacts:
+        """Window-bounded cell build.
+
+        Uses the builder's streaming hooks when present (the default
+        ``MimicProfileBuilder`` provides them); a custom builder without
+        them falls back to its own in-memory stages.  The streaming
+        interleave runs inside the shared profile's reuse pass, so its
+        time counts under ``stage_seconds["reuse_profile"]``.
+        """
+        self.stats.streaming_builds += 1
+        builder = self.builder
+        binned = bool(getattr(builder, "binned", False))
+        if hasattr(builder, "profile_windows"):
+            def stream_profile(t, line):
+                return builder.profile_windows(t, line, ws)
+        else:  # custom builder without streaming hooks: its own stages
+            def stream_profile(t, line):
+                return builder.profile(t, line)
+        if cores == 1:
+            with self._stage("reuse_profile"):
+                prof = stream_profile(trace, line_size)
+            return ProfileArtifacts(
+                trace_id=tid, cores=1, strategy=strategy, seed=seed,
+                line_size=line_size, privates=[trace], shared=trace,
+                prd=prof, crd=prof, window_size=ws, binned=binned,
+            )
+        privs = self._private_traces(tid, trace, cores)
+        if (
+            strategy in ("round_robin", "chunked")
+            and hasattr(builder, "shared_profile")
+        ):
+            with self._stage("reuse_profile"):
+                prd = stream_profile(privs[0], line_size)
+                crd, shared = builder.shared_profile(
+                    privs, strategy, seed, line_size, ws
+                )
+        else:
+            # uniform (or a builder without streaming hooks) needs the
+            # materialized interleave: go through the Session cache so
+            # it is built once across line sizes/targets
+            shared = self._shared_trace(tid, privs, cores, strategy, seed)
+            with self._stage("reuse_profile"):
+                prd = stream_profile(privs[0], line_size)
+                crd = stream_profile(shared, line_size)
+        return ProfileArtifacts(
+            trace_id=tid, cores=cores, strategy=strategy, seed=seed,
+            line_size=line_size, privates=privs, shared=shared,
+            prd=prd, crd=crd, window_size=ws, binned=binned,
+        )
 
     # --- execution --------------------------------------------------------
 

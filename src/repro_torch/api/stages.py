@@ -9,12 +9,14 @@
 
 Traces, Alg. 1 mimicry and Alg. 2 interleaving stay host numpy
 (bit-identical to the reference); the reuse-distance pass and its
-histogram run on the builder's device; the batched SDCM runs the
-hand-written kernel on the cache model's device.
+histogram run on the builder's device — exact (``torch.unique``) or
+binned (the hand-written reuse-histogram kernel), in memory or window
+by window; the batched SDCM runs the hand-written SDCM kernel on the
+cache model's device.
 
 Not ported yet (ROADMAP queue A), and raising ``NotImplementedError``:
-streaming windows, ``binned=True``, ``sampled=``, ``ExactLRU`` (with
-``core/cachesim.py``), and workload registry names as trace sources.
+``sampled=``, ``ExactLRU`` (with ``core/cachesim.py``), and workload
+registry names as trace sources.
 """
 from __future__ import annotations
 
@@ -27,10 +29,20 @@ import numpy as np
 from repro_torch.core import sdcm
 from repro_torch.core.incore import ECMRuntimeModel, miss_fractions
 from repro_torch.core.levels import CacheLevelConfig
-from repro_torch.core.reuse.distance import reuse_distances
-from repro_torch.core.reuse.profile import ReuseProfile, profile_from_distances
+from repro_torch.core.reuse.distance import (
+    reuse_distance_windows_device,
+    reuse_distances,
+)
+from repro_torch.core.reuse.profile import (
+    ReuseProfile,
+    profile_from_distances,
+    profile_from_distances_incremental,
+)
 from repro_torch.core.runtime_model import OpCounts, predict_runtime_s
-from repro_torch.core.trace.interleave import interleave_traces
+from repro_torch.core.trace.interleave import (
+    interleave_traces,
+    interleave_windows,
+)
 from repro_torch.core.trace.mimic import gen_private_traces
 from repro_torch.core.trace.types import LabeledTrace
 from repro_torch.device import resolve_device
@@ -110,7 +122,14 @@ def as_trace_source(obj) -> TraceSource:
 @dataclass
 class ProfileArtifacts:
     """Everything derived from one (trace, cores, strategy, seed, line)
-    cell — cached by Session so it is computed exactly once."""
+    cell — cached by Session so it is computed exactly once.
+
+    ``shared`` is ``None`` when the cell was built through the streaming
+    path (``window_size`` set) with a deterministic strategy: the
+    interleaved trace is scanned window by window and never
+    materialized.  Profile consumers (SDCM, batched SDCM) only read
+    ``prd``/``crd``.
+    """
 
     trace_id: str
     cores: int
@@ -121,6 +140,10 @@ class ProfileArtifacts:
     shared: LabeledTrace | None
     prd: ReuseProfile
     crd: ReuseProfile
+    window_size: int | None = None
+    # True when prd/crd are device-binned log2 profiles (the
+    # kernels/reuse_hist path) rather than exact histograms
+    binned: bool = False
 
 
 class ProfileBuilder(Protocol):
@@ -139,12 +162,51 @@ class ProfileBuilder(Protocol):
 
 class MimicProfileBuilder:
     """Default builder: Algorithm 1 + Algorithm 2 on the host, then the
-    exact reuse-distance pass and its histogram on ``device`` (``None``
+    reuse-distance pass and its histogram on ``device`` (``None``
     resolves to the GPU, see :func:`repro_torch.device.resolve_device`).
+
+    ``window_size`` is the builder's default window: a Session with no
+    window of its own routes this builder's cells through the streaming
+    layer (:meth:`profile_windows`, :meth:`shared_profile` — windowed
+    reuse distances + incremental histogram accumulation): bit-identical
+    profiles, peak memory bounded by the window and the lines seen
+    instead of the trace length.  :meth:`profile` is always the
+    in-memory pass, so the Session alone decides which path a cell
+    takes.
+
+    ``binned=True`` switches profile construction to the fused
+    device-binned path (:mod:`repro_torch.core.reuse.fused`): the
+    distance stream feeds the ``kernels/reuse_hist`` kernel on the
+    device and the profile is log2-binned, with weighted-mean bin
+    representatives.  SDCM hit rates from binned profiles track the
+    exact ones to well under 1e-3 absolute.
     """
 
-    def __init__(self, device=None):
+    #: The disk-store identity of the default builder, shared with the
+    #: JAX package's ``repro.api.stages.MimicProfileBuilder``: its exact
+    #: profiles are bit-identical to the port's.
+    STORE_NAME = "repro.api.stages.MimicProfileBuilder"
+
+    window_size: int | None = None  # class defaults: subclasses with
+    binned: bool = False            # a bare __init__ still resolve them
+
+    def __init__(self, device=None, window_size: int | None = None,
+                 binned: bool = False):
         self.device = resolve_device(device)
+        self.window_size = window_size
+        self.binned = binned
+
+    @property
+    def store_fingerprint(self) -> str:
+        """Disk-store identity: binned cells must never be confused with
+        exact cells, so the binned builder stamps its keys."""
+        if type(self) is MimicProfileBuilder:
+            base = self.STORE_NAME
+        else:
+            base = f"{type(self).__module__}.{type(self).__qualname__}"
+        if self.binned:
+            base += "+binned"
+        return base
 
     def private_traces(self, trace, cores):
         return gen_private_traces(trace, cores)
@@ -153,9 +215,63 @@ class MimicProfileBuilder:
         return interleave_traces(privates, strategy, seed=seed)
 
     def profile(self, trace, line_size):
-        return profile_from_distances(
+        return self.profile_of_distances(
             reuse_distances(trace.addresses, line_size, device=self.device)
         )
+
+    def profile_of_distances(self, rds) -> ReuseProfile:
+        """Distances -> profile under the builder's histogram mode."""
+        if self.binned:
+            from repro_torch.core.reuse.fused import (
+                binned_profile_from_distances,
+            )
+
+            return binned_profile_from_distances(rds, device=self.device)
+        return profile_from_distances(rds)
+
+    def profile_windows(
+        self, source, line_size, window_size: int | None = None
+    ) -> ReuseProfile:
+        """Streaming profile of any window source (``LabeledTrace``,
+        ``ChunkedTraceSource``, or an iterator of windows).
+        ``window_size`` overrides the builder default for this call."""
+        ws = window_size if window_size is not None else (self.window_size or 0)
+        if ws < 1:
+            raise ValueError("profile_windows needs window_size >= 1")
+        if self.binned:
+            from repro_torch.core.reuse.fused import binned_profile_windows
+
+            return binned_profile_windows(
+                source, line_size, window_size=ws, device=self.device
+            )
+        return profile_from_distances_incremental(
+            reuse_distance_windows_device(
+                source, line_size, window_size=ws, device=self.device
+            )
+        )
+
+    def shared_profile(
+        self, privates, strategy: str, seed: int, line_size: int,
+        window_size: int | None = None,
+    ) -> tuple[ReuseProfile, LabeledTrace | None]:
+        """CRD profile of the interleaved trace.
+
+        Streaming mode merges per-core windows and scans them directly
+        — the shared trace is never concatenated (returned trace is
+        ``None``).  The ``uniform`` strategy needs the global random
+        choice sequence, so it interleaves in memory first and streams
+        only the reuse-distance pass.
+        """
+        ws = window_size if window_size is not None else self.window_size
+        if ws and strategy in ("round_robin", "chunked"):
+            wins = interleave_windows(
+                privates, strategy, window_size=ws, seed=seed
+            )
+            return self.profile_windows(wins, line_size, ws), None
+        shared = self.interleave(privates, strategy, seed)
+        if ws:
+            return self.profile_windows(shared, line_size, ws), shared
+        return self.profile(shared, line_size), shared
 
 
 # --- cache models ------------------------------------------------------------

@@ -67,3 +67,54 @@ def profile_from_distances(rds: torch.Tensor) -> ReuseProfile:
         uniq.cpu().numpy(), counts.to(torch.int64).cpu().numpy(),
         int(rds.numel()),
     )
+
+
+def profile_from_distances_incremental(rd_windows) -> ReuseProfile:
+    """Fold an iterable of reuse-distance windows into one profile.
+
+    The streaming accumulator: each window (a tensor on any device, or
+    an array) is histogrammed where it lies and merged into the running
+    (distances, counts) pair on the host, so peak memory is
+    O(distinct distances + window) — the O(N) distance array never
+    exists.  Feed it ``reuse_distance_windows_device(...)``.
+    """
+    acc_d = np.empty(0, dtype=np.int64)
+    acc_c = np.empty(0, dtype=np.int64)
+    for rds in rd_windows:
+        rds = torch.as_tensor(rds).to(torch.int64)
+        if rds.numel() == 0:
+            continue
+        u, c = torch.unique(rds, sorted=True, return_counts=True)
+        merged = profile_from_pairs(
+            np.concatenate([acc_d, u.cpu().numpy()]),
+            np.concatenate([acc_c, c.to(torch.int64).cpu().numpy()]),
+        )
+        acc_d, acc_c = merged.distances, merged.counts
+    return ReuseProfile(acc_d, acc_c, int(acc_c.sum()))
+
+
+def log2_binned(profile: ReuseProfile, num_bins: int = 64) -> ReuseProfile:
+    """Coarsen a profile into log2 bins (keeps SDCM accuracy, shrinks size).
+
+    Bin representative = the count-weighted mean distance of the bin;
+    the ∞ bucket is kept.  Host numpy, as in the reference.
+    """
+    dists, counts = profile.distances, profile.counts
+    inf_mask = dists == INF_RD
+    fin_d, fin_c = dists[~inf_mask], counts[~inf_mask]
+    out_d, out_c = [], []
+    if inf_mask.any():
+        out_d.append(INF_RD)
+        out_c.append(int(counts[inf_mask].sum()))
+    if fin_d.size:
+        bins = np.zeros_like(fin_d)
+        pos = fin_d > 0
+        bins[pos] = np.floor(np.log2(fin_d[pos])).astype(np.int64) + 1
+        bins = np.minimum(bins, num_bins - 1)
+        for b in np.unique(bins):
+            sel = bins == b
+            w = fin_c[sel].astype(np.float64)
+            rep = int(round(float(np.average(fin_d[sel], weights=w))))
+            out_d.append(rep)
+            out_c.append(int(w.sum()))
+    return profile_from_pairs(np.array(out_d), np.array(out_c))

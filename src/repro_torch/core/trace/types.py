@@ -20,7 +20,7 @@ annotated with
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Iterator, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -109,11 +109,60 @@ class LabeledTrace:
         )
 
     def windows(self, window_size: int) -> Iterator["LabeledTrace"]:
-        """Fixed-size windows (last one may be short)."""
+        """Fixed-size windows (last one may be short) — makes every
+        in-memory trace a :class:`ChunkedTraceSource`."""
         if window_size < 1:
             raise ValueError("window_size must be >= 1")
         for i in range(0, len(self), window_size):
             yield self.slice(i, i + window_size)
+
+
+def rebatch_windows(
+    pieces: Iterator[LabeledTrace] | list, window_size: int
+) -> Iterator[LabeledTrace]:
+    """Re-chunk arbitrarily-sized LabeledTrace pieces into fixed
+    ``window_size`` windows (last one may be short).
+
+    The single pend-buffer loop shared by every streaming producer (the
+    interleaver's merged batches) — emitted windows carry window-local
+    instance ids.
+    """
+    if window_size < 1:
+        raise ValueError("window_size must be >= 1")
+    pend_a = np.empty(0, dtype=np.int64)
+    pend_b = np.empty(0, dtype=np.int32)
+    pend_s = np.empty(0, dtype=bool)
+    names: dict[int, str] = {}
+    it = iter(pieces)
+    done = False
+    while not done:
+        try:
+            t = next(it)
+            names.update(t.bb_names)
+            pend_a = np.concatenate([pend_a, t.addresses])
+            pend_b = np.concatenate([pend_b, t.bb_ids])
+            pend_s = np.concatenate([pend_s, t.shared_mask])
+        except StopIteration:
+            done = True
+        while len(pend_a) >= window_size or (done and len(pend_a)):
+            n = min(window_size, len(pend_a))
+            yield LabeledTrace(pend_a[:n], pend_b[:n], pend_s[:n], None, names)
+            pend_a, pend_b, pend_s = pend_a[n:], pend_b[n:], pend_s[n:]
+
+
+@runtime_checkable
+class ChunkedTraceSource(Protocol):
+    """A trace that can be consumed as fixed-size windows.
+
+    The streaming pipeline (``reuse_distance_windows``,
+    ``interleave_windows``, ``Session(window_size=...)``) never asks for
+    the whole trace — only for windows.  ``LabeledTrace`` satisfies the
+    protocol structurally.
+    """
+
+    def __len__(self) -> int: ...
+
+    def windows(self, window_size: int) -> Iterator[LabeledTrace]: ...
 
 
 def trace_from_blocks(blocks: list[tuple[str, np.ndarray, np.ndarray]]) -> LabeledTrace:

@@ -23,6 +23,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 #: Every CUDA source of the port, by library name.
 SOURCES: dict[str, Path] = {
     "sdcm": _KERNELS / "sdcm" / "csrc" / "sdcm.cu",
+    "reuse_hist": _KERNELS / "reuse_hist" / "csrc" / "reuse_hist.cu",
 }
 
 NVCC_FLAGS = (

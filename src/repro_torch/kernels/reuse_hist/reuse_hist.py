@@ -1,0 +1,172 @@
+"""Log2-binned reuse-distance histogram: the CUDA kernel's wrappers and
+their plain PyTorch versions.
+
+The kernel (``csrc/reuse_hist.cu``) replaces the TPU's
+``repro/kernels/reuse_hist/reuse_hist.py::_moments_kernel`` and
+``::_hist_kernel``; one kernel serves both, behind two wrappers:
+
+* :func:`reuse_histogram_moments` — float64 ``[2, NUM_BINS]``: the
+  weighted count per bin (row 0) and the weighted finite-distance mass
+  per bin (row 1), the device side of the ``binned=True`` profile mode;
+* :func:`reuse_histogram` — row 0 alone, float64 ``[NUM_BINS]``.
+
+Bins follow the documented rule: bin 0 holds D < 0 (``INF_RD``, first
+touch), bin 1 holds D = 0, and D >= 1 goes to its bit length
+``1 + floor(log2 D)``, clamped to ``NUM_BINS - 1``.  The reference bins
+through a float32 ``log2`` and lands one bin off at some powers of two
+(D = 8192, 32768, 2^26, ...) and at D = 2^k - 1 for k >= 21 (ROADMAP
+C2); the port follows the rule at every int64 distance.
+
+Distances are integers: int64 is read as it is, other types are cast to
+int64 (floats truncate).  Weights are float32 (as in the reference) and
+every sum is taken in double.  With unit weights (``w=None``) every
+partial sum below 2^53 is an exact integer, so the result is
+bit-reproducible; fractional weights may differ in the last bits from
+run to run (the kernel's atomics add in no fixed order).
+
+A wrapper given CPU tensors returns the plain version
+(:func:`reuse_histogram_moments_plain`, :func:`reuse_histogram_plain`);
+given CUDA tensors it launches the kernel and counts the launch in
+:data:`LAUNCHES`, or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NUM_BINS = 64
+
+#: Kernel launches per entry point; only a wrapper's launch adds to it.
+LAUNCHES = {"reuse_hist_moments": 0, "reuse_hist": 0}
+
+_THREADS = 256          # threads per block (csrc/reuse_hist.cu kThreads)
+_PER_THREAD = 16        # distances per thread before the grid is capped
+_MAX_CTAS = 1024        # blocks of pass 1 = rows of the partials buffer
+
+
+# --- plain PyTorch versions --------------------------------------------------
+
+
+def bin_ids_plain(d: torch.Tensor) -> torch.Tensor:
+    """Bin of every int64 distance: 0 for D < 0, 1 for D = 0, else the
+    bit length of D clamped to ``NUM_BINS - 1`` (exact integer ops)."""
+    x = d.clamp_min(0)
+    bits = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        hi = x >= (1 << s)
+        bits += hi * s
+        x = torch.where(hi, x >> s, x)
+    bits += x > 0
+    bits = torch.where(d == 0, 1, bits.clamp_max(NUM_BINS - 1))
+    return torch.where(d < 0, 0, bits)
+
+
+def reuse_histogram_moments_plain(d: torch.Tensor, w: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """``[2, NUM_BINS]`` float64 counts and finite-distance mass, by
+    ``torch.bincount`` over :func:`bin_ids_plain`."""
+    d, w = _flat(d, w)
+    bins = bin_ids_plain(d)
+    wt = (torch.ones(d.shape, dtype=torch.float64, device=d.device)
+          if w is None else w.to(torch.float64))
+    counts = torch.bincount(bins, weights=wt, minlength=NUM_BINS)
+    mass = torch.bincount(bins, weights=wt * d.clamp_min(0).to(torch.float64),
+                          minlength=NUM_BINS)
+    # (bincount of an empty input comes back int64 whatever the weights)
+    return torch.stack([counts, mass]).to(torch.float64)
+
+
+def reuse_histogram_plain(d: torch.Tensor, w: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """``[NUM_BINS]`` float64 weighted counts (row 0 of the moments)."""
+    return reuse_histogram_moments_plain(d, w)[0]
+
+
+# --- the CUDA kernel ---------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("reuse_hist")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.reuse_hist.argtypes = [vp, vp, ctypes.c_int64, ci, vp, ci, vp, vp]
+    lib.reuse_hist.restype = ci
+    lib.reuse_hist_error_string.argtypes = [ci]
+    lib.reuse_hist_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _flat(d, w):
+    """Flat contiguous int64 distances and float32 weights (or None) on
+    ``d``'s device; raises on what the kernel does not take."""
+    if not isinstance(d, torch.Tensor):
+        raise TypeError("d must be a tensor")
+    if d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {d.device}")
+    if d.dtype == torch.bool or d.is_complex():
+        raise TypeError(f"d must hold integer distances, got {d.dtype}")
+    d = d.reshape(-1).to(torch.int64).contiguous()
+    if w is None:
+        return d, None
+    if not isinstance(w, torch.Tensor):
+        raise TypeError("w must be a tensor or None")
+    if w.device != d.device:
+        raise ValueError(f"w is on {w.device}, d on {d.device}")
+    if w.numel() != d.numel():
+        raise ValueError(f"w has {w.numel()} entries, d has {d.numel()}")
+    return d, w.reshape(-1).to(torch.float32).contiguous()
+
+
+def ctas_for(n: int) -> int:
+    """Blocks of the histogram pass for ``n`` distances (a function of
+    ``n`` alone, so a stream is always cut the same way)."""
+    return max(1, min(-(-n // (_THREADS * _PER_THREAD)), _MAX_CTAS))
+
+
+def _launch(d: torch.Tensor, w: torch.Tensor | None, moments: bool
+            ) -> torch.Tensor:
+    rows = 2 if moments else 1
+    shape = (2, NUM_BINS) if moments else (NUM_BINS,)
+    out = torch.zeros(shape, dtype=torch.float64, device=d.device)
+    n = d.numel()
+    if n == 0:
+        return out
+    ctas = ctas_for(n)
+    partials = torch.empty((ctas, rows * NUM_BINS), dtype=torch.float64,
+                           device=d.device)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        code = _lib().reuse_hist(
+            d.data_ptr(), None if w is None else w.data_ptr(), n,
+            int(moments), partials.data_ptr(), ctas, out.data_ptr(), stream,
+        )
+    if code:
+        msg = _lib().reuse_hist_error_string(code).decode()
+        raise RuntimeError(f"reuse_hist launch failed: CUDA error {code} ({msg})")
+    LAUNCHES["reuse_hist_moments" if moments else "reuse_hist"] += 1
+    return out
+
+
+def reuse_histogram_moments(d: torch.Tensor, w: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Per-bin weighted counts (row 0) and weighted finite-distance mass
+    (row 1) of a distance tensor: float64 ``[2, NUM_BINS]`` on its
+    device.  ``w=None`` is unit weights (no weight array is read)."""
+    d, w = _flat(d, w)
+    if d.device.type == "cpu":
+        return reuse_histogram_moments_plain(d, w)
+    return _launch(d, w, moments=True)
+
+
+def reuse_histogram(d: torch.Tensor, w: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """Per-bin weighted counts of a distance tensor: float64
+    ``[NUM_BINS]`` on its device; bin 0 is the D = inf mass."""
+    d, w = _flat(d, w)
+    if d.device.type == "cpu":
+        return reuse_histogram_plain(d, w)
+    return _launch(d, w, moments=False)

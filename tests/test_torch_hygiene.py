@@ -1,6 +1,6 @@
 """The port stands alone: no JAX and nothing of the JAX package in
 ``src/repro_torch/`` or ``chip_smoke.py``; CUDA is the default device
-and its absence is an error; unported options raise."""
+and its absence is an error; unported options raise, ported ones run."""
 from __future__ import annotations
 
 import ast
@@ -50,7 +50,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_neither_jax_nor_reference():
     code = (
         "import sys, repro_torch.api, repro_torch.interop, "
-        "repro_torch.workloads.polybench\n"
+        "repro_torch.workloads.polybench, repro_torch.core.reuse, "
+        "repro_torch.core.trace, repro_torch.kernels.reuse_hist\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -81,8 +82,6 @@ def test_session_binds_its_device_to_its_stages():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(window_size=4096),
-    dict(binned=True),
     dict(sampled=0.5),
     dict(artifact_dir="store"),
     dict(store=object()),
@@ -98,12 +97,31 @@ def _trace():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(window_size=16), dict(sampled_rate=0.5),
+    dict(sampled_rate=0.5),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_request_options_raise(kwargs):
     req = PredictionRequest(targets=("i7-5960X",), **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         Session(device="cpu").predict(_trace(), req)
+
+
+def test_binned_and_window_session_options_construct():
+    """The options of the second slice run on the CPU: each session
+    builds profiles in its own mode and predicts."""
+    req = PredictionRequest(targets=("i7-5960X",), core_counts=(1, 2))
+    for kw in (dict(window_size=16), dict(binned=True),
+               dict(binned=True, window_size=16)):
+        s = Session(device="cpu", **kw)
+        assert s.builder.binned == kw.get("binned", False)
+        assert s.builder.window_size == kw.get("window_size")
+        out = s.predict(_trace(), req)
+        assert len(out) == 2
+        art = s.artifacts(_trace(), 2)
+        assert art.binned == kw.get("binned", False)
+        assert art.window_size == kw.get("window_size")
+    out = Session(device="cpu").predict(
+        _trace(), PredictionRequest(targets=("i7-5960X",), window_size=16))
+    assert len(out) == 1
 
 
 def test_unported_stages_raise():

@@ -135,3 +135,160 @@ def test_hit_rates_convenience_matches_reference():
                                 strategy="chunked")
     for lvl in want:
         assert got_b[lvl] == pytest.approx(want[lvl], abs=1e-6)
+
+
+# --- binned and streaming sessions -------------------------------------------
+
+from repro.api.stages import MimicProfileBuilder as RefBuilder  # noqa: E402
+from repro.workloads.polybench import make_atax as ref_make_atax  # noqa: E402
+
+from repro_torch.api import MimicProfileBuilder  # noqa: E402
+from repro_torch.core.reuse import distance  # noqa: E402
+
+SLICE_REQ = dict(targets=("i7-5960X", "tpu-v5e"), core_counts=(1, 2, 4),
+                 strategies=("round_robin", "chunked", "uniform"),
+                 respect_core_limit=False)
+
+
+@pytest.fixture(scope="module")
+def atax32():
+    return make_atax_pair()
+
+
+def make_atax_pair():
+    return pb.make_atax(n=32), ref_make_atax(n=32)
+
+
+def same_profile(a, b):
+    assert a.distances.tolist() == b.distances.tolist()
+    assert a.counts.tolist() == b.counts.tolist()
+    assert a.total == b.total
+
+
+def cell_artifacts(sess, w, req):
+    return [sess.artifacts(w, c.cores, strategy=c.strategy, seed=req.seed,
+                           line_size=c.target.levels[0].line_size)
+            for c in req.cells()]
+
+
+@pytest.mark.parametrize("window", [None, 512])
+def test_binned_session_matches_reference(atax32, window):
+    port_w, ref_w = atax32
+    req, ref_req = PredictionRequest(**SLICE_REQ), RefRequest(**SLICE_REQ)
+    port = Session(device="cpu", binned=True, window_size=window,
+                   cache_model="batched")
+    ref = RefSession(binned=True, window_size=window)
+    got = port.predict(port_w, req)
+    want = ref.predict(ref_w, ref_req)
+    exact = Session(device="cpu").predict(port_w, req)
+    assert len(got) == len(want) == len(exact) > 0
+    for g, r, e in zip(got, want, exact):
+        assert (g.target, g.cores, g.strategy) == (r.target, r.cores,
+                                                    r.strategy)
+        for lvl in r.hit_rates:
+            assert g.hit_rates[lvl] == pytest.approx(r.hit_rates[lvl],
+                                                     abs=1e-6)
+            assert abs(g.hit_rates[lvl] - e.hit_rates[lvl]) < 1e-3
+    for a, b in zip(cell_artifacts(port, port_w, req),
+                    cell_artifacts(ref, ref_w, ref_req)):
+        assert a.binned and b.binned
+        assert a.window_size == b.window_size == window
+        same_profile(a.prd, b.prd)
+        same_profile(a.crd, b.crd)
+
+
+@pytest.mark.parametrize("ws", [128, 1 << 14])
+def test_streaming_session_is_bit_equal_to_in_memory(atax32, ws):
+    port_w, ref_w = atax32
+    req = PredictionRequest(counts=port_w.op_counts, **SLICE_REQ)
+    exact = Session(device="cpu").predict(port_w, req)
+    sess = Session(device="cpu", window_size=ws)
+    got = sess.predict(port_w, req)
+    assert got.to_json() == exact.to_json()
+    # one streaming build per profile cell, none served from the
+    # in-memory cells
+    assert sess.stats.streaming_builds == sess.stats.profile_builds > 0
+    ref = RefSession(window_size=ws).predict(
+        ref_w, RefRequest(counts=ref_w.op_counts, **SLICE_REQ))
+    assert got.to_json() == ref.to_json()
+
+
+def test_request_window_size_overrides_session(atax32):
+    port_w, _ = atax32
+    one = dict(targets=("i7-5960X",), core_counts=(2,))
+    sess = Session(device="cpu")
+    sess.predict(port_w, PredictionRequest(window_size=200, **one))
+    assert sess.stats.streaming_builds == 1
+    streaming = Session(device="cpu", window_size=128)
+    distance.WINDOWS.clear()
+    streaming.predict(port_w, PredictionRequest(window_size=0, **one))
+    assert streaming.stats.streaming_builds == 0
+    assert not distance.WINDOWS  # no stage streamed behind the Session
+    sess_b = Session(device="cpu", profile_builder=MimicProfileBuilder(
+        "cpu", window_size=64))
+    sess_b.artifacts(port_w, 2)
+    assert sess_b.stats.streaming_builds == 1
+
+
+class StagesOnlyBuilder:
+    """A builder with only the ``ProfileBuilder`` protocol's stages (no
+    streaming hooks)."""
+
+    def __init__(self):
+        self.inner = MimicProfileBuilder("cpu")
+
+    def private_traces(self, trace, cores):
+        return self.inner.private_traces(trace, cores)
+
+    def interleave(self, privates, strategy, seed):
+        return self.inner.interleave(privates, strategy, seed)
+
+    def profile(self, trace, line_size):
+        return self.inner.profile(trace, line_size)
+
+
+@pytest.mark.parametrize("ws", [None, 256])
+def test_builder_without_streaming_hooks(atax32, ws):
+    """A protocol-only builder runs in both modes through its own
+    stages: the shared trace is materialized, the predictions equal the
+    default builder's."""
+    port_w, _ = atax32
+    req = PredictionRequest(counts=port_w.op_counts, **SLICE_REQ)
+    sess = Session(device="cpu", profile_builder=StagesOnlyBuilder(),
+                   window_size=ws)
+    got = sess.predict(port_w, req)
+    assert got.to_json() == Session(device="cpu").predict(
+        port_w, req).to_json()
+    arts = cell_artifacts(sess, port_w, req)
+    assert all(a.shared is not None and a.window_size == ws for a in arts)
+    assert sess.stats.streaming_builds == (sess.stats.profile_builds
+                                           if ws else 0)
+
+
+def test_artifact_flags_and_fingerprints_match_reference(atax32):
+    port_w, ref_w = atax32
+    for kw in (dict(), dict(binned=True), dict(window_size=256),
+               dict(binned=True, window_size=256)):
+        port = Session(device="cpu", **kw)
+        ref = RefSession(**kw)
+        for cores in (1, 4):
+            for strategy in ("round_robin", "uniform"):
+                a = port.artifacts(port_w, cores, strategy=strategy)
+                b = ref.artifacts(ref_w, cores, strategy=strategy)
+                assert (a.binned, a.window_size) == (b.binned, b.window_size)
+                assert (a.shared is None) == (b.shared is None)
+                assert len(a.privates) == len(b.privates)
+        assert (port.builder.store_fingerprint
+                == ref.builder.store_fingerprint)
+        assert vars(port.stats).get("streaming_builds") == \
+            ref.stats.streaming_builds
+    assert (MimicProfileBuilder("cpu", binned=True).store_fingerprint
+            == RefBuilder(binned=True).store_fingerprint)
+
+
+def test_binned_needs_a_binned_builder():
+    with pytest.raises(ValueError, match="binned"):
+        Session(device="cpu", profile_builder=MimicProfileBuilder("cpu"),
+                binned=True)
+    Session(device="cpu", profile_builder=MimicProfileBuilder(
+        "cpu", binned=True), binned=True)
