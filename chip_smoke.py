@@ -44,7 +44,30 @@ with a non-zero exit:
    binned ones, hit rates against the oracle and the SDCM kernel
    against its plain version as in 8, and the reuse-histogram kernel
    against its plain version on every window of the 8-core shared
-   stream).  More validation-xxl workloads follow while time allows.
+   stream).
+10. Flash attention (kernel B4) against its plain version and against
+    ``torch.nn.functional.scaled_dot_product_attention`` (timed as a
+    yardstick only): the zamba2-1.2b prefill shape in bf16 and f32, a
+    GQA shape (32 heads over 8, head dim 128), a ragged Sq = 1000 and a
+    decode step (Sq = 1 with ``q_offset``) against the serving cache.
+11. The SSD scan (kernel B5) against its plain version at the
+    zamba2-1.2b and mamba2-780m prefill shapes, with an initial and a
+    final state, and at a prime length.
+12. The zamba2-1.2b serve path: ``repro_torch.launch.serve.serve`` at
+    full width and depth, bf16, seeded weights, batch 4, prompt 2048,
+    32 tokens greedy; B4/B5 launches read around it, prefill s, decode
+    ms/step, tok/s and peak memory; a ``torch.profiler`` breakdown of
+    one prefill and four decode steps (device busy time, idle share, top
+    kernels); the same weights teacher-forced through the kernels and
+    through the plain versions on the card, in bf16 and in f32 (logits
+    within ``SERVE_REL_TOL`` / ``SERVE_REL_TOL_F32`` of the plain path's
+    scale); and at full width and two groups in f32, the prefill of a
+    whole prompt against a prefix plus decode steps (2e-4 of the logits'
+    scale).
+13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
+    launches read around it, the same profile and the same
+    teacher-forced check.  More validation-xxl workloads follow while
+    time allows.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -69,10 +92,12 @@ CORES = (1, 2, 4, 8)
 MAIN_WORKLOAD = "atx"
 MORE_WORKLOADS = ("mvt", "2mm", "c2d")
 SIZES = "validation-xxl"
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP64 (non-tensor)
-# operations/s; the SDCM kernel computes in double.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 and FP32
+# (non-tensor) operations/s, and dense bf16 tensor-core operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP64_S = 34e12
+PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
 # operations counted per evaluated binomial term: one log, one exp and
 # six arithmetic operations (each transcendental counted as one)
 OPS_PER_TERM = 8
@@ -84,6 +109,22 @@ EXACT_SUM = float(1 << 53)  # below this, integer sums in double are exact
 HIST_N = 1 << 24      # distances of the reuse-histogram phase
 STREAM_WINDOW = 1 << 16     # window of the streaming main path
 TIME_BUDGET_S = 500   # more workloads at the end only while under this
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the reference's
+SSD_TOL = 5e-6        # SSD scan, |kernel - plain| / max |plain|
+# kernel path vs plain path, bf16 logits at full depth: max |diff| over
+# max |plain logits|.  bf16 keeps 8 bits (relative rounding 2^-9 = 0.002);
+# the two paths round differently inside attention and the scan, and 38
+# random-weight layers carry those differences to the logits.
+SERVE_REL_TOL = 5e-2
+# the same in f32, where the two paths differ only in summation order
+# (~1e-6 relative), carried through the same 38 layers
+SERVE_REL_TOL_F32 = 1e-4
+# f32 prefill vs prefix + decode at full width: the reference's 2e-4,
+# taken against the logits' scale (max |logit|).  At d_model 2048 the
+# logits reach a few hundred and an error relative to the hidden state's
+# scale lands on every logit alike, so the elementwise rtol/atol form would
+# hold near-zero logits to 2e-4 absolute; the line reports both.
+CONSISTENCY_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -125,9 +166,10 @@ def phit_terms(d: np.ndarray, assoc: np.ndarray, blocks: np.ndarray) -> int:
     return int(np.where(busy, assoc, 0).sum())
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             peak_ops: float = PEAK_FP64_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_FP64_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -509,13 +551,19 @@ def phase_streaming_distances(n: int = 1 << 20, seed: int = 4):
 # --- binned and streaming main paths -----------------------------------------
 
 
+def launch_counts() -> tuple:
+    from repro_torch.kernels import flash_attention, reuse_hist, sdcm, ssd_scan
+
+    return (sdcm.LAUNCHES, reuse_hist.LAUNCHES, flash_attention.LAUNCHES,
+            ssd_scan.LAUNCHES)
+
+
 def reset_counts():
     from repro_torch.core.reuse import distance
-    from repro_torch.kernels import reuse_hist, sdcm
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counts in (sdcm.LAUNCHES, reuse_hist.LAUNCHES):
+    for counts in launch_counts():
         for k in counts:
             counts[k] = 0
     distance.PASSES.clear()
@@ -524,10 +572,12 @@ def reset_counts():
 
 def read_counts() -> dict:
     from repro_torch.core.reuse import distance
-    from repro_torch.kernels import reuse_hist, sdcm
 
     torch.cuda.synchronize()
-    return dict(launches={**sdcm.LAUNCHES, **reuse_hist.LAUNCHES},
+    launches = {}
+    for counts in launch_counts():
+        launches.update(counts)
+    return dict(launches=launches,
                 rd_passes=dict(distance.PASSES),
                 rd_windows=dict(distance.WINDOWS),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -688,6 +738,398 @@ def phase_more_workloads(t_start: float):
              cold_stage_s=dict(sess.stage_seconds),
              max_abs_err_vs_oracle=worst)
 
+# --- the model zoo: flash attention (B4), SSD scan (B5), serving --------------
+
+SERVE_BATCH, SERVE_PROMPT = 4, 2048
+ZAMBA_GEN, MAMBA_GEN = 32, 16
+ZAMBA_CACHE = SERVE_PROMPT + ZAMBA_GEN   # the serving KV cache's length
+
+
+def cuda_rand(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return rand
+
+
+def flash_work(q, k, causal: bool, q_offset: int, kv_len: int):
+    """(bytes, operations) of one attention call: q, o and the visible
+    K/V rows once each; 4·D operations per visible (row, column) pair
+    (Q K^T and P V; the softmax's exps are not counted)."""
+    b, h, sq, d = q.shape
+    rows = np.arange(sq)
+    vis = (np.minimum(kv_len, q_offset + rows + 1) if causal
+           else np.full(sq, kv_len))
+    nbytes = q.element_size() * d * (2 * b * h * sq + 2 * b * k.shape[1]
+                                     * kv_len)
+    return float(nbytes), 4.0 * d * float(vis.sum()) * b * h
+
+
+def sdpa_library(q, k, v, causal: bool, q_offset: int, kv_len: int):
+    """The same attention by ``scaled_dot_product_attention`` (timed as a
+    yardstick only; the port never calls it)."""
+    k, v = k[:, :, :kv_len], v[:, :, :kv_len]
+    sq = q.shape[2]
+    kw = dict(enable_gqa=q.shape[1] != k.shape[1])
+    if causal and q_offset == 0 and sq == kv_len:
+        kw["is_causal"] = True
+    elif causal and q_offset < kv_len - 1:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        kw["attn_mask"] = (torch.arange(kv_len, device=q.device)[None, :]
+                           <= q_offset + rows)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def phase_flash() -> dict:
+    """B4 against its plain version and SDPA; returns the record at the
+    zamba2-1.2b serving prefill shape (bf16, its cache of 2080)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, s, cache = SERVE_BATCH, SERVE_PROMPT, ZAMBA_CACHE
+    cases = [  # tag, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len
+        ("zamba2_prefill", b, 32, 32, s, cache, 64, bf16, 0, s),
+        ("zamba2_prefill_f32", b, 32, 32, s, cache, 64, f32, 0, s),
+        ("gqa_32_over_8_d128", 2, 32, 8, s, s, 128, bf16, 0, s),
+        ("ragged_1000", 2, 32, 32, 1000, 1000, 64, bf16, 0, 1000),
+        ("zamba2_decode", b, 32, 32, 1, cache, 64, bf16, s - 1, s),
+    ]
+    records, worst = {}, 0.0
+    for i, (tag, b, h, hkv, sq, sk, d, dt, off, kvl) in enumerate(cases):
+        rand = cuda_rand(10 + i)
+        q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
+        k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
+        v = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
+        kw = dict(causal=True, q_offset=off, kv_len=kvl)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_TOL[dt]:
+            fail(f"flash_attention {tag}: max |kernel - plain| = {err} > "
+                 f"{FLASH_TOL[dt]}")
+        worst = max(worst, err)
+        lib = sdpa_library(q, k, v, True, off, kvl)
+        lib_err = float((lib.float() - want.float()).abs().max())
+        nbytes, ops = flash_work(q, k, True, off, kvl)
+        b_ms, b_by = bound_ms(nbytes, ops,
+                              PEAK_BF16_S if dt == bf16 else PEAK_FP32_S)
+        rec = dict(shape=[b, h, hkv, sq, sk, d], dtype=str(dt), q_offset=off,
+                   kv_len=kvl, max_abs_err=err, tol=FLASH_TOL[dt],
+                   ms=cuda_ms(lambda: flash_attention(q, k, v, **kw)),
+                   plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                                  **kw),
+                                    reps=3, warmup=1),
+                   library_ms=cuda_ms(lambda: sdpa_library(q, k, v, True,
+                                                           off, kvl)),
+                   library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, operations=ops)
+        line("flash", case=tag, **rec)
+        records[tag] = rec
+        del q, k, v, got, want, lib
+    path = records["zamba2_prefill"]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": 0,
+        "max_abs_err": worst,
+        **{k: path[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+    }
+
+
+def ssd_ops(s: int, bh: int, p: int, n: int, chunk: int) -> float:
+    """Operations of the chunked scan: per chunk of ``lc`` steps, the
+    lc(lc+1)/2 score pairs times N (c·b) and P (scores·x), and lc·N·P
+    twice (c·h_in and the state update); two per multiply-add."""
+    total = 0.0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        total += 2.0 * (lc * (lc + 1) / 2 * (n + p) + 2.0 * lc * n * p)
+    return total * bh
+
+
+def phase_ssd() -> dict:
+    """B5 against its plain version; returns the record at the
+    zamba2-1.2b prefill shape."""
+    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan, ssd_scan_plain
+
+    cases = [  # tag, B, S, H, P, N (the model path: x f32, with h0)
+        ("zamba2_prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64),
+        ("mamba2_780m_prefill", SERVE_BATCH, SERVE_PROMPT, 48, 64, 128),
+        ("prime_2039", 2, 2039, 64, 64, 64),  # the largest prime < 2048
+    ]
+    records, worst = {}, 0.0
+    for i, (tag, b, s, h, p, n) in enumerate(cases):
+        rand = cuda_rand(20 + i)
+        x = rand(b, s, h, p)
+        la = -torch.nn.functional.softplus(rand(b, s, h) - 1.0)
+        bb, cc = rand(b, s, n) * 0.3, rand(b, s, n) * 0.3
+        h0 = rand(b, h, n, p)
+        y, final = ssd_scan(x, la, bb, cc, h0)
+        y_p, final_p = ssd_scan_plain(x, la, bb, cc, h0)
+        torch.cuda.synchronize()
+        errs = [float((got - want).abs().max()) / float(want.abs().max())
+                for got, want in ((y, y_p), (final, final_p))]
+        if not max(errs) <= SSD_TOL:
+            fail(f"ssd_scan {tag}: scaled |kernel - plain| = {errs} > "
+                 f"{SSD_TOL}")
+        err = max(float((y - y_p).abs().max()),
+                  float((final - final_p).abs().max()))
+        worst = max(worst, err)
+        nbytes = 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
+                        + 2 * b * h * n * p)
+        ops = ssd_ops(s, b * h, p, n, CHUNK)
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32_S)
+        rec = dict(shape=[b, s, h, p, n], scaled_err_y=errs[0],
+                   scaled_err_final=errs[1], max_abs_err=err, tol=SSD_TOL,
+                   ms=cuda_ms(lambda: ssd_scan(x, la, bb, cc, h0)),
+                   plain_ms=cuda_ms(lambda: ssd_scan_plain(x, la, bb, cc, h0),
+                                    reps=3, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops)
+        line("ssd_scan", case=tag, **rec)
+        records[tag] = rec
+    path = records["zamba2_prefill"]
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:36",
+        "launches": 0,
+        "max_abs_err": worst,
+        **{k: path[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }
+
+
+class plain_kernels:
+    """Inside ``with plain_kernels():`` the models call B4's and B5's
+    plain versions on the card instead of the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan as scan
+
+        self.saved = (fa.flash_attention, scan.ssd_scan)
+        fa.flash_attention = fa.flash_attention_plain
+        scan.ssd_scan = scan.ssd_scan_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan as scan
+
+        fa.flash_attention, scan.ssd_scan = self.saved
+
+
+def teacher_forced(spec, cfg, model, prompt, tokens) -> torch.Tensor:
+    """Logits [gen, B, V] of the prefill of ``prompt`` and of one decode
+    step per generated token, fed the given ``tokens``."""
+    fam = spec.family
+    b, plen = prompt.shape
+    caches = fam.init_caches(cfg, b, plen + tokens.shape[1], device="cuda")
+    logits, caches = fam.prefill(
+        model, {"tokens": torch.from_numpy(prompt).long().cuda()}, cfg,
+        caches)
+    out = [logits.float()]
+    for t in range(tokens.shape[1] - 1):
+        tok = torch.from_numpy(tokens[:, t:t + 1]).long().cuda()
+        logits, caches = fam.decode_step(model, {"token": tok}, cfg, caches,
+                                         plen + t)
+        out.append(logits.float())
+    return torch.stack(out)[..., :spec.vocab]
+
+
+def kernel_vs_plain_logits(spec, cfg, model, res, tag: str) -> dict:
+    """Teacher-forced logits through the kernels and through the plain
+    versions on the card: in the model's dtype, then with the same
+    weights in f32."""
+    import dataclasses
+
+    out = {}
+    for dt, tol in ((cfg.dtype, SERVE_REL_TOL),
+                    (torch.float32, SERVE_REL_TOL_F32)):
+        cfg_dt = dataclasses.replace(cfg, dtype=dt)
+        model = model.to(dt)
+        got = teacher_forced(spec, cfg_dt, model, res["prompt"],
+                             res["tokens"])
+        with plain_kernels():
+            want = teacher_forced(spec, cfg_dt, model, res["prompt"],
+                                  res["tokens"])
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail(f"{tag} {dt}: non-finite logits")
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not diff / scale <= tol:
+            fail(f"{tag} {dt}: kernel-path logits differ from the plain "
+                 f"path's by {diff} (scale {scale}, > {tol} relative)")
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        out[str(dt).replace("torch.", "")] = dict(
+            steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
+            rel=diff / scale, tol=tol, argmax_agreement=agree)
+    return out
+
+
+def serve_path(arch: str, gen: int, want_launches: dict):
+    """Serve ``arch`` at full width and depth with counts set to 0 just
+    before and read just after; fails unless each kernel of the path
+    launched exactly as often as the path needs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    spec = get_arch(arch)
+    model = spec.family.init(spec.config, device="cuda", seed=0)
+    reset_counts()
+    res = serve.serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen=gen, seed=0, device="cuda", model=model)
+    counts = read_counts()
+    launches = counts["launches"]
+    for name, n in want_launches.items():
+        if launches[name] != n:
+            fail(f"{arch} serve path launched {name} {launches[name]} "
+                 f"times, expected {n}: {launches}")
+    rec = dict(arch=arch, dtype=res["dtype"], batch=SERVE_BATCH,
+               prompt_len=SERVE_PROMPT, gen=gen,
+               params=sum(t.numel() for t in model.parameters()),
+               prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+               decode_ms_per_step=res["decode_ms_per_step"],
+               decode_tok_s=res["decode_tok_s"],
+               max_memory_allocated=counts["max_memory_allocated"],
+               launches={k: launches[k] for k in want_launches},
+               sample_tokens=res["tokens"][0, :8].tolist())
+    return spec, model, res, rec
+
+
+def device_breakdown(fn) -> dict:
+    """Wall time of ``fn`` (ending in a synchronise), the device's busy
+    time in it (the sum of every kernel's and copy's device time in a
+    ``torch.profiler`` trace; one stream, so no overlap) and the idle
+    share, with the kernels that take the most device time.  The
+    profiler adds host time to every launch, so the idle share is an
+    upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    if busy_ms <= 0:
+        fail("the profiler saw no device time")
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
+
+
+def profile_serve(spec, model, res, steps: int = 4) -> dict:
+    """``device_breakdown`` of one prefill of the served prompt and of
+    ``steps`` decode steps after it."""
+    fam, cfg = spec.family, spec.config
+    b, plen = res["prompt"].shape
+    caches = fam.init_caches(cfg, b, plen + steps, device="cuda")
+    state = {}
+
+    def prefill():
+        state["out"] = fam.prefill(
+            model, {"tokens": torch.from_numpy(res["prompt"]).long().cuda()},
+            cfg, caches)
+
+    def decode():
+        logits, c = state["out"]
+        for t in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, c = fam.decode_step(model, {"token": tok}, cfg, c,
+                                        plen + t)
+
+    return dict(prefill=device_breakdown(prefill),
+                decode_steps=steps, decode=device_breakdown(decode))
+
+
+def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
+    """At full width and ``layers`` depth in f32: prefill of the whole
+    prompt against the prefix plus one decode step per remaining token,
+    through the kernels (gated) and through the plain versions (for
+    comparison)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(spec.config, layers=layers, dtype=torch.float32)
+    fam = spec.family
+    model = fam.init(cfg, device="cuda", seed=1)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, spec.vocab, (2, total))).cuda()
+
+    def run():
+        full, _ = fam.prefill(model, {"tokens": toks}, cfg,
+                              fam.init_caches(cfg, 2, total, device="cuda"))
+        logits, caches = fam.prefill(
+            model, {"tokens": toks[:, :split]}, cfg,
+            fam.init_caches(cfg, 2, total, device="cuda"))
+        for t in range(split, total):
+            logits, caches = fam.decode_step(
+                model, {"token": toks[:, t:t + 1]}, cfg, caches, t)
+        got, want = logits[:, :spec.vocab], full[:, :spec.vocab]
+        diff = (got - want).abs()
+        scale = float(want.abs().max())
+        return dict(max_abs_diff=float(diff.max()), logit_scale=scale,
+                    rel=float(diff.max()) / scale,
+                    elementwise_excess=float((diff - CONSISTENCY_TOL
+                                              - CONSISTENCY_TOL
+                                              * want.abs()).max()))
+
+    kernels = run()
+    with plain_kernels():
+        plain = run()
+    if not kernels["rel"] <= CONSISTENCY_TOL:
+        fail(f"{spec.arch_id} f32 depth {layers}: prefix + decode differs "
+             f"from the whole prefill: {kernels} (plain versions: {plain})")
+    return dict(layers=layers, dtype="float32", prompt=total, split=split,
+                tol=CONSISTENCY_TOL, kernels=kernels, plain=plain)
+
+
+def phase_zamba2_serve() -> dict:
+    """The zamba2-1.2b serve path; returns its B4 and B5 launches."""
+    spec, model, res, rec = serve_path(
+        "zamba2-1.2b", ZAMBA_GEN,
+        {"flash_attention": 6 * ZAMBA_GEN, "ssd_scan": 38})
+    line("zamba2_serve", **rec)
+    line("zamba2_profile", **profile_serve(spec, model, res))
+    line("zamba2_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "zamba2 serve"))
+    del model
+    torch.cuda.empty_cache()
+    # 2 groups of 6 Mamba2 layers plus 2 trailing ones, as in the full 38
+    line("zamba2_decode_consistency",
+         **decode_consistency(spec, 14, 300, 290))
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_mamba2_serve() -> None:
+    spec, model, res, rec = serve_path(
+        "mamba2-780m", MAMBA_GEN, {"ssd_scan": 48, "flash_attention": 0})
+    line("mamba2_serve", **rec)
+    line("mamba2_profile", **profile_serve(spec, model, res))
+    line("mamba2_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "mamba2 serve"))
+    del model
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -707,8 +1149,14 @@ def main() -> int:
     exact, sdcm_kernel = phase_main_path()
     binned_sess, hist_kernels, binned_errs = phase_binned_main_path(exact)
     streaming_errs = phase_streaming_main_path(exact, binned_sess)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
+    flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
+    serve_launches = phase_zamba2_serve()
+    for rec in (flash_kernel, ssd_kernel):
+        rec["launches"] = serve_launches[rec["name"]]
+    phase_mamba2_serve()
     phase_more_workloads(t_start)
-    kernels = [sdcm_kernel] + hist_kernels
+    kernels = [sdcm_kernel] + hist_kernels + [flash_kernel, ssd_kernel]
     for rec in kernels:  # the worst error over every path's own inputs
         for errs in (binned_errs, streaming_errs):
             rec["max_abs_err"] = max(rec["max_abs_err"],

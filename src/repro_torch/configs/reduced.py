@@ -1,0 +1,34 @@
+"""Reduced (smoke-test) variants of the ported architectures — same
+family and code paths, small dims: the ``Mamba2Config`` and
+``Zamba2Config`` branches of ``repro/configs/reduced.py``, unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models.hybrid import Zamba2Config
+from repro_torch.models.ssm import Mamba2Config
+
+
+def reduced(spec: ArchSpec) -> ArchSpec:
+    cfg = spec.config
+    if isinstance(cfg, Mamba2Config):
+        small = dataclasses.replace(
+            cfg, layers=2, d_model=32, vocab=256, ssm_state=16, head_dim=8,
+            chunk=8, vocab_pad_multiple=32,
+        )
+    elif isinstance(cfg, Zamba2Config):
+        small = dataclasses.replace(
+            cfg, layers=5, d_model=32, vocab=256, heads=4, kv_heads=4,
+            d_ff=64, ssm_state=16, head_dim=8, attn_every=2, chunk=8,
+            block_q=16, vocab_pad_multiple=32,
+        )
+    else:
+        raise TypeError(type(cfg))
+    return dataclasses.replace(spec, config=small)
+
+
+def reduced_arch(arch_id: str) -> ArchSpec:
+    return reduced(get_arch(arch_id))

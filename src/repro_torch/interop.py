@@ -1,14 +1,16 @@
 """Build the port's objects from plain arrays and dicts.
 
-The JAX package's artifacts — traces, reuse profiles, hardware tables
-— are carried across as numpy arrays and plain dicts (this module
-imports nothing of that package): a test hands the reference's own
-profiles to the port's SDCM stage, so the two are compared on
-identical inputs, independent of the upstream stages.
+The JAX package's artifacts — traces, reuse profiles, hardware tables,
+model weights — are carried across as numpy arrays and plain dicts
+(this module imports nothing of that package): a test hands the
+reference's own profiles to the port's SDCM stage, or its weights to
+the port's models, so the two are compared on identical inputs,
+independent of the upstream stages.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.incore import ClassTiming, InCoreTimings
 from repro_torch.core.levels import CacheLevelConfig
@@ -93,3 +95,52 @@ def target_from_fields(name: str, levels: list[dict], **fields):
         })
     f["incore"] = incore
     return CPUTarget(name=name, levels=lvls, **f)
+
+
+def copy_params(module: torch.nn.Module, values: dict, lead=()) -> None:
+    """Copy the nested dict ``values`` into ``module``'s parameters of
+    the same names, taking index ``lead`` of each array's leading
+    (stacked-layer) axes."""
+    for name, val in values.items():
+        sub = getattr(module, name)
+        if isinstance(val, dict):
+            copy_params(sub, val, lead)
+            continue
+        arr = np.asarray(val)[lead]
+        if arr.dtype.name == "bfloat16":   # ml_dtypes: upcast is exact
+            arr = arr.astype(np.float32)
+        if tuple(arr.shape) != tuple(sub.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape} vs port "
+                             f"{tuple(sub.shape)}")
+        with torch.no_grad():
+            sub.copy_(torch.from_numpy(np.array(arr)))
+
+
+def model_from_reference(family_name: str, cfg, values: dict, *,
+                         device) -> torch.nn.Module:
+    """The port's model of family ``ssm`` or ``hybrid`` holding the
+    reference's parameter values: ``unzip_params(fam.init(key, cfg))[0]``
+    mapped to numpy (a nested dict of arrays).  Stacked blocks are
+    unstacked: the hybrid's ``groups`` ``[G, P, ...]`` and ``trailing``
+    ``[T, ...]``, the ssm's ``blocks`` ``[L, ...]``; ``shared``, the tied
+    ``embed`` table and ``final_norm`` copy as they are."""
+    from repro_torch.models import hybrid, ssm
+
+    if family_name == "hybrid":
+        model = hybrid.init(cfg, device=device)
+        for g, group in enumerate(model.groups):
+            for i, blk in enumerate(group):
+                copy_params(blk, values["groups"], (g, i))
+        for t, blk in enumerate(model.trailing):
+            copy_params(blk, values["trailing"], (t,))
+        copy_params(model.shared, values["shared"])
+    elif family_name == "ssm":
+        model = ssm.init(cfg, device=device)
+        for i, blk in enumerate(model.blocks):
+            copy_params(blk, values["blocks"], (i,))
+    else:
+        raise NotImplementedError(
+            f"the {family_name} family is not ported yet (ROADMAP A-11)")
+    copy_params(model.embed, values["embed"])
+    copy_params(model.final_norm, values["final_norm"])
+    return model

@@ -24,6 +24,9 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES: dict[str, Path] = {
     "sdcm": _KERNELS / "sdcm" / "csrc" / "sdcm.cu",
     "reuse_hist": _KERNELS / "reuse_hist" / "csrc" / "reuse_hist.cu",
+    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
+    "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,0 +1,106 @@
+"""Common layers: initialisers, RMSNorm, embedding, RoPE, SwiGLU MLP.
+
+Mirrors ``repro/models/layers.py`` without the parameter/axes machinery
+(``PSpec``, sharding): the port runs on one device, and a block's
+parameters are the ``nn.Parameter``s of its module, in the reference's
+layouts (``[d_in, d_out]`` weights), so that the reference's values
+carry across unchanged (:mod:`repro_torch.interop`).  Initialisers draw
+from a ``torch.Generator``; they do not reproduce ``jax.random``'s
+numbers, so parity tests carry the reference's weights across instead.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+# --- initializers ------------------------------------------------------------
+
+
+def normal(shape, scale: float, dtype, *, device, generator) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in f32, cast to ``dtype``."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (scale * x).to(dtype)
+
+
+def fan_in_normal(shape, fan_in: int, dtype, *, device,
+                  generator) -> torch.Tensor:
+    return normal(shape, fan_in ** -0.5, dtype, device=device,
+                  generator=generator)
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# --- norms -------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, *, device):
+        super().__init__()
+        self.scale = param(torch.ones(d, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        """The reference's order: an f32 sum of squares, the inverse
+        cast to ``x.dtype`` before the multiply."""
+        ss = torch.einsum("...d,...d->...", x.float(), x.float())
+        inv = torch.rsqrt(ss[..., None] / x.shape[-1] + eps)
+        return x * inv.to(x.dtype) * self.scale.to(x.dtype)
+
+
+# --- embedding ---------------------------------------------------------------
+
+
+class Embedding(nn.Module):
+    """Token table ``[vocab, d]``; :meth:`unembed` is the tied head."""
+
+    def __init__(self, vocab: int, d: int, dtype, *, device, generator):
+        super().__init__()
+        self.table = param(normal((vocab, d), 1.0, dtype, device=device,
+                                  generator=generator))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.table[tokens]
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-weights logits head: (..., d) @ (vocab, d)^T."""
+        return x @ self.table.T
+
+
+# --- rotary position embeddings ----------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
+    return 1.0 / theta ** (np.arange(0, head_dim, 2, np.float32) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    freqs = torch.from_numpy(rope_frequencies(x.shape[-1], theta)).to(x.device)
+    ang = positions[..., :, None].float() * freqs        # [..., S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- gated MLP (SwiGLU) --------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype, *, device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.wi = param(fan_in_normal((d, d_ff), d, dtype, **kw))
+        self.wg = param(fan_in_normal((d, d_ff), d, dtype, **kw))
+        self.wo = param(fan_in_normal((d_ff, d), d_ff, dtype, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x @ self.wi
+        g = x @ self.wg
+        return (nn.functional.silu(g) * h) @ self.wo

@@ -1,14 +1,17 @@
 """The port's CUDA kernels on the card: the SDCM kernel's two entry
-points and the reuse-histogram kernel's two flags against their plain
-PyTorch versions, launch counting, composition invariance of the SDCM
-grid form, bit-reproducibility of the histogram, streaming reuse
-distances and a binned Session on the card.  Imports nothing of JAX, so
+points, the reuse-histogram kernel's two flags, flash attention (B4) and
+the SSD scan (B5) against their plain PyTorch versions, launch counting,
+composition invariance of the SDCM grid form, bit-reproducibility of
+the histogram, streaming reuse distances, a binned Session and the
+reduced serving path on the card.  Imports nothing of JAX, so
 it runs where the port runs:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test needs a CUDA device and skips without one."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +23,12 @@ from repro_torch.core.reuse.distance import (
     reuse_distances_streaming,
 )
 from repro_torch.core.reuse.profile import ReuseProfile
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import reuse_hist
+from repro_torch.kernels import ssd_scan as scan
+from repro_torch.configs.reduced import reduced_arch
+from repro_torch.launch import serve
+from repro_torch.models import hybrid
 from repro_torch.kernels import sdcm as kernel
 from repro_torch.workloads.polybench import make_atax
 
@@ -171,3 +179,79 @@ def test_binned_session_launches_the_histogram_kernel(cuda_device):
             for lvl, rate in e.hit_rates.items():
                 assert abs(rate - b.hit_rates[lvl]) < 1e-3
     assert reuse_hist.LAUNCHES["reuse_hist_moments"] > before
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,q_offset,kv_len", [
+    (2, 4, 2, 256, 256, 64, True, 0, None),
+    (1, 8, 1, 130, 300, 128, False, 0, 250),     # MQA, ragged, kv_len
+    (2, 32, 8, 1000, 1000, 128, True, 0, None),  # GQA, ragged Sq
+    (4, 32, 32, 1, 2080, 64, True, 2047, 2048),  # decode step
+    (2, 4, 4, 9, 40, 64, True, 20, 29),          # chunk into a cache
+    (1, 4, 4, 384, 384, 32, True, 0, None),      # the reference's MHA
+    (2, 4, 4, 13, 13, 8, True, 0, None),         # reduced configs' D
+])
+def test_flash_attention_kernel_vs_plain(cuda_device, dtype, atol, b, h, hkv,
+                                         sq, sk, d, causal, q_offset, kv_len):
+    gen = torch.Generator(device=cuda_device).manual_seed(sq)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.float32).to(dtype)
+
+    # the model's [B, S, H, D] layout, read through strides
+    q = rand(b, sq, h, d).transpose(1, 2)
+    k = rand(b, sk, hkv, d).transpose(1, 2)
+    v = rand(b, sk, hkv, d).transpose(1, 2)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("b,s,h,p,n,with_h0", [
+    (1, 128, 1, 16, 8, False),
+    (2, 131, 3, 64, 64, True),      # prime length: ragged last chunk
+    (4, 2048, 64, 64, 64, True),    # zamba2-1.2b prefill
+    (2, 512, 48, 64, 128, True),    # mamba2-780m widths
+])
+def test_ssd_scan_kernel_vs_plain(cuda_device, b, s, h, p, n, with_h0):
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    x, la = rand(b, s, h, p), -torch.nn.functional.softplus(rand(b, s, h))
+    bb, cc = rand(b, s, n) * 0.3, rand(b, s, n) * 0.3
+    h0 = rand(b, h, n, p) if with_h0 else None
+    before = scan.LAUNCHES["ssd_scan"]
+    y, final = scan.ssd_scan(x, la, bb, cc, h0)
+    assert scan.LAUNCHES["ssd_scan"] == before + 1
+    y_want, f_want = scan.ssd_scan_plain(x, la, bb, cc, h0)
+    for got, want in ((y, y_want), (final, f_want)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) / scale <= 5e-6
+
+
+def test_reduced_serve_launches_both_kernels(cuda_device):
+    """The same weights served on the CPU (plain versions) and on the
+    card (kernels) give the same greedy tokens."""
+    cfg = dataclasses.replace(reduced_arch("zamba2-1.2b").config,
+                              dtype=torch.float32)
+    model = hybrid.init(cfg, device="cpu", seed=1)
+    kw = dict(reduced=True, batch=2, prompt_len=16, gen=4,
+              dtype=torch.float32)
+    cpu = serve.serve("zamba2-1.2b", device="cpu", model=model, **kw)
+    before = (fa.LAUNCHES["flash_attention"], scan.LAUNCHES["ssd_scan"])
+    res = serve.serve("zamba2-1.2b", device=cuda_device,
+                      model=model.to(cuda_device), **kw)
+    # 2 attention sites per forward (5 layers, attn_every 2), 4 forwards;
+    # one scan per Mamba2 layer of the prefill
+    assert fa.LAUNCHES["flash_attention"] - before[0] == 2 * 4
+    assert scan.LAUNCHES["ssd_scan"] - before[1] == 5
+    np.testing.assert_array_equal(res["tokens"], cpu["tokens"])

@@ -51,7 +51,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     code = (
         "import sys, repro_torch.api, repro_torch.interop, "
         "repro_torch.workloads.polybench, repro_torch.core.reuse, "
-        "repro_torch.core.trace, repro_torch.kernels.reuse_hist\n"
+        "repro_torch.core.trace, repro_torch.kernels.reuse_hist, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan, "
+        "repro_torch.models.api, repro_torch.configs.reduced, "
+        "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

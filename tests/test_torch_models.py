@@ -1,0 +1,184 @@
+"""The port's model zoo slice against the reference, in f32 (as
+``tests/archs/test_decode_consistency.py`` runs it): ``gqa_attention``
+and ``block_apply`` on carried weights, and the reduced ``zamba2-1.2b``
+and ``mamba2-780m`` with every parameter carried across by
+``repro_torch.interop.model_from_reference`` — prefill logits and every
+decode step's logits at rtol/atol 2e-4, on the CPU (the kernels' plain
+versions).  Then the port's own prefill-then-decode against a full
+prefill, at the same bound.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.reduced import reduced_arch as ref_reduced_arch
+from repro.models import attention as ref_attn
+from repro.models import ssm as ref_ssm
+from repro.models.layers import unzip_params
+from repro_torch.configs.reduced import reduced_arch
+from repro_torch.interop import copy_params, model_from_reference
+from repro_torch.models import attention, ssm
+from repro_torch.models.api import get_family
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+ARCHS = ["zamba2-1.2b", "mamba2-780m"]
+
+
+def f32_pair(arch_id):
+    rspec, pspec = ref_reduced_arch(arch_id), reduced_arch(arch_id)
+    return (rspec, dataclasses.replace(rspec.config, dtype=jnp.float32),
+            pspec, dataclasses.replace(pspec.config, dtype=torch.float32))
+
+
+def carried(arch_id, seed=2):
+    rspec, rcfg, pspec, pcfg = f32_pair(arch_id)
+    values, _ = unzip_params(rspec.family.init(jax.random.key(seed), rcfg))
+    values = jax.tree.map(np.asarray, values)
+    model = model_from_reference(pspec.family_name, pcfg, values,
+                                 device="cpu")
+    return rspec, rcfg, values, pspec, pcfg, model
+
+
+def close(got: torch.Tensor, want, vocab=None):
+    got, want = got.numpy(), np.asarray(want)
+    if vocab is not None:
+        got, want = got[..., :vocab], want[..., :vocab]
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+# --- modules -----------------------------------------------------------------
+
+
+def test_gqa_attention_self_prefill_and_decode():
+    d, h, hkv, hd, theta = 32, 4, 2, 16, 10000.0
+    vals = jax.tree.map(np.asarray, unzip_params(ref_attn.attn_init(
+        jax.random.key(0), d, h, hkv, hd))[0])
+    mod = attention.attn_init(d, h, hkv, hd, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    copy_params(mod, vals)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 11, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
+    ref = jax.jit(lambda v, x, p, c: ref_attn.gqa_attention(
+        v, x, positions=p, rope_theta=theta, cache=c))
+    want, _ = ref(vals, x, pos, None)
+    got, _ = attention.gqa_attention(mod, torch.from_numpy(x),
+                                     positions=torch.from_numpy(pos.copy()),
+                                     rope_theta=theta)
+    close(got, want)
+
+    # prefill 7 tokens into a 16-long cache, then decode 4 one by one
+    rc = ref_attn.init_kv_cache(2, 16, hkv, hd, jnp.float32)
+    pc = attention.KVCache(torch.zeros(2, 16, hkv, hd),
+                           torch.zeros(2, 16, hkv, hd), 0)
+    for lo, hi in [(0, 7), (7, 8), (8, 9), (9, 10), (10, 11)]:
+        p = pos[:, lo:hi]
+        want, rc = ref(vals, x[:, lo:hi], p, rc)
+        got, pc = attention.gqa_attention(
+            mod, torch.from_numpy(x[:, lo:hi]),
+            positions=torch.from_numpy(p.copy()), rope_theta=theta,
+            cache=pc)
+        close(got, want)
+        assert pc.length == int(rc.length) == hi
+
+
+def test_unported_attention_options_raise():
+    mod = attention.attn_init(8, 2, 2, 4, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    x, pos = torch.zeros(1, 3, 8), torch.zeros(1, 3, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="A-11"):
+        attention.gqa_attention(mod, x, positions=pos, rope_theta=1e4,
+                                window=2)
+    with pytest.raises(NotImplementedError, match="A-11"):
+        attention.gqa_attention(mod, x, positions=pos, rope_theta=1e4,
+                                kv_override=(x, x))
+
+
+def test_block_apply_without_and_with_cache():
+    _, rcfg, _, pcfg = f32_pair("mamba2-780m")
+    vals = jax.tree.map(np.asarray, unzip_params(
+        ref_ssm.block_init(jax.random.key(1), rcfg))[0])
+    blk = ssm.block_init(pcfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    copy_params(blk, vals)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 10, pcfg.d_model)).astype(np.float32)
+    ref = jax.jit(lambda v, x, c: ref_ssm.block_apply(rcfg, v, x, cache=c))
+    want, _ = ref(vals, x, None)
+    got, _ = ssm.block_apply(pcfg, blk, torch.from_numpy(x), cache=None)
+    close(got, want)
+
+    rc = jax.tree.map(lambda a: a[0], ref_ssm.init_caches(rcfg, 2))
+    pc = ssm.layer_cache(ssm.init_caches(pcfg, 2, device="cpu"), 0)
+    for lo, hi in [(0, 6), (6, 7), (7, 8), (8, 10)]:
+        want, rc = ref(vals, x[:, lo:hi], rc)
+        got, pc = ssm.block_apply(pcfg, blk, torch.from_numpy(x[:, lo:hi]),
+                                  cache=pc)
+        close(got, want)
+        close(pc.state, rc.state)
+        close(pc.conv_x, rc.conv_x)
+
+
+# --- reduced models ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_reduced_model_prefill_and_decode_match_reference(arch_id):
+    rspec, rcfg, values, pspec, pcfg, model = carried(arch_id)
+    rfam, pfam = rspec.family, pspec.family
+    rng = np.random.default_rng(0)
+    b, total, split = 2, 13, 7
+    toks = rng.integers(0, rspec.vocab, (b, total), dtype=np.int32)
+    rc = rfam.init_caches(rcfg, batch=b, max_len=total)
+    pc = pfam.init_caches(pcfg, b, total, device="cpu")
+    want, rc = jax.jit(lambda p, bt, c: rfam.prefill(p, bt, rcfg, c))(
+        values, {"tokens": jnp.asarray(toks[:, :split])}, rc)
+    got, pc = pfam.prefill(
+        model, {"tokens": torch.from_numpy(toks[:, :split]).long()}, pcfg, pc)
+    close(got, want, rspec.vocab)
+    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n))
+    for t in range(split, total):
+        tok = toks[:, t:t + 1]
+        want, rc = decode(values, {"token": jnp.asarray(tok)}, rc,
+                          jnp.asarray(t, jnp.int32))
+        got, pc = pfam.decode_step(
+            model, {"token": torch.from_numpy(tok).long()}, pcfg, pc, t)
+        close(got, want, rspec.vocab)
+    assert got.shape == (b, pcfg.padded_vocab)
+    assert bool((got[:, rspec.vocab:] == -1e30).all())
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_prefill_then_decode_matches_full_prefill(arch_id):
+    """The port's own cache consistency (conv tails, SSM state handoff
+    through kernel B5's h0/final, KV append at the cache length)."""
+    pspec = reduced_arch(arch_id)
+    cfg = dataclasses.replace(pspec.config, dtype=torch.float32)
+    fam = pspec.family
+    model = fam.init(cfg, device="cpu", seed=2)
+    rng = np.random.default_rng(0)
+    b, total, split = 2, 12, 7
+    toks = torch.from_numpy(rng.integers(0, pspec.vocab, (b, total)))
+    full, _ = fam.prefill(model, {"tokens": toks}, cfg,
+                          fam.init_caches(cfg, b, total, device="cpu"))
+    logits, caches = fam.prefill(model, {"tokens": toks[:, :split]}, cfg,
+                                 fam.init_caches(cfg, b, total, device="cpu"))
+    for t in range(split, total):
+        logits, caches = fam.decode_step(model, {"token": toks[:, t:t + 1]},
+                                         cfg, caches, t)
+    assert caches.length == total
+    v = pspec.vocab
+    np.testing.assert_allclose(logits[:, :v].numpy(), full[:, :v].numpy(),
+                               **TOL)
+
+
+def test_unported_families_raise():
+    for name in ("transformer", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="A-11"):
+            get_family(name)
