@@ -47,21 +47,33 @@ with a non-zero exit:
    stream).
 10. Flash attention (kernel B4) against its plain version and against
     ``torch.nn.functional.scaled_dot_product_attention`` (timed as a
-    yardstick only): the zamba2-1.2b prefill shape in bf16 and f32, a
-    GQA shape (32 heads over 8, head dim 128), a ragged Sq = 1000 and a
-    decode step (Sq = 1 with ``q_offset``) against the serving cache.
+    yardstick only), one row per case, each on the kernel form the
+    wrapper picks (checked): the tensor-core form at the zamba2-1.2b
+    prefill shape, at a GQA shape (32 heads over 8, head dim 128) and at
+    a ragged Sq = 1000; the split-KV form at a decode step against the
+    serving cache (kv_len 2048, and 2000, not a multiple of the split)
+    and at a GQA decode step (32 over 8, head dim 128); the CUDA-core
+    form in f32 at the prefill shape.  Each bf16 row is also held to
+    ``FLASH_SCALED_TOL_BF16`` of the plain version's largest output.
+    ``ms`` and SDPA's ``library_ms`` time the calls issued one by one,
+    as every kernel's ``ms`` does; ``graph_ms`` and
+    ``library_graph_ms`` time the same calls replayed from a CUDA graph,
+    which leaves the host's cost per call out.
 11. The SSD scan (kernel B5) against its plain version at the
     zamba2-1.2b and mamba2-780m prefill shapes, with an initial and a
-    final state, and at a prime length.
+    final state, with f32 and with bf16 b and c (the served models'
+    layout), and at a prime length; timed as in 10.
 12. The zamba2-1.2b serve path: ``repro_torch.launch.serve.serve`` at
     full width and depth, bf16, seeded weights, batch 4, prompt 2048,
-    32 tokens greedy; B4/B5 launches read around it, prefill s, decode
+    32 tokens greedy; B4/B5 launches read around it (B4 also by form:
+    6 tensor-core, 186 split-KV, 0 CUDA-core), prefill s, decode
     ms/step, tok/s and peak memory; a ``torch.profiler`` breakdown of
     one prefill and four decode steps (device busy time, idle share, top
     kernels); the same weights teacher-forced through the kernels and
     through the plain versions on the card, in bf16 and in f32 (logits
     within ``SERVE_REL_TOL`` / ``SERVE_REL_TOL_F32`` of the plain path's
-    scale); and at full width and two groups in f32, the prefill of a
+    scale; in bf16 also, ungated, with one kernel at a time and with
+    SDPA in B4's place); and at full width and two groups in f32, the prefill of a
     whole prompt against a prefix plus decode steps (2e-4 of the logits'
     scale).
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
@@ -110,6 +122,10 @@ HIST_N = 1 << 24      # distances of the reuse-histogram phase
 STREAM_WINDOW = 1 << 16     # window of the streaming main path
 TIME_BUDGET_S = 500   # more workloads at the end only while under this
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the reference's
+# bf16 attention, besides FLASH_TOL: max |kernel - plain| over max |plain|.
+# A decode row over 2048 columns has outputs of ~0.04, below the absolute
+# 3e-2, so a merge that dropped or misweighted a split would pass it.
+FLASH_SCALED_TOL_BF16 = 1e-2
 SSD_TOL = 5e-6        # SSD scan, |kernel - plain| / max |plain|
 # kernel path vs plain path, bf16 logits at full depth: max |diff| over
 # max |plain logits|.  bf16 keeps 8 bits (relative rounding 2^-9 = 0.002);
@@ -156,6 +172,34 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the host's launch cost (Python, ctypes,
+    allocation) stays out, which an eager loop of calls faster than the
+    host can issue them would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -555,7 +599,7 @@ def launch_counts() -> tuple:
     from repro_torch.kernels import flash_attention, reuse_hist, sdcm, ssd_scan
 
     return (sdcm.LAUNCHES, reuse_hist.LAUNCHES, flash_attention.LAUNCHES,
-            ssd_scan.LAUNCHES)
+            flash_attention.LAUNCHES_BY_FORM, ssd_scan.LAUNCHES)
 
 
 def reset_counts():
@@ -783,28 +827,44 @@ def sdpa_library(q, k, v, causal: bool, q_offset: int, kv_len: int):
 
 
 def phase_flash() -> dict:
-    """B4 against its plain version and SDPA; returns the record at the
-    zamba2-1.2b serving prefill shape (bf16, its cache of 2080)."""
+    """B4 against its plain version and SDPA, one row per case, each on
+    the kernel form the wrapper picks for it (checked); returns the
+    kernels record at the zamba2-1.2b serving prefill shape (bf16, its
+    cache of 2080) with one entry per form under ``forms``."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        kernel_form,
     )
 
     bf16, f32 = torch.bfloat16, torch.float32
     b, s, cache = SERVE_BATCH, SERVE_PROMPT, ZAMBA_CACHE
-    cases = [  # tag, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len
-        ("zamba2_prefill", b, 32, 32, s, cache, 64, bf16, 0, s),
-        ("zamba2_prefill_f32", b, 32, 32, s, cache, 64, f32, 0, s),
-        ("gqa_32_over_8_d128", 2, 32, 8, s, s, 128, bf16, 0, s),
-        ("ragged_1000", 2, 32, 32, 1000, 1000, 64, bf16, 0, 1000),
-        ("zamba2_decode", b, 32, 32, 1, cache, 64, bf16, s - 1, s),
+    cases = [  # tag, form, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len
+        ("zamba2_prefill", "tensor_core", b, 32, 32, s, cache, 64, bf16, 0,
+         s),
+        ("zamba2_decode", "split_kv", b, 32, 32, 1, cache, 64, bf16, s - 1,
+         s),
+        # kv_len 2000, not a multiple of the 128-column split
+        ("zamba2_decode_kv2000", "split_kv", b, 32, 32, 1, cache, 64, bf16,
+         s - 49, s - 48),
+        ("gqa_32_over_8_d128_decode", "split_kv", b, 32, 8, 1, cache, 128,
+         bf16, s - 1, s),
+        ("zamba2_prefill_f32", "simt", b, 32, 32, s, cache, 64, f32, 0, s),
+        ("gqa_32_over_8_d128", "tensor_core", 2, 32, 8, s, s, 128, bf16, 0,
+         s),
+        ("ragged_1000", "tensor_core", 2, 32, 32, 1000, 1000, 64, bf16, 0,
+         1000),
     ]
-    records, worst = {}, 0.0
-    for i, (tag, b, h, hkv, sq, sk, d, dt, off, kvl) in enumerate(cases):
+    records, worst, forms = {}, 0.0, {}
+    for i, (tag, form, b, h, hkv, sq, sk, d, dt, off, kvl) in enumerate(
+            cases):
         rand = cuda_rand(10 + i)
         q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
         k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
         v = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
+        if kernel_form(q, k, v) != form:
+            fail(f"flash_attention {tag}: runs on the {kernel_form(q, k, v)} "
+                 f"form, expected {form}")
         kw = dict(causal=True, q_offset=off, kv_len=kvl)
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
@@ -813,24 +873,37 @@ def phase_flash() -> dict:
         if not err <= FLASH_TOL[dt]:
             fail(f"flash_attention {tag}: max |kernel - plain| = {err} > "
                  f"{FLASH_TOL[dt]}")
+        scaled = err / float(want.float().abs().max())
+        if dt == bf16 and not scaled <= FLASH_SCALED_TOL_BF16:
+            fail(f"flash_attention {tag}: max |kernel - plain| / max |plain| "
+                 f"= {scaled} > {FLASH_SCALED_TOL_BF16}")
         worst = max(worst, err)
         lib = sdpa_library(q, k, v, True, off, kvl)
         lib_err = float((lib.float() - want.float()).abs().max())
         nbytes, ops = flash_work(q, k, True, off, kvl)
         b_ms, b_by = bound_ms(nbytes, ops,
                               PEAK_BF16_S if dt == bf16 else PEAK_FP32_S)
-        rec = dict(shape=[b, h, hkv, sq, sk, d], dtype=str(dt), q_offset=off,
-                   kv_len=kvl, max_abs_err=err, tol=FLASH_TOL[dt],
+        rec = dict(form=form, shape=[b, h, hkv, sq, sk, d], dtype=str(dt),
+                   q_offset=off, kv_len=kvl, max_abs_err=err,
+                   tol=FLASH_TOL[dt], scaled_err=scaled,
                    ms=cuda_ms(lambda: flash_attention(q, k, v, **kw)),
+                   graph_ms=graph_ms(lambda: flash_attention(q, k, v, **kw)),
                    plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                                   **kw),
                                     reps=3, warmup=1),
                    library_ms=cuda_ms(lambda: sdpa_library(q, k, v, True,
                                                            off, kvl)),
+                   library_graph_ms=graph_ms(lambda: sdpa_library(
+                       q, k, v, True, off, kvl)),
                    library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, operations=ops)
         line("flash", case=tag, **rec)
         records[tag] = rec
+        forms.setdefault(form, dict(case=tag, **{
+            key: rec[key] for key in ("ms", "graph_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library_graph_ms", "max_abs_err",
+                                      "scaled_err")}))
         del q, k, v, got, want, lib
     path = records["zamba2_prefill"]
     return {
@@ -842,19 +915,23 @@ def phase_flash() -> dict:
         "launches": 0,
         "max_abs_err": worst,
         **{k: path[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+                                "library_ms", "graph_ms",
+                                "library_graph_ms")},
+        "forms": forms,
     }
 
 
-def ssd_ops(s: int, bh: int, p: int, n: int, chunk: int) -> float:
+def ssd_ops(s: int, b: int, h: int, p: int, n: int, chunk: int) -> float:
     """Operations of the chunked scan: per chunk of ``lc`` steps, the
-    lc(lc+1)/2 score pairs times N (c·b) and P (scores·x), and lc·N·P
-    twice (c·h_in and the state update); two per multiply-add."""
+    lc(lc+1)/2 score pairs times N (c·b, once per batch row: it does not
+    depend on the head) and, per head, times P (scores·x), and lc·N·P
+    twice per head (c·h_in and the state update); two per multiply-add."""
     total = 0.0
     for c0 in range(0, s, chunk):
         lc = min(chunk, s - c0)
-        total += 2.0 * (lc * (lc + 1) / 2 * (n + p) + 2.0 * lc * n * p)
-    return total * bh
+        total += 2.0 * (lc * (lc + 1) / 2 * (n + h * p)
+                        + 2.0 * h * lc * n * p)
+    return total * b
 
 
 def phase_ssd() -> dict:
@@ -862,17 +939,24 @@ def phase_ssd() -> dict:
     zamba2-1.2b prefill shape."""
     from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan, ssd_scan_plain
 
-    cases = [  # tag, B, S, H, P, N (the model path: x f32, with h0)
-        ("zamba2_prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64),
-        ("mamba2_780m_prefill", SERVE_BATCH, SERVE_PROMPT, 48, 64, 128),
-        ("prime_2039", 2, 2039, 64, 64, 64),  # the largest prime < 2048
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # tag, B, S, H, P, N, dtype of b and c (x f32, with h0)
+        ("zamba2_prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64, f32),
+        ("mamba2_780m_prefill", SERVE_BATCH, SERVE_PROMPT, 48, 64, 128, f32),
+        ("prime_2039", 2, 2039, 64, 64, 64, f32),  # the largest prime < 2048
+        # the served models' layout: b and c in bf16, read as they are
+        ("zamba2_prefill_bf16_bc", SERVE_BATCH, SERVE_PROMPT, 64, 64, 64,
+         bf16),
+        ("mamba2_780m_prefill_bf16_bc", SERVE_BATCH, SERVE_PROMPT, 48, 64,
+         128, bf16),
     ]
     records, worst = {}, 0.0
-    for i, (tag, b, s, h, p, n) in enumerate(cases):
+    for i, (tag, b, s, h, p, n, bc_dt) in enumerate(cases):
         rand = cuda_rand(20 + i)
         x = rand(b, s, h, p)
         la = -torch.nn.functional.softplus(rand(b, s, h) - 1.0)
-        bb, cc = rand(b, s, n) * 0.3, rand(b, s, n) * 0.3
+        bb = rand(b, s, n, dtype=bc_dt) * 0.3
+        cc = rand(b, s, n, dtype=bc_dt) * 0.3
         h0 = rand(b, h, n, p)
         y, final = ssd_scan(x, la, bb, cc, h0)
         y_p, final_p = ssd_scan_plain(x, la, bb, cc, h0)
@@ -885,19 +969,21 @@ def phase_ssd() -> dict:
         err = max(float((y - y_p).abs().max()),
                   float((final - final_p).abs().max()))
         worst = max(worst, err)
-        nbytes = 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
-                        + 2 * b * h * n * p)
-        ops = ssd_ops(s, b * h, p, n, CHUNK)
+        nbytes = (4.0 * (2 * b * s * h * p + b * s * h + 2 * b * h * n * p)
+                  + bb.element_size() * 2.0 * b * s * n)
+        ops = ssd_ops(s, b, h, p, n, CHUNK)
         b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32_S)
-        rec = dict(shape=[b, s, h, p, n], scaled_err_y=errs[0],
+        rec = dict(shape=[b, s, h, p, n], bc_dtype=str(bc_dt),
+                   scaled_err_y=errs[0],
                    scaled_err_final=errs[1], max_abs_err=err, tol=SSD_TOL,
                    ms=cuda_ms(lambda: ssd_scan(x, la, bb, cc, h0)),
+                   graph_ms=graph_ms(lambda: ssd_scan(x, la, bb, cc, h0)),
                    plain_ms=cuda_ms(lambda: ssd_scan_plain(x, la, bb, cc, h0),
                                     reps=3, warmup=1),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops)
         line("ssd_scan", case=tag, **rec)
         records[tag] = rec
-    path = records["zamba2_prefill"]
+    path = records["zamba2_prefill_bf16_bc"]  # the served models' inputs
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -907,20 +993,35 @@ def phase_ssd() -> dict:
         "max_abs_err": worst,
         **{k: path[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "graph_ms": path["graph_ms"],
     }
+
+
+def sdpa_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
+                   kv_len=None):
+    """B4's function by SDPA, for ``plain_kernels(flash="sdpa")``."""
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    return sdpa_library(q, k, v, causal, q_offset, kv_len)
 
 
 class plain_kernels:
     """Inside ``with plain_kernels():`` the models call B4's and B5's
-    plain versions on the card instead of the kernels."""
+    plain versions on the card instead of the kernels; ``flash`` and
+    ``scan`` pick each one ("plain", "kernel", or for B4 "sdpa")."""
+
+    def __init__(self, flash: str = "plain", scan: str = "plain"):
+        self.flash, self.scan = flash, scan
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ssd_scan as scan
 
         self.saved = (fa.flash_attention, scan.ssd_scan)
-        fa.flash_attention = fa.flash_attention_plain
-        scan.ssd_scan = scan.ssd_scan_plain
+        fa.flash_attention = {"plain": fa.flash_attention_plain,
+                              "kernel": fa.flash_attention,
+                              "sdpa": sdpa_attention}[self.flash]
+        scan.ssd_scan = {"plain": scan.ssd_scan_plain,
+                         "kernel": scan.ssd_scan}[self.scan]
 
     def __exit__(self, *exc):
         from repro_torch.kernels import flash_attention as fa
@@ -950,7 +1051,10 @@ def teacher_forced(spec, cfg, model, prompt, tokens) -> torch.Tensor:
 def kernel_vs_plain_logits(spec, cfg, model, res, tag: str) -> dict:
     """Teacher-forced logits through the kernels and through the plain
     versions on the card: in the model's dtype, then with the same
-    weights in f32."""
+    weights in f32.  In bf16 with attention, ``spread`` also gives the
+    distance from the plain path with one kernel at a time, and with
+    SDPA for B4 (a library's rounding: how far any other bf16
+    attention lands); the gate reads only the path with both kernels."""
     import dataclasses
 
     out = {}
@@ -971,9 +1075,19 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str) -> dict:
             fail(f"{tag} {dt}: kernel-path logits differ from the plain "
                  f"path's by {diff} (scale {scale}, > {tol} relative)")
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        out[str(dt).replace("torch.", "")] = dict(
-            steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
-            rel=diff / scale, tol=tol, argmax_agreement=agree)
+        rec = dict(steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
+                   rel=diff / scale, tol=tol, argmax_agreement=agree)
+        if dt != torch.float32 and spec.family_name == "hybrid":
+            rec["spread"] = {}
+            for name, kw in (("b4_kernel_only", dict(flash="kernel")),
+                             ("b5_kernel_only", dict(scan="kernel")),
+                             ("sdpa_b4_plain_b5", dict(flash="sdpa"))):
+                with plain_kernels(**kw):
+                    other = teacher_forced(spec, cfg_dt, model,
+                                           res["prompt"], res["tokens"])
+                rec["spread"][name] = float(
+                    (other - want).abs().max()) / scale
+        out[str(dt).replace("torch.", "")] = rec
     return out
 
 
@@ -1102,10 +1216,13 @@ def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
 
 
 def phase_zamba2_serve() -> dict:
-    """The zamba2-1.2b serve path; returns its B4 and B5 launches."""
+    """The zamba2-1.2b serve path; returns its B4 (in all and by form)
+    and B5 launches.  The 6 prefill attentions run on B4's tensor-core
+    form, the 6 of each of the 31 decode steps on its split-KV form."""
     spec, model, res, rec = serve_path(
         "zamba2-1.2b", ZAMBA_GEN,
-        {"flash_attention": 6 * ZAMBA_GEN, "ssd_scan": 38})
+        {"flash_attention": 6 * ZAMBA_GEN, "tensor_core": 6,
+         "split_kv": 6 * (ZAMBA_GEN - 1), "simt": 0, "ssd_scan": 38})
     line("zamba2_serve", **rec)
     line("zamba2_profile", **profile_serve(spec, model, res))
     line("zamba2_serve_vs_plain", **kernel_vs_plain_logits(
@@ -1121,7 +1238,9 @@ def phase_zamba2_serve() -> dict:
 
 def phase_mamba2_serve() -> None:
     spec, model, res, rec = serve_path(
-        "mamba2-780m", MAMBA_GEN, {"ssd_scan": 48, "flash_attention": 0})
+        "mamba2-780m", MAMBA_GEN,
+        {"ssd_scan": 48, "flash_attention": 0, "tensor_core": 0,
+         "split_kv": 0, "simt": 0})
     line("mamba2_serve", **rec)
     line("mamba2_profile", **profile_serve(spec, model, res))
     line("mamba2_serve_vs_plain", **kernel_vs_plain_logits(
@@ -1154,6 +1273,8 @@ def main() -> int:
     serve_launches = phase_zamba2_serve()
     for rec in (flash_kernel, ssd_kernel):
         rec["launches"] = serve_launches[rec["name"]]
+    for form, rec in flash_kernel["forms"].items():
+        rec["launches"] = serve_launches[form]
     phase_mamba2_serve()
     phase_more_workloads(t_start)
     kernels = [sdcm_kernel] + hist_kernels + [flash_kernel, ssd_kernel]

@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a library with
 a plain C interface, cached under ``build/repro_torch/`` at the root of
-the checkout (listed in ``.gitignore``) by a hash of the source and the
+the checkout (listed in ``.gitignore``) by a hash of every file in the
+source's ``csrc/`` directory (the headers it includes too) and the
 flags, and loaded with ``ctypes``.  :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them.
 """
@@ -50,8 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lands: keyed by source and flags."""
-    h = hashlib.sha1(SOURCES[name].read_bytes())
+    """Where ``name``'s library lands: keyed by the contents of every
+    file in its source's directory, and the flags."""
+    h = hashlib.sha1()
+    for path in sorted(SOURCES[name].parent.rglob("*")):
+        if path.is_file():
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,8 +1,16 @@
 from .flash_attention import (
     HEAD_DIMS,
     LAUNCHES,
+    LAUNCHES_BY_FORM,
+    SPLIT_COLUMNS,
+    SPLIT_MAX_ROWS,
+    TC_HEAD_DIMS,
     flash_attention,
     flash_attention_plain,
+    kernel_form,
+    split_kv_plain,
 )
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "flash_attention", "flash_attention_plain"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_COLUMNS",
+           "SPLIT_MAX_ROWS", "TC_HEAD_DIMS", "flash_attention",
+           "flash_attention_plain", "kernel_form", "split_kv_plain"]

@@ -1,7 +1,9 @@
 // Flash-attention forward (blocked online softmax) for NVIDIA Hopper
 // (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded with ctypes (kernels/build.py,
-// kernels/flash_attention/flash_attention.py).
+// kernels/flash_attention/flash_attention.py); this file includes the
+// other two forms (flash_tc.cuh, flash_split.cuh) and is the one
+// translation unit.
 //
 // Replaces, on the TPU side of the repository:
 //   * src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel —
@@ -18,24 +20,36 @@
 // Masked scores are -1e30 (the reference's NEG_INF, not -inf) and the result
 // is acc / max(l, 1e-30), as in the reference.
 //
-// What bounds it on the card: at the serving shapes (D = 64, Sq = Sk = 2048)
-// the work is 4·Sq·Sk·D/2 causal FLOPs against (3 + 1)·S·D·2 bytes, far
-// above the H100's ~295 FLOP/byte ridge, so the bound is operations
-// (tensor-core bf16 rate).  At decode (Sq = 1) it is the bytes of the KV
-// cache.
+// What bounds it on the card.  Prefill (zamba2-1.2b: Sq = 2048, D = 64,
+// bf16) does 4·D operations per visible (row, column) pair on 4·S·D·2
+// bytes, far above the H100's ~295 FLOP/byte ridge: operations, at the
+// bf16 tensor-core rate.  A decode step (Sq = 1) reads the whole KV cache
+// for one row per head: bytes.  f32 FMAs on the CUDA cores run the prefill
+// at ~68x that bound, and a 64-row q tile is 63/64 padding at decode, so
+// the wrapper picks one of three forms:
+//   tensor-core (flash_tc.cuh)   bf16, D in {64, 128}, more than kMaxRows q
+//       rows per kv head: mma.sync bf16 tiles, cp.async double buffering,
+//       S / softmax / O in registers (FlashAttention-2's shape);
+//   split-KV (flash_split.cuh)   bf16, D in {64, 128}, at most kMaxRows
+//       rows per kv head (decode): the cache cut across blocks, each kv
+//       head's rows together, partials merged by a second kernel;
+//   CUDA-core (below)            f32, and bf16 at D in {8, 16, 32}.  f32
+//       stays off the tensor cores: TF32 keeps ~10 mantissa bits and would
+//       break the f32 gates (2e-5 on the kernel, 1e-4 and 2e-4 on the
+//       served logits).
+// The tensor-core and split-KV forms read rows with 16-byte copies, so the
+// wrapper sends them only 16-byte-aligned tensors whose (b, h, s) strides
+// are multiples of 8 elements; anything else goes to the CUDA-core form.
 //
-// Design: this is the first, simple version.  One block of 256 threads per
-// (q tile of 64 rows, head, batch).  Q (pre-scaled, f32) and each K/V tile
-// (converted to f32 on load) sit in shared memory; scores, the softmax and
-// P·V are plain f32 FMAs on the CUDA cores (no wgmma or TMA yet):
+// CUDA-core form: one block of 256 threads per (q tile of 64 rows, head,
+// batch).  Q (pre-scaled, f32) and each K/V tile (converted to f32 on load)
+// sit in shared memory; scores, the softmax and P·V are plain f32 FMAs:
 //   S = Q K^T   each thread owns one column c = t % 64 and 16 rows,
 //               reads K[c][:] (rows padded to D+1: no bank conflicts) once
 //               per d and broadcasts Q[r][d];
 //   softmax     four threads per row, combined with warp shuffles;
 //   O += P V    each thread owns one output column d = t % D and D / 4
 //               rows in registers, reads V[j][d] once per j.
-// The head dim D is a template parameter: 8, 16, 32, 64 or 128 (the
-// serving models use 64; the reduced test configs 8).
 // Ragged tails of Sq and Sk are masked in the loads (zeros) and the store.
 // The KV loop ends at the last tile a row of the q tile can see.
 //
@@ -43,33 +57,17 @@
 // contiguous.  The wrapper guarantees kv_len >= 1 and q_offset >= 0, so
 // every row sees column 0 and no row is fully masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
+#include "flash_split.cuh"
+#include "flash_tc.cuh"
 
-namespace {
+namespace flash_simt {
+
+using namespace flash;
 
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {
-  int64_t b, h, s;
-};
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -82,10 +80,10 @@ constexpr size_t smem_floats() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides sq_,
-                 Strides sk_, Strides sv_, Strides so_, int sq, int group,
-                 int kv_len, int q_offset, int causal, float scale) {
+simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ o, Strides sq_,
+            Strides sk_, Strides sv_, Strides so_, int sq, int group,
+            int kv_len, int q_offset, int causal, float scale) {
   static_assert(kThreads % D == 0 && kThreads % kBlockK == 0, "tiling");
   static_assert(kBlockQ * 4 == kThreads, "four softmax threads per row");
   constexpr int kRowsS = kBlockQ * kBlockK / kThreads;  // 16 score rows
@@ -221,45 +219,92 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int64_t* st, int batch, int heads, int sq, int group,
-           int kv_len, int q_offset, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const T* q, const T* k, const T* v, T* o, const Strides (&st)[4],
+           int batch, int heads, int sq, int group, int kv_len, int q_offset,
+           int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // once per template instance, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Strides s_q{st[0], st[1], st[2]}, s_k{st[3], st[4], st[5]},
-      s_v{st[6], st[7], st[8]}, s_o{st[9], st[10], st[11]};
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, s_q, s_k, s_v, s_o, sq,
-      group, kv_len, q_offset, causal, scale);
+  simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, st[0], st[1], st[2], st[3], sq, group, kv_len, q_offset,
+      causal, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace flash_simt
+
+namespace {
+
+using flash::bf16;
+using flash::Strides;
+
+template <int D>
+int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
+                bf16* o, const Strides (&st)[4], int batch, int heads,
+                int sq, int kv_heads, int group, int kv_len, int q_offset,
+                int causal, float scale, int n_splits, float* part_ml,
+                float* part_acc, cudaStream_t s) {
+  if (form == 1) {
+    return flash_tc::launch<D>(q, k, v, o, st, batch, heads, sq, group,
+                               kv_len, q_offset, causal, scale, s);
+  }
+  return flash_split::launch<D>(q, k, v, o, st, batch, kv_heads, sq, group,
+                                kv_len, q_offset, causal, scale, n_splits,
+                                part_ml, part_acc, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 int64 values, (b, h, s)
-// for q, k, v, o in elements.  Returns a cudaError_t code: 0 on a
-// successful launch.
+// dtype: 0 = float32, 1 = bfloat16.  form: 0 = CUDA-core, 1 = tensor-core,
+// 2 = split-KV (forms 1 and 2: bf16, head_dim 64 or 128).  strides: 12
+// int64 values, (b, h, s) for q, k, v, o in elements.  Split-KV only:
+// n_splits splits of flash_attention_split_columns() columns, and f32
+// scratch part_ml [batch, kv_heads, n_splits, rows, 2] and part_acc
+// [batch, kv_heads, n_splits, rows, head_dim], rows = heads / kv_heads * sq
+// <= flash_attention_split_max_rows().  Returns a cudaError_t code: 0 on
+// a successful launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int batch, int heads, int sq,
                         int kv_heads, int kv_len, int q_offset, int causal,
-                        float scale, int head_dim, int dtype, void* stream) {
+                        float scale, int head_dim, int dtype, int form,
+                        int n_splits, void* part_ml, void* part_acc,
+                        void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 ||
-      heads > 65535 || batch > 65535) {
+      batch > 65535 || form < 0 || form > 2) {
     return (int)cudaErrorInvalidValue;
   }
   const int group = heads / kv_heads;
   cudaStream_t s = (cudaStream_t)stream;
+  const Strides st[4] = {{strides[0], strides[1], strides[2]},
+                         {strides[3], strides[4], strides[5]},
+                         {strides[6], strides[7], strides[8]},
+                         {strides[9], strides[10], strides[11]}};
+  if (form != 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,
+               *vb = (const bf16*)v;
+    bf16* ob = (bf16*)o;
+#define FLASH_BF16(D)                                                       \
+  return launch_bf16<D>(form, qb, kb, vb, ob, st, batch, heads, sq,         \
+                        kv_heads, group, kv_len, q_offset, causal, scale,   \
+                        n_splits, (float*)part_ml, (float*)part_acc, s)
+    if (head_dim == 64) FLASH_BF16(64);
+    if (head_dim == 128) FLASH_BF16(128);
+#undef FLASH_BF16
+    return (int)cudaErrorInvalidValue;
+  }
+  if (heads > 65535) return (int)cudaErrorInvalidValue;
 #define FLASH_LAUNCH(T, D)                                                  \
-  return launch<T, D>(q, k, v, o, strides, batch, heads, sq, group, kv_len, \
-                      q_offset, causal, scale, s)
+  return flash_simt::launch<T, D>((const T*)q, (const T*)k, (const T*)v,    \
+                                  (T*)o, st, batch, heads, sq, group,       \
+                                  kv_len, q_offset, causal, scale, s)
 #define FLASH_DIMS(T)                       \
   switch (head_dim) {                       \
     case 8: FLASH_LAUNCH(T, 8);             \
@@ -270,11 +315,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     default: return (int)cudaErrorInvalidValue; \
   }
   if (dtype == 0) FLASH_DIMS(float);
-  if (dtype == 1) FLASH_DIMS(__nv_bfloat16);
+  if (dtype == 1) FLASH_DIMS(bf16);
 #undef FLASH_DIMS
 #undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+
+int flash_attention_split_columns(void) { return flash_split::kSplit; }
+
+int flash_attention_split_max_rows(void) { return flash_split::kMaxRows; }
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -24,14 +24,21 @@ and returns the final state as well (``models/ssm.py::ssd_chunked``'s
 
 Layouts, as the model holds them (read through strides, not copied):
 x ``[B, S, H, P]`` (f32 or bf16), la ``[B, S, H]`` f32, b and c ``[B, S,
-N]`` f32 shared by the H heads, h0 ``[B, H, N, P]`` f32.  Returns y
-``[B, S, H, P]`` in x's dtype and the final state ``[B, H, N, P]`` f32.
-The TPU signature (x ``[BH, S, P]``, la ``[BH, S]``, b, c ``[BH, S,
-N]``) is the case H = 1: ``x[:, :, None]``, ``la[..., None]``.
+N]`` shared by the H heads (f32 or bf16, both the same; the kernel and
+the plain version widen bf16 to f32, which is exact), h0 ``[B, H, N,
+P]`` f32.  Returns y ``[B, S, H, P]`` in x's dtype and the final state
+``[B, H, N, P]`` f32.  The TPU signature (x ``[BH, S, P]``, la ``[BH,
+S]``, b, c ``[BH, S, N]``) is the case H = 1: ``x[:, :, None]``,
+``la[..., None]``.
 
 A wrapper given CPU tensors returns the plain version
 (:func:`ssd_scan_plain`); given CUDA tensors it launches the kernel and
-counts the launch in :data:`LAUNCHES`, or raises.
+counts the launch in :data:`LAUNCHES`, or raises.  A launch is two
+kernels: C B^T of every (batch, chunk), which does not depend on the
+head, into f32 scratch that the wrapper allocates; then the scan, which
+splits the state's P columns across blocks, 64 per block while N <= 64,
+else 32 (the last block of a row masks the columns past P).  N is at
+most :data:`MAX_N`.
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ LAUNCHES = {"ssd_scan": 0}
 #: Steps per chunk, in the kernel (csrc/ssd_scan.cu kChunk) and the plain
 #: version alike.
 CHUNK = 64
+#: Largest state size N the kernel takes (csrc/ssd_scan.cu kMaxN).
+MAX_N = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,12 +73,18 @@ def _check_args(x, la, b, c, h0):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
+        if name in ("b", "c"):
+            if t.dtype not in _DTYPES:
+                raise TypeError(f"{name} must be float32 or bfloat16, got "
+                                f"{t.dtype}")
+        elif t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if b.dtype != c.dtype:
+        raise TypeError(f"b and c dtypes differ: {b.dtype}, {c.dtype}")
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
@@ -88,8 +103,8 @@ def ssd_scan_plain(x, la, b, c, h0=None):
     pad = -s % CHUNK
     xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
     laf = torch.nn.functional.pad(la, (0, 0, 0, pad))
-    bf = torch.nn.functional.pad(b, (0, 0, 0, pad))
-    cf = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    bf = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(c.float(), (0, 0, 0, pad))
     state = (torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
              if h0 is None else h0.clone())
     tril = torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=x.device).tril()
@@ -120,8 +135,8 @@ def ssd_scan_plain(x, la, b, c, h0=None):
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                 ci, ci, ci, vp]
+    lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                 ci, ci, ci, ci, ci, vp]
     lib.ssd_scan_fwd.restype = ci
     lib.ssd_scan_error_string.argtypes = [ci]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -130,17 +145,22 @@ def _lib() -> ctypes.CDLL:
 
 def ssd_scan(x, la, b, c, h0=None):
     """SSD scan of x ``[B, S, H, P]`` with log decays la ``[B, S, H]``
-    and the shared b, c ``[B, S, N]`` streams, from state ``h0`` ``[B,
-    H, N, P]`` (zeros when None).  Returns ``(y [B, S, H, P] in x's
-    dtype, contiguous; final state [B, H, N, P] f32)``."""
+    and the shared b, c ``[B, S, N]`` streams (f32 or bf16), from state
+    ``h0`` ``[B, H, N, P]`` (zeros when None).  Returns ``(y [B, S, H,
+    P] in x's dtype, contiguous; final state [B, H, N, P] f32)``."""
     bsz, s, h, p, n = _check_args(x, la, b, c, h0)
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_plain(x, la, b, c, h0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if n > MAX_N:
+        raise ValueError(f"the kernel takes N <= {MAX_N}, got {n}")
     y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     final = torch.empty(bsz, h, n, p, dtype=torch.float32, device=dev)
+    # C B^T of every chunk, shared by the heads (the kernel's first pass)
+    cb = torch.empty(bsz, -(-s // CHUNK), CHUNK, CHUNK, dtype=torch.float32,
+                     device=dev)
     strides = (ctypes.c_int64 * 13)(
         *x.stride()[:3], *y.stride()[:3], *la.stride(), *b.stride()[:2],
         *c.stride()[:2])
@@ -149,8 +169,9 @@ def ssd_scan(x, la, b, c, h0=None):
         code = _lib().ssd_scan_fwd(
             x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            final.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), bsz, s,
-            h, n, p, _DTYPES[x.dtype], stream,
+            final.data_ptr(), cb.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), bsz, s,
+            h, n, p, _DTYPES[x.dtype], _DTYPES[b.dtype], stream,
         )
     if code:
         msg = _lib().ssd_scan_error_string(code).decode()

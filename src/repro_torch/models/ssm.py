@@ -142,9 +142,10 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
 def ssd_chunked(xh, la, b, c, state0=None):
     """Chunked SSD on kernel B5.  xh: [B,S,H,P]; la: [B,S,H] (log
     decay); b,c: [B,S,N].  Returns (y [B,S,H,P] f32, final_state
-    [B,H,N,P]).  la, b and c go in as f32 (the model path's xh is f32,
-    for which the reference computes in f32 too)."""
-    y, final = scan.ssd_scan(xh, la.float(), b.float(), c.float(), state0)
+    [B,H,N,P]).  la goes in as f32; b and c in the model's dtype (f32 or
+    bf16), which the kernel widens to f32 exactly, as the reference casts
+    them to its f32 compute dtype for the model path's f32 xh."""
+    y, final = scan.ssd_scan(xh, la.float(), b, c, state0)
     return y.float(), final
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: the SDCM kernel's two entry
-points, the reuse-histogram kernel's two flags, flash attention (B4) and
-the SSD scan (B5) against their plain PyTorch versions, launch counting,
+points, the reuse-histogram kernel's two flags, flash attention (B4, each
+of its three forms, with the launches counted by form) and the SSD scan
+(B5, f32 and bf16 b/c, column blocks) against their plain PyTorch
+versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
 the histogram, streaming reuse distances, a binned Session and the
 reduced serving path on the card.  Imports nothing of JAX, so
@@ -33,6 +35,10 @@ from repro_torch.kernels import sdcm as kernel
 from repro_torch.workloads.polybench import make_atax
 
 pytestmark = pytest.mark.cuda
+
+# bf16 attention, besides the absolute 3e-2: max |kernel - plain| over
+# max |plain|, since a decode row over 2048 columns has outputs of ~0.04
+BF16_SCALED_TOL = 1e-2
 
 GEOMS = [(1, 64), (4, 512), (8, 4096), (20, 327680), (64, 1024),
          (16, 327680), (64, 64), (262144, 262144)]
@@ -211,7 +217,66 @@ def test_flash_attention_kernel_vs_plain(cuda_device, dtype, atol, b, h, hkv,
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.stride() == q.stride()
     want = fa.flash_attention_plain(q, k, v, **kw)
-    assert float((got.float() - want.float()).abs().max()) <= atol
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= atol
+    if dtype == torch.bfloat16:  # decode outputs are far below atol
+        assert err / float(want.float().abs().max()) <= BF16_SCALED_TOL
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,q_offset,kv_len,form", [
+    (4, 32, 32, 1, 2080, 2047, 2048, "split_kv"),   # decode, 16 splits
+    (4, 32, 32, 1, 2080, 1999, 2000, "split_kv"),   # not a multiple of 128
+    (2, 32, 8, 1, 400, 386, 387, "split_kv"),       # GQA 4:1 decode
+    (2, 8, 8, 1, 16, 0, 1, "split_kv"),             # kv_len 1
+    (1, 16, 4, 4, 300, 126, 130, "split_kv"),       # 16 rows; rows 0-1 see
+                                                    # none of split 2
+    (1, 16, 4, 5, 300, 126, 131, "tensor_core"),    # 20 rows
+    (2, 16, 16, 17, 300, 200, 217, "tensor_core"),  # 17 rows
+    (2, 8, 2, 200, 256, 0, 200, "tensor_core"),     # prefill, ragged tiles
+])
+def test_flash_attention_forms_vs_plain(cuda_device, d, b, h, hkv, sq, sk,
+                                        q_offset, kv_len, form):
+    """Each bf16 form on both sides of the 16-row threshold; the launch
+    counts the form it ran on."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + kv_len)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q = rand(b, sq, h, d).transpose(1, 2)
+    k = rand(b, sk, hkv, d).transpose(1, 2)
+    v = rand(b, sk, hkv, d).transpose(1, 2)
+    assert fa.kernel_form(q, k, v) == form
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    before = dict(fa.LAUNCHES_BY_FORM)
+    total = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES["flash_attention"] == total + 1
+    assert fa.LAUNCHES_BY_FORM == {
+        f: n + (f == form) for f, n in before.items()}
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    refs = [want]
+    if form == "split_kv":  # the decomposition the kernel follows
+        refs.append(fa.split_kv_plain(q, k, v, **kw))
+    for ref in refs:
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= 3e-2
+        assert err / float(ref.float().abs().max()) <= BF16_SCALED_TOL
+
+
+def test_split_kv_is_deterministic(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2)
+               for shape in ((4, 1, 32, 64), (4, 2080, 32, 64),
+                             (4, 2080, 32, 64)))
+    kw = dict(causal=True, q_offset=2047, kv_len=2048)
+    first = fa.flash_attention(q, k, v, **kw)
+    assert all(torch.equal(first, fa.flash_attention(q, k, v, **kw))
+               for _ in range(3))
 
 
 @pytest.mark.parametrize("b,s,h,p,n,with_h0", [
@@ -238,6 +303,37 @@ def test_ssd_scan_kernel_vs_plain(cuda_device, b, s, h, p, n, with_h0):
         assert float((got - want).abs().max()) / scale <= 5e-6
 
 
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-bc", "bf16-bc"])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 2039, 4, 64, 64),    # prime length, one column block of 64
+    (2, 300, 3, 48, 64),     # P = 48: the column block is masked
+    (2, 300, 3, 80, 128),    # N = 128: blocks of 32 columns, the last
+                             # one half masked
+    (1, 130, 2, 64, 100),    # N = 100: blocks of 32 columns
+    (1, 37, 2, 8, 4),        # tiny state
+])
+def test_ssd_scan_column_blocks_and_bf16_b_c(cuda_device, bc_dtype, b, s, h,
+                                             p, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(s + n)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    x, la = rand(b, s, h, p), -torch.nn.functional.softplus(rand(b, s, h))
+    bb = (rand(b, s, n) * 0.3).to(bc_dtype)
+    cc = (rand(b, s, n) * 0.3).to(bc_dtype)
+    h0 = rand(b, h, n, p)
+    y, final = scan.ssd_scan(x, la, bb, cc, h0)
+    y_want, f_want = scan.ssd_scan_plain(x, la, bb, cc, h0)
+    # bf16 b, c widen exactly: the plain version on their f32 values agrees
+    y_f32, _ = scan.ssd_scan_plain(x, la, bb.float(), cc.float(), h0)
+    assert torch.equal(y_want, y_f32)
+    for got, want in ((y, y_want), (final, f_want)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) / scale <= 5e-6
+
+
 def test_reduced_serve_launches_both_kernels(cuda_device):
     """The same weights served on the CPU (plain versions) and on the
     card (kernels) give the same greedy tokens."""
@@ -247,11 +343,13 @@ def test_reduced_serve_launches_both_kernels(cuda_device):
     kw = dict(reduced=True, batch=2, prompt_len=16, gen=4,
               dtype=torch.float32)
     cpu = serve.serve("zamba2-1.2b", device="cpu", model=model, **kw)
-    before = (fa.LAUNCHES["flash_attention"], scan.LAUNCHES["ssd_scan"])
+    before = (fa.LAUNCHES["flash_attention"], scan.LAUNCHES["ssd_scan"],
+              fa.LAUNCHES_BY_FORM["simt"])
     res = serve.serve("zamba2-1.2b", device=cuda_device,
                       model=model.to(cuda_device), **kw)
     # 2 attention sites per forward (5 layers, attn_every 2), 4 forwards;
-    # one scan per Mamba2 layer of the prefill
+    # one scan per Mamba2 layer of the prefill.  f32: the CUDA-core form
     assert fa.LAUNCHES["flash_attention"] - before[0] == 2 * 4
+    assert fa.LAUNCHES_BY_FORM["simt"] - before[2] == 2 * 4
     assert scan.LAUNCHES["ssd_scan"] - before[1] == 5
     np.testing.assert_array_equal(res["tokens"], cpu["tokens"])

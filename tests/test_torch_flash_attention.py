@@ -137,3 +137,95 @@ def test_cpu_path_counts_no_launch():
     before = dict(fa.LAUNCHES)
     port(q, k, v, causal=True)
     assert fa.LAUNCHES == before
+
+
+# --- the kernel's forms: dispatch, and the split-KV decomposition ------------
+
+
+def decode_case(b, h, hkv, sq, sk, d, seed):
+    q, k, v = make(b, h, hkv, sq, sk, d, seed=seed)
+    return [torch.from_numpy(a) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,q_offset,kv_len", [
+    (2, 8, 8, 1, 300, 64, 255, 256),     # decode, kv_len a multiple of 128
+    (2, 8, 8, 1, 300, 64, 199, 200),     # ragged last split
+    (2, 32, 8, 1, 400, 128, 386, 387),   # GQA 4:1, D 128
+    (1, 4, 1, 4, 300, 64, 126, 130),     # 16 rows; rows 0-1 see none of
+                                         # the second split
+    (1, 2, 2, 1, 8, 64, 0, 1),           # kv_len 1
+], ids=["decode", "ragged", "gqa", "masked-split", "kv1"])
+def test_split_kv_model_equals_plain(b, h, hkv, sq, sk, d, q_offset, kv_len):
+    q, k, v = decode_case(b, h, hkv, sq, sk, d, seed=kv_len)
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    got = fa.split_kv_plain(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_split_kv_model_with_a_small_split_and_without_causality():
+    """Many splits (the last one small: kv_len 1041 is 8 full splits of
+    128 and 17 columns), with and without the causal mask."""
+    q, k, v = decode_case(1, 4, 2, 3, 1100, 64, seed=7)
+    for causal in (True, False):
+        kw = dict(causal=causal, q_offset=1030, kv_len=1041)
+        torch.testing.assert_close(fa.split_kv_plain(q, k, v, **kw),
+                                   fa.flash_attention_plain(q, k, v, **kw),
+                                   atol=2e-5, rtol=0)
+
+
+def test_split_kv_model_matches_the_reference_cache_masks():
+    """The decomposition against the reference's dense cache path."""
+    rng = np.random.default_rng(11)
+    b, h, hkv, d, length, max_len = 2, 8, 2, 64, 150, 200
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    kv_pos = np.broadcast_to(np.arange(max_len), (b, max_len))
+    want = _sdpa_dense(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, h // hkv, axis=2)),
+        jnp.asarray(np.repeat(v, h // hkv, axis=2)),
+        q_positions=jnp.asarray(np.full((b, 1), length)),
+        kv_positions=jnp.asarray(kv_pos),
+        kv_valid=jnp.asarray(kv_pos < length + 1), causal=True, window=None)
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = fa.split_kv_plain(tq, tk, tv, causal=True, q_offset=length,
+                            kv_len=length + 1)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,h,hkv,sq,d,form", [
+    (torch.bfloat16, 32, 32, 1, 64, "split_kv"),      # zamba2 decode step
+    (torch.bfloat16, 32, 8, 4, 128, "split_kv"),      # 16 rows per kv head
+    (torch.bfloat16, 32, 8, 5, 128, "tensor_core"),   # 20 rows
+    (torch.bfloat16, 32, 32, 17, 64, "tensor_core"),  # 17 rows
+    (torch.bfloat16, 4, 4, 2048, 64, "tensor_core"),  # prefill
+    (torch.float32, 4, 4, 2048, 64, "simt"),          # f32 stays off TF32
+    (torch.float32, 4, 4, 1, 64, "simt"),
+    (torch.bfloat16, 4, 4, 64, 32, "simt"),           # D 32
+    (torch.bfloat16, 4, 4, 1, 8, "simt"),             # D 8
+])
+def test_kernel_form_dispatch(dtype, h, hkv, sq, d, form):
+    q = torch.zeros(1, sq, h, d, dtype=dtype).transpose(1, 2)
+    k = torch.zeros(1, 40, hkv, d, dtype=dtype).transpose(1, 2)
+    assert fa.kernel_form(q, k, k) == form
+
+
+def test_kernel_form_sends_unaligned_rows_to_the_cuda_core_form():
+    base = torch.zeros(1, 4, 4 * 64 + 4, dtype=torch.bfloat16)
+    q = base[:, :, :4 * 64].unflatten(-1, (4, 64)).transpose(1, 2)
+    assert q.stride(2) % 8 == 4 and q.stride(-1) == 1
+    k = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.kernel_form(q, k, k) == "simt"
+    assert fa.kernel_form(q.contiguous(), k, k) == "split_kv"
+
+
+def test_forms_count_nothing_on_the_cpu():
+    q, k, v = decode_case(1, 2, 2, 1, 64, 64, seed=3)
+    before = dict(fa.LAUNCHES_BY_FORM)
+    fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True,
+                       q_offset=10, kv_len=11)
+    assert fa.LAUNCHES_BY_FORM == before
+    assert set(before) == {"tensor_core", "split_kv", "simt"}

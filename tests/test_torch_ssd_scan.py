@@ -125,3 +125,58 @@ def test_wrapper_rejects_bad_arguments():
     before = dict(scan.LAUNCHES)
     scan.ssd_scan(x, la, bc, bc)
     assert scan.LAUNCHES == before  # the CPU path counts no launch
+
+
+def test_plain_takes_bf16_b_and_c_as_their_f32_values():
+    """bf16 b, c widen to f32 exactly: the same result, bit for bit, as
+    the f32-cast streams."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 100, 3, 8)).astype(
+        np.float32))
+    la = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((2, 100, 3)).astype(np.float32)))
+    b, c = (torch.from_numpy(rng.standard_normal((2, 100, 16)).astype(
+        np.float32) * 0.3).bfloat16() for _ in range(2))
+    h0 = torch.from_numpy(rng.standard_normal((2, 3, 16, 8)).astype(
+        np.float32))
+    y, f = scan.ssd_scan_plain(x, la, b, c, h0)
+    y32, f32 = scan.ssd_scan_plain(x, la, b.float(), c.float(), h0)
+    assert torch.equal(y, y32) and torch.equal(f, f32)
+    y_w, f_w = scan.ssd_scan(x, la, b, c, h0)   # the wrapper, CPU path
+    assert torch.equal(y_w, y) and torch.equal(f_w, f)
+
+
+@pytest.mark.parametrize("s", [64, 131], ids=["even", "prime"])
+def test_ssd_chunked_with_bf16_b_c_matches_the_reference(s):
+    """The model path: f32 x, bf16 b and c (as the served models hold
+    them), against the reference's ``ssd_chunked`` given the same bf16
+    streams."""
+    rng = np.random.default_rng(s + 1)
+    bsz, h, p, n = 2, 3, 8, 16
+    xh = rng.standard_normal((bsz, s, h, p)).astype(np.float32)
+    la = -np.logaddexp(0.0, rng.standard_normal((bsz, s, h))).astype(
+        np.float32)
+    b, c = (jnp.asarray(rng.standard_normal((bsz, s, n)) * 0.3, jnp.bfloat16)
+            for _ in range(2))
+    h0 = rng.standard_normal((bsz, h, n, p)).astype(np.float32)
+    y_ref, f_ref = ssd_chunked_ref(xh, la, b, c, 64, jnp.asarray(h0))
+    tb, tc = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+              for a in (b, c))
+    y, f = ssd_chunked(torch.from_numpy(xh), torch.from_numpy(la), tb, tc,
+                       torch.from_numpy(h0))
+    assert y.dtype == torch.float32
+    assert_scaled_close(y.numpy(), np.asarray(y_ref))
+    assert_scaled_close(f.numpy(), np.asarray(f_ref))
+
+
+def test_wrapper_checks_the_b_c_dtypes():
+    x = torch.zeros(1, 8, 2, 4)
+    la, bc = torch.zeros(1, 8, 2), torch.zeros(1, 8, 3)
+    with pytest.raises(TypeError, match="b and c dtypes differ"):
+        scan.ssd_scan(x, la, bc.bfloat16(), bc)
+    with pytest.raises(TypeError, match="c must be float32 or bfloat16"):
+        scan.ssd_scan(x, la, bc, bc.half())
+    with pytest.raises(TypeError, match="la must be float32"):
+        scan.ssd_scan(x, la.bfloat16(), bc, bc)
+    y, f = scan.ssd_scan(x.bfloat16(), la, bc.bfloat16(), bc.bfloat16())
+    assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
