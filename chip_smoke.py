@@ -12,9 +12,11 @@ with a non-zero exit:
 2. SDCM kernel vs its plain PyTorch version, per-reference form
    (``sdcm_hit_probs``): ~4M seeded distances at every Table-5 level
    geometry, gpu-sm's, A = 1, A = 64 and fully associative.
-3. The same, grid form (``sdcm_rates``): 4096 mixed-shape rows, plus
-   composition invariance (every row alone gives the bits it gives
-   inside the batch).
+3. The same, grid forms: 4096 mixed-shape rows through the per-group
+   form (``sdcm_rates``, one launch per row-shape group) and the ragged
+   form (``sdcm_rates_ragged``, every row in one launch), the two forms
+   bit for bit equal, plus composition invariance (every row alone
+   gives the bits it gives inside the batch, in both forms).
 4. The offline reuse-distance engine on the card against the same
    torch ops on the CPU, bit for bit, at 1M references.
 5. The reuse-histogram kernel (both flags: ``reuse_histogram_moments``
@@ -22,16 +24,20 @@ with a non-zero exit:
    distances plus every power of two and 2^k - 1 up to 2^30 and values
    past 2^31, with unit and fractional weights: counts exact, unit-weight
    masses exact below 2^53, the rest within rtol 1e-12, and two launches
-   bit-identical.
+   bit-identical; then on 2^24 copies of one distance (every lane of
+   every warp on one bin, its sum past 2^64), unit weights, exact at
+   every sum, and timed on 4096 distances (one block: a launch's own cost).
 6. Streaming reuse distances on the card (windows of 2^14 and 2^18) bit
    for bit against the in-memory engine on the card, at 1M references.
 7. The main path: ``Session(cache_model=AnalyticalSDCM("batched"),
    device="cuda").predict`` on polybench atx at ``validation-xxl``
    (1,082,640 references) over the three Table-5 CPUs x cores
    {1, 2, 4, 8} x round_robin, with the workload's op counts.  The
-   SDCM kernel's launch count and the reuse-distance device are read
-   around that run; hit rates are held against the float64 oracle
-   (``backend="numpy"``) on the same profiles.
+   SDCM kernel's launch count (exactly one ragged launch, no per-group
+   one) and the reuse-distance device are read around that run; hit
+   rates are held against the float64 oracle (``backend="numpy"``) on
+   the same profiles; the one ragged launch is timed at the path's own
+   rows, and the SDCM stage as a whole.
 8. The binned main path: the same request through
    ``Session(binned=True)``; hit rates within 1e-3 of the exact
    predict and within 1e-6 of the float64 oracle on the binned
@@ -81,8 +87,11 @@ with a non-zero exit:
     teacher-forced check.  More validation-xxl workloads follow while
     time allows.
 
-The last lines are the ``{"kernels": [...]}`` record, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+Every kernel's ``ms`` times 20 calls issued one by one (what a caller
+pays, host work included), its ``graph_ms`` the same calls replayed from
+a CUDA graph (the device time).  Every predict in 7-9 must make exactly
+one SDCM launch.  The last lines are the ``{"kernels": [...]}`` record,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -317,8 +326,13 @@ def random_rows(g: int, seed: int):
 
 
 def phase_rates(g: int = 4096, seed: int = 1):
-    from repro_torch.api.batched import pack_grid
-    from repro_torch.kernels.sdcm import sdcm_rates, sdcm_rates_plain
+    from repro_torch.api.batched import pack_grid, pack_ragged
+    from repro_torch.kernels.sdcm import (
+        sdcm_rates,
+        sdcm_rates_plain,
+        sdcm_rates_ragged,
+        sdcm_rates_ragged_plain,
+    )
 
     rows = random_rows(g, seed)
     groups = pack_grid(rows, device="cuda")
@@ -332,16 +346,28 @@ def phase_rates(g: int = 4096, seed: int = 1):
         batch[grp.rows] = got[:len(grp.rows)].cpu().numpy()
     if not np.isfinite(err) or err > RATE_TOL:
         fail(f"sdcm_rates: max |kernel - plain| = {err} > {RATE_TOL}")
+    ragged_args = pack_ragged(rows, device="cuda")
+    ragged = sdcm_rates_ragged(*ragged_args)
+    ragged_err = float((ragged - sdcm_rates_ragged_plain(*ragged_args))
+                       .abs().max())
+    if not ragged_err <= RATE_TOL:
+        fail(f"sdcm_rates_ragged: max |kernel - plain| = {ragged_err} > "
+             f"{RATE_TOL}")
+    if not np.array_equal(ragged.cpu().numpy(), batch):
+        fail("sdcm_rates_ragged gives other bits than sdcm_rates")
     mismatched = 0
     for i, row in enumerate(rows):
         (grp,) = pack_grid([row], device="cuda")
         alone = sdcm_rates(grp.d, grp.probs, grp.assoc, grp.blocks,
                            grp.a_max)[0].item()
-        mismatched += alone != batch[i]
+        alone_ragged = sdcm_rates_ragged(*pack_ragged([row],
+                                                      device="cuda")).item()
+        mismatched += alone != batch[i] or alone_ragged != batch[i]
     if mismatched:
         fail(f"composition invariance: {mismatched} of {g} rows give "
              "other bits alone than inside the batch")
     line("rates", rows=g, groups=len(groups), max_abs_err=err,
+         ragged_max_abs_err=ragged_err, ragged_equals_per_group=True,
          composition_invariant_rows=g)
 
 
@@ -367,26 +393,43 @@ def path_items(sess, w, req) -> list:
     ]
 
 
-def path_groups(sess, w, req) -> list:
-    """The SDCM kernel's row groups of one predict of ``req``."""
-    from repro_torch.api.batched import grid_rows, pack_grid
+def path_rows(sess, w, req) -> list:
+    """The SDCM rows of one predict of ``req``."""
+    from repro_torch.api.batched import grid_rows
 
-    return pack_grid(grid_rows(path_items(sess, w, req)), device="cuda")
+    return grid_rows(path_items(sess, w, req))
 
 
-def sdcm_at_path_shapes(groups, tag: str) -> float:
-    """``sdcm_rates`` against its plain version on one path's row
-    groups; returns the max |kernel - plain|."""
-    from repro_torch.kernels.sdcm import sdcm_rates, sdcm_rates_plain
+def sdcm_at_path_shapes(rows, tag: str) -> tuple[list, float]:
+    """Both grid forms against their plain versions on one path's rows:
+    ``sdcm_rates`` at each row-shape group, ``sdcm_rates_ragged`` at all
+    rows at once, and the two forms' bits equal.  Returns the groups'
+    signatures and the max |kernel - plain|."""
+    from repro_torch.api.batched import pack_grid, pack_ragged
+    from repro_torch.kernels.sdcm import (
+        sdcm_rates,
+        sdcm_rates_plain,
+        sdcm_rates_ragged,
+        sdcm_rates_ragged_plain,
+    )
 
+    groups = pack_grid(rows, device="cuda")
+    per_group = np.zeros(len(rows))
     err = 0.0
     for grp in groups:
         args = (grp.d, grp.probs, grp.assoc, grp.blocks, grp.a_max)
-        err = max(err, float((sdcm_rates(*args)
-                              - sdcm_rates_plain(*args)).abs().max()))
+        got = sdcm_rates(*args)
+        err = max(err, float((got - sdcm_rates_plain(*args)).abs().max()))
+        per_group[grp.rows] = got[:len(grp.rows)].cpu().numpy()
+    args = pack_ragged(rows, device="cuda")
+    ragged = sdcm_rates_ragged(*args)
+    err = max(err, float((ragged - sdcm_rates_ragged_plain(*args))
+                         .abs().max()))
     if not err <= RATE_TOL:
-        fail(f"sdcm_rates at {tag} shapes: {err} > {RATE_TOL}")
-    return err
+        fail(f"SDCM grid forms at {tag} shapes: {err} > {RATE_TOL}")
+    if not np.array_equal(ragged.cpu().numpy(), per_group):
+        fail(f"{tag}: sdcm_rates_ragged gives other bits than sdcm_rates")
+    return [list(g.signature[1:]) for g in groups], err
 
 
 def check_against_oracle(sess, w, req, res, tag: str) -> float:
@@ -409,7 +452,11 @@ def check_against_oracle(sess, w, req, res, tag: str) -> float:
 
 
 def phase_main_path():
-    from repro_torch.kernels.sdcm import sdcm_rates, sdcm_rates_plain
+    from repro_torch.api.batched import batched_hit_rates, pack_ragged
+    from repro_torch.kernels.sdcm import (
+        sdcm_rates_ragged,
+        sdcm_rates_ragged_plain,
+    )
 
     w, req, sess = main_path_session(MAIN_WORKLOAD)
 
@@ -424,60 +471,95 @@ def phase_main_path():
     cold_stats = dict(vars(sess.stats))
     peak = counts["max_memory_allocated"]
 
-    if launches["sdcm_rates"] <= 0:
-        fail(f"main path launched no SDCM kernel: {launches}")
+    one_sdcm_launch(launches, MAIN_WORKLOAD)
     if passes.get("cuda", 0) <= 0 or passes.get("cpu", 0):
         fail(f"reuse distances not computed on the GPU: {passes}")
 
+    reset_counts()
     t0 = time.perf_counter()
     res_warm = sess.predict(w, req)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     warm_stages = {k: v - cold_stages.get(k, 0.0)
                    for k, v in sess.stage_seconds.items()}
+    one_sdcm_launch(read_counts()["launches"], f"{MAIN_WORKLOAD} (warm)")
     if res_warm.to_json() != res.to_json():
         fail("warm predict differs from cold predict")
+    # ten more warm predicts: the spread, and each stage's mean
+    before = dict(sess.stage_seconds)
+    warm_more = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        sess.predict(w, req)
+        torch.cuda.synchronize()
+        warm_more.append(time.perf_counter() - t0)
+    warm_stage_mean = {k: (v - before.get(k, 0.0)) / 10
+                       for k, v in sess.stage_seconds.items()}
     worst = check_against_oracle(sess, w, req, res, MAIN_WORKLOAD)
     line("main_path", workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
          refs=len(sess.load(w)[1]), cells=len(res), cold_s=cold_s,
          warm_s=warm_s, cold_stage_s=cold_stages, warm_stage_s=warm_stages,
+         warm_s_more=warm_more, warm_stage_s_mean=warm_stage_mean,
          max_memory_allocated=peak, stats=cold_stats,
          launches=launches, rd_passes=passes,
          max_abs_err_vs_oracle=worst)
     print(res.to_table(), flush=True)
 
-    # the kernel at the main path's own shapes: one predict's SDCM stage
-    groups = path_groups(sess, w, req)
-    ms = plain_ms = 0.0
-    err = sdcm_at_path_shapes(groups, MAIN_WORKLOAD)
-    nbytes = ops = 0.0
-    for grp in groups:
-        args = (grp.d, grp.probs, grp.assoc, grp.blocks, grp.a_max)
-        ms += cuda_ms(lambda: sdcm_rates(*args), reps=200, warmup=10)
-        plain_ms += cuda_ms(lambda: sdcm_rates_plain(*args), reps=20)
-        g, m = grp.d.shape
-        nbytes += 8.0 * (2 * g * m + 3 * g)
-        d = grp.d.cpu().numpy()
-        a = np.broadcast_to(grp.assoc.cpu().numpy()[:, None], d.shape)
-        b = np.broadcast_to(grp.blocks.cpu().numpy()[:, None], d.shape)
-        ops += phit_terms(d, a, b) * OPS_PER_TERM + 2.0 * g * m
-    b_ms, b_by = bound_ms(nbytes, ops)
-    line("main_path_kernel", groups=[list(g.signature[1:]) for g in groups],
-         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-         max_abs_err=err)
+    # the kernel at the main path's own rows: one predict's SDCM stage
+    rows = path_rows(sess, w, req)
+    groups, err = sdcm_at_path_shapes(rows, MAIN_WORKLOAD)
+    args = pack_ragged(rows, device="cuda")
+    d, _, meta = (t.cpu().numpy() for t in args)
+    off, length = meta[:, 0].astype(np.int64), meta[:, 1].astype(np.int64)
+    row_of = np.repeat(np.arange(len(rows)), length)
+    terms = phit_terms(d, meta[row_of, 2], meta[row_of, 3])
+    nbytes = 8.0 * (2 * d.size + meta.size + len(rows))
+    b_ms, b_by = bound_ms(nbytes, terms * OPS_PER_TERM + 2.0 * d.size)
+    items = path_items(sess, w, req)
+
+    def host_ms(fn, reps: int = 20) -> float:
+        """Host clock per call, the calls ending synchronised."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # the SDCM stage (pack, copy, launch, copy back) and its parts
+    stage = dict(
+        stage_ms=host_ms(lambda: batched_hit_rates(items, device="cuda")),
+        pack_ms=host_ms(lambda: pack_ragged(rows, device="cuda")),
+        launch_and_copy_back_ms=host_ms(
+            lambda: sdcm_rates_ragged(*args).cpu()))
+    rec = dict(
+        ms=cuda_ms(lambda: sdcm_rates_ragged(*args), reps=200, warmup=10),
+        graph_ms=graph_ms(lambda: sdcm_rates_ragged(*args)),
+        plain_ms=cuda_ms(lambda: sdcm_rates_ragged_plain(*args), reps=20),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    line("main_path_kernel", rows=len(rows), entries=int(d.size),
+         groups=groups, launches_per_predict=launches["sdcm_rates_ragged"],
+         **stage, **rec)
     return res, {
-        "name": "sdcm_rates",
+        "name": "sdcm_rates_ragged",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sdcm/csrc/sdcm.cu",
         "replaces": "src/repro/kernels/sdcm/sdcm.py:32",
-        "launches": launches["sdcm_rates"],
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "launches": launches["sdcm_rates_ragged"],
+        **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")},
         "library_ms": None,
+        "graph_ms": rec["graph_ms"],
     }
+
+
+def one_sdcm_launch(launches: dict, tag: str) -> None:
+    """A predict evaluates its whole SDCM grid in one ragged launch."""
+    if launches["sdcm_rates_ragged"] != 1 or launches["sdcm_rates"]:
+        fail(f"{tag}: a predict made {launches['sdcm_rates_ragged']} ragged "
+             f"and {launches['sdcm_rates']} per-group SDCM launches, "
+             f"expected exactly 1 ragged: {launches}")
 
 
 # --- the reuse-histogram kernel (B2/B3) --------------------------------------
@@ -544,6 +626,7 @@ def time_hist(d: torch.Tensor, w, moments: bool) -> dict:
     return dict(
         n=d.numel(), weights="unit" if w is None else "fractional",
         max_abs_err=err, ms=cuda_ms(lambda: fn(d, w)),
+        graph_ms=graph_ms(lambda: fn(d, w)),
         plain_ms=cuda_ms(lambda: plain(d, w), reps=5, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(library),
@@ -565,6 +648,24 @@ def phase_reuse_hist(seed: int = 3):
         for weights in (None, w):
             line("reuse_hist", kernel=fn.__name__, bit_reproducible=True,
                  **time_hist(d, weights, moments))
+    # one block's worth (4096 distances): the cost of a launch itself
+    for moments in (True, False):
+        fn = rh.reuse_histogram_moments if moments else rh.reuse_histogram
+        line("reuse_hist", kernel=fn.__name__, input="one_block",
+             **time_hist(d[:4096].clone(), None, moments))
+    # the contention worst case: every lane of every warp on one bin, and
+    # the bin's sum (2^24 (2^40 + 7)) past 2^64
+    one = torch.full((HIST_N,), (1 << 40) + 7, dtype=torch.int64,
+                     device="cuda")
+    for moments in (True, False):
+        fn = rh.reuse_histogram_moments if moments else rh.reuse_histogram
+        plain = (rh.reuse_histogram_moments_plain if moments
+                 else rh.reuse_histogram_plain)
+        first, second = fn(one), fn(one)
+        if not (torch.equal(first, plain(one)) and torch.equal(first, second)):
+            fail(f"{fn.__name__}: one-bin input not exact or not reproducible")
+        line("reuse_hist", kernel=fn.__name__, input="one_bin",
+             bit_reproducible=True, exact=True, **time_hist(one, None, moments))
 
 
 def phase_streaming_distances(n: int = 1 << 20, seed: int = 4):
@@ -642,13 +743,16 @@ def drive(tag: str, needs: tuple, **session_kw):
     for name in needs:
         if counts["launches"][name] <= 0:
             fail(f"{tag} launched no {name} kernel: {counts['launches']}")
+    one_sdcm_launch(counts["launches"], tag)
     passes = counts["rd_passes"]
     if passes.get("cuda", 0) <= 0 or passes.get("cpu", 0):
         fail(f"{tag}: reuse distances not computed on the GPU: {passes}")
+    reset_counts()
     t0 = time.perf_counter()
     res_warm = sess.predict(w, req)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    one_sdcm_launch(read_counts()["launches"], f"{tag} (warm)")
     if res_warm.to_json() != res.to_json():
         fail(f"{tag}: warm predict differs from cold predict")
     line(tag, workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
@@ -676,11 +780,10 @@ def path_checks(sess, w, req, res, tag: str) -> dict:
     """The SDCM stage of one path held against the float64 oracle on
     that path's own profiles, and the kernel against its plain version
     at that path's row groups."""
-    groups = path_groups(sess, w, req)
+    groups, err = sdcm_at_path_shapes(path_rows(sess, w, req), tag)
     return dict(
         max_abs_err_vs_oracle=check_against_oracle(sess, w, req, res, tag),
-        sdcm_groups=[list(g.signature[1:]) for g in groups],
-        sdcm_max_abs_err=sdcm_at_path_shapes(groups, tag),
+        sdcm_groups=groups, sdcm_max_abs_err=err,
     )
 
 
@@ -688,7 +791,7 @@ def phase_binned_main_path(exact):
     from repro_torch.core.reuse.distance import reuse_distances
 
     w, req, sess, res, counts = drive(
-        "binned_main_path", ("reuse_hist_moments", "sdcm_rates"),
+        "binned_main_path", ("reuse_hist_moments", "sdcm_rates_ragged"),
         binned=True)
     worst = close_to_exact(res, exact, "binned")
     checks = path_checks(sess, w, req, res, "binned")
@@ -707,9 +810,10 @@ def phase_binned_main_path(exact):
             "replaces": f"src/repro/kernels/reuse_hist/reuse_hist.py:{src_line}",
             "launches": counts["launches"][name],
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "graph_ms")},
         })
-    return sess, records, {"sdcm_rates": checks["sdcm_max_abs_err"]}
+    return sess, records, {"sdcm_rates_ragged": checks["sdcm_max_abs_err"]}
 
 
 def window_hist_checks(sess, w, cores: int) -> dict:
@@ -738,13 +842,14 @@ def window_hist_checks(sess, w, cores: int) -> dict:
 def phase_streaming_main_path(exact, binned_sess) -> dict:
     """Both streaming paths; returns each kernel's worst |kernel -
     plain| at these paths' own inputs."""
-    _, _, _, res, _ = drive("streaming_main_path", ("sdcm_rates",),
+    _, _, _, res, _ = drive("streaming_main_path", ("sdcm_rates_ragged",),
                             window_size=STREAM_WINDOW)
     if res.to_json() != exact.to_json():
         fail("exact streaming predict differs from the in-memory one")
     line("streaming_vs_in_memory", bit_identical=True)
     w, req, sess, res_b, _ = drive(
-        "binned_streaming_main_path", ("reuse_hist_moments", "sdcm_rates"),
+        "binned_streaming_main_path",
+        ("reuse_hist_moments", "sdcm_rates_ragged"),
         binned=True, window_size=STREAM_WINDOW)
     for cell in req.cells():
         kw = dict(strategy=cell.strategy,
@@ -762,7 +867,7 @@ def phase_streaming_main_path(exact, binned_sess) -> dict:
          max_abs_diff_vs_exact=close_to_exact(res_b, exact,
                                               "binned streaming"),
          window_hist=hist, **checks)
-    return {"sdcm_rates": checks["sdcm_max_abs_err"],
+    return {"sdcm_rates_ragged": checks["sdcm_max_abs_err"],
             "reuse_hist_moments": hist["max_abs_err"]}
 
 

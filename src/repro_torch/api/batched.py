@@ -26,11 +26,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.sdcm import a_max_bucket, sdcm_rates
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(n - 1, 1).bit_length()
+from repro_torch.kernels.sdcm import (
+    META_COLUMNS,
+    a_max_bucket,
+    sdcm_rates_ragged,
+)
+from repro_torch.kernels.sdcm import pow2 as _pow2
 
 
 def pack_profiles(profiles, m: int, *, device
@@ -76,7 +77,7 @@ class GridGroup:
 
     @property
     def signature(self) -> tuple:
-        return ("grid", self.a_max, self.d.shape[0], self.d.shape[1])
+        return group_signature(self.a_max, self.d.shape[1], len(self.rows))
 
 
 def grid_rows(items) -> list[tuple]:
@@ -95,14 +96,25 @@ def grid_rows(items) -> list[tuple]:
     return rows
 
 
-def pack_grid(rows, *, device) -> list[GridGroup]:
-    """Group rows by :func:`_row_shape_key` and pad each group's row
-    count to a power of two with inert rows (probs 0)."""
+def row_groups(rows) -> dict[tuple[int, int], list[int]]:
+    """Row indices by :func:`_row_shape_key`, in first-seen order."""
     groups: dict[tuple[int, int], list[int]] = {}
     for ri, (_ci, _name, prof, assoc, blocks) in enumerate(rows):
         groups.setdefault(_row_shape_key(prof, assoc, blocks), []).append(ri)
+    return groups
+
+
+def group_signature(a_max: int, m: int, rows: int) -> tuple:
+    """The reference's launch signature of a row-shape group."""
+    return ("grid", a_max, _pow2(rows), m)
+
+
+def pack_grid(rows, *, device) -> list[GridGroup]:
+    """Group rows by :func:`_row_shape_key` and pad each group's row
+    count to a power of two with inert rows (probs 0): the inputs of the
+    per-group form ``sdcm_rates``."""
     out = []
-    for (a_max, m), idxs in groups.items():
+    for (a_max, m), idxs in row_groups(rows).items():
         g = _pow2(len(idxs))
         pad = g - len(idxs)
         profs = [rows[i][2] for i in idxs]
@@ -122,28 +134,54 @@ def pack_grid(rows, *, device) -> list[GridGroup]:
     return out
 
 
+def pack_ragged(rows, *, device) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Every row back to back: (distances [T], probs [T], meta [R, 5]),
+    float64 on ``device``, views of one buffer filled on the host (in
+    pinned memory for a card) and copied in one non-blocking copy.  Row
+    ``r`` of ``meta`` is row ``r`` of ``rows``."""
+    device = torch.device(device)
+    lens = np.array([len(r[2].distances) for r in rows], dtype=np.int64)
+    n_rows, total = len(rows), int(lens.sum())
+    width = len(META_COLUMNS)
+    host = torch.empty(width * n_rows + 2 * total, dtype=torch.float64,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    meta = buf[:width * n_rows].reshape(n_rows, width)
+    meta[:, 0] = np.cumsum(lens) - lens
+    meta[:, 1] = lens
+    meta[:, 2] = [r[3] for r in rows]
+    meta[:, 3] = [r[4] for r in rows]
+    meta[:, 4] = [a_max_bucket(int(r[3]), int(r[4])) for r in rows]
+    d = buf[width * n_rows:width * n_rows + total]
+    pr = buf[width * n_rows + total:]
+    if total:
+        np.concatenate([r[2].distances for r in rows], out=d,
+                       casting="unsafe")
+        np.concatenate([r[2].probabilities for r in rows], out=pr)
+    dev = host.to(device, non_blocking=True)
+    return (dev[width * n_rows:width * n_rows + total],
+            dev[width * n_rows + total:],
+            dev[:width * n_rows].view(n_rows, width))
+
+
 def batched_hit_rates(items, *, device) -> list[dict[str, float]]:
-    """Evaluate SDCM for every level of every (target, artifacts) cell,
-    one kernel launch per row-shape group on ``device``.  Returns one
+    """Evaluate SDCM for every level of every (target, artifacts) cell
+    in one kernel launch on ``device``: one copy of the packed rows to
+    the device, one launch, one copy of the rates back.  Returns one
     {level: hit_rate} dict per cell.
 
-    Rows are grouped by :func:`_row_shape_key` and the row count of
-    each group is padded to a power of two, so both the launch-shape
-    set AND each row's numerics are independent of batch composition.
+    Each row-shape group of the reference is recorded as its launch
+    signature, so ``SessionStats.kernel_shapes`` counts what the
+    reference's compile accounting counts.
     """
     rows = grid_rows(items)
     if not rows:
         return [{} for _ in items]
-    groups = pack_grid(rows, device=torch.device(device))
-    launched = []
-    for grp in groups:
-        _record_signature(grp.signature)
-        launched.append(
-            sdcm_rates(grp.d, grp.probs, grp.assoc, grp.blocks, grp.a_max)
-        )
-    rates = np.zeros(len(rows), dtype=np.float64)
-    for grp, out in zip(groups, launched):
-        rates[grp.rows] = out[:len(grp.rows)].cpu().numpy()
+    for (a_max, m), idxs in row_groups(rows).items():
+        _record_signature(group_signature(a_max, m, len(idxs)))
+    rates = sdcm_rates_ragged(*pack_ragged(rows, device=device))
+    rates = rates.cpu().numpy()
     # empty-profile rows (total == 0) follow the oracle: hit rate 0
     empty = np.array([r[2].total == 0 for r in rows])
     rates = np.where(empty, 0.0, rates)
@@ -158,16 +196,16 @@ def batched_hit_rates(items, *, device) -> list[dict[str, float]]:
 #
 # The reference counts distinct jit compilations per (A_MAX bucket, G,
 # M) signature so a warm sweep can assert "compiles nothing".  The
-# kernel here is compiled once per A_MAX bucket, but the signature set
-# is kept with the same keys: it counts the distinct launch shapes a
-# session has seen, and a warm sweep must add none
+# kernel here is compiled once and launched once per predict, but the
+# signature set is kept with the same keys: it counts the distinct
+# row-shape groups a session has seen, and a warm sweep must add none
 # (``SessionStats.kernel_shapes``).
 
 _SHAPES: set[tuple] = set()
 
 
 def _record_signature(sig: tuple) -> int:
-    """Record the launch shape a dispatch lands on; 1 if new."""
+    """Record a row-shape group's signature; 1 if new."""
     if sig in _SHAPES:
         return 0
     _SHAPES.add(sig)
@@ -175,5 +213,5 @@ def _record_signature(sig: tuple) -> int:
 
 
 def shape_count() -> int:
-    """Number of distinct launch shapes seen so far."""
+    """Number of distinct row-shape group signatures seen so far."""
     return len(_SHAPES)

@@ -20,9 +20,10 @@ lands one bin off at some powers of two >= 2^13 and at 2^k - 1 for
 k >= 21 (ROADMAP C2), so at those distances the two packages' binned
 profiles differ by design.
 
-Counts and masses accumulate in double: with the pipeline's unit
-weights they are exact integers below 2^53 per bin (the reference's
-float32 accumulator is exact only to 2^24).
+With the pipeline's unit weights each update's counts and masses are
+exact integers rounded to double once, and the accumulator adds them in
+double: exact below 2^53 per bin (the reference's float32 accumulator
+is exact only to 2^24).
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ class FusedReuseHistogram:
 
     ``update`` takes any distance tensor or array and folds it into the
     float64 ``[2, NUM_BINS]`` tensor on the device (one kernel launch on
-    the GPU); ``profile()`` performs the only device->host transfer.
+    the GPU, which adds into the tensor as it writes);
+    ``profile()`` performs the only device->host transfer.
     """
 
     def __init__(self, device=None):
@@ -62,7 +64,7 @@ class FusedReuseHistogram:
             return self
         if w is not None:
             w = torch.as_tensor(w).to(self.device)
-        self._hist += reuse_histogram_moments(d.to(self.device), w)
+        reuse_histogram_moments(d.to(self.device), w, out=self._hist)
         return self
 
     def histogram(self) -> np.ndarray:

@@ -18,11 +18,15 @@ through a float32 ``log2`` and lands one bin off at some powers of two
 C2); the port follows the rule at every int64 distance.
 
 Distances are integers: int64 is read as it is, other types are cast to
-int64 (floats truncate).  Weights are float32 (as in the reference) and
-every sum is taken in double.  With unit weights (``w=None``) every
-partial sum below 2^53 is an exact integer, so the result is
-bit-reproducible; fractional weights may differ in the last bits from
-run to run (the kernel's atomics add in no fixed order).
+int64 (floats truncate).  With unit weights (``w=None``) counts and
+masses are summed as integers and each bin is rounded to float64 once,
+so the result is bit-reproducible and the kernel equals the plain
+version bit for bit at every sum.  Weights are float32 (as in the
+reference) and their sums are taken in double, in a fixed order on the
+card, within rtol 1e-12 of the plain version.
+
+``out=`` adds the histogram into a float64 tensor in place (the kernel
+adds as it writes, so an accumulator costs no extra pass).
 
 A wrapper given CPU tensors returns the plain version
 (:func:`reuse_histogram_moments_plain`, :func:`reuse_histogram_plain`);
@@ -43,9 +47,10 @@ NUM_BINS = 64
 #: Kernel launches per entry point; only a wrapper's launch adds to it.
 LAUNCHES = {"reuse_hist_moments": 0, "reuse_hist": 0}
 
-_THREADS = 256          # threads per block (csrc/reuse_hist.cu kThreads)
-_PER_THREAD = 16        # distances per thread before the grid is capped
-_MAX_CTAS = 1024        # blocks of pass 1 = rows of the partials buffer
+_THREADS = 512          # threads per block (csrc/reuse_hist.cu kThreads)
+_PER_THREAD = 8         # distances per thread before the grid is capped
+_MAX_CTAS = 1024        # blocks: 7.75 per SM on 132 SMs, then grid-stride
+_LIMB = (1 << 21) - 1   # limb of the exact integer mass
 
 
 # --- plain PyTorch versions --------------------------------------------------
@@ -65,25 +70,49 @@ def bin_ids_plain(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d < 0, 0, bits)
 
 
+def _exact_mass(bins: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Per-bin sum of the non-negative distances, as exact integers rounded
+    to float64 once.  Each distance is cut into three 21-bit limbs, whose
+    per-bin sums stay below 2^53 (for fewer than 2^32 distances) and so
+    are exact in any order; Python integers put them together."""
+    x = d.clamp_min(0)
+    limbs = [torch.bincount(bins, weights=((x >> s) & _LIMB).to(torch.float64),
+                            minlength=NUM_BINS).tolist()
+             for s in (0, 21, 42)]
+    sums = [int(a) + (int(b) << 21) + (int(c) << 42) for a, b, c in zip(*limbs)]
+    return torch.tensor([float(v) for v in sums], dtype=torch.float64,
+                        device=d.device)
+
+
+def _counts(bins: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:
+    if w is None:
+        return torch.bincount(bins, minlength=NUM_BINS).to(torch.float64)
+    # (bincount of an empty input comes back int64 whatever the weights)
+    return torch.bincount(bins, weights=w.to(torch.float64),
+                          minlength=NUM_BINS).to(torch.float64)
+
+
 def reuse_histogram_moments_plain(d: torch.Tensor, w: torch.Tensor | None = None
                                   ) -> torch.Tensor:
     """``[2, NUM_BINS]`` float64 counts and finite-distance mass, by
-    ``torch.bincount`` over :func:`bin_ids_plain`."""
+    ``torch.bincount`` over :func:`bin_ids_plain`; unit-weight sums are
+    exact integers rounded once (:func:`_exact_mass`)."""
     d, w = _flat(d, w)
     bins = bin_ids_plain(d)
-    wt = (torch.ones(d.shape, dtype=torch.float64, device=d.device)
-          if w is None else w.to(torch.float64))
-    counts = torch.bincount(bins, weights=wt, minlength=NUM_BINS)
-    mass = torch.bincount(bins, weights=wt * d.clamp_min(0).to(torch.float64),
-                          minlength=NUM_BINS)
-    # (bincount of an empty input comes back int64 whatever the weights)
-    return torch.stack([counts, mass]).to(torch.float64)
+    if w is None:
+        mass = _exact_mass(bins, d)
+    else:
+        mass = torch.bincount(
+            bins, weights=w.to(torch.float64) * d.clamp_min(0).to(torch.float64),
+            minlength=NUM_BINS).to(torch.float64)
+    return torch.stack([_counts(bins, w), mass])
 
 
 def reuse_histogram_plain(d: torch.Tensor, w: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """``[NUM_BINS]`` float64 weighted counts (row 0 of the moments)."""
-    return reuse_histogram_moments_plain(d, w)[0]
+    d, w = _flat(d, w)
+    return _counts(bin_ids_plain(d), w)
 
 
 # --- the CUDA kernel ---------------------------------------------------------
@@ -93,11 +122,23 @@ def reuse_histogram_plain(d: torch.Tensor, w: torch.Tensor | None = None
 def _lib() -> ctypes.CDLL:
     lib = build.load("reuse_hist")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.reuse_hist.argtypes = [vp, vp, ctypes.c_int64, ci, vp, ci, vp, vp]
+    lib.reuse_hist.argtypes = [vp, vp, ctypes.c_int64, ci, ci, vp, vp, vp, ci,
+                               vp]
     lib.reuse_hist.restype = ci
+    lib.reuse_hist_acc_bytes.argtypes = []
+    lib.reuse_hist_acc_bytes.restype = ctypes.c_int64
     lib.reuse_hist_error_string.argtypes = [ci]
     lib.reuse_hist_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _accumulator(device: torch.device) -> torch.Tensor:
+    """The unit-weight kernel's integer accumulator on ``device``: zeroed
+    once here, and left at zero by every launch (its last block clears
+    it), so launches on one device must be ordered on one stream."""
+    words = -(-_lib().reuse_hist_acc_bytes() // 8)
+    return torch.zeros(words, dtype=torch.int64, device=device)
 
 
 def _flat(d, w):
@@ -127,22 +168,47 @@ def ctas_for(n: int) -> int:
     return max(1, min(-(-n // (_THREADS * _PER_THREAD)), _MAX_CTAS))
 
 
-def _launch(d: torch.Tensor, w: torch.Tensor | None, moments: bool
-            ) -> torch.Tensor:
-    rows = 2 if moments else 1
+def _check_out(out: torch.Tensor, shape: tuple, device) -> None:
+    if not isinstance(out, torch.Tensor):
+        raise TypeError("out must be a tensor")
+    if (out.dtype != torch.float64 or tuple(out.shape) != shape
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float64 tensor of shape "
+                         f"{shape} on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
+def _histogram(d, w, moments: bool, out) -> torch.Tensor:
+    d, w = _flat(d, w)
     shape = (2, NUM_BINS) if moments else (NUM_BINS,)
-    out = torch.zeros(shape, dtype=torch.float64, device=d.device)
+    if out is not None:
+        _check_out(out, shape, d.device)
+    if d.device.type == "cpu":
+        plain = (reuse_histogram_moments_plain(d, w) if moments
+                 else reuse_histogram_plain(d, w))
+        return plain if out is None else out.add_(plain)
     n = d.numel()
     if n == 0:
-        return out
+        return (torch.zeros(shape, dtype=torch.float64, device=d.device)
+                if out is None else out)
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float64, device=d.device)
     ctas = ctas_for(n)
-    partials = torch.empty((ctas, rows * NUM_BINS), dtype=torch.float64,
-                           device=d.device)
+    partials = acc = None
+    if w is None:
+        acc = _accumulator(d.device)
+    else:
+        partials = torch.empty((ctas, shape[0] * NUM_BINS),
+                               dtype=torch.float64, device=d.device)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         code = _lib().reuse_hist(
             d.data_ptr(), None if w is None else w.data_ptr(), n,
-            int(moments), partials.data_ptr(), ctas, out.data_ptr(), stream,
+            int(moments), ctas,
+            None if partials is None else partials.data_ptr(),
+            None if acc is None else acc.data_ptr(),
+            out.data_ptr(), int(accumulate), stream,
         )
     if code:
         msg = _lib().reuse_hist_error_string(code).decode()
@@ -151,22 +217,19 @@ def _launch(d: torch.Tensor, w: torch.Tensor | None, moments: bool
     return out
 
 
-def reuse_histogram_moments(d: torch.Tensor, w: torch.Tensor | None = None
+def reuse_histogram_moments(d: torch.Tensor, w: torch.Tensor | None = None,
+                            *, out: torch.Tensor | None = None
                             ) -> torch.Tensor:
     """Per-bin weighted counts (row 0) and weighted finite-distance mass
     (row 1) of a distance tensor: float64 ``[2, NUM_BINS]`` on its
-    device.  ``w=None`` is unit weights (no weight array is read)."""
-    d, w = _flat(d, w)
-    if d.device.type == "cpu":
-        return reuse_histogram_moments_plain(d, w)
-    return _launch(d, w, moments=True)
+    device.  ``w=None`` is unit weights (no weight array is read).  With
+    ``out``, the histogram is added into it in place and it is returned."""
+    return _histogram(d, w, True, out)
 
 
-def reuse_histogram(d: torch.Tensor, w: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+def reuse_histogram(d: torch.Tensor, w: torch.Tensor | None = None,
+                    *, out: torch.Tensor | None = None) -> torch.Tensor:
     """Per-bin weighted counts of a distance tensor: float64
-    ``[NUM_BINS]`` on its device; bin 0 is the D = inf mass."""
-    d, w = _flat(d, w)
-    if d.device.type == "cpu":
-        return reuse_histogram_plain(d, w)
-    return _launch(d, w, moments=False)
+    ``[NUM_BINS]`` on its device; bin 0 is the D = inf mass.  ``out`` as
+    in :func:`reuse_histogram_moments`."""
+    return _histogram(d, w, False, out)

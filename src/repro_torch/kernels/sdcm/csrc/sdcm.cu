@@ -10,7 +10,7 @@
 //   * src/repro/api/batched.py::_phit_row / _grid_fn — the vmapped
 //     per-row form with run-time A and B that the served grid evaluates
 //     (padded [G, M] profiles, Eq. 3 row sums).
-// One device function, sdcm_phit<A_MAX>, serves both entry points: A and
+// One device function, sdcm_phit<A_MAX>, serves every entry point: A and
 // B arrive at run time, and the template bucket A_MAX (8/16/32/64) only
 // bounds the unrolled term loop.
 //
@@ -32,17 +32,25 @@
 // What bounds it on the card: the per-reference form (sdcm_hit_probs)
 // reads 4 and writes 4 bytes per element but evaluates ~2·A double
 // log/exp per element, so it is bound by operations, not bytes.  The grid
-// form at the prediction path's size (tens of rows x M <= 256) is bound
-// by its launch: a few microseconds of fixed cost against well under a
-// microsecond of arithmetic.
+// form at the prediction path's size (tens of rows, a few thousand
+// entries) is far below a microsecond of work at either bound; what a
+// predict paid for it was the host: four launches (one per row-shape
+// group), three copies and one synchronisation each.
 //
-// Design: this is the first, simple version.  The grid form runs one
-// block per row; each thread folds a strided slice of the row in a fixed
-// order, and a shared-memory tree combines the partial sums in a fixed
-// order — no atomics — so a row's bits depend on that row alone and are
-// the same whether it is launched alone or inside any batch
-// (composition invariance).  There is no matrix product, so wgmma and TMA
-// do not apply.
+// Design: each row folds in one block: each thread takes a strided slice
+// of the row in a fixed order, and a shared-memory tree combines the
+// partial sums in a fixed order — no atomics — so a row's bits depend on
+// that row alone and are the same whether it is launched alone or inside
+// any batch (composition invariance).  Two grid entry points share that
+// fold (rate_row):
+//   * sdcm_rates — one row-shape group, padded [G, M], one A_MAX bucket;
+//   * sdcm_rates_ragged — every row of a predict in one launch: rows lie
+//     back to back at their own lengths, and a per-row record gives the
+//     offset, length, A, B and A_MAX bucket.  Each block branches once,
+//     block-uniformly, on its row's bucket.  A padded group's padding
+//     entries (probability 0) add +0.0 to a thread's sum, so a row gives
+//     the same bits in both forms.
+// There is no matrix product, so wgmma and TMA do not apply.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -53,6 +61,7 @@ namespace {
 constexpr int kRateThreads = 128;   // threads per row in the grid form
 constexpr int kProbThreads = 256;   // threads per block, per-reference form
 constexpr int64_t kMaxProbBlocks = 1 << 20;
+constexpr int kMetaWidth = 5;       // (offset, length, A, B, A_MAX) a row
 
 template <int A_MAX>
 __device__ __forceinline__ double sdcm_phit(double d, double assoc,
@@ -77,6 +86,27 @@ __device__ __forceinline__ double sdcm_phit(double d, double assoc,
   return fmin(acc, 1.0);
 }
 
+// Eq. 3 fold of one row of ``len`` entries; every thread of the block
+// calls it and gets the row's rate.
+template <int A_MAX>
+__device__ __forceinline__ double rate_row(const double* __restrict__ dr,
+                                           const double* __restrict__ pr,
+                                           int64_t len, double a, double b,
+                                           double* part) {
+  double s = 0.0;
+  for (int64_t i = threadIdx.x; i < len; i += kRateThreads) {
+    s += pr[i] * sdcm_phit<A_MAX>(dr[i], a, b);
+  }
+  part[threadIdx.x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int off = kRateThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) part[threadIdx.x] += part[threadIdx.x + off];
+    __syncthreads();
+  }
+  return part[0];
+}
+
 // Grid form: rates[g] = sum_m probs[g, m] * P(h | d[g, m]; assoc[g], blocks[g]).
 template <int A_MAX>
 __global__ void __launch_bounds__(kRateThreads)
@@ -87,22 +117,36 @@ sdcm_rates_kernel(const double* __restrict__ d,
                   double* __restrict__ rates, int m) {
   __shared__ double part[kRateThreads];
   const int g = blockIdx.x;
-  const double a = assoc[g];
-  const double b = blocks[g];
-  const double* dr = d + (int64_t)g * m;
-  const double* pr = probs + (int64_t)g * m;
-  double s = 0.0;
-  for (int i = threadIdx.x; i < m; i += kRateThreads) {
-    s += pr[i] * sdcm_phit<A_MAX>(dr[i], a, b);
+  const double r = rate_row<A_MAX>(d + (int64_t)g * m, probs + (int64_t)g * m,
+                                   m, assoc[g], blocks[g], part);
+  if (threadIdx.x == 0) rates[g] = r;
+}
+
+// Ragged grid form: row r is d[off, off + len) with meta[r] = (off, len,
+// A, B, A_MAX) as doubles (exact integers).  A record out of [0, total)
+// or with another bucket gives NaN, as a wrong bucket does.
+__global__ void __launch_bounds__(kRateThreads)
+sdcm_rates_ragged_kernel(const double* __restrict__ d,
+                         const double* __restrict__ probs,
+                         const double* __restrict__ meta, int64_t total,
+                         double* __restrict__ rates) {
+  __shared__ double part[kRateThreads];
+  const double* rec = meta + (int64_t)blockIdx.x * kMetaWidth;
+  const int64_t off = (int64_t)rec[0], len = (int64_t)rec[1];
+  const double a = rec[2], b = rec[3];
+  double r = CUDART_NAN;
+  if (off >= 0 && len >= 0 && off + len <= total) {
+    const double* dr = d + off;
+    const double* pr = probs + off;
+    switch ((int)rec[4]) {  // the same for every thread of the block
+      case 8: r = rate_row<8>(dr, pr, len, a, b, part); break;
+      case 16: r = rate_row<16>(dr, pr, len, a, b, part); break;
+      case 32: r = rate_row<32>(dr, pr, len, a, b, part); break;
+      case 64: r = rate_row<64>(dr, pr, len, a, b, part); break;
+      default: break;
+    }
   }
-  part[threadIdx.x] = s;
-  __syncthreads();
-#pragma unroll
-  for (int off = kRateThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) part[threadIdx.x] += part[threadIdx.x + off];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) rates[g] = part[0];
+  if (threadIdx.x == 0) rates[blockIdx.x] = r;
 }
 
 // Per-reference form: out[i] = P(h | d[i]) for one (assoc, blocks).
@@ -142,6 +186,16 @@ int sdcm_rates(const void* d, const void* probs, const void* assoc,
       (const double*)blocks, (double*)rates, m)
   SDCM_DISPATCH(a_max, SDCM_RATES_LAUNCH)
 #undef SDCM_RATES_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// d, probs: double [total]; meta: double [rows, 5]; rates: double [rows].
+int sdcm_rates_ragged(const void* d, const void* probs, const void* meta,
+                      int64_t total, void* rates, int rows, void* stream) {
+  if (rows <= 0 || total < 0) return (int)cudaErrorInvalidValue;
+  sdcm_rates_ragged_kernel<<<rows, kRateThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)d, (const double*)probs, (const double*)meta, total,
+      (double*)rates);
   return (int)cudaGetLastError();
 }
 

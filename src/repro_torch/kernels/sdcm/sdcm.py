@@ -3,19 +3,23 @@ kernel's wrappers and their plain PyTorch versions.
 
 The kernel (``csrc/sdcm.cu``) replaces the TPU's
 ``repro/kernels/sdcm/sdcm.py::_sdcm_kernel`` and the vmapped grid form
-``repro/api/batched.py::_phit_row``.  Two entry points share one device
-function:
+``repro/api/batched.py::_phit_row``.  Three entry points share one
+device function:
 
+* :func:`sdcm_rates_ragged` — the Eq. 3 rate of every row of a ragged
+  grid (rows back to back at their own lengths, a ``[R, 5]`` record of
+  offset, length, A, B and A_MAX bucket per row) in one launch: what
+  ``api/batched.py::batched_hit_rates`` launches, once per predict;
 * :func:`sdcm_rates` — ``rates[g] = sum_m probs[g, m] P(h | d[g, m])``
-  with per-row ``assoc[g]``/``blocks[g]``: the grid form behind
-  ``api/batched.py::batched_hit_rates``;
+  with per-row ``assoc[g]``/``blocks[g]``: one padded row-shape group;
 * :func:`sdcm_hit_probs` — ``P(h | d[i])`` for a flat float32 distance
   stream at one geometry: what ``_sdcm_kernel`` computes.
 
 A wrapper checks device, dtype, shape and contiguity.  For CPU tensors
-it returns the plain version (:func:`sdcm_rates_plain`,
-:func:`sdcm_hit_probs_plain`); for CUDA tensors it launches the kernel
-and counts the launch in :data:`LAUNCHES`, or raises.
+it returns the plain version (:func:`sdcm_rates_ragged_plain`,
+:func:`sdcm_rates_plain`, :func:`sdcm_hit_probs_plain`); for CUDA tensors
+it launches the kernel and counts the launch in :data:`LAUNCHES`, or
+raises.  A row gives the same bits in the ragged and the padded form.
 """
 from __future__ import annotations
 
@@ -31,7 +35,15 @@ from repro_torch.kernels import build
 A_BUCKETS = (8, 16, 32, 64)
 
 #: Kernel launches per entry point; only a wrapper's launch adds to it.
-LAUNCHES = {"sdcm_rates": 0, "sdcm_hit_probs": 0}
+LAUNCHES = {"sdcm_rates_ragged": 0, "sdcm_rates": 0, "sdcm_hit_probs": 0}
+
+#: Columns of the ragged form's per-row record (csrc/sdcm.cu kMetaWidth).
+META_COLUMNS = ("offset", "length", "assoc", "blocks", "a_max")
+
+
+def pow2(n: int) -> int:
+    """The power of two padded row counts and widths round up to (>= 2)."""
+    return 1 << max(n - 1, 1).bit_length()
 
 
 def a_max_bucket(assoc: int, blocks: int) -> int:
@@ -81,6 +93,43 @@ def sdcm_rates_plain(d, probs, assoc, blocks, a_max: int) -> torch.Tensor:
     return (probs * phit).sum(dim=-1)
 
 
+def sdcm_rates_ragged_plain(d, probs, meta) -> torch.Tensor:
+    """The ragged form as the padded form's plain version: rows grouped
+    by (A_MAX bucket, ``pow2(length)``), each group padded as
+    ``api/batched.py::pack_grid`` pads it (row count to a power of two,
+    inert rows of A = 1, B = 2) and folded by :func:`sdcm_rates_plain`.
+    Rows the kernel gives NaN for (a record out of range or with no
+    bucket) are NaN here too."""
+    dev = d.device
+    recs = meta.tolist()
+    rates = torch.full((len(recs),), math.nan, dtype=torch.float64, device=dev)
+    groups: dict[tuple[int, int], list[int]] = {}
+    for r, (off, length, _a, _b, a_max) in enumerate(recs):
+        if a_max in A_BUCKETS and 0 <= off and 0 <= length <= d.numel() - off:
+            groups.setdefault((int(a_max), pow2(max(int(length), 1))),
+                              []).append(r)
+    for (a_max, m), idx in groups.items():
+        g = pow2(len(idx))
+        rec = torch.tensor([recs[r] for r in idx], dtype=torch.float64)
+        off, length = rec[:, 0].long(), rec[:, 1].long()
+        cols = torch.arange(m)
+        inside = cols[None, :] < length[:, None]
+        at = (off[:, None] + cols[None, :]).clamp(0, max(d.numel() - 1, 0))
+        grid_d = torch.zeros((g, m), dtype=torch.float64, device=dev)
+        grid_p = torch.zeros((g, m), dtype=torch.float64, device=dev)
+        inside, at = inside.to(dev), at.to(dev)
+        if d.numel():
+            grid_d[:len(idx)] = torch.where(inside, d[at], 0.0)
+            grid_p[:len(idx)] = torch.where(inside, probs[at], 0.0)
+        assoc = torch.ones(g, dtype=torch.float64, device=dev)
+        blocks = torch.full((g,), 2.0, dtype=torch.float64, device=dev)
+        assoc[:len(idx)] = rec[:, 2].to(dev)
+        blocks[:len(idx)] = rec[:, 3].to(dev)
+        out = sdcm_rates_plain(grid_d, grid_p, assoc, blocks, a_max)
+        rates[torch.tensor(idx, device=dev)] = out[:len(idx)]
+    return rates
+
+
 def sdcm_hit_probs_plain(d, assoc: int, blocks: int) -> torch.Tensor:
     """P(h | D) of a flat distance stream at one geometry (float32)."""
     a_max = a_max_bucket(assoc, blocks)
@@ -98,6 +147,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sdcm_rates.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.sdcm_rates.restype = ci
+    lib.sdcm_rates_ragged.argtypes = [vp, vp, vp, ctypes.c_int64, vp, ci, vp]
+    lib.sdcm_rates_ragged.restype = ci
     lib.sdcm_hit_probs.argtypes = [
         vp, vp, ctypes.c_int64, ctypes.c_double, ctypes.c_double, ci, vp,
     ]
@@ -164,6 +215,47 @@ def sdcm_rates(d: torch.Tensor, probs: torch.Tensor, assoc: torch.Tensor,
         )
     _raise_on(code, "sdcm_rates launch")
     LAUNCHES["sdcm_rates"] += 1
+    return rates
+
+
+def sdcm_rates_ragged(d: torch.Tensor, probs: torch.Tensor,
+                      meta: torch.Tensor) -> torch.Tensor:
+    """Eq. 3 hit rate of every row of a ragged profile grid, in one
+    launch.
+
+    ``d``, ``probs``: float64 [T], the rows back to back; ``meta``:
+    float64 [R, 5], per row (offset, length, assoc, blocks, a_max) as in
+    :data:`META_COLUMNS`.  Returns float64 [R].  A row whose record lies
+    outside ``[0, T)``, names no bucket of :data:`A_BUCKETS`, or is
+    set-associative with ``assoc > a_max`` comes back NaN.  On the card
+    the records are read by the kernel, not checked on the host (that
+    would wait for the copy).
+    """
+    dev = _device_of(d)
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D [T], got shape {tuple(d.shape)}")
+    (t,) = d.shape
+    _check("d", d, torch.float64, (t,), dev)
+    _check("probs", probs, torch.float64, (t,), dev)
+    if meta.dim() != 2:
+        raise ValueError(f"meta must be 2-D [R, {len(META_COLUMNS)}], "
+                         f"got shape {tuple(meta.shape)}")
+    _check("meta", meta, torch.float64, (meta.shape[0], len(META_COLUMNS)),
+           dev)
+    rows = meta.shape[0]
+    if dev.type == "cpu":
+        return sdcm_rates_ragged_plain(d, probs, meta)
+    rates = torch.empty(rows, dtype=torch.float64, device=dev)
+    if rows == 0:
+        return rates
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().sdcm_rates_ragged(
+            d.data_ptr(), probs.data_ptr(), meta.data_ptr(), t,
+            rates.data_ptr(), rows, stream,
+        )
+    _raise_on(code, "sdcm_rates_ragged launch")
+    LAUNCHES["sdcm_rates_ragged"] += 1
     return rates
 
 

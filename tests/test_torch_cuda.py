@@ -103,6 +103,58 @@ def test_rates_kernel_vs_plain_and_composition_invariance(cuda_device):
         assert alone[0].item() == batch[i]
 
 
+def test_ragged_kernel_vs_plain_and_per_group_kernel(cuda_device):
+    rows = mixed_rows(1024, 3)
+    args = batched.pack_ragged(rows, device=cuda_device)
+    before = dict(kernel.LAUNCHES)
+    got = kernel.sdcm_rates_ragged(*args)
+    assert kernel.LAUNCHES["sdcm_rates_ragged"] == \
+        before["sdcm_rates_ragged"] + 1
+    want = kernel.sdcm_rates_ragged_plain(*args)
+    assert float((got - want).abs().max()) <= 1e-6
+    per_group = np.zeros(len(rows))
+    for grp in batched.pack_grid(rows, device=cuda_device):
+        out = kernel.sdcm_rates(grp.d, grp.probs, grp.assoc, grp.blocks,
+                                grp.a_max)
+        per_group[grp.rows] = out[:len(grp.rows)].cpu().numpy()
+    assert np.array_equal(got.cpu().numpy(), per_group)  # same bits
+    for i in range(0, len(rows), 7):  # each row alone: its bits again
+        alone = kernel.sdcm_rates_ragged(
+            *batched.pack_ragged([rows[i]], device=cuda_device))
+        assert alone.item() == per_group[i]
+
+
+def test_ragged_records_out_of_range_give_nan_on_the_card(cuda_device):
+    d = torch.tensor([0.0, 5.0, 100.0], dtype=torch.float64,
+                     device=cuda_device)
+    p = torch.full((3,), 1 / 3, dtype=torch.float64, device=cuda_device)
+    meta = torch.tensor([[0, 3, 4, 512, 8], [1, 3, 4, 512, 8],
+                         [0, 3, 4, 512, 12], [0, 0, 4, 512, 8],
+                         [-1, 2, 4, 512, 8], [0, 3, 32, 4096, 16]],
+                        dtype=torch.float64, device=cuda_device)
+    got = kernel.sdcm_rates_ragged(d, p, meta).cpu()
+    want = kernel.sdcm_rates_ragged_plain(d, p, meta).cpu()
+    assert torch.isnan(got[[1, 2, 4, 5]]).all() and got[3] == 0.0
+    assert torch.equal(got.isnan(), want.isnan())
+    assert abs(float(got[0] - want[0])) <= 1e-15
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(binned=True),
+                                dict(window_size=1024)],
+                         ids=["exact", "binned", "streaming"])
+def test_one_sdcm_launch_per_predict(cuda_device, kw):
+    w = make_atax(n=64)
+    req = PredictionRequest(targets=("i7-5960X", "EPYC 7702P"),
+                            core_counts=(1, 2, 4))
+    sess = Session(device=cuda_device, cache_model="batched", **kw)
+    for _ in range(2):  # cold, then warm
+        before = dict(kernel.LAUNCHES)
+        sess.predict(w, req)
+        assert kernel.LAUNCHES["sdcm_rates_ragged"] == \
+            before["sdcm_rates_ragged"] + 1
+        assert kernel.LAUNCHES["sdcm_rates"] == before["sdcm_rates"]
+
+
 def test_kernel_flags_a_wrong_bucket(cuda_device):
     d = torch.tensor([[0.0, 100.0]], dtype=torch.float64, device=cuda_device)
     p = torch.tensor([[0.5, 0.5]], dtype=torch.float64, device=cuda_device)
@@ -154,6 +206,52 @@ def test_reuse_hist_kernel_vs_plain(cuda_device, moments, n):
     assert torch.equal(got, fn(d))  # bit-reproducible
     got_w, want_w = fn(d, w), plain(d, w)
     assert torch.allclose(got_w, want_w, rtol=1e-12, atol=0.0)
+
+
+def hist_case(name, device):
+    """Inputs where contention or a 64-bit sum would show: one bin for
+    2^24 distances (sum past 2^64), the clamped top bin, 2^40-sized
+    distances summing past 2^53, and a slice that starts between two
+    16-byte words."""
+    if name == "one_bin":
+        return torch.full((1 << 24,), (1 << 40) + 7, dtype=torch.int64,
+                          device=device)
+    if name == "top_bin":
+        return torch.tensor([1 << 62, (1 << 63) - 1] * 5000 + [-1, 0, 3],
+                            dtype=torch.int64, device=device)
+    if name == "many_2^40":
+        k = torch.arange(300_000, dtype=torch.int64, device=device)
+        return (1 << 40) + 4 * k + 3
+    rng = np.random.default_rng(9)
+    d = torch.from_numpy(rng.integers(-1, 1 << 30, 100_003)).to(device)
+    return d[1:]  # 8 bytes past an aligned start, odd length
+
+
+@pytest.mark.parametrize("moments", [True, False], ids=["B2", "B3"])
+@pytest.mark.parametrize("case", ["one_bin", "top_bin", "many_2^40",
+                                  "unaligned"])
+def test_reuse_hist_exact_at_contention_and_overflow(cuda_device, moments,
+                                                     case):
+    fn = (reuse_hist.reuse_histogram_moments if moments
+          else reuse_hist.reuse_histogram)
+    plain = (reuse_hist.reuse_histogram_moments_plain if moments
+             else reuse_hist.reuse_histogram_plain)
+    d = hist_case(case, cuda_device)
+    first, second = fn(d), fn(d)
+    assert torch.equal(first, plain(d))  # every sum, above 2^53 too
+    assert torch.equal(first, second)    # bit-reproducible
+
+
+def test_reuse_hist_out_adds_in_place(cuda_device):
+    d1, w = hist_inputs(5000, 1, cuda_device)
+    d2 = hist_case("top_bin", cuda_device)
+    out = reuse_hist.reuse_histogram_moments(d1)
+    reuse_hist.reuse_histogram_moments(d2, out=out)
+    plain = reuse_hist.reuse_histogram_moments_plain
+    assert torch.equal(out, plain(d1) + plain(d2))
+    before = out.clone()
+    reuse_hist.reuse_histogram_moments(d1, w, out=out)
+    assert torch.allclose(out, before + plain(d1, w), rtol=1e-12, atol=0.0)
 
 
 def test_reuse_hist_rejects_mixed_devices(cuda_device):

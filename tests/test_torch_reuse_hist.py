@@ -161,6 +161,54 @@ def test_cpu_tensors_take_the_plain_version():
     assert rh.LAUNCHES == before
 
 
+def integer_histogram(values):
+    """Counts and finite-distance masses as Python integers per bin."""
+    counts, sums = [0] * rh.NUM_BINS, [0] * rh.NUM_BINS
+    for x in values:
+        counts[rule_bin(x)] += 1
+        sums[rule_bin(x)] += max(x, 0)
+    return counts, sums
+
+
+OVERFLOW_INPUTS = {
+    # the clamped top bin: a u64 sum would wrap after two of these
+    "top_bin": [1 << 62, (1 << 63) - 1] * 300 + [-1, 0, 5],
+    # 20000 values near 2^40, each 3 mod 4: the sum passes 2^53 after
+    # ~8000, and a float64 running sum then rounds every add the same way
+    "many_2^40": [(1 << 40) + 4 * k + 3 for k in range(20000)],
+    "both": [(1 << 40) + 3] * 9000 + [(1 << 63) - 1, (1 << 62) + 1] * 50,
+}
+
+
+@pytest.mark.parametrize("case", sorted(OVERFLOW_INPUTS))
+def test_unit_sums_are_integer_sums_rounded_once(case):
+    values = OVERFLOW_INPUTS[case]
+    d = torch.tensor(values, dtype=torch.int64)
+    got = rh.reuse_histogram_moments(d).numpy()
+    counts, sums = integer_histogram(values)
+    assert got[0].tolist() == [float(c) for c in counts]
+    assert got[1].tolist() == [float(s) for s in sums]  # rounded once
+    assert rh.reuse_histogram(d).tolist() == [float(c) for c in counts]
+    # the case bites: a 64-bit integer sum wraps, or a float64 running
+    # sum rounds on the way
+    naive = np.bincount(rh.bin_ids_plain(d).numpy(),
+                        weights=np.maximum(np.array(values), 0).astype(float),
+                        minlength=rh.NUM_BINS)
+    assert max(sums) >= 1 << 64 or not np.array_equal(naive, got[1])
+
+
+def test_out_adds_in_place():
+    d1, d2 = torch.tensor([-1, 0, 7, 9000]), torch.tensor([3, 3, 1 << 40])
+    out = rh.reuse_histogram_moments(d1)
+    got = rh.reuse_histogram_moments(d2, out=out)
+    assert got is out
+    assert torch.equal(out, rh.reuse_histogram_moments_plain(d1)
+                       + rh.reuse_histogram_moments_plain(d2))
+    with pytest.raises(ValueError):
+        rh.reuse_histogram(d1, out=torch.zeros(2, rh.NUM_BINS,
+                                               dtype=torch.float64))
+
+
 def test_ctas_depend_on_n_alone():
     assert rh.ctas_for(1) == 1
     assert rh.ctas_for(1 << 12) == 1

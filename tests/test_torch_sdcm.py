@@ -26,6 +26,8 @@ from repro_torch.api import AnalyticalSDCM, ProfileArtifacts, batched
 from repro_torch.core import sdcm
 from repro_torch.core.reuse.profile import ReuseProfile
 from repro_torch.kernels import sdcm as kernel
+from repro_torch.api import PredictionRequest, Session
+from repro_torch.workloads.polybench import make_atax
 
 # the tensors here are small: one intra-op thread per test worker keeps
 # parallel test workers from oversubscribing the host
@@ -171,6 +173,71 @@ def test_composition_invariance_in_a_4096_row_batch():
     for i in range(0, 4096, 16):
         alone = rates_of([rows[i]])
         assert alone[0] == batch[i], i  # identical bits
+
+
+def ragged_rates(rows):
+    return kernel.sdcm_rates_ragged(
+        *batched.pack_ragged(rows, device="cpu")).numpy()
+
+
+def test_ragged_plain_equals_the_per_group_plain_version():
+    rows = mixed_rows(300, 3)
+    assert np.array_equal(ragged_rates(rows), rates_of(rows))  # same bits
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ragged_rows_are_composition_invariant(seed):
+    """Any split of the rows, in any order, gives each row its bits."""
+    rows = mixed_rows(200, 10 + seed)
+    whole = ragged_rates(rows)
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, 200), size=5, replace=False))
+    got = np.full(200, np.nan)
+    for part in np.split(rng.permutation(200), cuts):
+        got[part] = ragged_rates([rows[i] for i in part])
+    assert np.array_equal(got, whole)
+
+
+def test_ragged_records_out_of_range_give_nan():
+    d = torch.tensor([0.0, 5.0, 100.0], dtype=torch.float64)
+    p = torch.tensor([0.5, 0.25, 0.25], dtype=torch.float64)
+    meta = torch.tensor([[0, 3, 4, 512, 8],     # the whole stream
+                         [1, 3, 4, 512, 8],     # past its end
+                         [0, 3, 4, 512, 12],    # no such bucket
+                         [0, 0, 4, 512, 8]],    # empty: rate 0
+                        dtype=torch.float64)
+    got = kernel.sdcm_rates_ragged(d, p, meta)
+    want = kernel.sdcm_rates_plain(d[None], p[None],
+                                   torch.tensor([4.0], dtype=torch.float64),
+                                   torch.tensor([512.0], dtype=torch.float64),
+                                   8)
+    assert got[0] == want[0]
+    assert torch.isnan(got[1:3]).all() and got[3] == 0.0
+    with pytest.raises(ValueError):
+        kernel.sdcm_rates_ragged(d, p, meta[:, :4].contiguous())
+    with pytest.raises(TypeError):
+        kernel.sdcm_rates_ragged(d.float(), p, meta)
+
+
+def test_one_predict_is_one_ragged_call(monkeypatch):
+    calls = []
+    real = batched.sdcm_rates_ragged
+
+    def counted(*args):
+        calls.append(args[2].shape[0])
+        return real(*args)
+
+    monkeypatch.setattr(batched, "sdcm_rates_ragged", counted)
+    monkeypatch.setattr(batched, "_SHAPES", set())
+    w = make_atax(n=32)
+    req = PredictionRequest(targets=("i7-5960X", "EPYC 7702P"),
+                            core_counts=(1, 2, 4), counts=w.op_counts)
+    sess = Session(device="cpu", cache_model="batched")
+    sess.predict(w, req)
+    assert len(calls) == 1  # every row of the predict in one call
+    assert calls[0] == sum(len(t.levels) for t in
+                           (c.target for c in req.cells()))
+    assert sess.stats.kernel_shapes > 1  # over several row-shape groups
 
 
 def test_launch_shape_accounting_matches_reference_groups(monkeypatch):
