@@ -28,7 +28,12 @@ with a non-zero exit:
    every warp on one bin, its sum past 2^64), unit weights, exact at
    every sum, and timed on 4096 distances (one block: a launch's own cost).
 6. Streaming reuse distances on the card (windows of 2^14 and 2^18) bit
-   for bit against the in-memory engine on the card, at 1M references.
+   for bit against the in-memory engine on the card, at 1M references;
+   then per-set distances at every Table-5 level geometry (line 64; the
+   ``monolithic``, ``batched`` and ``auto`` methods, each the same one
+   pass) and the batched engine on 1,000 mixed segments (every engine,
+   1 and 3 shards, one pass for every value), on the card, bit for bit
+   against each other and the CPU port, with seconds.
 7. The main path: ``Session(cache_model=AnalyticalSDCM("batched"),
    device="cuda").predict`` on polybench atx at ``validation-xxl``
    (1,082,640 references) over the three Table-5 CPUs x cores
@@ -82,6 +87,21 @@ with a non-zero exit:
     SDPA in B4's place); and at full width and two groups in f32, the prefill of a
     whole prompt against a prefix plus decode steps (2e-4 of the logits'
     scale).
+9a. After 9: the reuse stage of one cold exact and one streaming
+    predict under ``torch.profiler`` (device-idle share; the streaming
+    path's host ms per window, split into offline pass, live-set update
+    and iterator, is on its line in 9); the exact-LRU ground truth
+    (``Session(device="cuda").ground_truth_hit_rates``) over the main
+    grid, seconds per cell and in all and the reuse passes, bit for bit
+    against the CPU port at every cell at ``validation`` and at one
+    full-size cell, with |SDCM - ground truth| per level (ungated: the
+    paper's Table 6); the sampled main path (``Session(sampled=R)``, R =
+    0.1 and 0.01, in memory and streaming): one SDCM launch per predict,
+    profiles and declared bounds equal to the CPU port's, hit rates within
+    1e-6 of the CPU port's sampled predict and within each cell's bound of
+    the exact predict, and R = 1 equal to it; the
+    registry resolving the main workload under the reference's declared
+    fingerprint to the trace 7 ran.
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
     launches read around it, the same profile and the same
     teacher-forced check.  More validation-xxl workloads follow while
@@ -89,7 +109,7 @@ with a non-zero exit:
 
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
-a CUDA graph (the device time).  Every predict in 7-9 must make exactly
+a CUDA graph (the device time).  Every predict in 7-9a must make exactly
 one SDCM launch.  The last lines are the ``{"kernels": [...]}`` record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +149,10 @@ HIST_RTOL = 1e-12     # reuse histogram, sums that are not exact integers
 EXACT_SUM = float(1 << 53)  # below this, integer sums in double are exact
 HIST_N = 1 << 24      # distances of the reuse-histogram phase
 STREAM_WINDOW = 1 << 16     # window of the streaming main path
+SAMPLED_RATES = (0.1, 0.01)  # SHARDS rates of the sampled main path
+# the reference registry's declared fingerprint of polybench/atx at
+# validation-xxl (repro.workloads.registry.declared_fingerprint)
+ATX_XXL_FINGERPRINT = "4935eea85c643ec9"
 TIME_BUDGET_S = 500   # more workloads at the end only while under this
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the reference's
 # bf16 attention, besides FLASH_TOL: max |kernel - plain| over max |plain|.
@@ -303,7 +327,23 @@ def phase_reuse_distances(n: int = 1 << 20, seed: int = 2):
     if not torch.equal(got.cpu(), want):
         fail("reuse distances on the card differ from the CPU pass")
     line("reuse_distances", n=n, bit_identical=True, gpu_s=gpu_s,
-         cpu_s=cpu_s)
+         cpu_s=cpu_s, offline_pass_s=offline_pass_seconds(addrs))
+
+
+def offline_pass_seconds(addrs, reps: int = 5) -> list:
+    """Host seconds of the offline pass over lines already on the card,
+    ending in a synchronise, ``reps`` times."""
+    from repro_torch.core.reuse.batched import reuse_distances_offline
+
+    lines = torch.from_numpy(addrs // 64).cuda()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reuse_distances_offline(lines)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
 
 
 def random_rows(g: int, seed: int):
@@ -713,6 +753,7 @@ def reset_counts():
             counts[k] = 0
     distance.PASSES.clear()
     distance.WINDOWS.clear()
+    distance.WINDOW_SECONDS.clear()
 
 
 def read_counts() -> dict:
@@ -725,6 +766,7 @@ def read_counts() -> dict:
     return dict(launches=launches,
                 rd_passes=dict(distance.PASSES),
                 rd_windows=dict(distance.WINDOWS),
+                rd_window_seconds=dict(distance.WINDOW_SECONDS),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
@@ -842,11 +884,15 @@ def window_hist_checks(sess, w, cores: int) -> dict:
 def phase_streaming_main_path(exact, binned_sess) -> dict:
     """Both streaming paths; returns each kernel's worst |kernel -
     plain| at these paths' own inputs."""
-    _, _, _, res, _ = drive("streaming_main_path", ("sdcm_rates_ragged",),
-                            window_size=STREAM_WINDOW)
+    _, _, _, res, counts = drive("streaming_main_path",
+                                 ("sdcm_rates_ragged",),
+                                 window_size=STREAM_WINDOW)
     if res.to_json() != exact.to_json():
         fail("exact streaming predict differs from the in-memory one")
-    line("streaming_vs_in_memory", bit_identical=True)
+    windows = counts["rd_windows"]["cuda"]
+    line("streaming_vs_in_memory", bit_identical=True, windows=windows,
+         host_ms_per_window={k: v / windows * 1e3 for k, v in
+                             counts["rd_window_seconds"].items()})
     w, req, sess, res_b, _ = drive(
         "binned_streaming_main_path",
         ("reuse_hist_moments", "sdcm_rates_ragged"),
@@ -886,6 +932,267 @@ def phase_more_workloads(t_start: float):
              refs=len(sess.load(w)[1]), cold_s=cold_s,
              cold_stage_s=dict(sess.stage_seconds),
              max_abs_err_vs_oracle=worst)
+
+
+# --- exact-LRU ground truth, sampled profiles, the registry ------------------
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn``, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_per_set(n: int = 1 << 20, segments: int = 1000, seed: int = 6):
+    """Per-set distances on the card at every Table-5 level geometry
+    (line 64) against the CPU port, each method value accepted and
+    giving the same integers (every value is the same one pass); then
+    the batched engine on ``segments`` mixed segments at every engine
+    and at 1 and 3 shards (one pass for every value), against the CPU
+    port."""
+    from repro_torch.core.reuse.batched import reuse_distances_batched
+    from repro_torch.core.reuse.distance import per_set_reuse_distances
+    from repro_torch.hw.targets import ALL_TARGETS
+
+    rng = np.random.default_rng(seed)
+    hot = rng.random(n) < 0.5  # a 256 KiB hot set inside a 256 MiB range
+    addrs = np.where(hot, rng.integers(0, 1 << 15, n),
+                     rng.integers(0, 1 << 25, n)) * 8
+    sets = sorted({lvl.num_sets for name in TABLE5
+                   for lvl in ALL_TARGETS[name].levels})
+    for num_sets in sets:
+        outs = {}
+        for method in ("monolithic", "batched", "auto"):
+            outs[method], gpu_s = timed(lambda: per_set_reuse_distances(
+                addrs, line_size=64, num_sets=num_sets, method=method,
+                device="cuda"))
+        t0 = time.perf_counter()
+        want = per_set_reuse_distances(addrs, line_size=64,
+                                       num_sets=num_sets, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for method, got in outs.items():
+            if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+                fail(f"per-set distances ({method}, {num_sets} sets) on the "
+                     "card differ from the CPU port")
+        line("per_set", n=n, num_sets=num_sets, bit_identical=True,
+             gpu_s=gpu_s, cpu_s=cpu_s)
+    lengths = np.where(rng.random(segments) < 0.05, 0,
+                       rng.integers(1, 2000, segments))
+    segs = [rng.integers(0, max(int(k) // 3, 1), int(k)) * 8
+            for k in lengths]
+    t0 = time.perf_counter()
+    want = [t.numpy() for t in reuse_distances_batched(
+        segs, line_size=64, num_shards=1, device="cpu")]
+    cpu_s = time.perf_counter() - t0
+    for engine in ("auto", "fenwick", "offline"):
+        for shards in (1, 3):
+            got, gpu_s = timed(
+                lambda: reuse_distances_batched(
+                    segs, line_size=64, engine=engine, num_shards=shards,
+                    device="cuda"))
+            if not all(g.device.type == "cuda"
+                       and np.array_equal(g.cpu().numpy(), x)
+                       for g, x in zip(got, want)):
+                fail(f"batched distances (engine {engine}, {shards} shards)"
+                     " on the card differ from the CPU port")
+    line("batched_segments", segments=segments, refs=int(lengths.sum()),
+         bit_identical=True, gpu_s=gpu_s, cpu_s=cpu_s)
+
+
+def exact_lru_results(art, target, device) -> list:
+    """Every ``simulate_hierarchy`` result ExactLRU reads for one cell,
+    as (hits, accesses) per level."""
+    from repro_torch.api.stages import shared_level_index
+    from repro_torch.core.cachesim import simulate_hierarchy
+
+    levels = list(target.levels)
+    runs = ([p.addresses for p in art.privates] if art.cores > 1 else [])
+    out = [[(r.hits, r.accesses) for r in simulate_hierarchy(
+        a, levels[:shared_level_index(target)], device=device)]
+        for a in runs]
+    out.append([(r.hits, r.accesses) for r in simulate_hierarchy(
+        art.shared.addresses, levels, device=device)])
+    return out
+
+
+def phase_ground_truth(exact) -> dict:
+    """``Session(device="cuda").ground_truth_hit_rates`` over the main
+    grid at ``SIZES``, per cell and in all; against the CPU port at
+    every cell at ``validation`` and at one full-size cell (hits and
+    accesses of every simulated hierarchy, and the rates); and, ungated,
+    |SDCM - ground truth| per level (the paper's Table 6)."""
+    from repro_torch.api import Session
+    from repro_torch.hw.targets import resolve_target
+    from repro_torch.workloads.polybench import make_workload
+
+    def grid(sess, w) -> dict:
+        return {(t, c): sess.ground_truth_hit_rates(w, t, c)
+                for t in TABLE5 for c in CORES}
+
+    w = make_workload(MAIN_WORKLOAD, SIZES)
+    sess = Session(device="cuda")
+    reset_counts()
+    t_all = time.perf_counter()
+    gt, cell_s = {}, {}
+    for target in TABLE5:
+        for cores in CORES:
+            gt[target, cores], cell_s[f"{target}/{cores}"] = timed(
+                lambda: sess.ground_truth_hit_rates(w, target, cores))
+    total_s = time.perf_counter() - t_all
+    counts = read_counts()
+    passes = counts["rd_passes"]
+    if passes.get("cuda", 0) <= 0 or passes.get("cpu", 0):
+        fail(f"ground truth: reuse distances not on the GPU: {passes}")
+    errs: dict = {}
+    for pred in exact:
+        for lvl, rate in pred.hit_rates.items():
+            errs.setdefault(lvl, []).append(
+                abs(rate - gt[pred.target, pred.cores][lvl]))
+    # bit for bit against the CPU port
+    wv = make_workload(MAIN_WORKLOAD, "validation")
+    gpu_v, cpu_v = Session(device="cuda"), Session(device="cpu")
+    if grid(gpu_v, wv) != grid(cpu_v, wv):
+        fail("ground truth at validation differs from the CPU port")
+    for t in TABLE5:
+        target = resolve_target(t)
+        for c in CORES:
+            kw = dict(line_size=64)
+            if (exact_lru_results(gpu_v.artifacts(wv, c, **kw), target, "cuda")
+                    != exact_lru_results(cpu_v.artifacts(wv, c, **kw),
+                                         target, "cpu")):
+                fail(f"ground truth at validation ({t}, {c} cores): hits "
+                     "or accesses differ from the CPU port")
+    big = ("i7-5960X", max(CORES))
+    cpu_big = Session(device="cpu")
+    want_big, cpu_s = timed(lambda: cpu_big.ground_truth_hit_rates(w, *big))
+    target = resolve_target(big[0])
+    if (want_big != gt[big] or exact_lru_results(
+            sess.artifacts(w, big[1], line_size=64), target, "cuda")
+            != exact_lru_results(cpu_big.artifacts(w, big[1], line_size=64),
+                                 target, "cpu")):
+        fail(f"ground truth at {SIZES} {big} differs from the CPU port")
+    line("ground_truth", workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
+         cells=len(gt), total_s=total_s, cell_s=cell_s,
+         rd_passes=passes, max_memory_allocated=counts["max_memory_allocated"],
+         bit_identical_cells={"validation": len(gt), SIZES: 1},
+         cpu_s_full_size_cell=cpu_s,
+         sdcm_vs_ground_truth={lvl: dict(mean=float(np.mean(e)),
+                                         max=float(np.max(e)))
+                               for lvl, e in errs.items()})
+    return gt
+
+
+def phase_sampled_main_path(exact) -> None:
+    """The main request through ``Session(sampled=R)``, in memory and
+    streaming: one SDCM launch per predict, profiles (pairs and error
+    bound) equal to the CPU port's, hit rates within ``RATE_TOL`` of the
+    CPU port's sampled predict on the same request (the profiles are
+    equal, so only the SDCM stage can differ) and within each cell's
+    declared bound of the exact predict (the reference's gate; at this
+    workload the bound is 1.0); R = 1 equals the exact path."""
+    from repro_torch.api import Session
+
+    for rate in SAMPLED_RATES:
+        for ws in (None, STREAM_WINDOW):
+            kw = dict(sampled=rate) if ws is None else dict(
+                sampled=rate, window_size=ws)
+            w, req, sess, res, _ = drive("sampled_main_path",
+                                         ("sdcm_rates_ragged",), **kw)
+            cpu = Session(device="cpu", **kw)
+            worst, vs_cpu = 0.0, 0.0
+            for got, on_cpu in zip(res, cpu.predict(w, req)):
+                for lvl, r in on_cpu.hit_rates.items():
+                    diff = abs(got.hit_rates[lvl] - r)
+                    vs_cpu = max(vs_cpu, diff)
+                    if not np.isfinite(got.hit_rates[lvl]) or diff > RATE_TOL:
+                        fail(f"sampled {rate} (window {ws}) {got.target} "
+                             f"cores={got.cores} {lvl}: {got.hit_rates[lvl]}"
+                             f" vs the CPU port's {r}")
+            for got, want in zip(res, exact):
+                art = sess.artifacts(w, got.cores, line_size=64)
+                ref = cpu.artifacts(w, got.cores, line_size=64)
+                for pa, pb in ((art.prd, ref.prd), (art.crd, ref.crd)):
+                    if not (np.array_equal(pa.distances, pb.distances)
+                            and np.array_equal(pa.counts, pb.counts)
+                            and pa.error_bound == pb.error_bound):
+                        fail(f"sampled {rate} (window {ws}) cores="
+                             f"{got.cores}: profile differs from the CPU "
+                             "port's")
+                bound = max(art.prd.error_bound, art.crd.error_bound)
+                for lvl, r in want.hit_rates.items():
+                    diff = abs(got.hit_rates[lvl] - r)
+                    worst = max(worst, diff / bound)
+                    if not diff < bound:
+                        fail(f"sampled {rate} {got.target} cores="
+                             f"{got.cores} {lvl}: |{got.hit_rates[lvl]} - "
+                             f"{r}| >= declared bound {bound}")
+            line("sampled_vs_exact", rate=rate, window_size=ws,
+                 profiles_equal_cpu_port=True,
+                 max_abs_diff_vs_cpu_port=vs_cpu,
+                 worst_diff_over_bound=worst,
+                 bounds={c: [a.prd.error_bound, a.crd.error_bound]
+                         for c in CORES
+                         for a in [sess.artifacts(w, c, line_size=64)]})
+    *_, res, _ = drive("sampled_main_path", ("sdcm_rates_ragged",),
+                       sampled=1.0)
+    if res.to_json() != exact.to_json():
+        fail("sampled at rate 1.0 differs from the exact predict")
+    line("sampled_rate_one", equals_exact=True)
+
+
+def phase_registry(exact) -> None:
+    """The registry resolves the main workload to the trace the main
+    path ran, under the reference's declared fingerprint."""
+    from repro_torch.api.stages import trace_content_id
+    from repro_torch.workloads import registry
+
+    src = registry.resolve(f"polybench/{MAIN_WORKLOAD}", SIZES)
+    cid = trace_content_id(src.trace())
+    if cid != exact.trace_id:
+        fail(f"registry trace {cid} differs from the main path's "
+             f"{exact.trace_id}")
+    if src.declared_fingerprint != ATX_XXL_FINGERPRINT:
+        fail(f"declared fingerprint {src.declared_fingerprint} differs from "
+             f"the reference's {ATX_XXL_FINGERPRINT}")
+    line("registry", workload=src.workload_name, sizes=SIZES,
+         trace_content_id=cid, declared_fingerprint=src.declared_fingerprint)
+
+
+def reuse_stage(window_size):
+    """A function that runs the reuse-profile stage of one cold predict
+    of the main request on a fresh builder: every cell's PRD and CRD,
+    the traces (mimicry, interleaving) made beforehand."""
+    from repro_torch.api.stages import MimicProfileBuilder
+
+    w, req, sess = main_path_session(MAIN_WORKLOAD)
+    arts = [sess.artifacts(w, c, line_size=64) for c in CORES]
+
+    def run():
+        b = MimicProfileBuilder("cuda", window_size=window_size)
+        for art in arts:
+            if not window_size:
+                b.profile(art.privates[0], 64)
+                if art.cores > 1:
+                    b.profile(art.shared, 64)
+                continue
+            b.profile_windows(art.privates[0], 64)
+            if art.cores > 1:
+                b.shared_profile(art.privates, "round_robin", 0, 64)
+    return run
+
+
+def phase_reuse_idle() -> None:
+    """Device-idle share over the reuse stage of one cold exact predict
+    and of one streaming predict (``torch.profiler``)."""
+    for ws in (None, STREAM_WINDOW):
+        fn = reuse_stage(ws)
+        fn()  # the same work once before the profiled run
+        line("reuse_stage_profile", window_size=ws,
+             **device_breakdown(fn))
+
 
 # --- the model zoo: flash attention (B4), SSD scan (B5), serving --------------
 
@@ -1370,9 +1677,14 @@ def main() -> int:
     phase_reuse_distances()
     phase_reuse_hist()
     phase_streaming_distances()
+    phase_per_set()
     exact, sdcm_kernel = phase_main_path()
     binned_sess, hist_kernels, binned_errs = phase_binned_main_path(exact)
     streaming_errs = phase_streaming_main_path(exact, binned_sess)
+    phase_reuse_idle()
+    phase_ground_truth(exact)
+    phase_sampled_main_path(exact)
+    phase_registry(exact)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
     serve_launches = phase_zamba2_serve()

@@ -16,7 +16,12 @@
 ``device="cpu"`` to run on the host.  ``Session(window_size=W)``
 builds the profiles window by window (bit-identical, the interleaved
 trace never materialized); ``Session(binned=True)`` builds log2-binned
-profiles through the reuse-histogram kernel.
+profiles through the reuse-histogram kernel; ``Session(sampled=R)``
+SHARDS-sampled profiles with their declared error bound.
+``session.ground_truth_hit_rates(workload, target, cores)`` (or
+``Session(cache_model=ExactLRU())``) runs the exact-LRU simulator on
+the Session's device.  Registry names (``"polybench/atx"``, ``"atx"``)
+are trace sources too.
 """
 from repro_torch.api.request import GridCell, PredictionRequest
 from repro_torch.api.results import CellPrediction, PredictionSet

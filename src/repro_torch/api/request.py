@@ -55,8 +55,8 @@ class PredictionRequest:
     # streaming: profile passes in windows of this many references
     # (None -> the Session default; 0 forces the in-memory path)
     window_size: int | None = None
-    # SHARDS sampling rate: kept for request parity; the port's Session
-    # raises NotImplementedError for it (ROADMAP queue A)
+    # SHARDS sampling rate for this request's cells (None -> the
+    # Session's mode; core.reuse.sampled)
     sampled_rate: float | None = None
 
     def __post_init__(self):

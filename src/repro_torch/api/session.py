@@ -24,11 +24,18 @@ device.
 builds each cell's profiles window by window: bit-identical to the
 in-memory path, and the interleaved trace of a deterministic strategy
 is never materialized.  ``binned=True`` builds log2-binned profiles
-through the reuse-histogram kernel; the two combine.
+through the reuse-histogram kernel; the two combine.  ``sampled=R``
+builds SHARDS-sampled profiles (each with its declared error bound),
+and a request's ``sampled_rate`` overrides it cell by cell.
+``ground_truth_hit_rates`` runs the exact-LRU simulator on the
+Session's device.
 
-Not ported yet (ROADMAP queue A), and raising ``NotImplementedError``:
-``sampled=``, ``store=``/``artifact_dir=``, ``verify_fingerprints``,
-and ``ground_truth_hit_rates`` (ExactLRU).
+Registry-resolved sources (``repro_torch.workloads.registry``) are
+keyed by their declared fingerprint, as in the reference.  Not ported
+yet (ROADMAP queue A), and raising ``NotImplementedError``: the disk
+store (``store=``/``artifact_dir=``); without it
+``verify_fingerprints`` has nothing to check against, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from repro_torch.api.request import PredictionRequest
 from repro_torch.api.results import CellPrediction, PredictionSet
 from repro_torch.api.stages import (
     AnalyticalSDCM,
+    ExactLRU,
     MimicProfileBuilder,
     ProfileArtifacts,
     as_trace_source,
@@ -78,10 +86,10 @@ class Session:
     ``profile_builder`` and the same request produces an
     alternative-model grid.  ``cache=False`` disables artifact reuse.
 
-    ``window_size`` and ``binned`` configure the default builder;
-    ``binned=True`` with a builder of one's own needs that builder to
-    be binned.  ``window_size=0`` (here or per request) forces the
-    in-memory path.
+    ``window_size``, ``binned`` and ``sampled`` configure the default
+    builder; ``binned=True`` or ``sampled=R`` with a builder of one's
+    own needs that builder to be binned, or sampled at R.
+    ``window_size=0`` (here or per request) forces the in-memory path.
     """
 
     def __init__(
@@ -99,33 +107,40 @@ class Session:
         artifact_dir=None,
         verify_fingerprints: bool = False,
     ):
-        if sampled is not None:
-            raise not_in_slice("sampled=", "sampled profiles")
         if store is not None or artifact_dir is not None:
             raise not_in_slice("store=/artifact_dir=", "store")
-        if verify_fingerprints:
-            raise not_in_slice("verify_fingerprints", "registry names")
         self.device = resolve_device(device)
         if profile_builder is None:
             profile_builder = MimicProfileBuilder(
-                self.device, window_size=window_size, binned=binned
+                self.device, window_size=window_size, binned=binned,
+                sampled=sampled,
             )
         elif binned and not getattr(profile_builder, "binned", False):
             raise ValueError(
                 "binned=True only configures the default builder; pass a "
                 "builder with binned profile support instead"
             )
+        elif (sampled is not None
+              and getattr(profile_builder, "sampled", None) != sampled):
+            raise ValueError(
+                "sampled=R only configures the default builder; pass a "
+                "builder with sampled profile support instead"
+            )
         self.builder = profile_builder
+        self._sampled_builders: dict[float, object] = {}
         self.window_size = window_size
         if isinstance(cache_model, str):
             # shorthand for the analytical backends ("batched"/"numpy")
             cache_model = AnalyticalSDCM(backend=cache_model)
         cache_model = cache_model or AnalyticalSDCM()
-        if isinstance(cache_model, AnalyticalSDCM) and cache_model.device is None:
+        if (isinstance(cache_model, (AnalyticalSDCM, ExactLRU))
+                and cache_model.device is None):
             cache_model = dataclasses.replace(cache_model, device=self.device)
         self.cache_model = cache_model
         self.runtime_model = runtime_model  # None -> per-target default
         self.cache_enabled = cache
+        self.store = None
+        self.verify_fingerprints = verify_fingerprints
         self.stats = SessionStats()
         self.stage_seconds: collections.defaultdict = (
             collections.defaultdict(float)
@@ -151,27 +166,55 @@ class Session:
     # --- artifact construction (each key computed exactly once) -----------
 
     def identify(self, source) -> str:
-        """Trace id of a source (its content hash)."""
+        """Trace id of a source: its declared fingerprint when it has one
+        (registry-resolved workloads, without building the trace), else
+        its content hash."""
+        sid = id(source)
+        if self.cache_enabled and sid in self._trace_ids:
+            return self._trace_ids[sid]
+        fp = getattr(source, "declared_fingerprint", None)
+        if fp and self.cache_enabled:
+            self._trace_ids[sid] = str(fp)
+            self._sources[sid] = source
+            return str(fp)
         tid, _trace = self.load(source)
         return tid
 
     def load(self, source) -> tuple[str, LabeledTrace]:
         """Coerce + trace + id a source (cached).  With caching disabled
-        the content hash is skipped (nothing is keyed on it)."""
+        the id and the content hash are skipped (nothing is keyed on
+        them)."""
         sid = id(source)  # the caller's object, not the coercion wrapper
         if self.cache_enabled and sid in self._trace_ids:
             tid = self._trace_ids[sid]
-            return tid, self._traces[tid]
+            return tid, self._trace_of(tid, source)
+        if not self.cache_enabled:
+            with self._stage("trace"):
+                trace = as_trace_source(source).trace()
+            self.stats.trace_builds += 1
+            return "", trace
+        fp = getattr(source, "declared_fingerprint", None)
+        tid = str(fp) if fp else None
+        if tid is None:
+            with self._stage("trace"):
+                trace = as_trace_source(source).trace()
+            self.stats.trace_builds += 1
+            tid = trace_content_id(trace)
+            self._traces.setdefault(tid, trace)
+        self._trace_ids[sid] = tid
+        self._sources[sid] = source
+        return tid, self._trace_of(tid, source)
+
+    def _trace_of(self, tid: str, source) -> LabeledTrace:
+        """Materialize (or fetch) the trace behind an already-known id;
+        the only place declared sources build their trace."""
+        if tid in self._traces:
+            return self._traces[tid]
         with self._stage("trace"):
             trace = as_trace_source(source).trace()
         self.stats.trace_builds += 1
-        if not self.cache_enabled:
-            return "", trace
-        tid = trace_content_id(trace)
-        self._trace_ids[sid] = tid
-        self._sources[sid] = source
-        self._traces.setdefault(tid, trace)
-        return tid, self._traces[tid]
+        self._traces[tid] = trace
+        return trace
 
     def _reuse_distances(self, tid: str, trace: LabeledTrace, line: int):
         key = (tid, line)
@@ -218,10 +261,30 @@ class Session:
             return self.window_size or None  # normalized: one cache key
         return getattr(self.builder, "window_size", None)
 
+    def _builder_for(self, sampled: float | None):
+        """The Session builder, or a cached sampled-rate variant when a
+        per-request rate overrides it (``PredictionRequest.sampled_rate``)."""
+        if sampled is None:
+            return self.builder
+        rate = float(sampled)
+        if getattr(self.builder, "sampled", None) == rate:
+            return self.builder
+        if not hasattr(self.builder, "with_sampled"):
+            raise ValueError(
+                "per-request sampled_rate needs a profile builder with "
+                "with_sampled support (the default MimicProfileBuilder)"
+            )
+        variant = self._sampled_builders.get(rate)
+        if variant is None:
+            variant = self.builder.with_sampled(rate)
+            self._sampled_builders[rate] = variant
+        return variant
+
     def artifacts(self, source, cores: int, *, strategy: str = "round_robin",
                   seed: int = 0, line_size: int = 64,
                   window_size: int | None = None,
-                  sampled: float | None = None) -> ProfileArtifacts:
+                  sampled: float | None = None,
+                  need_traces: bool = False) -> ProfileArtifacts:
         """PRD/CRD profiles (+ underlying traces) for one grid cell.
 
         ``window_size`` (or the Session/builder default) routes the
@@ -229,43 +292,55 @@ class Session:
         profiles, scan memory bounded by the window and the lines seen,
         and the interleaved shared trace never materialized for the
         deterministic strategies — ``artifacts.shared`` is ``None``.
+
+        ``sampled`` overrides the builder's sampling rate for this cell
+        (``None`` keeps the builder's mode); the cell cache keys embed
+        the effective rate, so exact and sampled cells coexist.
+        ``need_traces`` asks for the mimicked traces to be attached:
+        every cell built here carries them (only a disk store, not
+        ported yet, serves profile-only cells).
         """
-        if sampled is not None:
-            raise not_in_slice("sampled=", "sampled profiles")
         ws = self._resolve_window(window_size)
+        builder = self._builder_for(sampled)
+        rate = getattr(builder, "sampled", None)
         tid, trace = self.load(source)
-        key = (tid, line_size, cores, strategy, seed, ws)
+        key = (tid, line_size, cores, strategy, seed, ws, rate)
         if self.cache_enabled and key in self._profiles:
             self.stats.profile_hits += 1
             return self._profiles[key]
-        binned = bool(getattr(self.builder, "binned", False))
+        binned = bool(getattr(builder, "binned", False))
         if ws:
             art = self._streaming_artifacts(
-                tid, trace, cores, strategy, seed, line_size, ws
+                tid, trace, cores, strategy, seed, line_size, ws, builder
             )
         elif cores == 1:
             with self._stage("reuse_profile"):
-                rds = self._reuse_distances(tid, trace, line_size)
-                if hasattr(self.builder, "profile_of_distances"):
-                    prof = self.builder.profile_of_distances(rds)
+                if rate is not None:
+                    # sampled cells bypass the exact-rd cache: the
+                    # builder hash-filters the trace itself
+                    prof = builder.profile(trace, line_size)
                 else:
-                    prof = profile_from_distances(rds)
+                    rds = self._reuse_distances(tid, trace, line_size)
+                    if hasattr(builder, "profile_of_distances"):
+                        prof = builder.profile_of_distances(rds)
+                    else:
+                        prof = profile_from_distances(rds)
             art = ProfileArtifacts(
                 trace_id=tid, cores=1, strategy=strategy, seed=seed,
                 line_size=line_size, privates=[trace], shared=trace,
-                prd=prof, crd=prof, binned=binned,
+                prd=prof, crd=prof, binned=binned, sampled=rate,
             )
         else:
             privs = self._private_traces(tid, trace, cores)
             shared = self._shared_trace(tid, privs, cores, strategy, seed)
             # PRD of the master core (cores are symmetric by construction)
             with self._stage("reuse_profile"):
-                prd = self.builder.profile(privs[0], line_size)
-                crd = self.builder.profile(shared, line_size)
+                prd = builder.profile(privs[0], line_size)
+                crd = builder.profile(shared, line_size)
             art = ProfileArtifacts(
                 trace_id=tid, cores=cores, strategy=strategy, seed=seed,
                 line_size=line_size, privates=privs, shared=shared,
-                prd=prd, crd=crd, binned=binned,
+                prd=prd, crd=crd, binned=binned, sampled=rate,
             )
         self.stats.profile_builds += 1
         if self.cache_enabled:
@@ -273,7 +348,7 @@ class Session:
         return art
 
     def _streaming_artifacts(self, tid, trace, cores, strategy, seed,
-                             line_size, ws) -> ProfileArtifacts:
+                             line_size, ws, builder) -> ProfileArtifacts:
         """Window-bounded cell build.
 
         Uses the builder's streaming hooks when present (the default
@@ -283,8 +358,8 @@ class Session:
         time counts under ``stage_seconds["reuse_profile"]``.
         """
         self.stats.streaming_builds += 1
-        builder = self.builder
         binned = bool(getattr(builder, "binned", False))
+        rate = getattr(builder, "sampled", None)
         if hasattr(builder, "profile_windows"):
             def stream_profile(t, line):
                 return builder.profile_windows(t, line, ws)
@@ -298,6 +373,7 @@ class Session:
                 trace_id=tid, cores=1, strategy=strategy, seed=seed,
                 line_size=line_size, privates=[trace], shared=trace,
                 prd=prof, crd=prof, window_size=ws, binned=binned,
+                sampled=rate,
             )
         privs = self._private_traces(tid, trace, cores)
         if (
@@ -321,6 +397,7 @@ class Session:
             trace_id=tid, cores=cores, strategy=strategy, seed=seed,
             line_size=line_size, privates=privs, shared=shared,
             prd=prd, crd=crd, window_size=ws, binned=binned,
+            sampled=rate,
         )
 
     # --- execution --------------------------------------------------------
@@ -337,6 +414,7 @@ class Session:
         cache-model grid evaluation across all of them; results come
         back in input order, bit-identical to ``[predict(s, r) for s, r
         in items]``."""
+        need_traces = bool(getattr(self.cache_model, "needs_traces", False))
         plans = []
         flat: list[tuple[object, ProfileArtifacts]] = []
         for source, request in items:
@@ -353,6 +431,7 @@ class Session:
                     line_size=cell.target.levels[0].line_size,
                     window_size=request.window_size,
                     sampled=request.sampled_rate,
+                    need_traces=need_traces,
                 )
                 for cell in cells
             ]
@@ -439,4 +518,17 @@ class Session:
     def ground_truth_hit_rates(self, source, target, cores: int, *,
                                strategy: str = "round_robin", seed: int = 0
                                ) -> dict[str, float]:
-        raise not_in_slice("ground_truth_hit_rates", "ExactLRU/cachesim")
+        """Exact-LRU simulation through the same stage interface, on the
+        Session's device.
+
+        ExactLRU simulates the materialized traces, so this always
+        builds in-memory artifacts (``window_size=0``) — it works on a
+        streaming Session too, cached under the in-memory key.
+        """
+        target = resolve_target(target)
+        art = self.artifacts(
+            source, cores, strategy=strategy, seed=seed,
+            line_size=target.levels[0].line_size, window_size=0,
+            need_traces=True,
+        )
+        return ExactLRU(device=self.device).hit_rates(target, art)

@@ -9,24 +9,26 @@
 
 Traces, Alg. 1 mimicry and Alg. 2 interleaving stay host numpy
 (bit-identical to the reference); the reuse-distance pass and its
-histogram run on the builder's device — exact (``torch.unique``) or
-binned (the hand-written reuse-histogram kernel), in memory or window
-by window; the batched SDCM runs the hand-written SDCM kernel on the
-cache model's device.
+histogram run on the builder's device — exact (``torch.unique``),
+binned (the hand-written reuse-histogram kernel) or SHARDS-sampled, in
+memory or window by window; the batched SDCM runs the hand-written SDCM
+kernel on the cache model's device, and the exact-LRU ground truth
+(``ExactLRU``) simulates the mimicked traces on its own device.
 
-Not ported yet (ROADMAP queue A), and raising ``NotImplementedError``:
-``sampled=``, ``ExactLRU`` (with ``core/cachesim.py``), and workload
-registry names as trace sources.
+Workload registry names (``polybench/atx``, bare Table-4 aliases such
+as ``atx``, ``synthetic/stride``) are trace sources; ``model/`` names
+raise ``NotImplementedError`` (ROADMAP queue A).
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import Protocol, runtime_checkable
+from typing import ClassVar, Protocol, runtime_checkable
 
 import numpy as np
 
 from repro_torch.core import sdcm
+from repro_torch.core.cachesim import simulate_hierarchy
 from repro_torch.core.incore import ECMRuntimeModel, miss_fractions
 from repro_torch.core.levels import CacheLevelConfig
 from repro_torch.core.reuse.distance import (
@@ -37,6 +39,10 @@ from repro_torch.core.reuse.profile import (
     ReuseProfile,
     profile_from_distances,
     profile_from_distances_incremental,
+)
+from repro_torch.core.reuse.sampled import (
+    sampled_profile_windows,
+    sampled_reuse_profile,
 )
 from repro_torch.core.runtime_model import OpCounts, predict_runtime_s
 from repro_torch.core.trace.interleave import (
@@ -86,7 +92,10 @@ class TraceSource(Protocol):
 
 def trace_content_id(trace: LabeledTrace) -> str:
     """Stable content hash of a materialized trace (the reference's
-    hash, so ids and cache keys agree across the two packages)."""
+    hash, so ids and cache keys agree across the two packages).
+    Registry-resolved sources carry a declared fingerprint instead
+    (``repro_torch.workloads.registry``), which the Session uses as
+    their trace id."""
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(trace.addresses).tobytes())
     h.update(np.ascontiguousarray(trace.bb_ids).tobytes())
@@ -106,11 +115,14 @@ class ArrayTraceSource:
 
 
 def as_trace_source(obj) -> TraceSource:
-    """Coerce a LabeledTrace / Workload / TraceSource uniformly."""
+    """Coerce a LabeledTrace / Workload / TraceSource / registry name
+    (at its default sizes) uniformly."""
     if isinstance(obj, LabeledTrace):
         return ArrayTraceSource(obj)
     if isinstance(obj, str):
-        raise not_in_slice(f"workload name {obj!r}", "registry names")
+        from repro_torch.workloads import registry
+
+        return registry.resolve(obj)
     if hasattr(obj, "trace") and callable(obj.trace):
         return obj  # Workload and any TraceSource qualify
     raise TypeError(f"cannot interpret {type(obj).__name__} as a TraceSource")
@@ -128,7 +140,7 @@ class ProfileArtifacts:
     path (``window_size`` set) with a deterministic strategy: the
     interleaved trace is scanned window by window and never
     materialized.  Profile consumers (SDCM, batched SDCM) only read
-    ``prd``/``crd``.
+    ``prd``/``crd``; trace consumers (ExactLRU) need the in-memory path.
     """
 
     trace_id: str
@@ -144,6 +156,15 @@ class ProfileArtifacts:
     # True when prd/crd are device-binned log2 profiles (the
     # kernels/reuse_hist path) rather than exact histograms
     binned: bool = False
+    # sampling rate when prd/crd are SHARDS-sampled estimates
+    # (core.reuse.sampled); the profiles then carry ``error_bound``
+    sampled: float | None = None
+
+    @property
+    def has_traces(self) -> bool:
+        """Whether the mimicked traces are attached (always, until a
+        disk store serves profile-only cells: ROADMAP queue A)."""
+        return bool(self.privates)
 
 
 class ProfileBuilder(Protocol):
@@ -180,6 +201,12 @@ class MimicProfileBuilder:
     device and the profile is log2-binned, with weighted-mean bin
     representatives.  SDCM hit rates from binned profiles track the
     exact ones to well under 1e-3 absolute.
+
+    ``sampled=R`` (0 < R <= 1) switches to SHARDS-style spatially
+    hashed sampled profiles (:mod:`repro_torch.core.reuse.sampled`):
+    the kept lines' distances on the device, each profile carrying its
+    declared ``error_bound``.  ``sampled`` and ``binned`` are mutually
+    exclusive; ``R == 1.0`` reproduces the exact histograms bit for bit.
     """
 
     #: The disk-store identity of the default builder, shared with the
@@ -189,24 +216,53 @@ class MimicProfileBuilder:
 
     window_size: int | None = None  # class defaults: subclasses with
     binned: bool = False            # a bare __init__ still resolve them
+    sampled: float | None = None
+    sample_seed: int = 0            # spatial-hash key (fixed, so sampled
+    # cells are deterministic and their keys stable)
 
     def __init__(self, device=None, window_size: int | None = None,
-                 binned: bool = False):
+                 binned: bool = False, sampled: float | None = None):
+        if sampled is not None:
+            if binned:
+                raise ValueError(
+                    "binned and sampled are mutually exclusive profile "
+                    "modes — pick one approximate representation"
+                )
+            if not (0.0 < float(sampled) <= 1.0):
+                raise ValueError(
+                    f"sampled rate must be in (0, 1], got {sampled!r}"
+                )
+            sampled = float(sampled)
         self.device = resolve_device(device)
         self.window_size = window_size
         self.binned = binned
+        self.sampled = sampled
 
     @property
     def store_fingerprint(self) -> str:
-        """Disk-store identity: binned cells must never be confused with
-        exact cells, so the binned builder stamps its keys."""
+        """Disk-store identity: binned/sampled cells must never be
+        confused with exact cells (or with each other, or with another
+        rate), so approximate builders stamp their keys."""
         if type(self) is MimicProfileBuilder:
             base = self.STORE_NAME
         else:
             base = f"{type(self).__module__}.{type(self).__qualname__}"
         if self.binned:
             base += "+binned"
+        if self.sampled is not None:
+            base += f"+sampled{self.sampled:g}"
+            if self.sample_seed:
+                base += f"@{self.sample_seed}"
         return base
+
+    def with_sampled(self, rate: float | None) -> "MimicProfileBuilder":
+        """Variant builder at another sampling rate (the Session's
+        per-request ``sampled_rate`` overrides)."""
+        if rate == self.sampled:
+            return self
+        return MimicProfileBuilder(
+            self.device, window_size=self.window_size, sampled=rate
+        )
 
     def private_traces(self, trace, cores):
         return gen_private_traces(trace, cores)
@@ -215,6 +271,11 @@ class MimicProfileBuilder:
         return interleave_traces(privates, strategy, seed=seed)
 
     def profile(self, trace, line_size):
+        if self.sampled is not None:
+            return sampled_reuse_profile(
+                trace.addresses, line_size, rate=self.sampled,
+                seed=self.sample_seed, device=self.device,
+            )
         return self.profile_of_distances(
             reuse_distances(trace.addresses, line_size, device=self.device)
         )
@@ -238,6 +299,11 @@ class MimicProfileBuilder:
         ws = window_size if window_size is not None else (self.window_size or 0)
         if ws < 1:
             raise ValueError("profile_windows needs window_size >= 1")
+        if self.sampled is not None:
+            return sampled_profile_windows(
+                source, line_size, rate=self.sampled, seed=self.sample_seed,
+                window_size=ws, device=self.device,
+            )
         if self.binned:
             from repro_torch.core.reuse.fused import binned_profile_windows
 
@@ -329,13 +395,62 @@ class AnalyticalSDCM:
         return out
 
 
+@dataclass
 class ExactLRU:
-    """Exact-LRU ground truth (``core/cachesim.py``): not ported yet."""
+    """Ground-truth stage-3 model: exact set-associative LRU simulation
+    of the same mimicked traces (the paper's PAPI stand-in, §4.1), on
+    ``device`` (``None`` resolves to the GPU; a Session binds its own).
+    Same interface as the analytical model, so benchmarks swap it in.
 
-    name = "exact-lru"
+    Private levels aggregate per-core simulations (every core runs its
+    own hierarchy).  Shared levels follow the paper's Table-6
+    convention — the interleaved trace through one inclusive hierarchy,
+    mirroring the CRD profile the SDCM path consumes.
+    """
 
-    def __init__(self):
-        raise not_in_slice("ExactLRU", "ExactLRU/cachesim")
+    device: object = None
+    name: str = field(default="exact-lru", init=False)
+    # tells Session.predict to hand over artifacts with their traces
+    needs_traces: ClassVar[bool] = True
+
+    def hit_rates(self, target, artifacts: ProfileArtifacts) -> dict[str, float]:
+        dev = resolve_device(self.device)
+        shared_idx = shared_level_index(target)
+        levels = list(target.levels)
+        if not artifacts.has_traces:
+            raise ValueError(
+                "ExactLRU simulates the materialized traces, but this "
+                "artifact carries only profiles (loaded from the disk "
+                "store) — request it with need_traces=True"
+            )
+        if artifacts.cores == 1:
+            res = simulate_hierarchy(
+                artifacts.privates[0].addresses, levels, device=dev)
+            return {r.name: r.cumulative_hit_rate for r in res}
+        if artifacts.shared is None:
+            raise ValueError(
+                "ExactLRU simulates the materialized traces; streaming "
+                "artifacts (window_size set) keep no shared trace — use "
+                "an in-memory Session for ground truth"
+            )
+        out: dict[str, float] = {}
+        # private levels: every core runs its own hierarchy; the Table-6
+        # cumulative metric aggregates misses over ALL cores' accesses
+        priv_levels = levels[:shared_idx]
+        if priv_levels:
+            total = sum(len(p) for p in artifacts.privates)
+            misses = np.zeros(len(priv_levels), dtype=np.int64)
+            for priv in artifacts.privates:
+                for i, r in enumerate(simulate_hierarchy(
+                        priv.addresses, priv_levels, device=dev)):
+                    misses[i] += r.accesses - r.hits
+            for i, lvl in enumerate(priv_levels):
+                out[lvl.name] = 1.0 - misses[i] / max(total, 1)
+        res_shared = simulate_hierarchy(
+            artifacts.shared.addresses, levels, device=dev)
+        for r, lvl in zip(res_shared, levels):
+            out.setdefault(lvl.name, r.cumulative_hit_rate)
+        return out
 
 
 # --- runtime models ----------------------------------------------------------

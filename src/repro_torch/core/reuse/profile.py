@@ -14,7 +14,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 from .batched import INF_RD
+from .distance import reuse_distances
 
 
 @dataclass(frozen=True)
@@ -26,11 +29,18 @@ class ReuseProfile:
     distances : sorted distinct distances; ``INF_RD`` first when present.
     counts    : occurrence count per distance.
     total     : total number of accesses (== counts.sum()).
+    error_bound : declared sup-norm error of an approximate profile
+        (``core.reuse.sampled``); ``None`` for exact profiles, ``0.0``
+        for a sampled pass at rate 1.0.
     """
 
     distances: np.ndarray
     counts: np.ndarray
     total: int
+    error_bound: float | None = None
+
+    def with_error_bound(self, bound: float | None) -> "ReuseProfile":
+        return ReuseProfile(self.distances, self.counts, self.total, bound)
 
     @property
     def probabilities(self) -> np.ndarray:
@@ -43,6 +53,32 @@ class ReuseProfile:
         if not mask.any():
             return 0.0
         return float(self.counts[mask][0]) / max(self.total, 1)
+
+    def merged_with(self, other: "ReuseProfile") -> "ReuseProfile":
+        return ReuseProfile.merge([self, other])
+
+    @staticmethod
+    def merge(profiles) -> "ReuseProfile":
+        """Sum any number of histograms (windows, shards, sampled
+        replicas); the merged profile carries the loosest declared
+        error bound of its parts."""
+        profiles = list(profiles)
+        if not profiles:
+            return ReuseProfile(
+                np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64), 0
+            )
+        dists = np.concatenate([p.distances for p in profiles])
+        counts = np.concatenate([p.counts for p in profiles])
+        merged = profile_from_pairs(dists, counts)
+        bounds = [p.error_bound for p in profiles if p.error_bound is not None]
+        return merged.with_error_bound(max(bounds)) if bounds else merged
+
+    def scaled(self, factor: float) -> "ReuseProfile":
+        """Scale counts (e.g. trace-sampling extrapolation)."""
+        counts = np.maximum(np.round(self.counts * factor), 0).astype(np.int64)
+        return ReuseProfile(
+            self.distances, counts, int(counts.sum()), self.error_bound
+        )
 
 
 def profile_from_pairs(distances, counts) -> ReuseProfile:
@@ -67,6 +103,13 @@ def profile_from_distances(rds: torch.Tensor) -> ReuseProfile:
         uniq.cpu().numpy(), counts.to(torch.int64).cpu().numpy(),
         int(rds.numel()),
     )
+
+
+def profile_from_trace(addresses, line_size: int = 1, *,
+                       device=None) -> ReuseProfile:
+    """Reuse profile of a trace, its distances computed on ``device``."""
+    return profile_from_distances(
+        reuse_distances(addresses, line_size, device=resolve_device(device)))
 
 
 def profile_from_distances_incremental(rd_windows) -> ReuseProfile:

@@ -3,8 +3,8 @@ port of ``repro/workloads/polybench.py``: (a) analytic trace generators
 for the parallel sections — the ROSE/Byfl stand-in (see tracegen.py) —
 and (b) Byfl-style OpCounts.  Host numpy, bit-identical to the
 reference.  The reference's ``jax_fn``/``jax_args`` fields are dropped:
-nothing reads them.  Registry names (``polybench/<abbr>``) are not
-ported yet (ROADMAP queue A).
+nothing reads them.  Each maker registers in
+:mod:`repro_torch.workloads.registry` as ``polybench/<abbr>``.
 
 Input sizes are scaled down from the paper's standard inputs (their
 traces run 7–335 GB) but keep
@@ -583,3 +583,48 @@ def make_workload(abbr: str, sizes: str | None = None) -> Workload:
     """Build one workload at a named size preset (None = defaults)."""
     kwargs = SIZE_PRESETS[sizes].get(abbr, {}) if sizes else {}
     return MAKERS[abbr](**kwargs)
+
+
+# --- registry shim ---------------------------------------------------------
+#
+# MAKERS/SIZE_PRESETS stay as the implementation detail; the public
+# roster is repro_torch.workloads.registry, where each maker registers as
+# "polybench/<abbr>" with its bare abbr kept as a legacy alias.  The
+# declared fingerprint hashes the maker's *resolved* kwargs (preset
+# entries merged over signature defaults), so a preset that happens to
+# equal the defaults shares the defaults' artifact set.
+
+
+def _resolved_kwargs(abbr: str, sizes: str | None) -> dict:
+    import inspect
+
+    defaults = {
+        k: p.default
+        for k, p in inspect.signature(MAKERS[abbr]).parameters.items()
+        if p.default is not inspect.Parameter.empty
+    }
+    preset = SIZE_PRESETS[sizes].get(abbr, {}) if sizes else {}
+    return {**defaults, **preset}
+
+
+def _register_polybench() -> None:
+    from repro_torch.workloads.registry import WorkloadSpec, register
+
+    for abbr in MAKERS:
+        def build(sizes, _abbr=abbr):
+            return make_workload(_abbr, sizes)
+
+        def size_kwargs(sizes, _abbr=abbr):
+            return _resolved_kwargs(_abbr, sizes)
+
+        register(WorkloadSpec(
+            name=f"polybench/{abbr}",
+            build=build,
+            size_kwargs=size_kwargs,
+            presets=tuple(sorted(SIZE_PRESETS)),
+            aliases=(abbr,),
+            description=f"Table-4 {abbr} analytic trace generator",
+        ))
+
+
+_register_polybench()

@@ -271,6 +271,95 @@ def test_streaming_on_the_card_matches_in_memory(cuda_device):
         assert torch.equal(got, whole)
 
 
+@pytest.mark.parametrize("num_sets", [1, 64, 512, 16384])
+@pytest.mark.parametrize("method", ["monolithic", "batched", "auto"])
+def test_per_set_distances_on_the_card_match_the_cpu(cuda_device, method,
+                                                     num_sets):
+    from repro_torch.core.reuse.distance import per_set_reuse_distances
+
+    rng = np.random.default_rng(num_sets)
+    addrs = rng.integers(0, 1 << 22, 100_000) * 8
+    got = per_set_reuse_distances(addrs, line_size=64, num_sets=num_sets,
+                                  method=method, device=cuda_device)
+    assert got.device.type == "cuda"
+    want = per_set_reuse_distances(addrs, line_size=64, num_sets=num_sets,
+                                   device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_offline_engine_makes_no_host_synchronisation(cuda_device):
+    """The dominance count, the offline pass and both per-set methods on
+    tensors already on the card, with any host synchronisation an
+    error: every size follows from the length alone."""
+    from repro_torch.core.reuse.batched import (
+        count_leq_before,
+        reuse_distances_offline,
+    )
+    from repro_torch.core.reuse.distance import per_set_reuse_distances
+
+    rng = np.random.default_rng(9)
+    vals = torch.from_numpy(rng.integers(-1, 5000, 300_001)).to(cuda_device)
+    lines = torch.from_numpy(rng.integers(0, 40_000, 300_001)).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = count_leq_before(vals)
+        rds = reuse_distances_offline(lines)
+        per_set = {m: per_set_reuse_distances(lines, line_size=1,
+                                              num_sets=512, method=m,
+                                              device=cuda_device)
+                   for m in ("monolithic", "batched")}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(counts.cpu(), count_leq_before(vals.cpu()))
+    assert torch.equal(rds.cpu(), reuse_distances_offline(lines.cpu()))
+    want = per_set_reuse_distances(lines.cpu(), line_size=1, num_sets=512,
+                                   device="cpu")
+    assert all(torch.equal(t.cpu(), want) for t in per_set.values())
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_batched_segments_on_the_card_match_the_cpu(cuda_device, shards):
+    from repro_torch.core.reuse.batched import reuse_distances_batched
+
+    rng = np.random.default_rng(8)
+    segs = [rng.integers(0, max(int(k) // 3, 1), int(k))
+            for k in rng.integers(0, 600, 200)]
+    got = reuse_distances_batched(segs, num_shards=shards, device=cuda_device)
+    want = reuse_distances_batched(segs, device="cpu")
+    assert all(g.device.type == "cuda" and torch.equal(g.cpu(), x)
+               for g, x in zip(got, want))
+
+
+@pytest.mark.parametrize("cores", [1, 2, 4])
+def test_ground_truth_on_the_card_matches_the_cpu(cuda_device, cores):
+    from repro_torch.api import ExactLRU
+
+    w = make_atax(n=64)
+    for target in ("i7-5960X", "EPYC 7702P", "gpu-sm", "tpu-v5e"):
+        got = Session(device=cuda_device).ground_truth_hit_rates(
+            w, target, cores)
+        assert got == Session(device="cpu").ground_truth_hit_rates(
+            w, target, cores)
+    sess = Session(device=cuda_device, cache_model=ExactLRU())
+    assert sess.cache_model.device == cuda_device
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("rate", [0.1, 0.5, 1.0])
+def test_sampled_profiles_on_the_card_match_the_cpu(cuda_device, rate,
+                                                    window):
+    w = make_atax(n=64)
+    gpu = Session(device=cuda_device, sampled=rate, window_size=window)
+    cpu = Session(device="cpu", sampled=rate, window_size=window)
+    for cores in (1, 2, 4):
+        a, b = gpu.artifacts(w, cores), cpu.artifacts(w, cores)
+        for pa, pb in ((a.prd, b.prd), (a.crd, b.crd)):
+            assert np.array_equal(pa.distances, pb.distances)
+            assert np.array_equal(pa.counts, pb.counts)
+            assert pa.error_bound == pb.error_bound
+
+
 def test_binned_session_launches_the_histogram_kernel(cuda_device):
     w = make_atax(n=64)
     req = PredictionRequest(targets=("i7-5960X",), core_counts=(1, 2, 4))

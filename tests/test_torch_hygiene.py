@@ -54,7 +54,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.core.trace, repro_torch.kernels.reuse_hist, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan, "
         "repro_torch.models.api, repro_torch.configs.reduced, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.dist.sharding, "
+        "repro_torch.workloads.registry, repro_torch.core.cachesim, "
+        "repro_torch.core.reuse.sampled, repro_torch.core.reuse.crd, "
+        "repro_torch.core.tasklist, repro_torch.core.predictor\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -85,14 +88,29 @@ def test_session_binds_its_device_to_its_stages():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sampled=0.5),
     dict(artifact_dir="store"),
     dict(store=object()),
-    dict(verify_fingerprints=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_session_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         Session(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sampled=0.5),
+    dict(verify_fingerprints=True),
+], ids=lambda kw: next(iter(kw)))
+def test_ported_session_options_run(kwargs):
+    """Sampled profiles and fingerprint verification construct and
+    predict on the CPU (without a store, ``verify_fingerprints`` has
+    nothing to check, as in the reference)."""
+    s = Session(device="cpu", **kwargs)
+    assert s.builder.sampled == kwargs.get("sampled")
+    assert s.verify_fingerprints == kwargs.get("verify_fingerprints", False)
+    out = s.predict(_trace(), PredictionRequest(targets=("i7-5960X",),
+                                                core_counts=(1, 2)))
+    assert len(out) == 2
+    assert s.artifacts(_trace(), 2).sampled == kwargs.get("sampled")
 
 
 def _trace():
@@ -102,10 +120,12 @@ def _trace():
 @pytest.mark.parametrize("kwargs", [
     dict(sampled_rate=0.5),
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_request_options_raise(kwargs):
-    req = PredictionRequest(targets=("i7-5960X",), **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        Session(device="cpu").predict(_trace(), req)
+def test_ported_request_options_run(kwargs):
+    req = PredictionRequest(targets=("i7-5960X",), core_counts=(1, 2),
+                            **kwargs)
+    s = Session(device="cpu")
+    assert len(s.predict(_trace(), req)) == 2
+    assert s.artifacts(_trace(), 2, sampled=0.5).sampled == 0.5
 
 
 def test_binned_and_window_session_options_construct():
@@ -128,13 +148,25 @@ def test_binned_and_window_session_options_construct():
 
 
 def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="ExactLRU"):
-        ExactLRU()
     s = Session(device="cpu")
-    with pytest.raises(NotImplementedError, match="ExactLRU"):
-        s.ground_truth_hit_rates(_trace(), "i7-5960X", 1)
-    with pytest.raises(NotImplementedError, match="registry names"):
-        s.predict("polybench/atx", PredictionRequest(targets=("i7-5960X",)))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A: A-11"):
+        s.predict("model/llama3_8b/decode",
+                  PredictionRequest(targets=("i7-5960X",)))
+
+
+def test_ported_stages_run():
+    """ExactLRU, the ground truth and registry names run on the CPU."""
+    s = Session(device="cpu")
+    rates = s.ground_truth_hit_rates(_trace(), "i7-5960X", 1)
+    assert set(rates) == {"L1", "L2", "L3"}
+    assert all(0.0 <= r <= 1.0 for r in rates.values())
+    assert ExactLRU(device="cpu").name == "exact-lru"
+    out = Session(device="cpu", cache_model=ExactLRU()).predict(
+        _trace(), PredictionRequest(targets=("i7-5960X",)))
+    assert out.predictions[0].hit_rates == rates
+    for name in ("polybench/atx", "atx", "synthetic/stride"):
+        assert len(s.predict(name, PredictionRequest(
+            targets=("i7-5960X",)))) == 1
 
 
 def test_window_size_zero_is_the_in_memory_path():

@@ -1,5 +1,7 @@
 """The whole slice: the port's ``Session.predict`` against the JAX
-package's on the same workloads, grid and request."""
+package's on the same workloads, grid and request — atx and mvt on the
+full grid (three Table-5 CPUs, gpu-sm, tpu-v5e; cores 1/2/4; two
+strategies), every other PolyBench maker on a lighter one."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,9 +22,13 @@ from repro_torch.workloads import polybench as pb
 # parallel test workers from oversubscribing the host
 torch.set_num_threads(1)
 
-TARGETS = ("i7-5960X", "Xeon E5-2699 v4", "EPYC 7702P", "tpu-v5e")
+TARGETS = ("i7-5960X", "Xeon E5-2699 v4", "EPYC 7702P", "gpu-sm", "tpu-v5e")
 GRID = dict(targets=TARGETS, core_counts=(1, 2, 4),
             strategies=("round_robin", "uniform"), seed=3)
+# every other maker, on a lighter grid (one Table-5 CPU and the GPU)
+LIGHT_GRID = dict(targets=("i7-5960X", "gpu-sm"), core_counts=(1, 4),
+                  strategies=("round_robin",), seed=3)
+FULL_GRID_MAKERS = ("atx", "mvt")
 BUILD_COUNTERS = ("trace_builds", "rd_builds", "mimic_builds",
                   "interleave_builds", "profile_builds", "profile_hits")
 
@@ -31,15 +37,17 @@ def counters(stats):
     return {k: getattr(stats, k) for k in BUILD_COUNTERS}
 
 
-@pytest.fixture(scope="module", params=["atx", "mvt"])
+@pytest.fixture(scope="module", params=list(FULL_GRID_MAKERS) + sorted(
+    set(pb.MAKERS) - set(FULL_GRID_MAKERS)))
 def both(request):
     """(port workload, port result pieces, reference pieces) for one
     workload: numpy-backend and batched predictions of each package."""
     abbr = request.param
+    grid = GRID if abbr in FULL_GRID_MAKERS else LIGHT_GRID
     ref_w = ref_pb.make_workload(abbr, "smoke")
     port_w = pb.make_workload(abbr, "smoke")
-    ref_req = RefRequest(counts=ref_w.op_counts, **GRID)
-    port_req = PredictionRequest(counts=port_w.op_counts, **GRID)
+    ref_req = RefRequest(counts=ref_w.op_counts, **grid)
+    port_req = PredictionRequest(counts=port_w.op_counts, **grid)
 
     ref_sess = RefSession()
     ref_numpy = ref_sess.predict(ref_w, ref_req)
