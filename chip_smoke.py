@@ -102,6 +102,25 @@ with a non-zero exit:
     the exact predict, and R = 1 equal to it; the
     registry resolving the main workload under the reference's declared
     fingerprint to the trace 7 ran.
+9b. The artifact store (``Session(artifact_dir=...)``, under
+    ``build/chip_smoke_store``): the main request cold in four modes
+    (exact, binned, streaming at 2^16, sampled at R = 0.1), then a fresh
+    Session on the same directory answering with no profile, reuse or
+    trace build, every cell from disk and ``to_json()`` equal to the cold
+    result (cold and warm-from-disk seconds, the store's bytes); the
+    ground truth over store hits equal to 9a's.  The fused config sweep
+    (``repro_torch.explore.FusedSweepEvaluator`` over ``sweep_grid``) on
+    ``benchmarks/explore_sweep.py``'s 10,240-config space: seconds,
+    configs/s, one ``sdcm_rates_ragged`` launch per ``sweep_grid`` call,
+    64 configs bit for bit against ``batched_hit_rates``, every
+    ``t_pred_s`` within 1e-12 of the host ECM model; on the 1,024-config
+    space ``inner="pallas"`` (``sdcm_hit_probs``, B1's per-reference form,
+    its launches counted, and timed at the sweep's own calls) within 1e-6
+    of ``inner="vmap"``, and the warm per-config ``Session.predict`` loop
+    timed beside the sweep.  The autotuner (``run_explore``) on the 10k
+    space: random over the whole space (the oracle), hillclimb and ga at
+    1,024 configs, each best against the oracle's, then again warm from
+    the store (cached, nothing rebuilt).
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
     launches read around it, the same profile and the same
     teacher-forced check.  More validation-xxl workloads follow while
@@ -109,7 +128,7 @@ with a non-zero exit:
 
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
-a CUDA graph (the device time).  Every predict in 7-9a must make exactly
+a CUDA graph (the device time).  Every predict in 7-9b must make exactly
 one SDCM launch.  The last lines are the ``{"kernels": [...]}`` record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1161,6 +1180,298 @@ def phase_registry(exact) -> None:
          trace_content_id=cid, declared_fingerprint=src.declared_fingerprint)
 
 
+# --- the artifact store, the config sweep, the autotuner -----------------------
+
+STORE_DIR = ROOT / "build" / "chip_smoke_store"   # git-ignored, made anew
+# the store's cold/warm modes: exact, binned, streaming, sampled
+STORE_MODES = (("exact", {}), ("binned", {"binned": True}),
+               ("streaming", {"window_size": STREAM_WINDOW}),
+               ("sampled", {"sampled": 0.1}))
+# benchmarks/explore_sweep.py's spaces: space_10k (16 sets x 4 ways x 2
+# line sizes x 5 latencies x 4 betas x 4 cores = 10,240 configs, 8 profile
+# groups) and space_1k (8 x 4 x 4 x 4 x 2 = 1,024 configs, 2 groups);
+# base i7-5960X, L3 swept, runtime objective
+SWEEP_10K = dict(sets=tuple(64 << i for i in range(16)), ways=(2, 4, 8, 16),
+                 line_sizes=(64, 128),
+                 latency_cy=(12.0, 20.0, 36.0, 48.0, 60.0),
+                 beta_cy=(1.0, 2.0, 3.0, 4.0), cores=(1, 2, 4, 8))
+SWEEP_1K = dict(sets=(256, 512, 1024, 2048, 4096, 8192, 16384, 32768),
+                ways=(2, 4, 8, 16), latency_cy=(12.0, 20.0, 36.0, 60.0),
+                beta_cy=(1.0, 2.0, 3.0, 4.0), cores=(1, 2))
+SWEEP_SAMPLE = 64      # configs held bit for bit against batched_hit_rates
+ECM_RTOL = 1e-12       # sweep's float64 chain vs the host ECM model
+EXPLORE_BUDGET = 1024  # hillclimb and ga; random takes the whole space
+
+
+def store_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def registry_workload():
+    from repro_torch.workloads import registry
+
+    return registry.resolve(f"polybench/{MAIN_WORKLOAD}", SIZES)
+
+
+def phase_store(gt: dict) -> None:
+    """The main request through ``Session(artifact_dir=...)`` in each of
+    the four profile modes: cold (every cell built and written), then a
+    fresh Session on the same directory (every cell from disk: no profile,
+    reuse-distance or trace build, the same ``to_json()``); and the
+    exact-LRU ground truth over store hits equal to the in-memory one."""
+    import shutil
+
+    from repro_torch.api import AnalyticalSDCM, PredictionRequest, Session
+
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    w = registry_workload()
+    req = PredictionRequest(targets=TABLE5, core_counts=CORES,
+                            strategies=("round_robin",), counts=w.op_counts)
+
+    def session(**kw):
+        return Session(cache_model=AnalyticalSDCM(backend="batched"),
+                       device="cuda", artifact_dir=STORE_DIR, **kw)
+
+    for tag, kw in STORE_MODES:
+        before = store_bytes(STORE_DIR) if STORE_DIR.exists() else 0
+        cold = session(**kw)
+        res, cold_s = timed(lambda: cold.predict(registry_workload(), req))
+        warm = session(**kw)
+        again, warm_s = timed(lambda: warm.predict(registry_workload(), req))
+        st = warm.stats
+        if (st.profile_builds or st.rd_builds or st.trace_builds
+                or st.store_hits != cold.stats.store_puts
+                or cold.stats.store_puts != cold.stats.profile_builds):
+            fail(f"store {tag}: the warm Session rebuilt work or missed "
+                 f"cells: cold {cold.stats}, warm {st}")
+        if again.to_json() != res.to_json():
+            fail(f"store {tag}: warm-from-disk predict differs from cold")
+        line("store", mode=tag, session=kw, cells=len(res),
+             store_puts=cold.stats.store_puts, store_hits=st.store_hits,
+             cold_s=cold_s, warm_from_disk_s=warm_s,
+             warm_store_s=warm.stage_seconds["store"],
+             store_bytes=store_bytes(STORE_DIR) - before,
+             warm_stats=dict(vars(st)))
+    sess = session()
+    got, gt_s = timed(lambda: {(t, c): sess.ground_truth_hit_rates(
+        registry_workload(), t, c) for t in TABLE5 for c in CORES})
+    if got != gt:
+        fail("ground truth over store hits differs from the in-memory one")
+    if sess.stats.profile_builds or sess.stats.store_hits != len(CORES):
+        fail(f"ground truth rebuilt profiles off the store: {sess.stats}")
+    line("store_ground_truth", cells=len(got), seconds=gt_s,
+         equals_in_memory=True, stats=dict(vars(sess.stats)),
+         store_bytes=store_bytes(STORE_DIR))
+
+
+def sweep_hit_probs_calls(ev, configs) -> list:
+    """(distances float32, assoc, blocks) of every ``sdcm_hit_probs``
+    launch an ``inner="pallas"`` sweep of ``configs`` makes."""
+    calls = []
+    groups: dict = {}
+    for cfg in configs:
+        groups.setdefault((cfg.line_size, cfg.cores, cfg.strategy),
+                          []).append(cfg)
+    for (line_size, cores, strategy), cfgs in groups.items():
+        prd, crd = ev._pack(line_size, cores, strategy)
+        geom = ev._geometry(cfgs, line_size, cores)
+        for lv in range(geom.assoc.shape[1]):
+            prof = prd if lv < ev.shared_idx else crd
+            d32 = prof.d[:prof.n].to(torch.float32)
+            pairs = sorted({(int(a), int(b)) for a, b in
+                            zip(geom.assoc[:, lv], geom.blocks[:, lv])
+                            if a < b})
+            calls += [(d32, a, b) for a, b in pairs]
+    return calls
+
+
+def phase_sweep() -> dict:
+    """``FusedSweepEvaluator`` (``sweep_grid``) on the main workload over
+    the 10,240-config space: seconds, configs/s, one ragged SDCM launch
+    per ``sweep_grid`` call; a sample of configs bit for bit against
+    ``batched_hit_rates`` on the applied targets; every ``t_pred_s``
+    within ``ECM_RTOL`` of the host ECM model; ``inner="pallas"`` (B1's
+    per-reference form) on the 1,024-config space within ``RATE_TOL`` of
+    ``inner="vmap"``, its launches counted; the warm per-config
+    ``Session.predict`` loop on that space, timed beside the sweep.
+    Returns the kernels-line record of ``sdcm_hit_probs``."""
+    from repro_torch.api import PredictionRequest, Session
+    from repro_torch.api.batched import batched_hit_rates
+    from repro_torch.core.incore import ECMRuntimeModel
+    from repro_torch.explore import FusedSweepEvaluator, SearchSpace
+    from repro_torch.kernels.sdcm import sdcm_hit_probs, sdcm_hit_probs_plain
+
+    w = registry_workload()
+    sess = Session(cache_model="batched", device="cuda")
+    space = SearchSpace(**SWEEP_10K)
+    configs = space.configs()
+    ev = FusedSweepEvaluator(w, space, session=sess)
+    _, profile_s = timed(lambda: ev.evaluate(configs))   # cold: profiles
+    reset_counts()
+    res, sweep_s = timed(lambda: ev.evaluate(configs))
+    launches = read_counts()["launches"]
+    groups = {(c.line_size, c.cores, c.strategy) for c in configs}
+    if (launches["sdcm_rates_ragged"] != len(groups)
+            or sum(launches.values()) != len(groups)):
+        fail(f"sweep: {launches} for {len(groups)} sweep_grid calls, "
+             "expected one sdcm_rates_ragged launch each and nothing else")
+    base, li = ev.base, ev.level_idx
+    names = [lvl.name for lvl in base.levels]
+    pick = np.random.default_rng(0).choice(len(configs), SWEEP_SAMPLE,
+                                           replace=False)
+    items = [(configs[i].apply(base, li),
+              sess.artifacts(w, configs[i].cores, strategy=configs[i].strategy,
+                             line_size=configs[i].line_size)) for i in pick]
+    for i, rates in zip(pick, batched_hit_rates(items, device="cuda")):
+        if res.rates[i].tolist() != [rates[n] for n in names]:
+            fail(f"sweep config {configs[i]}: rates {res.rates[i].tolist()}"
+                 f" are not batched_hit_rates' {rates}")
+    ecm = ECMRuntimeModel()
+    worst_ecm = 0.0
+    for i, cfg in enumerate(configs):
+        host = ecm.runtime(cfg.apply(base, li), dict(zip(names, res.rates[i])),
+                           w.op_counts, cfg.cores)["t_pred_s"]
+        rel = abs(res.t_pred_s[i] - host) / host
+        worst_ecm = max(worst_ecm, rel)
+        if not rel <= ECM_RTOL:
+            fail(f"sweep config {cfg}: t_pred_s {res.t_pred_s[i]} vs host "
+                 f"ECM {host} (rel {rel} > {ECM_RTOL})")
+    best = int(np.argmin(res.scores))
+    line("sweep", workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
+         configs=len(configs), profile_groups=len(groups),
+         cold_with_profiles_s=profile_s, sweep_s=sweep_s,
+         configs_per_s=len(configs) / sweep_s,
+         sdcm_rates_ragged_launches=launches["sdcm_rates_ragged"],
+         bit_identical_sample=SWEEP_SAMPLE, max_rel_vs_host_ecm=worst_ecm,
+         best=configs[best].to_json(), best_t_pred_s=float(res.scores[best]))
+
+    # the 1k space: vmap, pallas (B1's per-reference form), predict loop
+    small = SearchSpace(**SWEEP_1K)
+    cfgs = small.configs()
+    vm = FusedSweepEvaluator(w, small, session=sess)
+    pa = FusedSweepEvaluator(w, small, session=sess, inner="pallas")
+    vm.evaluate(cfgs)
+    pa.evaluate(cfgs)                       # warm: profiles, shapes
+    vres, vmap_s = timed(lambda: vm.evaluate(cfgs))
+    reset_counts()
+    pres, pallas_s = timed(lambda: pa.evaluate(cfgs))
+    launches = read_counts()["launches"]
+    calls = sweep_hit_probs_calls(pa, cfgs)
+    if (launches["sdcm_hit_probs"] != len(calls)
+            or sum(launches.values()) != len(calls)):
+        fail(f"pallas sweep: {launches}, expected {len(calls)} "
+             "sdcm_hit_probs launches and nothing else")
+    diff = float(np.max(np.abs(pres.rates - vres.rates)))
+    if not diff <= RATE_TOL:
+        fail(f"pallas sweep vs vmap sweep: {diff} > {RATE_TOL}")
+
+    def loop():
+        out = []
+        for cfg in cfgs:
+            req = PredictionRequest(
+                targets=(cfg.apply(base, li),), core_counts=(cfg.cores,),
+                strategies=(cfg.strategy,), counts=w.op_counts,
+                runtime_model="ecm", respect_core_limit=False)
+            (cell,) = sess.predict(w, req)
+            out.append(cell.t_pred_s)
+        return np.asarray(out)
+
+    loop()                                  # warm
+    naive, loop_s = timed(loop)
+    rel = float(np.max(np.abs(naive - vres.t_pred_s) / naive))
+    if not rel <= ECM_RTOL:
+        fail(f"1k sweep vs the predict loop: rel {rel} > {ECM_RTOL}")
+    line("sweep_1k", configs=len(cfgs), vmap_s=vmap_s, pallas_s=pallas_s,
+         predict_loop_s=loop_s, vmap_configs_per_s=len(cfgs) / vmap_s,
+         loop_configs_per_s=len(cfgs) / loop_s, speedup=loop_s / vmap_s,
+         sdcm_hit_probs_launches=launches["sdcm_hit_probs"],
+         pallas_vs_vmap_max_abs=diff, loop_vs_sweep_max_rel=rel)
+
+    # B1's per-reference form at the pallas sweep's own calls
+    err = 0.0
+    for d, a, b in calls:
+        err = max(err, float((sdcm_hit_probs(d, a, b)
+                              - sdcm_hit_probs_plain(d, a, b)).abs().max()))
+    if not err <= PHIT_TOL:
+        fail(f"sdcm_hit_probs at the sweep's shapes: {err} > {PHIT_TOL}")
+
+    def every(fn):
+        return lambda: [fn(d, a, b) for d, a, b in calls]
+
+    n_elems = sum(int(d.numel()) for d, _, _ in calls)
+    terms = sum(phit_terms(d.cpu().numpy(), np.full(d.numel(), a),
+                           np.full(d.numel(), b)) for d, a, b in calls)
+    b_ms, b_by = bound_ms(8.0 * n_elems, terms * OPS_PER_TERM)
+    k = len(calls)
+    rec = dict(ms=cuda_ms(every(sdcm_hit_probs)) / k,
+               graph_ms=graph_ms(every(sdcm_hit_probs)) / k,
+               plain_ms=cuda_ms(every(sdcm_hit_probs_plain), reps=3,
+                                warmup=1) / k,
+               bound_ms=b_ms / k, bound_by=b_by, max_abs_err=err)
+    line("sweep_hit_probs", launches_per_sweep=k,
+         distances_per_launch=n_elems / k, terms=terms, **rec)
+    return {
+        "name": "sdcm_hit_probs",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/sdcm/csrc/sdcm.cu",
+        "replaces": "src/repro/kernels/sdcm/sdcm.py:32",
+        "launches": launches["sdcm_hit_probs"],
+        **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+        "library_ms": None,
+        "graph_ms": rec["graph_ms"],
+    }
+
+
+def phase_explore() -> None:
+    """``run_explore`` on the 10,240-config space: random at the whole
+    space (the exhaustive oracle), hillclimb and ga at
+    ``EXPLORE_BUDGET``, each against the oracle's best; then again on a
+    fresh Session over the same store, which must serve every search
+    from disk with no build and no new launch shape."""
+    from repro_torch.api import Session
+    from repro_torch.explore import SearchSpace, run_explore
+
+    space = SearchSpace(**SWEEP_10K)
+    runs = (("random", space.size), ("hillclimb", EXPLORE_BUDGET),
+            ("ga", EXPLORE_BUDGET))
+    name = f"polybench/{MAIN_WORKLOAD}"
+
+    def search(sess, agent, budget):
+        return timed(lambda: run_explore(
+            registry_workload(), space, agent=agent, budget=budget, seed=0,
+            session=sess, workload=name))
+
+    cold = Session(cache_model="batched", device="cuda",
+                   artifact_dir=STORE_DIR)
+    oracle = None
+    for agent, budget in runs:
+        res, secs = search(cold, agent, budget)
+        oracle = oracle or res
+        if res["cached"] or res["trajectory"]["evaluations"] > budget:
+            fail(f"explore {agent}: cached={res['cached']}, "
+                 f"{res['trajectory']['evaluations']} evaluations")
+        if res["best"]["score"] < oracle["best"]["score"]:
+            fail(f"explore {agent} beat the exhaustive oracle: "
+                 f"{res['best']['score']} < {oracle['best']['score']}")
+        line("explore", agent=agent, budget=budget, seconds=secs,
+             evaluations=res["trajectory"]["evaluations"],
+             best_score=res["best"]["score"],
+             oracle_score=oracle["best"]["score"],
+             best_over_oracle=res["best"]["score"] / oracle["best"]["score"],
+             best=res["best"]["config"], stats=res["stats"])
+    warm = Session(cache_model="batched", device="cuda",
+                   artifact_dir=STORE_DIR)
+    for agent, budget in runs:
+        res, secs = search(warm, agent, budget)
+        st = warm.stats
+        if not res["cached"] or (st.profile_builds + st.rd_builds
+                                 + st.trace_builds + st.kernel_shapes):
+            fail(f"explore {agent} warm: cached={res['cached']}, {st}")
+        line("explore_warm", agent=agent, seconds=secs, cached=True,
+             stats=dict(vars(st)))
+
+
 def reuse_stage(window_size):
     """A function that runs the reuse-profile stage of one cold predict
     of the main request on a fresh builder: every cell's PRD and CRD,
@@ -1682,9 +1993,12 @@ def main() -> int:
     binned_sess, hist_kernels, binned_errs = phase_binned_main_path(exact)
     streaming_errs = phase_streaming_main_path(exact, binned_sess)
     phase_reuse_idle()
-    phase_ground_truth(exact)
+    gt = phase_ground_truth(exact)
     phase_sampled_main_path(exact)
     phase_registry(exact)
+    phase_store(gt)
+    hit_probs_kernel = phase_sweep()
+    phase_explore()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
     serve_launches = phase_zamba2_serve()
@@ -1694,7 +2008,8 @@ def main() -> int:
         rec["launches"] = serve_launches[form]
     phase_mamba2_serve()
     phase_more_workloads(t_start)
-    kernels = [sdcm_kernel] + hist_kernels + [flash_kernel, ssd_kernel]
+    kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
+               + [flash_kernel, ssd_kernel])
     for rec in kernels:  # the worst error over every path's own inputs
         for errs in (binned_errs, streaming_errs):
             rec["max_abs_err"] = max(rec["max_abs_err"],

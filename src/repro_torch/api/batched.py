@@ -1,6 +1,6 @@
 """Batched SDCM: the whole (target x level x cores) grid through the
-SDCM kernel — port of ``repro/api/batched.py`` up to its compile
-accounting.
+SDCM kernel, and the fused config sweep — port of
+``repro/api/batched.py``.
 
 Every level profile of every grid cell becomes one row of a padded
 ``[G, M]`` grid, and the hand-written kernel
@@ -16,8 +16,10 @@ are padded to powers of two, and the kernel folds each row in a fixed
 order, so the bits a profile evaluates to are identical whether it runs
 alone or coalesced with arbitrary other rows.
 
-Not ported yet (ROADMAP queue A): ``sweep_grid`` and the fused config
-sweeps.
+:func:`sweep_grid` flips the axes: one profile pair held on the device
+(:class:`DeviceProfile`) against C candidate hardware configs, every
+(config, level) row a record of the same ragged launch, and the ECM
+runtime chain as float64 torch ops on the rates, on the device.
 """
 from __future__ import annotations
 
@@ -27,8 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.sdcm import (
+    A_BUCKETS,
     META_COLUMNS,
     a_max_bucket,
+    sdcm_hit_probs,
     sdcm_rates_ragged,
 )
 from repro_torch.kernels.sdcm import pow2 as _pow2
@@ -215,3 +219,261 @@ def _record_signature(sig: tuple) -> int:
 def shape_count() -> int:
     """Number of distinct row-shape group signatures seen so far."""
     return len(_SHAPES)
+
+
+# --- fused config sweeps -----------------------------------------------------
+#
+# The batched grid above amortizes one launch over many (workload,
+# target) cells; a config sweep flips the axes: ONE fixed profile pair
+# against C candidate hardware configs.  The profiles are packed once and
+# stay on the device; each (config, level) row is a 5-column record of
+# the ragged form pointing into the PRD or the CRD, so a sweep is one
+# launch over C x L records: nothing is padded, and the profile is never
+# copied per config.  A row's record carries exactly the entries, length
+# and A_MAX bucket that ``grid_rows``/``pack_ragged`` give the same row in
+# a predict, so sweep rates equal ``batched_hit_rates`` bit for bit.
+
+#: Ways above this take no A_MAX bucket (the set-associative grid raises,
+#: as the reference's ``_bucket`` does); fully associative levels are fine.
+A_MAX_LIMIT = A_BUCKETS[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceProfile:
+    """A reuse profile packed once and held on the device.
+
+    ``d``/``p`` are the float64 ``[m]`` row that :func:`pack_profiles`
+    packs for this profile (``m`` its pow2 width, the row's shape key);
+    ``n`` is the number of real entries, which a sweep row reads.
+    """
+
+    d: torch.Tensor
+    p: torch.Tensor
+    m: int
+    n: int
+    total: int
+
+
+def pack_profile_device(prof, *, device) -> DeviceProfile:
+    n = len(prof.distances)
+    m = _pow2(max(n, 1))
+    d, p = pack_profiles([prof], m, device=device)
+    return DeviceProfile(d=d[0], p=p[0], m=m, n=n, total=int(prof.total))
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepGeometry:
+    """Host-staged config axes for one sweep (float64 numpy arrays).
+
+    ``[C, L]`` for the per-level axes, ``[C]`` for cores.
+    ``trans_beta[:, i]`` is the transfer beta of the boundary INTO level
+    i+1 (RAM for the last column), the ``core/incore.py`` convention;
+    ``delta`` is the per-level access latency of the latency-mode chain.
+    """
+
+    assoc: np.ndarray
+    blocks: np.ndarray
+    trans_beta: np.ndarray
+    delta: np.ndarray
+    cores: np.ndarray
+
+    def __post_init__(self):
+        c, n = self.assoc.shape
+        for name in ("blocks", "trans_beta", "delta"):
+            if getattr(self, name).shape != (c, n):
+                raise ValueError(f"geometry field {name} shape mismatch")
+        if self.cores.shape != (c,):
+            raise ValueError("geometry cores shape mismatch")
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    rates: np.ndarray            # [C, L] float64
+    t_pred_s: np.ndarray | None  # [C] float64 (None without counts)
+    dispatches: int              # SDCM kernel calls issued
+    compiles: int                # NEW launch shapes recorded
+
+
+def _sweep_buckets(assoc: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    """``[C, L]`` A_MAX buckets: ``_row_shape_key``'s rule
+    (:func:`~repro_torch.kernels.sdcm.a_max_bucket`) for every (config,
+    level) row at once, so each row runs exactly as it would in
+    ``batched_hit_rates``; a set-associative row above 64 ways raises."""
+    buckets = np.asarray(A_BUCKETS)
+    full = assoc >= blocks
+    idx = np.searchsorted(buckets, assoc, side="left")
+    over = ~full & (idx >= len(buckets))
+    if over.any():
+        a_max_bucket(int(assoc[over][0]), int(blocks[over][0]))  # raises
+    return np.where(full, buckets[0], buckets[np.minimum(idx, len(buckets) - 1)])
+
+
+def _chain_body(rates, trans_beta, delta, cores, comp_cy: float,
+                lsu_cy: float, mem_ops: float, ram_delta: float,
+                cycle_s: float, shared_idx: int, mode: str) -> torch.Tensor:
+    """ECM runtime chain over the config axis — ``core/incore.py``'s
+    maths as float64 torch ops on the rates' device.
+
+    Per-core counts are the 1/cores share; the chip-wide saturation
+    term runs on UNDIVIDED counts over the boundaries at/above the
+    shared level, exactly as ``ecm_cycles`` does on the host.
+    """
+    n_levels = rates.shape[1]
+    reach = torch.cummin((1.0 - rates).clamp(0.0, 1.0), dim=1).values
+    share = 1.0 / cores.clamp_min(1.0)
+    full_transfers = mem_ops * reach * trans_beta        # [C, L] undivided
+    if mode == "latency":
+        acc = torch.full_like(share, ram_delta)
+        for lv in reversed(range(n_levels)):
+            pl = rates[:, lv]
+            acc = pl * delta[:, lv] + (1.0 - pl) * acc
+        core_cy = comp_cy * share + mem_ops * share * acc
+    else:
+        data = lsu_cy * share + share * full_transfers.sum(dim=-1)
+        core_cy = torch.maximum(comp_cy * share, data)
+    start = max(shared_idx - 1, 0)
+    sat = full_transfers[:, start:].sum(dim=-1)
+    return torch.maximum(core_cy, sat) * cycle_s
+
+
+def _to_device(arrays, device) -> list[torch.Tensor]:
+    """Host float64 arrays to ``device`` in one copy (pinned for a card)."""
+    device = torch.device(device)
+    sizes = [a.size for a in arrays]
+    host = torch.empty(sum(sizes), dtype=torch.float64,
+                       pin_memory=device.type == "cuda")
+    buf, at = host.numpy(), 0
+    for a, n in zip(arrays, sizes):
+        buf[at:at + n] = a.ravel()
+        at += n
+    dev, out, at = host.to(device, non_blocking=True), [], 0
+    for a, n in zip(arrays, sizes):
+        out.append(dev[at:at + n].view(a.shape))
+        at += n
+    return out
+
+
+def _ragged_rates(prd: DeviceProfile, crd: DeviceProfile,
+                  geom: SweepGeometry, shared_idx: int,
+                  buckets: np.ndarray) -> torch.Tensor:
+    """[C, L] rates in ONE ``sdcm_rates_ragged`` launch: record
+    ``c * L + l`` points into the PRD (levels below the shared one) or
+    the CRD region of one resident buffer."""
+    c, n_levels = geom.assoc.shape
+    on_crd = np.arange(n_levels) >= shared_idx
+    meta = np.empty((c, n_levels, len(META_COLUMNS)), dtype=np.float64)
+    meta[..., 0] = np.where(on_crd, prd.n, 0)
+    meta[..., 1] = np.where(on_crd, crd.n, prd.n)
+    meta[..., 2] = geom.assoc
+    meta[..., 3] = geom.blocks
+    meta[..., 4] = buckets
+    (meta_t,) = _to_device([meta.reshape(c * n_levels, -1)], prd.d.device)
+    d = torch.cat([prd.d[:prd.n], crd.d[:crd.n]])
+    p = torch.cat([prd.p[:prd.n], crd.p[:crd.n]])
+    return sdcm_rates_ragged(d, p, meta_t).view(c, n_levels)
+
+
+def _hit_probs_rates(prd: DeviceProfile, crd: DeviceProfile,
+                     geom: SweepGeometry, shared_idx: int
+                     ) -> tuple[torch.Tensor, int, int]:
+    """[C, L] rates through B1's per-reference form, as the reference's
+    Pallas inner evaluator computes them: per level, one
+    ``sdcm_hit_probs`` launch per distinct set-associative (assoc,
+    blocks) on the profile's distances in float32, folded as
+    ``kernels/sdcm/ops.py::sdcm_hit_rate`` folds (the dot product with
+    the weights over ``max(sum(w), 1e-30)``); a fully associative
+    geometry takes the exact LRU rule ``[0 <= D < B]`` without a launch.
+    Returns (rates, launches, new launch shapes)."""
+    c, n_levels = geom.assoc.shape
+    dev = prd.d.device
+    vals: list[torch.Tensor] = []
+    which = np.empty((c, n_levels), dtype=np.int64)
+    launches = shapes = 0
+    for lv in range(n_levels):
+        prof = prd if lv < shared_idx else crd
+        d32 = prof.d[:prof.n].to(torch.float32)
+        w = prof.p[:prof.n]
+        w_sum = w.sum().clamp_min(1e-30)
+        geoms, inverse = np.unique(
+            np.stack([geom.assoc[:, lv], geom.blocks[:, lv]], axis=1),
+            axis=0, return_inverse=True)
+        which[:, lv] = len(vals) + inverse.ravel()
+        for a, b in geoms.astype(np.int64).tolist():
+            if a >= b:
+                phit = ((d32 >= 0) & (d32 < b)).to(torch.float32)
+            else:
+                shapes += _record_signature(("hit_probs", a, b, prof.m))
+                phit = sdcm_hit_probs(d32, a, b)
+                launches += 1
+            vals.append((phit.to(torch.float64) * w).sum() / w_sum)
+    which_t = torch.from_numpy(which).to(dev)
+    return torch.stack(vals)[which_t], launches, shapes
+
+
+def sweep_grid(prd: DeviceProfile, crd: DeviceProfile,
+               geom: SweepGeometry, *, shared_idx: int,
+               counts=None, timings=None, cycle_s: float = 1.0,
+               ram_delta: float = 0.0, mode: str = "throughput",
+               inner: str = "vmap") -> SweepResult:
+    """Evaluate C hardware configs against one profile pair on the
+    profiles' device.
+
+    Returns per-config [C, L] hit rates, plus per-config predicted
+    runtime seconds when ``counts`` (an ``OpCounts``) and ``timings``
+    (an ``InCoreTimings``) are given: the SDCM rates and the ECM chain
+    on the device, one copy back.
+
+    ``inner="vmap"`` (the reference's name for its default evaluator)
+    runs every (config, level) row in one ``sdcm_rates_ragged`` launch,
+    bit-identical to ``batched_hit_rates`` on the same rows;
+    ``inner="pallas"`` runs B1's per-reference form
+    (:func:`_hit_probs_rates`), which agrees with it to ~1e-7.  Each
+    per-level A_MAX-bucket group records its launch signature, so
+    ``compiles`` counts new launch shapes and a repeat sweep adds none.
+    """
+    if inner not in ("vmap", "pallas"):
+        raise ValueError(f"unknown sweep inner evaluator: {inner!r}")
+    c, n_levels = geom.assoc.shape
+    with_runtime = counts is not None
+    if with_runtime and timings is None:
+        raise ValueError("sweep_grid needs timings when counts are given")
+    if c == 0:
+        return SweepResult(np.zeros((0, n_levels)),
+                           np.zeros(0) if with_runtime else None, 0, 0)
+
+    if inner == "pallas":
+        rates_t, dispatches, compiles = _hit_probs_rates(
+            prd, crd, geom, shared_idx)
+    else:
+        buckets = _sweep_buckets(geom.assoc, geom.blocks)
+        groups: dict[tuple, int] = {}
+        for key in map(tuple, buckets.tolist()):
+            groups[key] = groups.get(key, 0) + 1
+        compiles = sum(
+            _record_signature(("sweep", key, shared_idx, mode, with_runtime,
+                               _pow2(n), prd.m, crd.m))
+            for key, n in groups.items())
+        rates_t = _ragged_rates(prd, crd, geom, shared_idx, buckets)
+        dispatches = 1
+
+    if with_runtime:
+        from repro_torch.core.incore import t_comp_cy, t_lsu_cy
+
+        trans_beta, delta, cores = _to_device(
+            [geom.trans_beta, geom.delta, geom.cores], rates_t.device)
+        t = _chain_body(
+            rates_t, trans_beta, delta, cores,
+            float(t_comp_cy(timings, counts, mode)),
+            float(t_lsu_cy(timings, counts)), float(counts.mem_ops),
+            float(ram_delta), float(cycle_s), shared_idx, mode,
+        )
+        out = torch.cat([rates_t, t[:, None]], dim=1).cpu().numpy()
+        rates, t_pred = out[:, :n_levels].copy(), out[:, n_levels].copy()
+    else:
+        rates, t_pred = rates_t.cpu().numpy().copy(), None
+
+    if prd.total == 0:
+        rates[:, :shared_idx] = 0.0
+    if crd.total == 0:
+        rates[:, shared_idx:] = 0.0
+    return SweepResult(rates, t_pred, dispatches, compiles)

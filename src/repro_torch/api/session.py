@@ -31,11 +31,21 @@ and a request's ``sampled_rate`` overrides it cell by cell.
 Session's device.
 
 Registry-resolved sources (``repro_torch.workloads.registry``) are
-keyed by their declared fingerprint, as in the reference.  Not ported
-yet (ROADMAP queue A), and raising ``NotImplementedError``: the disk
-store (``store=``/``artifact_dir=``); without it
-``verify_fingerprints`` has nothing to check against, as in the
-reference.
+keyed by their declared fingerprint, as in the reference.
+
+``Session(artifact_dir=...)`` (or ``store=ArtifactStore(...)``) layers
+the disk store of :mod:`repro_torch.validate.store` under the in-memory
+caches.  Lookup order per cell:
+
+    in-memory dict  ->  ArtifactStore (npz on disk)  ->  build + put
+
+The layout and keys are the reference's, so a store that either package
+warmed serves the other (binned cells excepted: ROADMAP queue C, C4).
+A cell served from disk carries profiles only; ``need_traces`` (and
+``ExactLRU``) rebuild its mimicked traces without rerunning a profile
+pass.  The first materialization of a declared source records its
+content hash in the store's ``workload`` meta, and
+``verify_fingerprints=True`` raises when a later one hashes otherwise.
 """
 from __future__ import annotations
 
@@ -53,7 +63,6 @@ from repro_torch.api.stages import (
     ProfileArtifacts,
     as_trace_source,
     default_runtime_model,
-    not_in_slice,
     resolve_runtime_model,
     trace_content_id,
 )
@@ -74,6 +83,8 @@ class SessionStats:
     profile_builds: int = 0
     profile_hits: int = 0
     streaming_builds: int = 0
+    store_hits: int = 0     # profiles served from the disk store
+    store_puts: int = 0     # freshly built profiles written back
     kernel_shapes: int = 0  # NEW SDCM launch shapes this session
     # (``repro_torch.api.batched``); a warm session re-running an
     # identical sweep leaves it unchanged.
@@ -90,6 +101,11 @@ class Session:
     builder; ``binned=True`` or ``sampled=R`` with a builder of one's
     own needs that builder to be binned, or sampled at R.
     ``window_size=0`` (here or per request) forces the in-memory path.
+
+    ``artifact_dir`` (or an explicit ``store``) layers a disk-backed
+    :class:`repro_torch.validate.store.ArtifactStore` under the
+    in-memory caches: ``stats.store_hits`` counts disk loads,
+    ``stats.store_puts`` write-backs.
     """
 
     def __init__(
@@ -107,8 +123,6 @@ class Session:
         artifact_dir=None,
         verify_fingerprints: bool = False,
     ):
-        if store is not None or artifact_dir is not None:
-            raise not_in_slice("store=/artifact_dir=", "store")
         self.device = resolve_device(device)
         if profile_builder is None:
             profile_builder = MimicProfileBuilder(
@@ -139,7 +153,11 @@ class Session:
         self.cache_model = cache_model
         self.runtime_model = runtime_model  # None -> per-target default
         self.cache_enabled = cache
-        self.store = None
+        if store is None and artifact_dir is not None:
+            from repro_torch.validate.store import ArtifactStore
+
+            store = ArtifactStore(artifact_dir)
+        self.store = store
         self.verify_fingerprints = verify_fingerprints
         self.stats = SessionStats()
         self.stage_seconds: collections.defaultdict = (
@@ -214,7 +232,37 @@ class Session:
             trace = as_trace_source(source).trace()
         self.stats.trace_builds += 1
         self._traces[tid] = trace
+        if getattr(source, "declared_fingerprint", None):
+            self._check_declared(tid, source, trace)
         return trace
+
+    def _check_declared(self, tid: str, source, trace: LabeledTrace) -> None:
+        """Record (and optionally verify) the content hash behind a
+        declared fingerprint: the first materialization writes
+        ``trace_content_id`` into the store's workload meta; under
+        ``verify_fingerprints=True`` a later one that hashes otherwise (a
+        generator whose declared version lied) raises."""
+        if self.store is None:
+            return
+        meta = dict(self.store.get_json("workload", tid) or {})
+        recorded = meta.get("trace_content_id")
+        if recorded is None:
+            meta.update(
+                trace_content_id=trace_content_id(trace),
+                refs=len(trace),
+                workload=getattr(source, "workload_name", None)
+                or meta.get("workload"),
+            )
+            self.store.put_json("workload", tid, meta)
+        elif self.verify_fingerprints:
+            cid = trace_content_id(trace)
+            if cid != recorded:
+                raise RuntimeError(
+                    f"declared fingerprint {tid} of "
+                    f"{getattr(source, 'workload_name', source)!r} is stale: "
+                    f"trace content hash {cid} != recorded {recorded} — "
+                    "bump the generator version"
+                )
 
     def _reuse_distances(self, tid: str, trace: LabeledTrace, line: int):
         key = (tid, line)
@@ -296,18 +344,48 @@ class Session:
         ``sampled`` overrides the builder's sampling rate for this cell
         (``None`` keeps the builder's mode); the cell cache keys embed
         the effective rate, so exact and sampled cells coexist.
-        ``need_traces`` asks for the mimicked traces to be attached:
-        every cell built here carries them (only a disk store, not
-        ported yet, serves profile-only cells).
+        ``need_traces`` guarantees the mimicked traces are attached: cells
+        served from the disk store arrive trace-less (only the histograms
+        persist) and are rematerialized through the stage caches.
         """
         ws = self._resolve_window(window_size)
         builder = self._builder_for(sampled)
         rate = getattr(builder, "sampled", None)
-        tid, trace = self.load(source)
+        if self.cache_enabled:
+            # id only: the trace is materialized lazily, so cells served
+            # from memory or disk never build it
+            tid, trace = self.identify(source), None
+        else:
+            tid, trace = self.load(source)
         key = (tid, line_size, cores, strategy, seed, ws, rate)
         if self.cache_enabled and key in self._profiles:
             self.stats.profile_hits += 1
-            return self._profiles[key]
+            art = self._profiles[key]
+            if need_traces and not art.has_traces:
+                art = self._materialize_traces(
+                    art, self._trace_of(tid, source))
+                self._profiles[key] = art
+            return art
+        if self.cache_enabled and self.store is not None:
+            from repro_torch.validate.store import (
+                builder_fingerprint,
+                load_profile_artifacts,
+            )
+
+            with self._stage("store"):
+                art = load_profile_artifacts(
+                    self.store, tid, line_size, cores, strategy, seed, ws,
+                    builder_fingerprint(builder),
+                )
+            if art is not None:
+                self.stats.store_hits += 1
+                if need_traces:
+                    art = self._materialize_traces(
+                        art, self._trace_of(tid, source))
+                self._profiles[key] = art
+                return art
+        if trace is None:
+            trace = self._trace_of(tid, source)
         binned = bool(getattr(builder, "binned", False))
         if ws:
             art = self._streaming_artifacts(
@@ -345,7 +423,31 @@ class Session:
         self.stats.profile_builds += 1
         if self.cache_enabled:
             self._profiles[key] = art
+            if self.store is not None:
+                from repro_torch.validate.store import (
+                    builder_fingerprint,
+                    save_profile_artifacts,
+                )
+
+                with self._stage("store"):
+                    save_profile_artifacts(
+                        self.store, art, builder_fingerprint(builder))
+                self.stats.store_puts += 1
         return art
+
+    def _materialize_traces(self, art: ProfileArtifacts,
+                            trace: LabeledTrace) -> ProfileArtifacts:
+        """Re-attach mimicked traces to a store-loaded (trace-less)
+        profile cell through the stage caches; the profile passes are
+        not rerun.  Streaming cells keep ``shared=None``."""
+        if art.cores == 1:
+            return dataclasses.replace(art, privates=[trace], shared=trace)
+        privs = self._private_traces(art.trace_id, trace, art.cores)
+        shared = art.shared
+        if shared is None and not art.window_size:
+            shared = self._shared_trace(
+                art.trace_id, privs, art.cores, art.strategy, art.seed)
+        return dataclasses.replace(art, privates=privs, shared=shared)
 
     def _streaming_artifacts(self, tid, trace, cores, strategy, seed,
                              line_size, ws, builder) -> ProfileArtifacts:

@@ -162,8 +162,8 @@ class ProfileArtifacts:
 
     @property
     def has_traces(self) -> bool:
-        """Whether the mimicked traces are attached (always, until a
-        disk store serves profile-only cells: ROADMAP queue A)."""
+        """Whether the mimicked traces are attached (cells served from
+        the disk store carry profiles only)."""
         return bool(self.privates)
 
 
@@ -210,9 +210,14 @@ class MimicProfileBuilder:
     """
 
     #: The disk-store identity of the default builder, shared with the
-    #: JAX package's ``repro.api.stages.MimicProfileBuilder``: its exact
-    #: profiles are bit-identical to the port's.
+    #: JAX package's ``repro.api.stages.MimicProfileBuilder``: its exact,
+    #: streaming and sampled profiles are bit-identical to the port's.
     STORE_NAME = "repro.api.stages.MimicProfileBuilder"
+    #: The identity of the default builder's binned cells, the port's
+    #: own: its log2 bins follow the documented rule at the points where
+    #: the reference's do not (ROADMAP queue C, C2), so neither package
+    #: is ever served the other's binned profile (C4).
+    BINNED_STORE_NAME = "repro_torch.api.stages.MimicProfileBuilder"
 
     window_size: int | None = None  # class defaults: subclasses with
     binned: bool = False            # a bare __init__ still resolve them
@@ -242,9 +247,12 @@ class MimicProfileBuilder:
     def store_fingerprint(self) -> str:
         """Disk-store identity: binned/sampled cells must never be
         confused with exact cells (or with each other, or with another
-        rate), so approximate builders stamp their keys."""
+        rate), so approximate builders stamp their keys.  Exact,
+        streaming and sampled cells of the default builder keep the
+        reference's keys; its binned cells take the port's own
+        (:data:`BINNED_STORE_NAME`)."""
         if type(self) is MimicProfileBuilder:
-            base = self.STORE_NAME
+            base = self.BINNED_STORE_NAME if self.binned else self.STORE_NAME
         else:
             base = f"{type(self).__module__}.{type(self).__qualname__}"
         if self.binned:

@@ -115,9 +115,13 @@ class WorkloadRegistry:
     def aliases(self) -> dict[str, str]:
         return dict(self._aliases)
 
-    def resolve(self, name: str, sizes: str | None = None):
+    def resolve(self, name: str, sizes: str | None = None, *,
+                store=None):
         """Build one workload source with its declared fingerprint set;
-        ``sizes`` is one of the spec's presets (None for defaults)."""
+        ``sizes`` is one of the spec's presets (None for defaults).
+        ``store`` is forwarded to sources that cache derived metadata on
+        disk (an ``attach_store`` method); no source of the port has one
+        yet."""
         spec = self.spec(name)
         if sizes is not None and sizes not in spec.presets:
             raise ValueError(
@@ -128,6 +132,8 @@ class WorkloadRegistry:
         source = spec.build(sizes)
         source.workload_name = spec.name
         source.declared_fingerprint = spec.fingerprint(sizes)
+        if store is not None and hasattr(source, "attach_store"):
+            source.attach_store(store)
         return source
 
 
@@ -151,9 +157,9 @@ def register(spec: WorkloadSpec) -> WorkloadSpec:
     return REGISTRY.register(spec)
 
 
-def resolve(name: str, sizes: str | None = None):
+def resolve(name: str, sizes: str | None = None, *, store=None):
     _ensure_populated()
-    return REGISTRY.resolve(name, sizes)
+    return REGISTRY.resolve(name, sizes, store=store)
 
 
 def canonical_name(name: str) -> str:

@@ -5,7 +5,8 @@ of its three forms, with the launches counted by form) and the SSD scan
 versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
 the histogram, streaming reuse distances, a binned Session and the
-reduced serving path on the card.  Imports nothing of JAX, so
+reduced serving path on the card, the fused config sweep in both inner
+forms and the artifact store on the card.  Imports nothing of JAX, so
 it runs where the port runs:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -540,3 +541,79 @@ def test_reduced_serve_launches_both_kernels(cuda_device):
     assert fa.LAUNCHES_BY_FORM["simt"] - before[2] == 2 * 4
     assert scan.LAUNCHES["ssd_scan"] - before[1] == 5
     np.testing.assert_array_equal(res["tokens"], cpu["tokens"])
+
+
+SWEEP_SPACE = dict(sets=(64, 512, 4096, 32768), ways=(1, 4, 8, 16),
+                   line_sizes=(64, 128), latency_cy=(20.0, 36.0),
+                   cores=(1, 2, 4))
+
+
+@pytest.mark.parametrize("inner", ["vmap", "pallas"])
+def test_sweep_on_the_card_matches_the_cpu_port(cuda_device, inner):
+    """``sweep_grid`` on the card: one ragged launch per sweep (vmap) or
+    one per-reference launch per set-associative geometry (pallas), the
+    rates within 1e-12 (vmap) or 1e-6 (pallas) of the CPU port's and, for
+    vmap, bit-identical to ``batched_hit_rates`` on the card."""
+    from repro_torch.core.runtime_model import OpCounts
+    from repro_torch.explore import FusedSweepEvaluator, SearchSpace
+
+    w = make_atax(n=64)
+    space = SearchSpace(**SWEEP_SPACE)
+    configs = space.configs()
+    counts = OpCounts(int_ops=3000, fp_ops=1500, div_ops=10, loads=3000,
+                      stores=1500, total_bytes=4500 * 8)
+    gpu_sess = Session(device=cuda_device, cache_model="batched")
+    gpu = FusedSweepEvaluator(w, space, session=gpu_sess, counts=counts,
+                              inner=inner)
+    cpu = FusedSweepEvaluator(w, space, device="cpu", counts=counts,
+                              inner=inner)
+    name = "sdcm_rates_ragged" if inner == "vmap" else "sdcm_hit_probs"
+    before = dict(kernel.LAUNCHES)
+    got = gpu.evaluate(configs)
+    launched = {k: kernel.LAUNCHES[k] - before[k] for k in before}
+    assert launched[name] == gpu.stats.fused_dispatches > 0
+    assert sum(launched.values()) == launched[name]
+    if inner == "vmap":
+        groups = {(c.line_size, c.cores, c.strategy) for c in configs}
+        assert launched[name] == len(groups)
+    want = cpu.evaluate(configs)
+    # vmap folds in double on both sides; pallas folds float32 P(h|D),
+    # which the card and the host may round one float32 ulp apart
+    tol = 1e-12 if inner == "vmap" else 1e-6
+    assert np.max(np.abs(got.rates - want.rates)) <= tol
+    np.testing.assert_allclose(got.t_pred_s, want.t_pred_s, rtol=tol)
+    if inner == "vmap":
+        items = [(c.apply(gpu.base, gpu.level_idx),
+                  gpu_sess.artifacts(w, c.cores, strategy=c.strategy,
+                                     line_size=c.line_size))
+                 for c in configs[::5]]
+        names = [lvl.name for lvl in gpu.base.levels]
+        rows = batched.batched_hit_rates(items, device=cuda_device)
+        assert got.rates[::5].tolist() == [[r[n] for n in names]
+                                           for r in rows]
+
+
+def test_store_round_trip_on_the_card(cuda_device, tmp_path):
+    """A store warmed on the card serves a fresh card Session and a CPU
+    Session: zero profile and reuse-distance builds, the card's profiles,
+    the same predict as the card's cold one."""
+    from repro_torch.workloads import registry
+
+    req = PredictionRequest(targets=("i7-5960X", "EPYC 7702P"),
+                            core_counts=(1, 2, 4))
+    cold = Session(device=cuda_device, cache_model="batched",
+                   artifact_dir=tmp_path)
+    res = cold.predict(registry.resolve("polybench/atx", "smoke"), req)
+    assert cold.stats.store_puts == cold.stats.profile_builds > 0
+    warm = Session(device=cuda_device, cache_model="batched",
+                   artifact_dir=tmp_path)
+    again = warm.predict(registry.resolve("polybench/atx", "smoke"), req)
+    assert warm.stats.profile_builds == warm.stats.rd_builds == 0
+    assert warm.stats.store_hits == cold.stats.store_puts
+    assert again.to_json() == res.to_json()
+    host = Session(device="cpu", artifact_dir=tmp_path)
+    for cores in (1, 2, 4):
+        a = cold.artifacts(registry.resolve("polybench/atx", "smoke"), cores)
+        b = host.artifacts(registry.resolve("polybench/atx", "smoke"), cores)
+        assert np.array_equal(a.crd.counts, b.crd.counts)
+    assert host.stats.profile_builds == 0

@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in
 ``src/repro_torch/`` or ``chip_smoke.py``; CUDA is the default device
-and its absence is an error; unported options raise, ported ones run."""
+and its absence is an error; unported options raise, ported ones run
+(the store options, the last unported Session options, now construct
+a store)."""
 from __future__ import annotations
 
 import ast
@@ -57,7 +59,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.launch.serve, repro_torch.dist.sharding, "
         "repro_torch.workloads.registry, repro_torch.core.cachesim, "
         "repro_torch.core.reuse.sampled, repro_torch.core.reuse.crd, "
-        "repro_torch.core.tasklist, repro_torch.core.predictor\n"
+        "repro_torch.core.tasklist, repro_torch.core.predictor, "
+        "repro_torch.validate, repro_torch.explore, "
+        "repro_torch.explore.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -91,9 +95,22 @@ def test_session_binds_its_device_to_its_stages():
     dict(artifact_dir="store"),
     dict(store=object()),
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_session_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        Session(device="cpu", **kwargs)
+def test_unported_session_options_raise(kwargs, tmp_path):
+    """The store options raised until the store was ported; now
+    ``artifact_dir`` constructs an ``ArtifactStore`` there and ``store``
+    is taken as given, as in the reference, and nothing is written until
+    a cell is built."""
+    from repro_torch.validate import ArtifactStore
+
+    if "artifact_dir" in kwargs:
+        kwargs = dict(artifact_dir=tmp_path / kwargs["artifact_dir"])
+    s = Session(device="cpu", **kwargs)
+    if "artifact_dir" in kwargs:
+        assert isinstance(s.store, ArtifactStore)
+        assert s.store.root == kwargs["artifact_dir"]
+        assert not kwargs["artifact_dir"].exists()
+    else:
+        assert s.store is kwargs["store"]
 
 
 @pytest.mark.parametrize("kwargs", [
