@@ -121,6 +121,25 @@ with a non-zero exit:
     space: random over the whole space (the oracle), hillclimb and ga at
     1,024 configs, each best against the oracle's, then again warm from
     the store (cached, nothing rebuilt).
+9c. The prediction service (``repro_torch.service``) on the card: the
+    ``PredictionServer`` on an ephemeral port with a warm Session on the
+    main workload at full size; 1, 8 and 64 concurrent ``ServiceClient``s
+    of 16 requests each (the reference selftest's mix: the canonical name
+    and its alias as a duplicate, the three Table-5 CPUs, cores 1/2/4/8,
+    both strategies), every response bit for bit a sequential
+    ``Session.predict``'s, exactly one ragged SDCM launch per batch
+    (launches == ``kernel_calls``), requests/s, p50/p99, mean batch size;
+    the 64-client load under ``torch.profiler``; one ``/explore``
+    (hillclimb, budget 256, the 1,024-config space) on the lane under the
+    64-client load, equal to the same search alone, with the ``/predict``
+    p99 beside the one without it; the selftest flow twice on one store
+    (the second builds nothing).  The validation harness
+    (``repro_torch.validate``): the reference's golden 18-cell matrix
+    within 1e-6 of its committed aggregates; the whole roster at
+    ``smoke`` twice on one store (B2 through the binned check, the second
+    run builds nothing, the binned and sampling gates hold); and
+    ``run_workload`` on the main workload at full size (24 cells), with
+    seconds per part.
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
     launches read around it, the same profile and the same
     teacher-forced check.  More validation-xxl workloads follow while
@@ -129,8 +148,9 @@ with a non-zero exit:
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
 a CUDA graph (the device time).  Every predict in 7-9b must make exactly
-one SDCM launch.  The last lines are the ``{"kernels": [...]}`` record,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+one SDCM launch, and every service batch in 9c.  The last lines are the
+``{"kernels": [...]}`` record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -240,7 +260,9 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the stream that warmed up: what a kernel keeps per
+    # stream (B2's accumulator) was made there, outside the capture
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1505,6 +1527,390 @@ def phase_reuse_idle() -> None:
              **device_breakdown(fn))
 
 
+# --- the prediction service and the validation harness ----------------------
+
+SERVICE_CLIENTS = (1, 8, 64)   # concurrent ServiceClients a load
+SERVICE_REQUESTS = 16          # requests each client sends
+SERVICE_EXPLORE_BUDGET = 256   # the /explore put on the lane under load
+SERVICE_STORE = ROOT / "build" / "chip_smoke_service_store"
+VALIDATE_STORE = ROOT / "build" / "chip_smoke_validate_store"
+# tests/validate/test_runtime_golden.py: the golden matrix and its
+# committed aggregates (error in %), the reference's on its CPU
+GOLDEN_SPEC = dict(workloads=("polybench/atx", "polybench/mvt",
+                              "polybench/jcb"),
+                   core_counts=(1, 4), strategies=("round_robin",),
+                   sizes="smoke", binned_check=False)
+GOLDEN_HIT_ERR_PCT = 0.259646889555145
+GOLDEN_RUNTIME_ERR_PCT = 1.367613486290153
+GOLDEN_MODEL_ERR_PCT = {"eq": 1.367613486290153, "ecm": 71.663113522307130,
+                        "roofline": 90.851810925179830}
+GOLDEN_CELLS = 18
+GOLDEN_TOL = 1e-6
+
+
+def service_payloads() -> tuple:
+    """The reference selftest's mix at the main path's size: the main
+    request's cores, its alias as a duplicate, another target subset and
+    strategy, and the whole grid with both strategies."""
+    name = f"polybench/{MAIN_WORKLOAD}"
+    return (
+        {"workload": name, "sizes": SIZES, "core_counts": [1, 2, 4]},
+        {"workload": MAIN_WORKLOAD, "sizes": SIZES, "core_counts": [1, 2, 4]},
+        {"workload": name, "sizes": SIZES, "core_counts": [1, 8],
+         "targets": [TABLE5[0]], "strategies": ["uniform"]},
+        {"workload": name, "sizes": SIZES, "core_counts": list(CORES),
+         "targets": list(TABLE5), "strategies": ["round_robin", "uniform"]},
+    )
+
+
+def percentile(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def service_load(url: str, clients: int, expected: list) -> dict:
+    """``clients`` ServiceClients at once, ``SERVICE_REQUESTS`` each,
+    cycling through the payloads from a different start; every response
+    held bit for bit against ``expected``.  Fails on any mismatch or
+    failed request."""
+    import threading
+
+    from repro_torch.service.client import ServiceClient
+
+    payloads = service_payloads()
+    latencies, failures = [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(clients + 1)
+
+    def run(i: int) -> None:
+        client = ServiceClient(url, timeout=300)
+        barrier.wait()
+        for r in range(SERVICE_REQUESTS):
+            k = (i + r) % len(payloads)
+            t0 = time.perf_counter()
+            try:
+                got = client.predict(**payloads[k])
+            except Exception as exc:  # noqa: BLE001 — collected, then failed
+                with lock:
+                    failures.append(f"client {i}: {exc!r}")
+                continue
+            dt = time.perf_counter() - t0
+            with lock:
+                latencies.append(dt)
+                if got["predictions"] != expected[k]:
+                    failures.append(f"client {i} payload {k}: response "
+                                    "differs from sequential predict")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"service load with {clients} clients did not finish")
+    if failures:
+        fail(f"service load with {clients} clients: {failures[:5]}")
+    return dict(clients=clients, requests=len(latencies), wall_s=wall,
+                requests_per_s=len(latencies) / wall,
+                p50_ms=percentile(latencies, 50) * 1e3,
+                p99_ms=percentile(latencies, 99) * 1e3)
+
+
+def service_delta(before: dict, after: dict) -> dict:
+    keys = ("submitted", "completed", "failed", "shed", "batches",
+            "batched_requests", "coalesced", "deduped", "kernel_calls")
+    d = {k: after["service"][k] - before["service"][k] for k in keys}
+    d["mean_batch_size"] = d["batched_requests"] / max(d["batches"], 1)
+    # per request: submit -> batch formed, batch formed -> result ready
+    # (the rest of a request's latency is HTTP, JSON and the GIL)
+    for k in ("queue_wait_s", "service_s"):
+        d[f"mean_{k[:-2]}_ms"] = ((after["service"][k] - before["service"][k])
+                                  / max(d["completed"], 1) * 1e3)
+    return d
+
+
+def explore_comparable(res: dict) -> dict:
+    """An explore result without what depends on the process's history
+    (new launch shapes) or on the store (``cached``)."""
+    out = {k: v for k, v in res.items() if k not in ("stats", "cached")}
+    out["stats"] = {k: v for k, v in res["stats"].items()
+                    if k != "kernel_compiles"}
+    return json.loads(json.dumps(out))
+
+
+def phase_service() -> None:
+    """The port's PredictionServer on the card with a warm Session:
+    1, 8 and 64 concurrent clients (``[service]``), every response bit
+    for bit a sequential ``Session.predict``'s, one ragged SDCM launch per
+    batch; the 64-client load under ``torch.profiler`` (device busy and
+    idle share); then the same load with one ``/explore`` on the lane
+    (``[service_explore]``), its result equal to the same search alone."""
+    import threading
+
+    from repro_torch.api import AnalyticalSDCM, Session
+    from repro_torch.explore import SearchSpace, run_explore
+    from repro_torch.service import PredictionService, ServiceConfig
+    from repro_torch.service.client import ServiceClient
+    from repro_torch.service.server import PredictionServer, build_request
+
+    t_phase = time.perf_counter()
+    svc = PredictionService(config=ServiceConfig(device="cuda"))
+    with svc:
+        server = PredictionServer(svc, "127.0.0.1", 0)
+        reference = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                            device="cuda")
+        expected = []
+        for payload in service_payloads():
+            w = server.resolver.get(payload["workload"], payload["sizes"])
+            res = reference.predict(w, build_request(payload, w))
+            expected.append(json.loads(res.to_json())["predictions"])
+        server.serve_background()
+        try:
+            client = ServiceClient(server.url, timeout=300)
+            client.wait_ready()
+            t0 = time.perf_counter()
+            for payload in service_payloads():      # warm the Session
+                client.predict(**payload)
+            warm_s = time.perf_counter() - t0
+            p99_alone = None
+            for n in SERVICE_CLIENTS:
+                before = svc.snapshot()
+                reset_counts()
+                rec = service_load(server.url, n, expected)
+                launches = read_counts()["launches"]
+                d = service_delta(before, svc.snapshot())
+                ragged = launches["sdcm_rates_ragged"]
+                if (ragged != d["kernel_calls"]
+                        or sum(launches.values()) != ragged
+                        or d["failed"] or d["shed"]
+                        or d["completed"] != n * SERVICE_REQUESTS):
+                    fail(f"service {n} clients: {ragged} ragged launches "
+                         f"for {d['kernel_calls']} kernel calls, "
+                         f"{launches}, {d}")
+                line("service", workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
+                     **rec, mean_batch_size=d["mean_batch_size"],
+                     mean_queue_wait_ms=d["mean_queue_wait_ms"],
+                     mean_service_ms=d["mean_service_ms"],
+                     batches=d["batches"], deduped=d["deduped"],
+                     coalesced=d["coalesced"],
+                     kernel_calls=d["kernel_calls"],
+                     sdcm_rates_ragged_launches=ragged,
+                     bit_identical=True, warm_up_s=warm_s)
+                p99_alone = rec["p99_ms"]
+            prof = device_breakdown(
+                lambda: service_load(server.url, SERVICE_CLIENTS[-1],
+                                     expected))
+            line("service_profile", clients=SERVICE_CLIENTS[-1],
+                 requests=SERVICE_CLIENTS[-1] * SERVICE_REQUESTS, **prof)
+
+            # one /explore on the lane while the 64-client load runs
+            space = dict(SWEEP_1K)
+            name = f"polybench/{MAIN_WORKLOAD}"
+            result = {}
+
+            def explore():
+                t = time.perf_counter()
+                result["res"] = ServiceClient(server.url, timeout=600).explore(
+                    name, sizes=SIZES, space={k: list(v) for k, v in
+                                              space.items()},
+                    agent="hillclimb", budget=SERVICE_EXPLORE_BUDGET, seed=0)
+                result["s"] = time.perf_counter() - t
+
+            before = svc.snapshot()
+            reset_counts()
+            th = threading.Thread(target=explore)
+            th.start()
+            rec = service_load(server.url, SERVICE_CLIENTS[-1], expected)
+            th.join(600)
+            if th.is_alive() or "res" not in result:
+                fail("service explore: the /explore request did not finish")
+            launches = read_counts()["launches"]
+            d = service_delta(before, svc.snapshot())
+            got = result["res"]
+            fused = got["stats"]["fused_dispatches"]
+            if launches["sdcm_rates_ragged"] != d["kernel_calls"] + fused:
+                fail(f"service explore: {launches} for {d['kernel_calls']} "
+                     f"predict batches and {fused} sweep launches")
+        finally:
+            server.shutdown()
+            server.server_close()
+    alone = run_explore(registry_workload(), SearchSpace(**space),
+                        agent="hillclimb", budget=SERVICE_EXPLORE_BUDGET,
+                        seed=0, session=Session(cache_model="batched",
+                                                device="cuda"),
+                        workload=name)
+    if explore_comparable(got) != explore_comparable(alone):
+        fail("service explore: the /explore result differs from the same "
+             "search run alone")
+    line("service_explore", clients=SERVICE_CLIENTS[-1], explore_s=result["s"],
+         explore_evaluations=got["trajectory"]["evaluations"],
+         best_score=got["best"]["score"], equals_alone=True,
+         p99_ms_with_explore=rec["p99_ms"], p99_ms_without=p99_alone,
+         p50_ms_with_explore=rec["p50_ms"],
+         requests_per_s=rec["requests_per_s"],
+         mean_batch_size=d["mean_batch_size"],
+         mean_queue_wait_ms=d["mean_queue_wait_ms"],
+         mean_service_ms=d["mean_service_ms"],
+         kernel_calls=d["kernel_calls"], explore_sweep_launches=fused,
+         sdcm_rates_ragged_launches=launches["sdcm_rates_ragged"],
+         bit_identical=True, phase_s=time.perf_counter() - t_phase)
+
+
+def phase_service_warm() -> None:
+    """The selftest flow (``python -m repro_torch.service --selftest``)
+    twice on one store: both bit-identical, the second with no profile or
+    reuse-distance build."""
+    import shutil
+
+    from repro_torch.service import ServiceConfig
+    from repro_torch.service.__main__ import run_selftest
+
+    shutil.rmtree(SERVICE_STORE, ignore_errors=True)
+    config = ServiceConfig(device="cuda", artifact_dir=str(SERVICE_STORE))
+    runs = []
+    for i in range(2):
+        summary, secs = timed(lambda: run_selftest(config))
+        if summary["selftest"] != "ok":
+            fail(f"service selftest run {i + 1}: {summary['failures']}")
+        runs.append(summary)
+        line("service_warm", run=i + 1, seconds=secs,
+             requests=summary["requests"], session=summary["session"],
+             store=summary.get("store"),
+             deduped=summary["service"]["deduped"],
+             kernel_calls=summary["service"]["kernel_calls"])
+    second = runs[1]["session"]
+    if second["profile_builds"] or second["rd_builds"]:
+        fail(f"service selftest on a warm store rebuilt work: {second}")
+
+
+def phase_validate_golden() -> None:
+    """The reference's golden matrix on the card, within ``GOLDEN_TOL`` of
+    its committed aggregates."""
+    from repro_torch.validate import MatrixSpec, run_validation
+
+    summary, secs = timed(lambda: run_validation(
+        MatrixSpec(**GOLDEN_SPEC), artifact_dir=None, processes=1,
+        device="cuda"))
+    agg = summary["aggregates"]
+    got = {"hit": agg["overall"]["hit_rate_err_pct"]["ours"],
+           "runtime": agg["overall"]["runtime_err_pct"]["ours"],
+           **{m: agg["runtime_models"][m]["overall_rel_err_pct"]
+              for m in GOLDEN_MODEL_ERR_PCT}}
+    want = {"hit": GOLDEN_HIT_ERR_PCT, "runtime": GOLDEN_RUNTIME_ERR_PCT,
+            **GOLDEN_MODEL_ERR_PCT}
+    diff = {k: abs(got[k] - want[k]) for k in want}
+    if agg["overall"]["cells"] != GOLDEN_CELLS or not all(
+            v <= GOLDEN_TOL for v in diff.values()):
+        fail(f"golden matrix on the card: {got} vs {want} "
+             f"({agg['overall']['cells']} cells)")
+    line("validate_golden", cells=agg["overall"]["cells"], seconds=secs,
+         got=got, abs_diff=diff, tol=GOLDEN_TOL)
+
+
+def phase_validate_smoke() -> None:
+    """The full roster at ``smoke`` sizes, binned and sampled checks on,
+    twice on one store: the second run builds no profile and no reuse
+    distances; the binned gate (1e-3) and the sampling gate hold."""
+    import shutil
+
+    from repro_torch.validate import MatrixSpec, run_validation
+    from repro_torch.validate.__main__ import (
+        check_runtime_gate,
+        check_sampling_gate,
+    )
+    from repro_torch.workloads.polybench import MAKERS
+
+    shutil.rmtree(VALIDATE_STORE, ignore_errors=True)
+    spec = MatrixSpec(workloads=tuple(MAKERS), sizes="smoke")
+    for run in (1, 2):
+        reset_counts()
+        summary, secs = timed(lambda: run_validation(
+            spec, artifact_dir=VALIDATE_STORE, processes=1, device="cuda"))
+        launches = read_counts()["launches"]
+        agg, st = summary["aggregates"], summary["session_stats"]
+        line("validate_smoke", run=run, workloads=len(spec.workloads),
+             cells=agg["overall"]["cells"], seconds=secs,
+             reuse_hist_moments_launches=launches["reuse_hist_moments"],
+             launches=launches, session_stats=st,
+             hit_err_pct=agg["overall"]["hit_rate_err_pct"]["ours"],
+             runtime_err_pct=agg["overall"]["runtime_err_pct"]["ours"],
+             binned=agg["binned_profile"], sampled=agg["sampled_profile"],
+             runtime_gate=check_runtime_gate(agg)[1])
+        if run == 1 and launches["reuse_hist_moments"] <= 0:
+            fail("validation smoke: the binned check launched no B2")
+    if st["profile_builds"] or st["rd_builds"]:
+        fail(f"validation smoke: the second run rebuilt work: {st}")
+    if not agg["binned_profile"]["within_tolerance"]:
+        fail(f"validation smoke: binned gate: {agg['binned_profile']}")
+    passed, msg = check_sampling_gate(agg)
+    if not passed:
+        fail(f"validation smoke: {msg}")
+
+
+def phase_validate_xxl() -> None:
+    """``run_workload`` on the main workload at full size: 3 CPUs x cores
+    1/2/4/8 x both strategies, binned and sampled checks on, with the
+    seconds of each part (predict, binned, sampled, exact LRU)."""
+    import collections
+
+    from repro_torch.api import Session
+    from repro_torch.validate import MatrixSpec, run_workload
+
+    parts = collections.defaultdict(float)
+    predict, ground_truth = Session.predict, Session.ground_truth_hit_rates
+
+    def part(self) -> str:
+        if getattr(self.builder, "binned", False):
+            return "binned"
+        return "sampled" if getattr(self.builder, "sampled", None) else \
+            "predict"
+
+    def timed_predict(self, *a, **kw):
+        out, secs = timed(lambda: predict(self, *a, **kw))
+        parts[part(self)] += secs
+        return out
+
+    def timed_ground_truth(self, *a, **kw):
+        out, secs = timed(lambda: ground_truth(self, *a, **kw))
+        parts["exact_lru"] += secs
+        return out
+
+    spec = MatrixSpec(workloads=(f"polybench/{MAIN_WORKLOAD}",), sizes=SIZES)
+    Session.predict = timed_predict
+    Session.ground_truth_hit_rates = timed_ground_truth
+    try:
+        reset_counts()
+        payload, secs = timed(lambda: run_workload(
+            f"polybench/{MAIN_WORKLOAD}", spec, None, device="cuda"))
+        counts = read_counts()
+    finally:
+        Session.predict = predict
+        Session.ground_truth_hit_rates = ground_truth
+    recs = payload["records"]
+    want = len(TABLE5) * len(CORES) * len(spec.strategies)
+    binned = max(v for r in recs for v in r["binned_abs_dev"].values())
+    exceed = sum(dev > r["sampled_bound"][lvl] for r in recs
+                 for lvl, dev in r["sampled_abs_dev"].items())
+    if len(recs) != want or binned > BINNED_TOL or exceed:
+        fail(f"validation xxl: {len(recs)} cells (want {want}), binned "
+             f"deviation {binned}, {exceed} sampled cells over their bound")
+    if counts["launches"]["reuse_hist_moments"] <= 0:
+        fail("validation xxl: the binned check launched no B2")
+    line("validate_xxl", workload=f"polybench/{MAIN_WORKLOAD}@{SIZES}",
+         refs=payload["refs"], cells=len(recs), seconds=secs,
+         part_s=dict(parts), launches=counts["launches"],
+         max_memory_allocated=counts["max_memory_allocated"],
+         max_binned_abs_dev=binned,
+         hit_err_pct=float(np.mean([e["abs_err_pct"] for r in recs
+                                    for e in r["levels"].values()])),
+         runtime_err_pct=float(np.mean([r["runtime_rel_err_pct"]
+                                        for r in recs])),
+         session_stats=payload["session_stats"])
+
+
 # --- the model zoo: flash attention (B4), SSD scan (B5), serving --------------
 
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
@@ -1999,6 +2405,11 @@ def main() -> int:
     phase_store(gt)
     hit_probs_kernel = phase_sweep()
     phase_explore()
+    phase_service()
+    phase_service_warm()
+    phase_validate_golden()
+    phase_validate_smoke()
+    phase_validate_xxl()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
     serve_launches = phase_zamba2_serve()

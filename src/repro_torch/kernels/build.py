@@ -6,15 +6,23 @@ the checkout (listed in ``.gitignore``) by a hash of every file in the
 source's ``csrc/`` directory (the headers it includes too) and the
 flags, and loaded with ``ctypes``.  :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them.
+
+Threads and processes: one lock serializes :func:`load` and
+:func:`build_all` within a process, so threads that reach a library at
+first use together build it once.  Every build writes to a staging file
+of its own (``tempfile.mkstemp`` in :data:`BUILD_DIR`) and publishes it
+with one ``os.replace``, so processes that build the same library at
+once each publish a whole file and a reader never sees a partial one.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -62,39 +70,66 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _staging_file(out: Path) -> Path:
+    """A new empty file beside ``out`` that no other thread or process
+    writes: the build's output until it is published."""
+    fd, tmp = tempfile.mkstemp(dir=out.parent, prefix=f".{out.name}.",
+                               suffix=".tmp")
+    os.close(fd)
+    return Path(tmp)
+
+
 def build_all(names=None) -> dict[str, dict]:
     """Compile every missing library, one ``nvcc`` per source in
     parallel.  Returns ``{name: {"path", "seconds", "log"}}``; raises
     with the compiler's output if any build fails."""
-    names = list(SOURCES) if names is None else list(names)
+    with _LOCK:
+        return _build_all(list(SOURCES) if names is None else list(names))
+
+
+def _build_all(names: list) -> dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, time.perf_counter())
-    report = {n: {"path": library_path(n), "seconds": 0.0, "log": ""}
-              for n in names}
-    failed = []
-    for name, (proc, tmp, t0) in procs.items():
-        log, _ = proc.communicate()
-        report[name].update(seconds=time.perf_counter() - t0, log=log)
-        if proc.returncode:
-            failed.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
-        else:
-            os.replace(tmp, library_path(name))
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            nvcc = nvcc_path()
+            tmp = _staging_file(out)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ), tmp, time.perf_counter())
+        report = {n: {"path": library_path(n), "seconds": 0.0, "log": ""}
+                  for n in names}
+        failed = []
+        for name, (proc, tmp, t0) in procs.items():
+            log, _ = proc.communicate()
+            report[name].update(seconds=time.perf_counter() - t0, log=log)
+            if proc.returncode:
+                failed.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            else:
+                os.replace(tmp, library_path(name))
+    finally:
+        for proc, tmp, _ in procs.values():
+            proc.wait()
+            tmp.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("\n".join(failed))
     return report
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``name`` (built first if missing)."""
-    build_all([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The built library ``name`` (built first if missing), loaded once
+    per process."""
+    with _LOCK:
+        if name not in _LOADED:
+            _build_all([name])
+            _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        return _LOADED[name]

@@ -53,7 +53,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 #: Kernel launches; only the wrapper's launch adds to it.
 LAUNCHES = {"flash_attention": 0}
@@ -272,6 +272,6 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
         msg = _lib().flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention launch failed ({form} form): "
                            f"CUDA error {code} ({msg})")
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES_BY_FORM[form] += 1
+    count_launch(LAUNCHES, "flash_attention")
+    count_launch(LAUNCHES_BY_FORM, form)
     return out

@@ -37,10 +37,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 NUM_BINS = 64
 
@@ -132,13 +133,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+_ACC_LOCK = threading.Lock()
+_ACCUMULATORS: dict[tuple, torch.Tensor] = {}
+
+
 def _accumulator(device: torch.device) -> torch.Tensor:
-    """The unit-weight kernel's integer accumulator on ``device``: zeroed
-    once here, and left at zero by every launch (its last block clears
-    it), so launches on one device must be ordered on one stream."""
-    words = -(-_lib().reuse_hist_acc_bytes() // 8)
-    return torch.zeros(words, dtype=torch.int64, device=device)
+    """The unit-weight kernel's integer accumulator for the current
+    stream of ``device``: zeroed once, on that stream, when the stream
+    first launches the kernel, and left at zero by every launch (its
+    last block clears it).  Launches on one stream are ordered, so they
+    can share it; a launch on another stream (another thread's, or a
+    ``torch.cuda.stream`` block) gets an accumulator of its own."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    with _ACC_LOCK:
+        acc = _ACCUMULATORS.get(key)
+        if acc is None:
+            words = -(-_lib().reuse_hist_acc_bytes() // 8)
+            acc = torch.zeros(words, dtype=torch.int64, device=device)
+            _ACCUMULATORS[key] = acc
+        return acc
 
 
 def _flat(d, w):
@@ -213,7 +227,7 @@ def _histogram(d, w, moments: bool, out) -> torch.Tensor:
     if code:
         msg = _lib().reuse_hist_error_string(code).decode()
         raise RuntimeError(f"reuse_hist launch failed: CUDA error {code} ({msg})")
-    LAUNCHES["reuse_hist_moments" if moments else "reuse_hist"] += 1
+    count_launch(LAUNCHES, "reuse_hist_moments" if moments else "reuse_hist")
     return out
 
 

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 #: A_MAX buckets the kernel is instantiated for (run-time A <= A_MAX).
 A_BUCKETS = (8, 16, 32, 64)
@@ -214,7 +214,7 @@ def sdcm_rates(d: torch.Tensor, probs: torch.Tensor, assoc: torch.Tensor,
             blocks.data_ptr(), rates.data_ptr(), g, m, a_max, stream,
         )
     _raise_on(code, "sdcm_rates launch")
-    LAUNCHES["sdcm_rates"] += 1
+    count_launch(LAUNCHES, "sdcm_rates")
     return rates
 
 
@@ -255,7 +255,7 @@ def sdcm_rates_ragged(d: torch.Tensor, probs: torch.Tensor,
             rates.data_ptr(), rows, stream,
         )
     _raise_on(code, "sdcm_rates_ragged launch")
-    LAUNCHES["sdcm_rates_ragged"] += 1
+    count_launch(LAUNCHES, "sdcm_rates_ragged")
     return rates
 
 
@@ -282,5 +282,5 @@ def sdcm_hit_probs(d: torch.Tensor, assoc: int, blocks: int) -> torch.Tensor:
             float(blocks), a_max, stream,
         )
     _raise_on(code, "sdcm_hit_probs launch")
-    LAUNCHES["sdcm_hit_probs"] += 1
+    count_launch(LAUNCHES, "sdcm_hit_probs")
     return out

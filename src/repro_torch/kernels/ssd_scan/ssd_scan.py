@@ -47,7 +47,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 #: Kernel launches; only the wrapper's launch adds to it.
 LAUNCHES = {"ssd_scan": 0}
@@ -177,5 +177,5 @@ def ssd_scan(x, la, b, c, h0=None):
         msg = _lib().ssd_scan_error_string(code).decode()
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {code} "
                            f"({msg})")
-    LAUNCHES["ssd_scan"] += 1
+    count_launch(LAUNCHES, "ssd_scan")
     return y, final

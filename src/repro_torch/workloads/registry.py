@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -142,15 +143,22 @@ REGISTRY = WorkloadRegistry()
 _POPULATED = False
 
 
-def _ensure_populated() -> None:
-    """Import the registering modules once (idempotent)."""
-    global _POPULATED
-    if _POPULATED:
-        return
-    _POPULATED = True
-    from repro_torch.workloads import polybench  # noqa: F401  registers on import
+_POPULATE_LOCK = threading.RLock()
 
-    _register_synthetics(REGISTRY)
+
+def _ensure_populated() -> None:
+    """Import the registering modules once (idempotent).  Under the lock
+    a thread that arrives while another populates waits for the whole
+    roster instead of finding it half registered; the lock is re-entrant
+    because the imports below may come back here."""
+    global _POPULATED
+    with _POPULATE_LOCK:
+        if _POPULATED:
+            return
+        _POPULATED = True
+        from repro_torch.workloads import polybench  # noqa: F401  registers on import
+
+        _register_synthetics(REGISTRY)
 
 
 def register(spec: WorkloadSpec) -> WorkloadSpec:

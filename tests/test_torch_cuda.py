@@ -4,7 +4,7 @@ of its three forms, with the launches counted by form) and the SSD scan
 (B5, f32 and bf16 b/c, column blocks) against their plain PyTorch
 versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
-the histogram, streaming reuse distances, a binned Session and the
+the histogram (from two threads and streams at once too), streaming reuse distances, a binned Session and the
 reduced serving path on the card, the fused config sweep in both inner
 forms and the artifact store on the card.  Imports nothing of JAX, so
 it runs where the port runs:
@@ -15,6 +15,7 @@ Every test needs a CUDA device and skips without one."""
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -253,6 +254,48 @@ def test_reuse_hist_out_adds_in_place(cuda_device):
     before = out.clone()
     reuse_hist.reuse_histogram_moments(d1, w, out=out)
     assert torch.allclose(out, before + plain(d1, w), rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("streams", ["own", "default"])
+def test_reuse_hist_from_two_threads(cuda_device, streams):
+    """Two threads launch B2 unit-weight histograms in a loop, each on a
+    stream of its own (or both on the default stream): every result
+    equals the plain version exactly, so a stream never sees another's
+    partial sums in the integer accumulator."""
+    rng = np.random.default_rng(11)
+    inputs = [torch.from_numpy(np.floor(2.0 ** rng.uniform(0, 40, 1 << 20))
+                               .astype(np.int64)).to(cuda_device)
+              for _ in range(2)]
+    wants = [reuse_hist.reuse_histogram_moments_plain(d) for d in inputs]
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2)
+    results, errors = ([], []), []
+
+    def work(i):
+        try:
+            stream = (torch.cuda.Stream(cuda_device) if streams == "own"
+                      else torch.cuda.default_stream(cuda_device))
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                for _ in range(50):
+                    results[i].append(
+                        reuse_hist.reuse_histogram_moments(inputs[i]))
+                stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    for got, want in zip(results, wants):
+        assert len(got) == 50
+        for hist in got:
+            assert torch.equal(hist, want)
 
 
 def test_reuse_hist_rejects_mixed_devices(cuda_device):

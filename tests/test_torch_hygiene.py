@@ -61,7 +61,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.core.reuse.sampled, repro_torch.core.reuse.crd, "
         "repro_torch.core.tasklist, repro_torch.core.predictor, "
         "repro_torch.validate, repro_torch.explore, "
-        "repro_torch.explore.__main__\n"
+        "repro_torch.explore.__main__, repro_torch.service, "
+        "repro_torch.service.__main__, repro_torch.validate.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
