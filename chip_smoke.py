@@ -63,8 +63,12 @@ with a non-zero exit:
     prefill shape, at a GQA shape (32 heads over 8, head dim 128) and at
     a ragged Sq = 1000; the split-KV form at a decode step against the
     serving cache (kv_len 2048, and 2000, not a multiple of the split)
-    and at a GQA decode step (32 over 8, head dim 128); the CUDA-core
-    form in f32 at the prefill shape.  Each bf16 row is also held to
+    and at a GQA decode step (32 over 8, head dim 128: llama3-8b's, whose
+    prefill shape is a row too); the CUDA-core form in f32 at the prefill
+    shape; and with mixtral's sliding window of 4,096 the tensor-core
+    form at its prefill (B 2, S 6,144), the split-KV form at a decode step
+    past the window (splits below the band skipped) and the CUDA-core form
+    in f32 with the band's edge mid-tile (W 1,000).  Each bf16 row is also held to
     ``FLASH_SCALED_TOL_BF16`` of the plain version's largest output.
     ``ms`` and SDPA's ``library_ms`` time the calls issued one by one,
     as every kernel's ``ms`` does; ``graph_ms`` and
@@ -142,8 +146,19 @@ with a non-zero exit:
     seconds per part.
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
     launches read around it, the same profile and the same
-    teacher-forced check.  More validation-xxl workloads follow while
-    time allows.
+    teacher-forced check.
+14. The llama3-8b serve path at full width and depth (32 layers, bf16,
+    seeded, 8,030,261,248 parameters): batch 4, prompt 2048, 32 tokens;
+    B4 launches exactly 32 tensor-core and 992 split-KV; the same
+    profile, teacher-forced check (bf16 and f32) and, at 8 layers in
+    f32, the decode consistency.
+15. The mixtral-8x7b serve path at full widths and 16 of its 32 layers
+    (the whole model does not fit one card): batch 2, prompt 6,144 past
+    the 4,096-token window, 16 tokens; B4 launches exactly 16 tensor-core
+    and 240 split-KV, every one windowed; the profile, the bf16
+    teacher-forced check, and at 2 layers in f32 the decode consistency
+    over 4,200 tokens split at 4,190.  More validation-xxl workloads
+    follow while time allows.
 
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
@@ -1914,8 +1929,13 @@ def phase_validate_xxl() -> None:
 # --- the model zoo: flash attention (B4), SSD scan (B5), serving --------------
 
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
-ZAMBA_GEN, MAMBA_GEN = 32, 16
+ZAMBA_GEN, MAMBA_GEN, LLAMA_GEN = 32, 16, 32
 ZAMBA_CACHE = SERVE_PROMPT + ZAMBA_GEN   # the serving KV cache's length
+# mixtral-8x7b: a prompt past its 4,096-token window, at 16 of its 32
+# layers (23,482,470,400 parameters, 47.0 GB in bf16; the whole model's
+# 93 GB does not fit one 80 GB card)
+MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 2, 6144, 16
+MIXTRAL_LAYERS, MIXTRAL_WINDOW = 16, 4096
 
 
 def cuda_rand(seed: int):
@@ -1927,26 +1947,38 @@ def cuda_rand(seed: int):
     return rand
 
 
-def flash_work(q, k, causal: bool, q_offset: int, kv_len: int):
-    """(bytes, operations) of one attention call: q, o and the visible
-    K/V rows once each; 4·D operations per visible (row, column) pair
-    (Q K^T and P V; the softmax's exps are not counted)."""
+def flash_work(q, k, causal: bool, q_offset: int, kv_len: int,
+               window=None):
+    """(bytes, operations) of one attention call: q, o and the K/V rows
+    that some row sees once each; 4·D operations per visible (row,
+    column) pair (Q K^T and P V; the softmax's exps are not counted)."""
     b, h, sq, d = q.shape
     rows = np.arange(sq)
-    vis = (np.minimum(kv_len, q_offset + rows + 1) if causal
-           else np.full(sq, kv_len))
+    hi = (np.minimum(kv_len, q_offset + rows + 1) if causal
+          else np.full(sq, kv_len))
+    lo = (np.maximum(0, q_offset + rows - window + 1) if window
+          else np.zeros(sq, np.int64))
+    vis = hi - lo
+    extent = int(hi.max() - lo.min())
     nbytes = q.element_size() * d * (2 * b * h * sq + 2 * b * k.shape[1]
-                                     * kv_len)
+                                     * extent)
     return float(nbytes), 4.0 * d * float(vis.sum()) * b * h
 
 
-def sdpa_library(q, k, v, causal: bool, q_offset: int, kv_len: int):
+def sdpa_library(q, k, v, causal: bool, q_offset: int, kv_len: int,
+                 window=None):
     """The same attention by ``scaled_dot_product_attention`` (timed as a
-    yardstick only; the port never calls it)."""
+    yardstick only; the port never calls it); a window goes in as a
+    boolean band mask."""
     k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     sq = q.shape[2]
     kw = dict(enable_gqa=q.shape[1] != k.shape[1])
-    if causal and q_offset == 0 and sq == kv_len:
+    if window is not None:
+        pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(kv_len, device=q.device)[None, :]
+        mask = cols > pos - window
+        kw["attn_mask"] = mask & (cols <= pos) if causal else mask
+    elif causal and q_offset == 0 and sq == kv_len:
         kw["is_causal"] = True
     elif causal and q_offset < kv_len - 1:
         rows = torch.arange(sq, device=q.device)[:, None]
@@ -1959,7 +1991,8 @@ def phase_flash() -> dict:
     """B4 against its plain version and SDPA, one row per case, each on
     the kernel form the wrapper picks for it (checked); returns the
     kernels record at the zamba2-1.2b serving prefill shape (bf16, its
-    cache of 2080) with one entry per form under ``forms``."""
+    cache of 2080) with one entry per form under ``forms``, and a
+    ``window`` entry at mixtral's windowed prefill."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -1968,24 +2001,38 @@ def phase_flash() -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     b, s, cache = SERVE_BATCH, SERVE_PROMPT, ZAMBA_CACHE
-    cases = [  # tag, form, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len
+    mb, ms, w = MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_WINDOW
+    cases = [  # tag, form, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len,
+        #        window
         ("zamba2_prefill", "tensor_core", b, 32, 32, s, cache, 64, bf16, 0,
-         s),
+         s, None),
         ("zamba2_decode", "split_kv", b, 32, 32, 1, cache, 64, bf16, s - 1,
-         s),
+         s, None),
         # kv_len 2000, not a multiple of the 128-column split
         ("zamba2_decode_kv2000", "split_kv", b, 32, 32, 1, cache, 64, bf16,
-         s - 49, s - 48),
+         s - 49, s - 48, None),
+        # llama3-8b's decode step and prefill (GQA 32 over 8, D 128)
         ("gqa_32_over_8_d128_decode", "split_kv", b, 32, 8, 1, cache, 128,
-         bf16, s - 1, s),
-        ("zamba2_prefill_f32", "simt", b, 32, 32, s, cache, 64, f32, 0, s),
+         bf16, s - 1, s, None),
+        ("llama3_prefill", "tensor_core", b, 32, 8, s, cache, 128, bf16, 0,
+         s, None),
+        ("zamba2_prefill_f32", "simt", b, 32, 32, s, cache, 64, f32, 0, s,
+         None),
         ("gqa_32_over_8_d128", "tensor_core", 2, 32, 8, s, s, 128, bf16, 0,
-         s),
+         s, None),
         ("ragged_1000", "tensor_core", 2, 32, 32, 1000, 1000, 64, bf16, 0,
+         1000, None),
+        # mixtral-8x7b's sliding window: its prefill, a decode step past
+        # the window, and the f32 form with the band's edge mid-tile
+        ("mixtral_prefill_window", "tensor_core", mb, 32, 8, ms, ms, 128,
+         bf16, 0, ms, w),
+        ("mixtral_decode_window", "split_kv", mb, 32, 8, 1, ms + 32, 128,
+         bf16, ms + MIXTRAL_GEN, ms + MIXTRAL_GEN + 1, w),
+        ("window_f32_mid_tile", "simt", 2, 32, 8, s, s, 128, f32, 0, s,
          1000),
     ]
     records, worst, forms = {}, 0.0, {}
-    for i, (tag, form, b, h, hkv, sq, sk, d, dt, off, kvl) in enumerate(
+    for i, (tag, form, b, h, hkv, sq, sk, d, dt, off, kvl, win) in enumerate(
             cases):
         rand = cuda_rand(10 + i)
         q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
@@ -1994,7 +2041,7 @@ def phase_flash() -> dict:
         if kernel_form(q, k, v) != form:
             fail(f"flash_attention {tag}: runs on the {kernel_form(q, k, v)} "
                  f"form, expected {form}")
-        kw = dict(causal=True, q_offset=off, kv_len=kvl)
+        kw = dict(causal=True, q_offset=off, kv_len=kvl, window=win)
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -2007,13 +2054,13 @@ def phase_flash() -> dict:
             fail(f"flash_attention {tag}: max |kernel - plain| / max |plain| "
                  f"= {scaled} > {FLASH_SCALED_TOL_BF16}")
         worst = max(worst, err)
-        lib = sdpa_library(q, k, v, True, off, kvl)
+        lib = sdpa_library(q, k, v, True, off, kvl, win)
         lib_err = float((lib.float() - want.float()).abs().max())
-        nbytes, ops = flash_work(q, k, True, off, kvl)
+        nbytes, ops = flash_work(q, k, True, off, kvl, win)
         b_ms, b_by = bound_ms(nbytes, ops,
                               PEAK_BF16_S if dt == bf16 else PEAK_FP32_S)
         rec = dict(form=form, shape=[b, h, hkv, sq, sk, d], dtype=str(dt),
-                   q_offset=off, kv_len=kvl, max_abs_err=err,
+                   q_offset=off, kv_len=kvl, window=win, max_abs_err=err,
                    tol=FLASH_TOL[dt], scaled_err=scaled,
                    ms=cuda_ms(lambda: flash_attention(q, k, v, **kw)),
                    graph_ms=graph_ms(lambda: flash_attention(q, k, v, **kw)),
@@ -2021,19 +2068,20 @@ def phase_flash() -> dict:
                                                                   **kw),
                                     reps=3, warmup=1),
                    library_ms=cuda_ms(lambda: sdpa_library(q, k, v, True,
-                                                           off, kvl)),
+                                                           off, kvl, win)),
                    library_graph_ms=graph_ms(lambda: sdpa_library(
-                       q, k, v, True, off, kvl)),
+                       q, k, v, True, off, kvl, win)),
                    library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, operations=ops)
         line("flash", case=tag, **rec)
         records[tag] = rec
-        forms.setdefault(form, dict(case=tag, **{
+        forms.setdefault("window" if win else form, dict(case=tag, **{
             key: rec[key] for key in ("ms", "graph_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "library_graph_ms", "max_abs_err",
                                       "scaled_err")}))
         del q, k, v, got, want, lib
+        torch.cuda.empty_cache()
     path = records["zamba2_prefill"]
     return {
         "name": "flash_attention",
@@ -2127,10 +2175,10 @@ def phase_ssd() -> dict:
 
 
 def sdpa_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
-                   kv_len=None):
+                   kv_len=None, window=None):
     """B4's function by SDPA, for ``plain_kernels(flash="sdpa")``."""
     kv_len = k.shape[2] if kv_len is None else kv_len
-    return sdpa_library(q, k, v, causal, q_offset, kv_len)
+    return sdpa_library(q, k, v, causal, q_offset, kv_len, window)
 
 
 class plain_kernels:
@@ -2177,25 +2225,80 @@ def teacher_forced(spec, cfg, model, prompt, tokens) -> torch.Tensor:
     return torch.stack(out)[..., :spec.vocab]
 
 
-def kernel_vs_plain_logits(spec, cfg, model, res, tag: str) -> dict:
+class moe_routing:
+    """Teacher forcing of the MoE layers' expert choice.  With ``record``
+    (a list) each layer's top-k experts are appended in call order; with
+    ``replay`` every layer routes each token to the experts recorded at
+    the same call, weighted by its own router probabilities there
+    (renormalised), and ``flips`` counts the (token, choice) pairs whose
+    own top-k set differed.  A model without MoE layers never routes."""
+
+    def __init__(self, record=None, replay=None):
+        self.record, self.replay = record, replay
+        self.calls = self.flips = self.choices = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved = own = moe.route
+
+        def route(params, xt, cfg):
+            probs, gate, idx = own(params, xt, cfg)
+            if self.record is not None:
+                self.record.append(idx)
+            if self.replay is not None:
+                forced = self.replay[self.calls]
+                self.calls += 1
+                self.flips += int((idx.sort(-1).values
+                                   != forced.sort(-1).values).sum())
+                self.choices += forced.numel()
+                gate = probs.gather(-1, forced)
+                gate, idx = gate / gate.sum(-1, keepdim=True), forced
+            return probs, gate, idx
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.saved
+
+
+def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
+                           f32: bool = True) -> dict:
     """Teacher-forced logits through the kernels and through the plain
-    versions on the card: in the model's dtype, then with the same
-    weights in f32.  In bf16 with attention, ``spread`` also gives the
-    distance from the plain path with one kernel at a time, and with
-    SDPA for B4 (a library's rounding: how far any other bf16
-    attention lands); the gate reads only the path with both kernels."""
+    versions on the card: in the model's dtype, then (``f32``) with the
+    same weights in f32.  With MoE layers the expert choice is teacher
+    forced too (``moe_routing``: the kernel path takes the plain path's
+    choices), since a choice that flips on a rounding difference moves a
+    token's whole MLP; the kernel path's own routing is reported beside
+    it, ungated (``free_routing``: its distance and flipped choices).  In
+    bf16 with attention, ``spread`` also gives the distance from the
+    plain path with one kernel at a time, and with SDPA for B4 (a
+    library's rounding: how far any other bf16 attention lands); the
+    gate reads only the path with both kernels."""
     import dataclasses
 
+    def forced(routes, **kw):
+        with plain_kernels(**kw), moe_routing(replay=routes) as r:
+            logits = teacher_forced(spec, cfg_dt, model, res["prompt"],
+                                    res["tokens"])
+        return logits, r
+
     out = {}
-    for dt, tol in ((cfg.dtype, SERVE_REL_TOL),
-                    (torch.float32, SERVE_REL_TOL_F32)):
+    passes = [(cfg.dtype, SERVE_REL_TOL)]
+    if f32:
+        passes.append((torch.float32, SERVE_REL_TOL_F32))
+    for dt, tol in passes:
         cfg_dt = dataclasses.replace(cfg, dtype=dt)
-        model = model.to(dt)
-        got = teacher_forced(spec, cfg_dt, model, res["prompt"],
-                             res["tokens"])
-        with plain_kernels():
+        if dt != cfg.dtype:  # a MoE router stays f32 in the model's dtype
+            model = model.to(dt)
+        routes = []
+        with plain_kernels(), moe_routing(record=routes):
             want = teacher_forced(spec, cfg_dt, model, res["prompt"],
                                   res["tokens"])
+        got, routing = forced(routes, flash="kernel", scan="kernel")
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             fail(f"{tag} {dt}: non-finite logits")
         diff = float((got - want).abs().max())
@@ -2206,40 +2309,56 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str) -> dict:
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
         rec = dict(steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
                    rel=diff / scale, tol=tol, argmax_agreement=agree)
-        if dt != torch.float32 and spec.family_name == "hybrid":
+        if routes:
+            free = teacher_forced(spec, cfg_dt, model, res["prompt"],
+                                  res["tokens"])
+            rec["free_routing"] = dict(
+                rel=float((free - want).abs().max()) / scale,
+                argmax_agreement=float(
+                    (free.argmax(-1) == want.argmax(-1)).float().mean()),
+                flipped_choices=routing.flips, choices=routing.choices)
+        if dt != torch.float32 and spec.family_name != "ssm":
             rec["spread"] = {}
-            for name, kw in (("b4_kernel_only", dict(flash="kernel")),
-                             ("b5_kernel_only", dict(scan="kernel")),
-                             ("sdpa_b4_plain_b5", dict(flash="sdpa"))):
-                with plain_kernels(**kw):
-                    other = teacher_forced(spec, cfg_dt, model,
-                                           res["prompt"], res["tokens"])
+            variants = [("sdpa_b4_plain_b5", dict(flash="sdpa"))]
+            if spec.family_name == "hybrid":
+                variants += [("b4_kernel_only", dict(flash="kernel")),
+                             ("b5_kernel_only", dict(scan="kernel"))]
+            for name, kw in variants:
+                other, _ = forced(routes, **kw)
                 rec["spread"][name] = float(
                     (other - want).abs().max()) / scale
         out[str(dt).replace("torch.", "")] = rec
     return out
 
 
-def serve_path(arch: str, gen: int, want_launches: dict):
-    """Serve ``arch`` at full width and depth with counts set to 0 just
-    before and read just after; fails unless each kernel of the path
-    launched exactly as often as the path needs."""
+def serve_path(arch: str, gen: int, want_launches: dict, *,
+               batch: int = SERVE_BATCH, prompt_len: int = SERVE_PROMPT,
+               layers: int | None = None):
+    """Serve ``arch`` at full width (and depth unless ``layers`` cuts
+    it) with counts set to 0 just before and read just after; fails
+    unless each kernel of the path launched exactly as often as the path
+    needs.  Returns the spec with the served config."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
 
     spec = get_arch(arch)
+    if layers is not None:
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, layers=layers))
     model = spec.family.init(spec.config, device="cuda", seed=0)
     reset_counts()
-    res = serve.serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                      gen=gen, seed=0, device="cuda", model=model)
+    res = serve.serve(arch, batch=batch, prompt_len=prompt_len, gen=gen,
+                      seed=0, device="cuda", layers=layers, model=model)
     counts = read_counts()
     launches = counts["launches"]
     for name, n in want_launches.items():
         if launches[name] != n:
             fail(f"{arch} serve path launched {name} {launches[name]} "
                  f"times, expected {n}: {launches}")
-    rec = dict(arch=arch, dtype=res["dtype"], batch=SERVE_BATCH,
-               prompt_len=SERVE_PROMPT, gen=gen,
+    rec = dict(arch=arch, layers=res["layers"], dtype=res["dtype"],
+               batch=batch, prompt_len=prompt_len, gen=gen,
                params=sum(t.numel() for t in model.parameters()),
                prefill_s=res["prefill_s"], decode_s=res["decode_s"],
                decode_ms_per_step=res["decode_ms_per_step"],
@@ -2379,6 +2498,55 @@ def phase_mamba2_serve() -> None:
 
 
 
+def phase_llama3_serve() -> dict:
+    """The llama3-8b serve path at full width and depth; returns its B4
+    launches.  32 prefill attentions on B4's tensor-core form, 32 a
+    decode step on its split-KV form."""
+    layers = 32
+    spec, model, res, rec = serve_path(
+        "llama3-8b", LLAMA_GEN,
+        {"flash_attention": layers * LLAMA_GEN, "tensor_core": layers,
+         "split_kv": layers * (LLAMA_GEN - 1), "simt": 0, "ssd_scan": 0})
+    line("llama3_serve", **rec)
+    line("llama3_profile", **profile_serve(spec, model, res))
+    line("llama3_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "llama3 serve"))
+    del model
+    torch.cuda.empty_cache()
+    line("llama3_decode_consistency",
+         **decode_consistency(spec, 8, 300, 290))
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_mixtral_serve() -> dict:
+    """The mixtral-8x7b serve path at full width and 16 of 32 layers,
+    prompt 6,144 past the 4,096-token window (every prefill row past
+    4,096 and every decode step cut by it); returns its B4 launches.
+    The f32 kernel-vs-plain pass would need 94 GB of weights; the f32
+    check is the decode consistency at 2 layers, through the window."""
+    layers = MIXTRAL_LAYERS
+    spec, model, res, rec = serve_path(
+        "mixtral-8x7b", MIXTRAL_GEN,
+        {"flash_attention": layers * MIXTRAL_GEN, "tensor_core": layers,
+         "split_kv": layers * (MIXTRAL_GEN - 1), "simt": 0, "ssd_scan": 0},
+        batch=MIXTRAL_BATCH, prompt_len=MIXTRAL_PROMPT, layers=layers)
+    if spec.config.window != MIXTRAL_WINDOW:
+        fail(f"mixtral's window is {spec.config.window}")
+    rec["reduced"] = {"layers": f"{layers} of 32: the whole model is 93 GB "
+                                "in bf16, one card holds 80 GB"}
+    line("mixtral_serve", **rec)
+    line("mixtral_profile", **profile_serve(spec, model, res))
+    line("mixtral_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "mixtral serve", f32=False))
+    del model
+    torch.cuda.empty_cache()
+    line("mixtral_decode_consistency",
+         **decode_consistency(spec, 2, 4200, 4190))
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2413,11 +2581,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
     serve_launches = phase_zamba2_serve()
-    for rec in (flash_kernel, ssd_kernel):
-        rec["launches"] = serve_launches[rec["name"]]
-    for form, rec in flash_kernel["forms"].items():
-        rec["launches"] = serve_launches[form]
+    ssd_kernel["launches"] = serve_launches["ssd_scan"]
     phase_mamba2_serve()
+    by_path = {"zamba2-1.2b": serve_launches}
+    by_path["llama3-8b"] = phase_llama3_serve()
+    by_path["mixtral-8x7b"] = phase_mixtral_serve()
+    # B4 over every serve path; the window form is mixtral's launches
+    flash_kernel["launches"] = sum(n["flash_attention"]
+                                   for n in by_path.values())
+    flash_kernel["launches_by_path"] = {
+        arch: n["flash_attention"] for arch, n in by_path.items()}
+    for form, rec in flash_kernel["forms"].items():
+        rec["launches"] = (by_path["mixtral-8x7b"]["flash_attention"]
+                           if form == "window" else
+                           sum(n[form] for n in by_path.values()))
     phase_more_workloads(t_start)
     kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
                + [flash_kernel, ssd_kernel])

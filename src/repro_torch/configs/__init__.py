@@ -1,10 +1,24 @@
 """Architecture registry of the port: ``get_arch("<id>")`` /
-``--arch <id>`` for the ported families (``ssm``, ``hybrid``)."""
+``--arch <id>`` for the ported families (``transformer``, ``ssm``,
+``hybrid``)."""
 from repro_torch.configs.base import ArchSpec, Shape
-from repro_torch.configs import mamba2_780m, zamba2_1_2b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    arctic_480b,
+    codeqwen15_7b,
+    deepseek_67b,
+    llama3_8b,
+    mamba2_780m,
+    mixtral_8x7b,
+    yi_34b,
+    zamba2_1_2b,
+)
 
 REGISTRY: dict[str, ArchSpec] = {
-    m.SPEC.arch_id: m.SPEC for m in (mamba2_780m, zamba2_1_2b)
+    m.SPEC.arch_id: m.SPEC
+    for m in (
+        mamba2_780m, yi_34b, deepseek_67b, llama3_8b, codeqwen15_7b,
+        arctic_480b, mixtral_8x7b, zamba2_1_2b,
+    )
 }
 
 

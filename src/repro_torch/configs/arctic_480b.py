@@ -1,0 +1,29 @@
+"""arctic-480b [moe] — 128 experts top-2 + dense residual MLP,
+hf:Snowflake/snowflake-arctic-base.
+
+35L, d_model=7168, 56 heads (GQA kv=8), per-expert d_ff=4864,
+vocab=32000.  The published widths of ``repro/configs/arctic_480b.py``,
+unchanged (its sharding rules and optimizer settings are the
+reference's alone).
+"""
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import TransformerConfig
+
+SPEC = ArchSpec(
+    arch_id="arctic-480b",
+    family_name="transformer",
+    config=TransformerConfig(
+        layers=35,
+        d_model=7168,
+        heads=56,
+        kv_heads=8,
+        d_ff=4864,
+        vocab=32000,
+        head_dim=128,
+        attn_sp=True,
+        sp_residuals=True,
+        moe=MoEConfig(num_experts=128, top_k=2, tokens_per_group=1024),
+        dense_ff=True,          # arctic's dense residual MLP branch
+    ),
+)

@@ -1,6 +1,7 @@
 """Reduced (smoke-test) variants of the ported architectures — same
-family and code paths, small dims: the ``Mamba2Config`` and
-``Zamba2Config`` branches of ``repro/configs/reduced.py``, unchanged.
+family and code paths, small dims: the ``TransformerConfig``,
+``Mamba2Config`` and ``Zamba2Config`` branches of
+``repro/configs/reduced.py``, unchanged.
 """
 from __future__ import annotations
 
@@ -9,12 +10,29 @@ import dataclasses
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.hybrid import Zamba2Config
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
+from repro_torch.models.transformer import TransformerConfig
+
+
+def _reduce_transformer(cfg: TransformerConfig) -> TransformerConfig:
+    moe = None
+    if cfg.moe is not None:
+        moe = MoEConfig(num_experts=4, top_k=2, tokens_per_group=32,
+                        capacity_factor=cfg.moe.capacity_factor)
+    return dataclasses.replace(
+        cfg, layers=2, d_model=64, heads=4, kv_heads=min(cfg.kv_heads, 2) if
+        cfg.kv_heads < cfg.heads else 4, d_ff=128, vocab=256, head_dim=16,
+        window=16 if cfg.window else None, moe=moe, block_q=16,
+        vocab_pad_multiple=32,
+    )
 
 
 def reduced(spec: ArchSpec) -> ArchSpec:
     cfg = spec.config
-    if isinstance(cfg, Mamba2Config):
+    if isinstance(cfg, TransformerConfig):
+        small = _reduce_transformer(cfg)
+    elif isinstance(cfg, Mamba2Config):
         small = dataclasses.replace(
             cfg, layers=2, d_model=32, vocab=256, ssm_state=16, head_dim=8,
             chunk=8, vocab_pad_multiple=32,

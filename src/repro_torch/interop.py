@@ -118,13 +118,15 @@ def copy_params(module: torch.nn.Module, values: dict, lead=()) -> None:
 
 def model_from_reference(family_name: str, cfg, values: dict, *,
                          device) -> torch.nn.Module:
-    """The port's model of family ``ssm`` or ``hybrid`` holding the
-    reference's parameter values: ``unzip_params(fam.init(key, cfg))[0]``
-    mapped to numpy (a nested dict of arrays).  Stacked blocks are
-    unstacked: the hybrid's ``groups`` ``[G, P, ...]`` and ``trailing``
-    ``[T, ...]``, the ssm's ``blocks`` ``[L, ...]``; ``shared``, the tied
-    ``embed`` table and ``final_norm`` copy as they are."""
-    from repro_torch.models import hybrid, ssm
+    """The port's model of family ``transformer``, ``ssm`` or ``hybrid``
+    holding the reference's parameter values: ``unzip_params(fam.init(key,
+    cfg))[0]`` mapped to numpy (a nested dict of arrays).  Stacked blocks
+    are unstacked: the transformer's and the ssm's ``blocks`` ``[L, ...]``
+    (attention, ``mlp`` and ``moe.{router,wi,wg,wo}`` included), the
+    hybrid's ``groups`` ``[G, P, ...]`` and ``trailing`` ``[T, ...]``;
+    ``shared``, the ``embed`` table, ``final_norm`` and the transformer's
+    untied ``unembed`` copy as they are."""
+    from repro_torch.models import hybrid, ssm, transformer
 
     if family_name == "hybrid":
         model = hybrid.init(cfg, device=device)
@@ -134,10 +136,13 @@ def model_from_reference(family_name: str, cfg, values: dict, *,
         for t, blk in enumerate(model.trailing):
             copy_params(blk, values["trailing"], (t,))
         copy_params(model.shared, values["shared"])
-    elif family_name == "ssm":
-        model = ssm.init(cfg, device=device)
+    elif family_name in ("ssm", "transformer"):
+        fam = ssm if family_name == "ssm" else transformer
+        model = fam.init(cfg, device=device)
         for i, blk in enumerate(model.blocks):
             copy_params(blk, values["blocks"], (i,))
+        if family_name == "transformer":
+            copy_params(model.unembed, values["unembed"])
     else:
         raise NotImplementedError(
             f"the {family_name} family is not ported yet (ROADMAP A-11)")

@@ -9,8 +9,10 @@ from .flash_attention import (
     flash_attention_plain,
     kernel_form,
     split_kv_plain,
+    split_range,
 )
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_COLUMNS",
            "SPLIT_MAX_ROWS", "TC_HEAD_DIMS", "flash_attention",
-           "flash_attention_plain", "kernel_form", "split_kv_plain"]
+           "flash_attention_plain", "kernel_form", "split_kv_plain",
+           "split_range"]

@@ -12,13 +12,23 @@
 //     head index map, causal KV stream cut at the diagonal tile.
 //
 // The function, per query row i of a (b, h) pair (kv head h / group):
-//   row i sees column j  iff  j < kv_len  and, when causal,  j <= q_offset + i
+//   row i sees column j  iff  j < kv_len,  when causal  j <= q_offset + i,
+//                             and with a window W > 0   j > q_offset + i - W
 //   out[i] = sum_j softmax_j(scale * q_i . k_j) v_j
-// With q_offset = 0 and kv_len = Sk this is _flash_kernel (top-left causal).
-// The model's cache path passes q_offset = cache length and kv_len = cache
-// length + new tokens, so prefill into a cache and each decode step run here.
-// Masked scores are -1e30 (the reference's NEG_INF, not -inf) and the result
-// is acc / max(l, 1e-30), as in the reference.
+// With q_offset = 0, kv_len = Sk and no window (W = 0) this is _flash_kernel
+// (top-left causal).  The model's cache path passes q_offset = cache length
+// and kv_len = cache length + new tokens, so prefill into a cache and each
+// decode step run here; the window is the reference's sliding window
+// (models/attention.py::_mask, mixtral), which the TPU kernel does not have.
+// Every form starts its KV stream at the lowest column its rows can see, so a
+// windowed call reads O(rows * (W + tile)) columns, not O(rows * kv_len).
+// The result is acc / max(l, 1e-30), as in the reference.  Masked scores are
+// -inf against a running max that starts at -1e30 (the reference's NEG_INF):
+// exp(-inf - m) is 0 even while a row has seen nothing, so a tile that lies
+// wholly below a row's window edge, which a block visits before that row's
+// first visible one, adds nothing to the row.  The wrapper guarantees that
+// every row sees at least one column, so no row is fully masked, and the
+// output equals the reference's, whose masked scores are -1e30.
 //
 // What bounds it on the card.  Prefill (zamba2-1.2b: Sq = 2048, D = 64,
 // bf16) does 4·D operations per visible (row, column) pair on 4·S·D·2
@@ -51,11 +61,12 @@
 //   O += P V    each thread owns one output column d = t % D and D / 4
 //               rows in registers, reads V[j][d] once per j.
 // Ragged tails of Sq and Sk are masked in the loads (zeros) and the store.
-// The KV loop ends at the last tile a row of the q tile can see.
+// The KV loop runs from the tile holding the first row's window edge to the
+// last tile a row of the q tile can see.
 //
 // Strides are in elements; the last dimension of q, k, v and o must be
-// contiguous.  The wrapper guarantees kv_len >= 1 and q_offset >= 0, so
-// every row sees column 0 and no row is fully masked.
+// contiguous.  The wrapper guarantees kv_len >= 1, q_offset >= 0 and, with a
+// window, that the last row sees a column, so no row is fully masked.
 
 #include "flash_common.cuh"
 #include "flash_split.cuh"
@@ -83,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
 simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, Strides sq_,
             Strides sk_, Strides sv_, Strides so_, int sq, int group,
-            int kv_len, int q_offset, int causal, float scale) {
+            int kv_len, int q_offset, int causal, int window, float scale) {
   static_assert(kThreads % D == 0 && kThreads % kBlockK == 0, "tiling");
   static_assert(kBlockQ * 4 == kThreads, "four softmax threads per row");
   constexpr int kRowsS = kBlockQ * kBlockK / kThreads;  // 16 score rows
@@ -120,10 +131,13 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_s[t] = 0.0f;
   }
 
-  // last column any row of this tile can see, then the tiles up to it
+  // the tiles from the first row's window edge to the last column any row
+  // of this tile can see
   const int last_row = min(q0 + kBlockQ, sq) - 1;
   const int visible = causal ? min(kv_len, q_offset + last_row + 1) : kv_len;
   const int n_tiles = (visible + kBlockK - 1) / kBlockK;
+  const int first_tile =
+      window > 0 ? max(0, q_offset + q0 - window + 1) / kBlockK : 0;
 
   float acc[kRowsO];
 #pragma unroll
@@ -136,7 +150,7 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r_sm = t / 4;          // softmax row
   const int part = t % 4;          // softmax quarter of that row
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = first_tile; tile < n_tiles; ++tile) {
     const int j0 = tile * kBlockK;
     __syncthreads();  // previous tile's readers are done
     for (int e = t; e < kBlockK * D; e += kThreads) {
@@ -162,8 +176,10 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsS; ++i) {
       const int r = r_s + kRowStepS * i;
-      const bool ok = col < kv_len && (!causal || col <= q_offset + q0 + r);
-      ps[r * (kBlockK + 1) + c_s] = ok ? s[i] : kNegInf;
+      const int pos = q_offset + q0 + r;
+      const bool ok = col < kv_len && (!causal || col <= pos) &&
+                      (window <= 0 || col > pos - window);
+      ps[r * (kBlockK + 1) + c_s] = ok ? s[i] : -INFINITY;
     }
     __syncthreads();
 
@@ -221,7 +237,7 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const T* q, const T* k, const T* v, T* o, const Strides (&st)[4],
            int batch, int heads, int sq, int group, int kv_len, int q_offset,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   // once per template instance, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -231,7 +247,7 @@ int launch(const T* q, const T* k, const T* v, T* o, const Strides (&st)[4],
   dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
   simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, st[0], st[1], st[2], st[3], sq, group, kv_len, q_offset,
-      causal, scale);
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -246,15 +262,15 @@ template <int D>
 int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
                 bf16* o, const Strides (&st)[4], int batch, int heads,
                 int sq, int kv_heads, int group, int kv_len, int q_offset,
-                int causal, float scale, int n_splits, float* part_ml,
-                float* part_acc, cudaStream_t s) {
+                int causal, int window, float scale, int n_splits,
+                float* part_ml, float* part_acc, cudaStream_t s) {
   if (form == 1) {
     return flash_tc::launch<D>(q, k, v, o, st, batch, heads, sq, group,
-                               kv_len, q_offset, causal, scale, s);
+                               kv_len, q_offset, causal, window, scale, s);
   }
   return flash_split::launch<D>(q, k, v, o, st, batch, kv_heads, sq, group,
-                                kv_len, q_offset, causal, scale, n_splits,
-                                part_ml, part_acc, s);
+                                kv_len, q_offset, causal, window, scale,
+                                n_splits, part_ml, part_acc, s);
 }
 
 }  // namespace
@@ -263,20 +279,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  form: 0 = CUDA-core, 1 = tensor-core,
 // 2 = split-KV (forms 1 and 2: bf16, head_dim 64 or 128).  strides: 12
-// int64 values, (b, h, s) for q, k, v, o in elements.  Split-KV only:
-// n_splits splits of flash_attention_split_columns() columns, and f32
-// scratch part_ml [batch, kv_heads, n_splits, rows, 2] and part_acc
+// int64 values, (b, h, s) for q, k, v, o in elements.  window: 0 = none,
+// else W >= 1 (the last row must see a column: q_offset + sq - W < kv_len).
+// Split-KV only: n_splits splits of flash_attention_split_columns() columns
+// (those from the first row's window edge to the last visible column), and
+// f32 scratch part_ml [batch, kv_heads, n_splits, rows, 2] and part_acc
 // [batch, kv_heads, n_splits, rows, head_dim], rows = heads / kv_heads * sq
 // <= flash_attention_split_max_rows().  Returns a cudaError_t code: 0 on
 // a successful launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int batch, int heads, int sq,
                         int kv_heads, int kv_len, int q_offset, int causal,
-                        float scale, int head_dim, int dtype, int form,
+                        int window, float scale, int head_dim, int dtype,
+                        int form,
                         int n_splits, void* part_ml, void* part_acc,
                         void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
-      heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 ||
+      heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 || window < 0 ||
+      (window > 0 && (long long)q_offset + sq - window >= kv_len) ||
       batch > 65535 || form < 0 || form > 2) {
     return (int)cudaErrorInvalidValue;
   }
@@ -293,8 +313,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     bf16* ob = (bf16*)o;
 #define FLASH_BF16(D)                                                       \
   return launch_bf16<D>(form, qb, kb, vb, ob, st, batch, heads, sq,         \
-                        kv_heads, group, kv_len, q_offset, causal, scale,   \
-                        n_splits, (float*)part_ml, (float*)part_acc, s)
+                        kv_heads, group, kv_len, q_offset, causal, window,  \
+                        scale, n_splits, (float*)part_ml, (float*)part_acc, \
+                        s)
     if (head_dim == 64) FLASH_BF16(64);
     if (head_dim == 128) FLASH_BF16(128);
 #undef FLASH_BF16
@@ -304,7 +325,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 #define FLASH_LAUNCH(T, D)                                                  \
   return flash_simt::launch<T, D>((const T*)q, (const T*)k, (const T*)v,    \
                                   (T*)o, st, batch, heads, sq, group,       \
-                                  kv_len, q_offset, causal, scale, s)
+                                  kv_len, q_offset, causal, window, scale,  \
+                                  s)
 #define FLASH_DIMS(T)                       \
   switch (head_dim) {                       \
     case 8: FLASH_LAUNCH(T, 8);             \

@@ -5,7 +5,10 @@
 // has one block per head walking the whole cache in sequence.  Here the
 // grid is (KV split of kSplit columns, kv head, batch): one block handles
 // all group x Sq rows of its kv head, so each K/V row is read once per
-// group, and the cache is cut across many blocks.
+// group, and the cache is cut across many blocks.  With a window the grid
+// covers only the splits from the one holding the first row's window edge
+// (first_split) to the last visible column: block x handles split
+// first_split + x, and the scratch and the merge index splits from 0 there.
 //   split_kernel  the split's K and V rows arrive in shared memory by
 //                 coalesced cp.async; each of the 128 threads owns one
 //                 column and scores its K row against every q row (f32, q
@@ -46,8 +49,8 @@ __global__ void __launch_bounds__(kThreads)
 split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, Strides sq_, Strides sk_,
              Strides sv_, int sq, int group, int kv_len, int q_offset,
-             int causal, float scale_log2, float* __restrict__ part_ml,
-             float* __restrict__ part_acc) {
+             int causal, int window, int first_split, float scale_log2,
+             float* __restrict__ part_ml, float* __restrict__ part_acc) {
   constexpr int kKStride = Layout<D>::kKStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);    // [rows][D]
@@ -59,7 +62,7 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int rows = group * sq;
-  const int j0 = split * kSplit;
+  const int j0 = (first_split + split) * kSplit;
   const bf16* kp = k + b * sk_.b + hk * sk_.h;
   const bf16* vp = v + b * sv_.b + hk * sv_.h;
 
@@ -117,8 +120,9 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     if (r < rows) {
-      const int i = r % sq;
-      const bool ok = in_range && (!causal || j <= q_offset + i);
+      const int pos = q_offset + r % sq;
+      const bool ok = in_range && (!causal || j <= pos) &&
+                      (window <= 0 || j > pos - window);
       ps[r * kSplit + tid] = ok ? sc[r] : -INFINITY;
     }
   }
@@ -223,21 +227,26 @@ merge_kernel(const float* __restrict__ part_ml,
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
            const Strides (&st)[4], int batch, int kv_heads, int sq,
-           int group, int kv_len, int q_offset, int causal, float scale,
-           int n_splits, float* part_ml, float* part_acc,
+           int group, int kv_len, int q_offset, int causal, int window,
+           float scale, int n_splits, float* part_ml, float* part_acc,
            cudaStream_t stream) {
   constexpr size_t kSmem = Layout<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  if (group * sq > kMaxRows || n_splits <= 0) {
+  // the splits holding a visible column; the wrapper sized the scratch
+  const int first_split =
+      window > 0 ? max(0, q_offset - window + 1) / kSplit : 0;
+  const int end = causal ? min(kv_len, q_offset + sq) : kv_len;
+  if (group * sq > kMaxRows ||
+      n_splits != (end + kSplit - 1) / kSplit - first_split) {
     return (int)cudaErrorInvalidValue;
   }
   split_kernel<D><<<dim3(n_splits, kv_heads, batch), kThreads, kSmem,
                     stream>>>(q, k, v, st[0], st[1], st[2], sq, group,
-                              kv_len, q_offset, causal, scale * kLog2e,
-                              part_ml, part_acc);
+                              kv_len, q_offset, causal, window, first_split,
+                              scale * kLog2e, part_ml, part_acc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<D><<<dim3(group * sq, kv_heads, batch), 32, 0, stream>>>(

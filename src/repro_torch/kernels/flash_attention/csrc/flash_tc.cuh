@@ -15,7 +15,11 @@
 //   O += P V   P converted to bf16 in registers as the A operand (as SDPA
 //              does), V by ldmatrix.trans; O in f32 registers.
 // Masks are applied only where a tile crosses kv_len or, for the warp's
-// rows, the causal diagonal.
+// rows, the causal diagonal or the window's lower edge.  With a window the
+// tile loop starts at the tile holding the block's first row's edge, so a
+// windowed prefill visits O(S (W + kBlockK)) columns, like the reference's
+// banded form (_sdpa_blocked); a warp whose rows lie further down may find
+// the first tiles wholly masked, which the -inf scores make add nothing.
 #pragma once
 
 #include "flash_common.cuh"
@@ -57,7 +61,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
                 Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq,
-                int group, int kv_len, int q_offset, int causal,
+                int group, int kv_len, int q_offset, int causal, int window,
                 float scale_log2) {
   constexpr int kStride = Layout<D>::kStride;
   constexpr int kTile = Layout<D>::kTile;
@@ -79,8 +83,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int last_row = min(q0 + kBlockQ, sq) - 1;
   const int visible = causal ? min(kv_len, q_offset + last_row + 1) : kv_len;
   const int n_tiles = (visible + kBlockK - 1) / kBlockK;
+  const int first_tile =
+      window > 0 ? max(0, q_offset + q0 - window + 1) / kBlockK : 0;
 
-  // Q with K(0) is the first cp.async group, V(0) the second
+  // Q with K(first) is the first cp.async group, V(first) the second
   {
     constexpr int kChunks = D / 8;
     for (int e = threadIdx.x; e < kBlockQ * kChunks; e += kThreads) {
@@ -90,9 +96,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async16(smem_u32(qs + r * kStride + c * 8), s, ok);
     }
   }
-  load_tile<D>(ks, kp, sk_.s, 0, kv_len);
+  load_tile<D>(ks, kp, sk_.s, first_tile * kBlockK, kv_len);
   cp_async_commit();
-  load_tile<D>(vs, vp, sv_.s, 0, kv_len);
+  load_tile<D>(vs, vp, sv_.s, first_tile * kBlockK, kv_len);
   cp_async_commit();
 
   const int g = lane >> 2, tq = lane & 3;     // mma fragment row / quad lane
@@ -106,13 +112,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = first_tile; t < n_tiles; ++t) {
     // groups in flight: ... K(t), V(t); K(t + 1) and V(t + 1) are issued
     // once every warp is done with the buffers they overwrite
-    const int buf = t & 1;
+    const int buf = (t - first_tile) & 1;
     cp_async_wait<1>();  // K(t)
     __syncthreads();
-    if (t == 0) {
+    if (t == first_tile) {
 #pragma unroll
       for (int kk = 0; kk < kD16; ++kk) {
         const int r = warp * 16 + mr + (mi & 1) * 8;
@@ -145,8 +151,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     const int j0 = t * kBlockK;
+    // some (row, column) of the warp's 16 x 64 is masked
     const bool mask = j0 + kBlockK > kv_len ||
-                      (causal && j0 + kBlockK - 1 > q_offset + row_lo);
+                      (causal && j0 + kBlockK - 1 > q_offset + row_lo) ||
+                      (window > 0 && j0 <= q_offset + row_lo + 15 - window);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -154,8 +162,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float x = s[i][e] * scale_log2;
         if (mask) {
           const int col = j0 + i * 8 + 2 * tq + (e & 1);
-          const int row = row_lo + g + (e >> 1) * 8;
-          if (col >= kv_len || (causal && col > q_offset + row)) x = kNegInf;
+          const int pos = q_offset + row_lo + g + (e >> 1) * 8;
+          if (col >= kv_len || (causal && col > pos) ||
+              (window > 0 && col <= pos - window)) {
+            x = -INFINITY;  // exp2(-inf - m) = 0, m >= -1e30
+          }
         }
         s[i][e] = x;
       }
@@ -246,7 +257,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
            const Strides (&st)[4], int batch, int heads, int sq, int group,
-           int kv_len, int q_offset, int causal, float scale,
+           int kv_len, int q_offset, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t kSmem = Layout<D>::kBytes;
   // once per template instance, not per launch
@@ -259,7 +270,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   dim3 grid(heads, batch, n_qt);
   flash_tc_kernel<D><<<grid, kThreads, kSmem, stream>>>(
       q, k, v, o, st[0], st[1], st[2], st[3], sq, group, kv_len, q_offset,
-      causal, scale * kLog2e);
+      causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,13 @@ and a causal KV stream that stops at the last tile a row can see.
 
 :func:`flash_attention` computes, for q ``[B, H, Sq, D]`` and k, v
 ``[B, Hkv, Sk, D]`` (``H % Hkv == 0``), row ``i`` of each head over the
-columns ``j`` with ``j < kv_len`` and, when causal, ``j <= q_offset +
-i``.  With ``q_offset = 0`` and ``kv_len = Sk`` that is the TPU kernel's
-function.
+columns ``j`` with ``j < kv_len``, when causal ``j <= q_offset + i``,
+and with a sliding ``window = W`` ``j > q_offset + i - W`` (the
+reference's ``models/attention.py::_mask``; the TPU kernel has no
+window).  With ``q_offset = 0``, ``kv_len = Sk`` and no window that is
+the TPU kernel's function.  Every row must see at least one column
+(with a window: ``q_offset + Sq - W < kv_len``); the wrapper raises
+otherwise.
 
 Causal alignment (ROADMAP C1): the TPU kernel masks ``col <= row``
 (top-left) while the reference's dense oracle ``attention_ref`` masks
@@ -33,7 +37,8 @@ each launch also counts in :data:`LAUNCHES_BY_FORM`:
 * ``"split_kv"`` — bf16, D in :data:`TC_HEAD_DIMS`, at most
   :data:`SPLIT_MAX_ROWS` (16) q rows per kv head (``Sq * H / Hkv``: every
   decode step).  The visible columns are cut into splits of
-  :data:`SPLIT_COLUMNS` (128); one block per (split, kv head, batch)
+  :data:`SPLIT_COLUMNS` (128), splits wholly below a window's band
+  left out; one block per (split, kv head, batch)
   writes f32 partials (max, sum, accumulator) to scratch from
   ``torch.empty``, and a second kernel merges them in split order.
   :func:`split_kv_plain` is the same decomposition in torch ops.
@@ -73,7 +78,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_args(q, k, v, q_offset, kv_len):
+def _check_args(q, k, v, q_offset, kv_len, window=None):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-D tensor")
@@ -100,62 +105,101 @@ def _check_args(q, k, v, q_offset, kv_len):
         raise ValueError(f"kv_len must be in [1, {sk}], got {kv_len}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    return q_offset, kv_len
+    if window is not None:
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if q_offset + sq - window >= kv_len:
+            raise ValueError(
+                f"with window {window}, q_offset {q_offset} and kv_len "
+                f"{kv_len}, row {sq - 1} sees no column")
+    return q_offset, kv_len, window
 
 
 # --- plain PyTorch version ---------------------------------------------------
 
 
+#: Score elements per row block of the plain version (1 GiB in f32): its
+#: rows are independent, so it takes them in blocks to bound its memory.
+PLAIN_BLOCK_ELEMENTS = 1 << 28
+
+
+def _visible_mask(rows, cols, *, causal: bool, q_offset: int, kv_len: int,
+                  window):
+    """``[rows, cols]`` boolean: row ``i`` sees column ``j``."""
+    ok = cols[None, :] < kv_len
+    if causal:
+        ok = ok & (cols[None, :] <= q_offset + rows[:, None])
+    if window is not None:
+        ok = ok & (cols[None, :] > q_offset + rows[:, None] - window)
+    return ok
+
+
 def flash_attention_plain(q, k, v, *, causal: bool, scale=None,
-                          q_offset: int = 0, kv_len=None) -> torch.Tensor:
+                          q_offset: int = 0, kv_len=None,
+                          window=None) -> torch.Tensor:
     """Dense masked softmax attention in f32 with the kernel's mask,
-    ``-1e30`` for masked scores and ``acc / max(l, 1e-30)``."""
-    q_offset, kv_len = _check_args(q, k, v, q_offset, kv_len)
+    ``-1e30`` for masked scores and ``acc / max(l, 1e-30)``; q rows in
+    blocks of at most :data:`PLAIN_BLOCK_ELEMENTS` scores."""
+    q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     kf = k.float().repeat_interleave(h // hkv, dim=1)
     vf = v.float().repeat_interleave(h // hkv, dim=1)
-    s = (q.float() * scale) @ kf.transpose(-1, -2)          # [B,H,Sq,Sk]
     cols = torch.arange(sk, device=q.device)
-    mask = (cols < kv_len)[None, :]
-    if causal:
-        rows = torch.arange(sq, device=q.device)[:, None]
-        mask = mask & (cols[None, :] <= q_offset + rows)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    step = max(1, PLAIN_BLOCK_ELEMENTS // (b * h * sk))
+    out = torch.empty(b, h, sq, d, device=q.device)
+    for r0 in range(0, sq, step):
+        rows = torch.arange(r0, min(r0 + step, sq), device=q.device)
+        s = (q[:, :, r0:r0 + step].float() * scale) @ kf.transpose(-1, -2)
+        mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, window=window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out[:, :, r0:r0 + step] = ((p @ vf)
+                                   / p.sum(dim=-1, keepdim=True)
+                                   .clamp_min(1e-30))
+        del s, p
     return out.to(q.dtype)
 
 
-def _visible(sq: int, causal: bool, q_offset: int, kv_len: int) -> int:
-    """Columns that the last q row sees: the KV extent a call reads."""
-    return min(kv_len, q_offset + sq) if causal else kv_len
+def split_range(sq: int, causal: bool, q_offset: int, kv_len: int,
+                window=None) -> tuple[int, int]:
+    """(first split, number of splits) that the split-KV form visits:
+    the :data:`SPLIT_COLUMNS`-column splits from the one holding the
+    first row's window edge to the one holding the last row's last
+    visible column."""
+    end = min(kv_len, q_offset + sq) if causal else kv_len
+    first = 0 if window is None else max(0, q_offset - window + 1)
+    lo = first // SPLIT_COLUMNS
+    return lo, -(-end // SPLIT_COLUMNS) - lo
 
 
 def split_kv_plain(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
-                   kv_len=None) -> torch.Tensor:
+                   kv_len=None, window=None) -> torch.Tensor:
     """The split-KV form's decomposition in torch ops: per split of
-    :data:`SPLIT_COLUMNS` columns and per row, the max ``m`` of the visible scores
+    :data:`SPLIT_COLUMNS` columns that :func:`split_range` visits and per
+    row, the max ``m`` of the visible scores
     (-1e30 where the row sees none of the split), ``l = sum exp(s - m)``
     and ``acc = sum exp(s - m) v`` over the visible columns (0 for a row
     that sees none); then, in split order, ``M = max m``,
     ``out = sum acc e^(m - M) / max(sum l e^(m - M), 1e-30)``."""
-    q_offset, kv_len = _check_args(q, k, v, q_offset, kv_len)
+    q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv = k.shape[1]
     scale = d ** -0.5 if scale is None else float(scale)
     kf = k.float().repeat_interleave(h // hkv, dim=1)
     vf = v.float().repeat_interleave(h // hkv, dim=1)
     qf = q.float() * scale
-    rows = torch.arange(sq, device=q.device)[:, None]
+    rows = torch.arange(sq, device=q.device)
     split = SPLIT_COLUMNS
+    lo, n_splits = split_range(sq, causal, q_offset, kv_len, window)
     ms, ls, accs = [], [], []
-    for j0 in range(0, _visible(sq, causal, q_offset, kv_len), split):
-        cols = torch.arange(j0, j0 + split, device=q.device)[None, :]
-        ok = cols < kv_len
-        if causal:
-            ok = ok & (cols <= q_offset + rows)              # [Sq, split]
+    for j0 in range(lo * split, (lo + n_splits) * split, split):
+        cols = torch.arange(j0, j0 + split, device=q.device)
+        ok = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len, window=window)  # [Sq, split]
         j1 = min(j0 + split, kv_len)
         s = torch.zeros(b, h, sq, split, device=q.device)
         s[..., :j1 - j0] = qf @ kf[:, :, j0:j1].transpose(-1, -2)
@@ -202,8 +246,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci,
-        ci, ci, ci, vp, vp, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+        ci, ci, ci, ci, vp, vp, vp,
     ]
     lib.flash_attention_fwd.restype = ci
     for fn in (lib.flash_attention_split_columns,
@@ -219,17 +263,19 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
-                    kv_len=None) -> torch.Tensor:
+                    kv_len=None, window=None) -> torch.Tensor:
     """Attention of q ``[B, H, Sq, D]`` over k, v ``[B, Hkv, Sk, D]``:
-    row ``i`` sees column ``j`` iff ``j < kv_len`` and, when ``causal``,
-    ``j <= q_offset + i``.  ``scale`` defaults to ``D ** -0.5``;
-    ``kv_len`` to ``Sk``.  f32 or bf16 in, f32 accumulation, output in
-    q's dtype and memory layout."""
-    q_offset, kv_len = _check_args(q, k, v, q_offset, kv_len)
+    row ``i`` sees column ``j`` iff ``j < kv_len``, when ``causal``
+    ``j <= q_offset + i``, and with a ``window`` ``j > q_offset + i -
+    window``.  ``scale`` defaults to ``D ** -0.5``; ``kv_len`` to
+    ``Sk``; ``window`` None is no window.  f32 or bf16 in, f32
+    accumulation, output in q's dtype and memory layout."""
+    q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     q_offset=q_offset, kv_len=kv_len)
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     window=window)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b, h, sq, d = q.shape
@@ -249,8 +295,7 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     n_splits, part_ml, part_acc = 0, None, None
     if form == "split_kv":
         rows = sq * (h // hkv)
-        n_splits = -(-_visible(sq, causal, q_offset, kv_len)
-                     // SPLIT_COLUMNS)
+        n_splits = split_range(sq, causal, q_offset, kv_len, window)[1]
         part_ml = torch.empty(b, hkv, n_splits, rows, 2,
                               dtype=torch.float32, device=dev)
         part_acc = torch.empty(b, hkv, n_splits, rows, d,
@@ -263,7 +308,8 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
         code = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), b, h, sq, hkv, kv_len,
-            q_offset, int(bool(causal)), scale, d, _DTYPES[q.dtype],
+            q_offset, int(bool(causal)), 0 if window is None else window,
+            scale, d, _DTYPES[q.dtype],
             _FORM_CODES[form], n_splits,
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(), stream,

@@ -1,13 +1,14 @@
 """Batched serving: prefill + greedy decode loop with cache reuse.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --batch 4 --prompt-len 2048 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
-        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mixtral-8x7b --reduced --device cpu
 
 Mirrors ``repro/launch/serve.py`` on one device: one prefill over the
 batch of seeded prompts, then token-by-token decode against the caches
-(KV caches of the shared attention sites and the O(1) Mamba2 states).
+(the transformer's per-layer KV caches, the hybrid's shared attention
+sites' caches and the O(1) Mamba2 states).
 Weights are random, from ``--seed``.  Greedy decoding is the parity
 mode; ``--temperature`` samples from a ``torch.Generator`` seeded with
 ``--seed``, which does not give JAX's draws.  Runs on the card unless
@@ -26,7 +27,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.reduced import reduced as reduce_spec
 from repro_torch.device import resolve_device
 
-DEFAULT_ARCH = "zamba2-1.2b"
+DEFAULT_ARCH = "llama3-8b"
 
 
 def _sync(device: torch.device) -> None:
@@ -37,12 +38,14 @@ def _sync(device: torch.device) -> None:
 def serve(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
           batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, temperature: float = 0.0, device=None,
-          dtype: torch.dtype | None = None, model=None) -> dict:
+          dtype: torch.dtype | None = None, layers: int | None = None,
+          model=None) -> dict:
     """Serve one batch of seeded prompts; returns the prompt and
     generated token ids (numpy ``[batch, prompt_len]`` and ``[batch,
     gen]``) and the host wall-clock timings (ending in a device
-    synchronise).  ``dtype`` overrides the config's; ``model`` replaces
-    the seeded init (weights carried from elsewhere)."""
+    synchronise).  ``dtype`` overrides the config's, ``layers`` its depth
+    (for a model too large for the card); ``model`` replaces the seeded
+    init (weights carried from elsewhere)."""
     if gen < 1 or prompt_len < 1 or batch < 1:
         raise ValueError("batch, prompt_len and gen must be >= 1")
     device = resolve_device(device)
@@ -52,6 +55,8 @@ def serve(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
     cfg = spec.config
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, layers=layers)
     fam = spec.family
     if model is None:
         model = fam.init(cfg, device=device, seed=seed)
@@ -93,7 +98,8 @@ def serve(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
         raise RuntimeError("a padded-vocabulary id was generated")
     steps = gen - 1
     return {
-        "arch": spec.arch_id, "device": str(device), "dtype": str(cfg.dtype),
+        "arch": spec.arch_id, "layers": cfg.layers, "device": str(device),
+        "dtype": str(cfg.dtype),
         "batch": batch, "prompt_len": prompt_len, "gen": gen,
         "prompt": prompt, "tokens": tokens,
         "prefill_s": prefill_s, "decode_s": decode_s,
@@ -105,21 +111,24 @@ def serve(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", choices=list_archs(), default=DEFAULT_ARCH,
-                    help=f"ported architecture (default {DEFAULT_ARCH} "
-                         "until the transformer family is ported)")
+                    help=f"ported architecture (default {DEFAULT_ARCH}, "
+                         "as the reference's)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (the published widths stay)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
     res = serve(args.arch, reduced=args.reduced, batch=args.batch,
                 prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                temperature=args.temperature, device=args.device)
+                temperature=args.temperature, device=args.device,
+                layers=args.layers)
     print(f"prefill: {args.batch}x{args.prompt_len} in "
           f"{res['prefill_s']:.2f}s on {res['device']}")
     print(f"decode : {args.gen - 1} steps, {res['decode_tok_s']:.1f} tok/s "

@@ -1,13 +1,14 @@
 """Uniform family API: the ported families expose the reference's
 batch-dict interface, so serving code is family-agnostic.
 
-    fam = get_family("hybrid")
+    fam = get_family("transformer")
     model = fam.init(cfg, device=device, seed=0)
     caches = fam.init_caches(cfg, batch_size, max_len, device=device)
     logits, caches = fam.prefill(model, batch, cfg, caches)
     logits, caches = fam.decode_step(model, batch, cfg, caches, length)
 
-Mirrors ``repro/models/api.py`` for the ``ssm`` and ``hybrid`` families.
+Mirrors ``repro/models/api.py`` for the ``transformer``, ``ssm`` and
+``hybrid`` families.
 ``loss_fn`` (training) and ``cache_axes`` (sharding) are not ported.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from repro_torch.models import hybrid, ssm
+from repro_torch.models import transformer as tfm
 
 
 class Family(NamedTuple):
@@ -24,6 +26,18 @@ class Family(NamedTuple):
     prefill: Callable
     decode_step: Callable
 
+
+TRANSFORMER = Family(
+    name="transformer",
+    init=tfm.init,
+    init_caches=tfm.init_caches,
+    prefill=lambda p, batch, cfg, caches: tfm.prefill(
+        p, batch["tokens"], cfg, caches
+    ),
+    decode_step=lambda p, batch, cfg, caches, length: tfm.decode_step(
+        p, batch["token"], cfg, caches, length
+    ),
+)
 
 SSM = Family(
     name="ssm",
@@ -49,8 +63,8 @@ HYBRID = Family(
     ),
 )
 
-FAMILIES = {f.name: f for f in (SSM, HYBRID)}
-UNPORTED = ("transformer", "encdec", "vlm")
+FAMILIES = {f.name: f for f in (TRANSFORMER, SSM, HYBRID)}
+UNPORTED = ("encdec", "vlm")
 
 
 def get_family(name: str) -> Family:

@@ -1,5 +1,6 @@
 """GQA attention: self-attention, prefill into a KV cache and decode,
-every call on kernel B4 (:mod:`repro_torch.kernels.flash_attention`).
+with an optional sliding window (mixtral), every call on kernel B4
+(:mod:`repro_torch.kernels.flash_attention`).
 
 Mirrors ``repro/models/attention.py`` for the cases the serving path
 takes.  The reference's ``sdpa`` chooses between a dense and a
@@ -11,8 +12,9 @@ The KV cache is updated in place (the reference's
 are written at ``cache.length`` and the call returns the same tensors
 with the new length.  The cache path attends with ``q_offset =
 cache.length`` and ``kv_len = cache.length + S``, which is the
-reference's position mask (``_mask``: ``kv_pos < new_len`` and
-``kv_pos <= q_pos``) for positions ``length + arange(S)``.
+reference's position mask (``_mask``: ``kv_pos < new_len``,
+``kv_pos <= q_pos`` and, with a window, ``kv_pos > q_pos - window``) for
+positions ``length + arange(S)``; the window goes to B4 as it is.
 """
 from __future__ import annotations
 
@@ -82,16 +84,13 @@ def gqa_attention(
     * prefill into a cache and decode: ``cache`` holds past KV; ``x``
       is the new token(s), written at ``cache.length``.
 
-    ``attn_impl`` and ``block_q`` have no effect (one kernel form).
+    ``window`` (None = none) is the sliding window.  ``attn_impl`` and
+    ``block_q`` have no effect (one kernel form).
     """
     del attn_impl, block_q
     if kv_override is not None:
         raise NotImplementedError(
             "cross-attention (kv_override) waits for the encdec slice "
-            "(ROADMAP A-11)")
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention waits for the mixtral slice "
             "(ROADMAP A-11)")
     q = apply_rope(_project(x, params.wq), positions, rope_theta)
     k = apply_rope(_project(x, params.wk), positions, rope_theta)
@@ -99,7 +98,8 @@ def gqa_attention(
     s_new = x.shape[1]
     if cache is None:
         out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=causal)
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window)
         new_cache = None
     else:
         end = cache.length + s_new
@@ -111,7 +111,7 @@ def gqa_attention(
         out = fa.flash_attention(
             q.transpose(1, 2), cache.k.transpose(1, 2),
             cache.v.transpose(1, 2), causal=causal, q_offset=cache.length,
-            kv_len=end)
+            kv_len=end, window=window)
         new_cache = KVCache(cache.k, cache.v, end)
     y = out.transpose(1, 2).flatten(2) @ params.wo.flatten(0, 1)
     return y, new_cache

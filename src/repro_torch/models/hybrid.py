@@ -161,7 +161,7 @@ def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
         x = mamba(blk, x, caches and caches.trailing, i)
 
     x = params.final_norm(x, cfg.norm_eps)
-    logits = ssm.logits_of(params.embed, x, cfg.vocab, cfg.padded_vocab)
+    logits = ssm.logits_of(params.embed, x, cfg.vocab)
     new_caches = None
     if caches is not None:
         length = caches.length + s

@@ -1,4 +1,5 @@
-"""Common layers: initialisers, RMSNorm, embedding, RoPE, SwiGLU MLP.
+"""Common layers: initialisers, RMSNorm, linear, embedding, RoPE, SwiGLU
+MLP.
 
 Mirrors ``repro/models/layers.py`` without the parameter/axes machinery
 (``PSpec``, sharding): the port runs on one device, and a block's
@@ -51,6 +52,22 @@ class RMSNorm(nn.Module):
         return x * inv.to(x.dtype) * self.scale.to(x.dtype)
 
 
+# --- linear ------------------------------------------------------------------
+
+
+class Linear(nn.Module):
+    """``w [d_in, d_out]``, fan-in normal (the reference's
+    ``linear_init``/``linear``)."""
+
+    def __init__(self, d_in: int, d_out: int, dtype, *, device, generator):
+        super().__init__()
+        self.w = param(fan_in_normal((d_in, d_out), d_in, dtype,
+                                     device=device, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w
+
+
 # --- embedding ---------------------------------------------------------------
 
 
@@ -68,6 +85,16 @@ class Embedding(nn.Module):
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-weights logits head: (..., d) @ (vocab, d)^T."""
         return x @ self.table.T
+
+
+def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Logits of the padded vocabulary (ids >= ``vocab``) set to -1e30,
+    as the reference's forward does."""
+    padded = logits.shape[-1]
+    if padded == vocab:
+        return logits
+    pad = torch.arange(padded, device=logits.device) >= vocab
+    return logits.masked_fill(pad, -1e30)
 
 
 # --- rotary position embeddings ----------------------------------------------

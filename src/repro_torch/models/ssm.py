@@ -217,14 +217,10 @@ def store_layer_cache(caches: SSMCache, new: SSMCache, *index) -> None:
 # --- LM stack -----------------------------------------------------------------
 
 
-def logits_of(embed: L.Embedding, x: torch.Tensor, vocab: int,
-              padded_vocab: int) -> torch.Tensor:
+def logits_of(embed: L.Embedding, x: torch.Tensor,
+              vocab: int) -> torch.Tensor:
     """Tied logits with the padded vocabulary masked to -1e30."""
-    logits = embed.unembed(x)
-    if padded_vocab != vocab:
-        pad = torch.arange(padded_vocab, device=x.device) >= vocab
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return L.mask_padded_vocab(embed.unembed(x), vocab)
 
 
 class Mamba2LM(nn.Module):
@@ -255,7 +251,7 @@ def forward(params: Mamba2LM, tokens, cfg: Mamba2Config, *, caches=None):
         if caches is not None:
             store_layer_cache(caches, new, i)
     x = params.final_norm(x, cfg.norm_eps)
-    logits = logits_of(params.embed, x, cfg.vocab, cfg.padded_vocab)
+    logits = logits_of(params.embed, x, cfg.vocab)
     new_caches = None
     if caches is not None:
         new_caches = caches._replace(length=caches.length + tokens.shape[1])

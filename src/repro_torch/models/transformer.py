@@ -1,0 +1,209 @@
+"""Decoder-only transformer family (llama / qwen / yi / deepseek /
+mixtral / arctic): dense GQA, MoE (mixtral), MoE beside a dense MLP
+(arctic) and sliding-window attention.
+
+Mirrors ``repro/models/transformer.py`` for serving.  The reference
+scans over stacked layer parameters; the port loops over one module per
+layer in Python.  Every attention call runs kernel B4, windowed where
+the config has a window.  KV caches are stacked ``[L, B, max_len, Hkv,
+hd]`` tensors updated in place, layer by layer; ``length`` is a Python
+int.  ``loss_fn`` (training) is not ported, and a MoE config's forward
+without caches (the reference's capacity-drop routing) raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's fields.  ``attn_sp`` and ``sp_residuals`` shard
+    attention and the residual stream over a device mesh, ``remat`` and
+    ``scan_layers`` shape the traced training step, and ``attn_impl``
+    and ``block_q`` pick the reference's jnp attention form; the port
+    runs on one device, eagerly, with one attention form (kernel B4),
+    so they have no effect.  ``zloss`` belongs to the training loss."""
+
+    layers: int
+    d_model: int
+    heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    rope_theta: float = 10000.0
+    window: int | None = None
+    dtype: torch.dtype = torch.bfloat16
+    vocab_pad_multiple: int = 128
+    moe: MoEConfig | None = None
+    dense_ff: bool = True            # arctic keeps a dense MLP beside the MoE
+    attn_sp: bool = False
+    sp_residuals: bool = False
+    attn_impl: str = "blocked"
+    block_q: int = 1024
+    remat: bool = True
+    scan_layers: bool = True
+    norm_eps: float = 1e-6
+    zloss: float = 1e-4
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab // m) * m
+
+    @property
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.padded_vocab
+        h, kv, hd = self.heads, self.kv_heads, self.head_dim
+        attn_p = d * (h + 2 * kv) * hd + h * hd * d
+        mlp_p = 3 * d * f if (self.moe is None or self.dense_ff) else 0
+        moe_p = 3 * d * f * self.moe.num_experts + d * self.moe.num_experts \
+            if self.moe else 0
+        return self.layers * (attn_p + mlp_p + moe_p + 2 * d) + 2 * v * d + d
+
+    @property
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE counts top_k experts only)."""
+        if self.moe is None:
+            return self.param_count
+        d, f = self.d_model, self.d_ff
+        dense = self.param_count - self.layers * 3 * d * f * self.moe.num_experts
+        return dense + self.layers * 3 * d * f * self.moe.top_k
+
+
+# --- single block -------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """One pre-norm block's parameters (the reference's names and
+    layouts): ``mlp`` unless the config is MoE-only, ``moe`` if it has
+    experts."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        kw = dict(device=device, generator=generator)
+        self.ln_attn = L.RMSNorm(d, dt, device=device)
+        self.attn = attn.attn_init(d, cfg.heads, cfg.kv_heads, cfg.head_dim,
+                                   dt, **kw)
+        self.ln_mlp = L.RMSNorm(d, dt, device=device)
+        if cfg.moe is None or cfg.dense_ff:
+            self.mlp = L.MLP(d, cfg.d_ff, dt, **kw)
+        if cfg.moe is not None:
+            self.moe = moe_init(d, cfg.d_ff, cfg.moe, dt, **kw)
+
+
+def block_init(cfg: TransformerConfig, *, device, generator) -> Block:
+    return Block(cfg, device=device, generator=generator)
+
+
+def block_apply(cfg: TransformerConfig, params: Block, x, *, positions,
+                cache: attn.KVCache | None):
+    """Pre-norm residual block; returns (x, new_cache, aux_loss).  The
+    reference's order, in x's dtype: ``x + attn``, then ``y = 0 + mlp``,
+    ``y + moe``, and ``x + y``."""
+    h = params.ln_attn(x, cfg.norm_eps)
+    a, new_cache = attn.gqa_attention(
+        params.attn, h, positions=positions, rope_theta=cfg.rope_theta,
+        causal=True, window=cfg.window, cache=cache,
+        attn_impl=cfg.attn_impl, block_q=cfg.block_q,
+    )
+    x = x + a
+    h = params.ln_mlp(x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x)
+    if cfg.moe is None or cfg.dense_ff:
+        y = y + params.mlp(h)
+    if cfg.moe is not None:
+        # inference (a cache present) routes every token, as the
+        # reference does; without a cache it would drop by capacity
+        ym, aux = moe_apply(params.moe, h, cfg.moe, drop=cache is None)
+        y = y + ym
+    return x + y, new_cache, aux
+
+
+# --- stacked model ------------------------------------------------------------
+
+
+class TransformerLM(nn.Module):
+    """Embedding, blocks, final norm and an untied logits head."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, cfg.dtype,
+                                 **kw)
+        self.blocks = nn.ModuleList(block_init(cfg, **kw)
+                                    for _ in range(cfg.layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.dtype, device=device)
+        self.unembed = L.Linear(cfg.d_model, cfg.padded_vocab, cfg.dtype,
+                                **kw)
+
+
+def init(cfg: TransformerConfig, *, device, seed: int = 0) -> TransformerLM:
+    """Random weights from ``seed`` on ``device``."""
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return TransformerLM(cfg, device=device, generator=gen)
+
+
+@torch.no_grad()
+def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
+            positions=None, caches: attn.KVCache | None = None):
+    """Returns (logits [B, S, Vp], new_caches, aux_loss)."""
+    x = params.embed(tokens).to(cfg.dtype)
+    b, s, _ = x.shape
+    if positions is None:
+        base = caches.length if caches is not None else 0
+        positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(params.blocks):
+        cache = None
+        if caches is not None:
+            cache = attn.KVCache(caches.k[i], caches.v[i], caches.length)
+        x, _, a = block_apply(cfg, blk, x, positions=positions, cache=cache)
+        aux = aux + a
+    x = params.final_norm(x, cfg.norm_eps)
+    logits = L.mask_padded_vocab(params.unembed(x), cfg.vocab)
+    new_caches = None
+    if caches is not None:
+        new_caches = caches._replace(length=caches.length + s)
+    return logits, new_caches, aux
+
+
+# --- serving ------------------------------------------------------------------
+
+
+def init_caches(cfg: TransformerConfig, batch: int, max_len: int, *,
+                device) -> attn.KVCache:
+    """k, v ``[L, B, max_len, Hkv, hd]`` in the model's dtype, length 0;
+    layer ``i`` attends through the views ``k[i]``, ``v[i]``."""
+    shape = (cfg.layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return attn.KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        length=0,
+    )
+
+
+def prefill(params, tokens, cfg: TransformerConfig, caches):
+    """Run the full prompt through the stack, filling the caches.
+    Returns (last-token logits [B, Vp], caches)."""
+    logits, caches, _ = forward(params, tokens, cfg, caches=caches)
+    return logits[:, -1, :], caches
+
+
+def decode_step(params, token, cfg: TransformerConfig, caches, length: int):
+    """One decode step.  token: [B, 1]; length: tokens so far.
+    Returns (logits [B, Vp], caches)."""
+    b = token.shape[0]
+    positions = torch.full((b, 1), int(length), device=token.device)
+    logits, caches, _ = forward(params, token, cfg, positions=positions,
+                                caches=caches)
+    return logits[:, -1, :], caches

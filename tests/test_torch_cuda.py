@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card: the SDCM kernel's two entry
 points, the reuse-histogram kernel's two flags, flash attention (B4, each
-of its three forms, with the launches counted by form) and the SSD scan
+of its three forms, with the launches counted by form, with and without
+a sliding window) and the SSD scan
 (B5, f32 and bf16 b/c, column blocks) against their plain PyTorch
 versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
 the histogram (from two threads and streams at once too), streaming reuse distances, a binned Session and the
-reduced serving path on the card, the fused config sweep in both inner
+reduced serving paths on the card (zamba2, and the windowed MoE
+transformer), the fused config sweep in both inner
 forms and the artifact store on the card.  Imports nothing of JAX, so
 it runs where the port runs:
 
@@ -32,7 +34,7 @@ from repro_torch.kernels import reuse_hist
 from repro_torch.kernels import ssd_scan as scan
 from repro_torch.configs.reduced import reduced_arch
 from repro_torch.launch import serve
-from repro_torch.models import hybrid
+from repro_torch.models import hybrid, transformer
 from repro_torch.kernels import sdcm as kernel
 from repro_torch.workloads.polybench import make_atax
 
@@ -498,6 +500,53 @@ def test_flash_attention_forms_vs_plain(cuda_device, d, b, h, hkv, sq, sk,
         assert err / float(ref.float().abs().max()) <= BF16_SCALED_TOL
 
 
+@pytest.mark.parametrize("dtype,d,b,h,hkv,sq,sk,q_offset,kv_len,window,form", [
+    # mixtral-like prefill, band edges mid-tile (W 100, 64-column tiles)
+    (torch.bfloat16, 128, 2, 8, 2, 300, 300, 0, 300, 100, "tensor_core"),
+    # a chunk into a cache: the block's first tile (edge 488 of 448..511)
+    # lies wholly below the band of warps 2 and 3
+    (torch.bfloat16, 64, 1, 16, 16, 100, 720, 600, 700, 113, "tensor_core"),
+    # decode: splits 3..5 of 128 columns visited (edge 401 mid-split)
+    (torch.bfloat16, 128, 2, 32, 8, 1, 700, 600, 601, 200, "split_kv"),
+    # 16 rows per kv head, each row its own edge
+    (torch.bfloat16, 64, 1, 16, 4, 4, 1100, 1000, 1004, 130, "split_kv"),
+    # the CUDA-core form in f32, edge mid-tile, and at the reduced D 16
+    (torch.float32, 64, 1, 4, 2, 200, 200, 0, 200, 77, "simt"),
+    (torch.float32, 16, 2, 4, 2, 9, 40, 20, 29, 16, "simt"),
+], ids=["tc-prefill", "tc-chunk", "split-decode", "split-16-rows",
+        "simt-prefill", "simt-reduced"])
+def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
+                                               hkv, sq, sk, q_offset, kv_len,
+                                               window, form):
+    """Each form with a sliding window against the plain version (and
+    the split-KV form against its decomposition), at the reference's
+    bounds."""
+    gen = torch.Generator(device=cuda_device).manual_seed(window)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.float32).to(dtype)
+
+    q = rand(b, sq, h, d).transpose(1, 2)
+    k = rand(b, sk, hkv, d).transpose(1, 2)
+    v = rand(b, sk, hkv, d).transpose(1, 2)
+    assert fa.kernel_form(q, k, v) == form
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = fa.LAUNCHES_BY_FORM[form]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES_BY_FORM[form] == before + 1
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    refs = [fa.flash_attention_plain(q, k, v, **kw)]
+    if form == "split_kv":
+        refs.append(fa.split_kv_plain(q, k, v, **kw))
+    assert torch.isfinite(got.float()).all()
+    for ref in refs:
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= atol
+        if dtype == torch.bfloat16:
+            assert err / float(ref.float().abs().max()) <= BF16_SCALED_TOL
+
+
 def test_split_kv_is_deterministic(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(*shape, generator=gen, device=cuda_device)
@@ -583,6 +632,24 @@ def test_reduced_serve_launches_both_kernels(cuda_device):
     assert fa.LAUNCHES["flash_attention"] - before[0] == 2 * 4
     assert fa.LAUNCHES_BY_FORM["simt"] - before[2] == 2 * 4
     assert scan.LAUNCHES["ssd_scan"] - before[1] == 5
+    np.testing.assert_array_equal(res["tokens"], cpu["tokens"])
+
+
+def test_reduced_mixtral_serve_on_the_card(cuda_device):
+    """The reduced mixtral (window 16, 4 experts top-2) served past its
+    window on the CPU and on the card from the same f32 weights gives
+    the same greedy tokens; every attention ran on B4 (f32: the CUDA-core
+    form), 2 layers a forward."""
+    cfg = dataclasses.replace(reduced_arch("mixtral-8x7b").config,
+                              dtype=torch.float32)
+    model = transformer.init(cfg, device="cpu", seed=1)
+    kw = dict(reduced=True, batch=2, prompt_len=24, gen=4,
+              dtype=torch.float32)
+    cpu = serve.serve("mixtral-8x7b", device="cpu", model=model, **kw)
+    before = fa.LAUNCHES_BY_FORM["simt"]
+    res = serve.serve("mixtral-8x7b", device=cuda_device,
+                      model=model.to(cuda_device), **kw)
+    assert fa.LAUNCHES_BY_FORM["simt"] - before == 2 * 4
     np.testing.assert_array_equal(res["tokens"], cpu["tokens"])
 
 

@@ -6,9 +6,13 @@ Bounds are the reference's own (``tests/kernels/
 test_flash_attention_kernel.py``): atol 2e-5 in f32, 3e-2 in bf16.  The
 offset form (``q_offset``/``kv_len``, the model's cache path) is held
 against ``models/attention.py::_sdpa_dense`` with the reference's cache
-masks.
+masks, and the sliding window (mixtral; the port's B4 has it, the Pallas
+kernel has not) against the reference's ``sdpa``, dense and in its
+banded ``impl="blocked"`` form, at 2e-5 in f32.
 """
 from __future__ import annotations
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +21,7 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref
 from repro.kernels.flash_attention import flash_attention as flash_ref
-from repro.models.attention import _sdpa_dense
+from repro.models.attention import _sdpa_dense, sdpa
 from repro_torch.kernels import flash_attention as fa
 
 SHAPES = [
@@ -229,3 +233,106 @@ def test_forms_count_nothing_on_the_cpu():
                        q_offset=10, kv_len=11)
     assert fa.LAUNCHES_BY_FORM == before
     assert set(before) == {"tensor_core", "split_kv", "simt"}
+
+
+# --- the sliding window ------------------------------------------------------
+
+
+def window_case(b, h, hkv, d, length, s_new, max_len, window, seed,
+                impl="dense", block_q=1024):
+    """The reference's ``sdpa`` with a window on the cache path (new
+    tokens at positions ``length + arange(s_new)`` over the first
+    ``length + s_new`` of ``max_len`` columns); returns the port's
+    inputs in its ``[B, H, S, D]`` layout and the reference's output in
+    ``[B, S, H, D]``."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s_new, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, max_len, hkv, d)).astype(np.float32)
+    q_pos = np.broadcast_to(length + np.arange(s_new), (b, s_new))
+    kv_pos = np.broadcast_to(np.arange(max_len), (b, max_len))
+    rep = h // hkv
+    want = sdpa(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=2)),
+        jnp.asarray(np.repeat(v, rep, axis=2)),
+        q_positions=jnp.asarray(q_pos), kv_positions=jnp.asarray(kv_pos),
+        kv_valid=jnp.asarray(kv_pos < length + s_new), causal=True,
+        window=window, impl=impl, block_q=block_q)
+    t = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)]
+    return t, np.asarray(want)
+
+
+@pytest.mark.parametrize("impl", ["dense", "blocked"])
+@pytest.mark.parametrize("window", [20, 37])
+def test_window_self_attention_matches_reference_sdpa(impl, window):
+    """Sq = Sk = 96 with block_q 16: the reference's blocked form is its
+    banded one (window + block_q < Sk); the band's lower edge falls
+    mid-tile of every port form's 64 columns."""
+    (q, k, v), want = window_case(2, 4, 2, 16, 0, 96, 96, window, seed=window,
+                                  impl=impl, block_q=16)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("length,s_new,max_len,window", [
+    (40, 9, 64, 20),      # chunk into a cache, edges 21..29 mid-tile
+    (300, 1, 320, 130),   # decode step, edge 171 past the first split
+    (150, 20, 200, 16),   # the reduced configs' window, 20 rows
+    (30, 1, 40, 100),     # window wider than the cache: no effect
+], ids=["chunk", "decode", "reduced-window", "wide"])
+def test_window_cache_path_matches_reference_sdpa(length, s_new, max_len,
+                                                  window):
+    (q, k, v), want = window_case(2, 8, 2, 16, length, s_new, max_len,
+                                  window, seed=length)
+    kw = dict(causal=True, q_offset=length, kv_len=length + s_new,
+              window=window)
+    for fn in (fa.flash_attention_plain, fa.split_kv_plain):
+        got = fn(q, k, v, **kw)
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(), want,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,q_offset,kv_len,window,causal,splits", [
+    (1, 1000, 1001, 300, True, (5, 3)),     # edge 701: splits 5..7
+    (4, 1000, 1004, 128, True, (6, 2)),     # edge 873 at split 6
+    (3, 600, 700, 100, False, (3, 3)),      # not causal: to kv_len
+    (2, 127, 129, 1, True, (0, 2)),         # W 1: each row its own column
+], ids=["decode", "16-rows", "non-causal", "w1"])
+def test_window_split_kv_model_visits_only_the_band(sq, q_offset, kv_len,
+                                                    window, causal, splits):
+    q, k, v = decode_case(1, 8, 2, sq, kv_len + 5, 64, seed=kv_len)
+    assert fa.split_range(sq, causal, q_offset, kv_len, window) == splits
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    torch.testing.assert_close(fa.split_kv_plain(q, k, v, **kw),
+                               fa.flash_attention_plain(q, k, v, **kw),
+                               atol=2e-5, rtol=0)
+
+
+def test_window_of_one_sees_the_diagonal_only():
+    q, k, v = make(1, 2, 2, 70, 70, 16, seed=5)
+    got = port(q, k, v, causal=True, window=1)
+    np.testing.assert_allclose(got, v, atol=1e-6)
+
+
+def test_plain_version_in_row_blocks_equals_one_block(monkeypatch):
+    q, k, v = decode_case(1, 4, 2, 100, 100, 16, seed=9)
+    kw = dict(causal=True, window=30)
+    whole = fa.flash_attention_plain(q, k, v, **kw)
+    module = importlib.import_module(fa.flash_attention.__module__)
+    monkeypatch.setattr(module, "PLAIN_BLOCK_ELEMENTS", 4 * 100 * 7)
+    assert fa.flash_attention_plain.__module__ == module.__name__
+    torch.testing.assert_close(fa.flash_attention_plain(q, k, v, **kw),
+                               whole, atol=1e-6, rtol=0)
+
+
+def test_wrapper_rejects_bad_windows():
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 20, 16)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        fa.flash_attention(q, k, k, causal=True, window=0)
+    # non-causal, rows 8 past the cache end: the last sees no column
+    with pytest.raises(ValueError, match="sees no column"):
+        fa.flash_attention(q, k, k, causal=False, q_offset=20, kv_len=20,
+                           window=4)
+    fa.flash_attention(q, k, k, causal=False, q_offset=15, kv_len=20,
+                       window=4)

@@ -4,7 +4,8 @@ and ``block_apply`` on carried weights, and the reduced ``zamba2-1.2b``
 and ``mamba2-780m`` with every parameter carried across by
 ``repro_torch.interop.model_from_reference`` — prefill logits and every
 decode step's logits at rtol/atol 2e-4, on the CPU (the kernels' plain
-versions).  Then the port's own prefill-then-decode against a full
+versions); the windowed attention the transformer family uses (its
+reduced architectures: ``tests/test_torch_transformer.py``).  Then the port's own prefill-then-decode against a full
 prefill, at the same bound.
 """
 from __future__ import annotations
@@ -88,13 +89,43 @@ def test_gqa_attention_self_prefill_and_decode():
         assert pc.length == int(rc.length) == hi
 
 
+def test_gqa_attention_with_a_window_matches_the_reference():
+    """The sliding window on both paths (kernel B4's window, here its
+    plain version): self-attention over 11 tokens with a window of 4,
+    then a cache filled 7 tokens at once and decoded one by one."""
+    d, h, hkv, hd, theta, window = 32, 4, 2, 16, 10000.0, 4
+    vals = jax.tree.map(np.asarray, unzip_params(ref_attn.attn_init(
+        jax.random.key(3), d, h, hkv, hd))[0])
+    mod = attention.attn_init(d, h, hkv, hd, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    copy_params(mod, vals)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 11, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
+    ref = jax.jit(lambda v, x, p, c: ref_attn.gqa_attention(
+        v, x, positions=p, rope_theta=theta, cache=c, window=window))
+    want, _ = ref(vals, x, pos, None)
+    got, _ = attention.gqa_attention(mod, torch.from_numpy(x),
+                                     positions=torch.from_numpy(pos.copy()),
+                                     rope_theta=theta, window=window)
+    close(got, want)
+    rc = ref_attn.init_kv_cache(2, 16, hkv, hd, jnp.float32)
+    pc = attention.KVCache(torch.zeros(2, 16, hkv, hd),
+                           torch.zeros(2, 16, hkv, hd), 0)
+    for lo, hi in [(0, 7), (7, 8), (8, 9), (9, 10), (10, 11)]:
+        p = pos[:, lo:hi]
+        want, rc = ref(vals, x[:, lo:hi], p, rc)
+        got, pc = attention.gqa_attention(
+            mod, torch.from_numpy(x[:, lo:hi]),
+            positions=torch.from_numpy(p.copy()), rope_theta=theta,
+            cache=pc, window=window)
+        close(got, want)
+
+
 def test_unported_attention_options_raise():
     mod = attention.attn_init(8, 2, 2, 4, device="cpu",
                               generator=torch.Generator().manual_seed(0))
     x, pos = torch.zeros(1, 3, 8), torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A-11"):
-        attention.gqa_attention(mod, x, positions=pos, rope_theta=1e4,
-                                window=2)
     with pytest.raises(NotImplementedError, match="A-11"):
         attention.gqa_attention(mod, x, positions=pos, rope_theta=1e4,
                                 kv_override=(x, x))
@@ -179,6 +210,18 @@ def test_prefill_then_decode_matches_full_prefill(arch_id):
 
 
 def test_unported_families_raise():
-    for name in ("transformer", "encdec", "vlm"):
+    for name in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="A-11"):
             get_family(name)
+
+
+def test_the_transformer_family_is_ported():
+    fam = get_family("transformer")
+    assert fam.name == "transformer"
+    cfg = dataclasses.replace(reduced_arch("llama3-8b").config,
+                              dtype=torch.float32)
+    model = fam.init(cfg, device="cpu", seed=0)
+    caches = fam.init_caches(cfg, 1, 5, device="cpu")
+    logits, caches = fam.prefill(
+        model, {"tokens": torch.arange(4).reshape(1, 4)}, cfg, caches)
+    assert logits.shape == (1, cfg.padded_vocab) and caches.length == 4
