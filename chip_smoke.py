@@ -68,7 +68,12 @@ with a non-zero exit:
     shape; and with mixtral's sliding window of 4,096 the tensor-core
     form at its prefill (B 2, S 6,144), the split-KV form at a decode step
     past the window (splits below the band skipped) and the CUDA-core form
-    in f32 with the band's edge mid-tile (W 1,000).  Each bf16 row is also held to
+    in f32 with the band's edge mid-tile (W 1,000); at phi-3-vision's head
+    dim 96 the tensor-core form at its prefill, the split-KV form at a
+    decode step and the CUDA-core form in f32; and without causality, at
+    seamless-m4t-medium's shapes, the tensor-core form at its encoder and
+    its cross-attention prefill and the split-KV form at a cross-attention
+    decode step (one row over the 2,048-frame source).  Each bf16 row is also held to
     ``FLASH_SCALED_TOL_BF16`` of the plain version's largest output.
     ``ms`` and SDPA's ``library_ms`` time the calls issued one by one,
     as every kernel's ``ms`` does; ``graph_ms`` and
@@ -157,8 +162,22 @@ with a non-zero exit:
     the 4,096-token window, 16 tokens; B4 launches exactly 16 tensor-core
     and 240 split-KV, every one windowed; the profile, the bf16
     teacher-forced check, and at 2 layers in f32 the decode consistency
-    over 4,200 tokens split at 4,190.  More validation-xxl workloads
-    follow while time allows.
+    over 4,200 tokens split at 4,190.
+16. The seamless-m4t-medium serve path at full width and depth (12
+    encoder and 12 decoder layers, 977,860,608 parameters, bf16): batch
+    4, 2,048 seeded source frames, a 2,048-token prompt, 32 tokens; B4
+    launches exactly 36 tensor-core (12 encoder, 12 self, 12 cross) and
+    744 split-KV (12 self and 12 cross a step); the profile, the
+    teacher-forced check (bf16 and f32) and, at 4 + 4 layers in f32, the
+    decode consistency (300 frames, prompt 300 split at 290).
+17. The phi-3-vision-4.2b serve path at full width and depth (32 layers,
+    head dim 96, 3,824,618,496 parameters): batch 4, 1,024 seeded patch
+    embeddings ahead of a 1,024-token prompt, 32 tokens, decode steps at
+    ``num_patches + prompt + t``; B4 exactly 32 tensor-core and 992
+    split-KV, all at D 96; the profile, the teacher-forced check (bf16 and
+    f32) and, at 8 layers in f32, the decode consistency (1,024 patches and
+    300 tokens split at 290).  More validation-xxl workloads follow while
+    time allows.
 
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
@@ -1936,6 +1955,11 @@ ZAMBA_CACHE = SERVE_PROMPT + ZAMBA_GEN   # the serving KV cache's length
 # 93 GB does not fit one 80 GB card)
 MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 2, 6144, 16
 MIXTRAL_LAYERS, MIXTRAL_WINDOW = 16, 4096
+# seamless-m4t-medium (12 + 12 layers, source as long as the prompt) and
+# phi-3-vision-4.2b (1,024 patches ahead of the prompt): whole, batch 4
+SEAMLESS_GEN, PHI3V_GEN = 32, 32
+PHI3V_PATCHES, PHI3V_PROMPT = 1024, 1024   # 2,048 positions in prefill
+PHI3V_CACHE = PHI3V_PATCHES + PHI3V_PROMPT + PHI3V_GEN
 
 
 def cuda_rand(seed: int):
@@ -2002,8 +2026,9 @@ def phase_flash() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     b, s, cache = SERVE_BATCH, SERVE_PROMPT, ZAMBA_CACHE
     mb, ms, w = MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_WINDOW
-    cases = [  # tag, form, B, H, Hkv, Sq, Sk, D, dtype, q_offset, kv_len,
-        #        window
+    pv = PHI3V_PATCHES + PHI3V_PROMPT   # phi-3-vision's prefill positions
+    causal_cases = [  # tag, form, B, H, Hkv, Sq, Sk, D, dtype, q_offset,
+        #              kv_len, window
         ("zamba2_prefill", "tensor_core", b, 32, 32, s, cache, 64, bf16, 0,
          s, None),
         ("zamba2_decode", "split_kv", b, 32, 32, 1, cache, 64, bf16, s - 1,
@@ -2030,10 +2055,30 @@ def phase_flash() -> dict:
          bf16, ms + MIXTRAL_GEN, ms + MIXTRAL_GEN + 1, w),
         ("window_f32_mid_tile", "simt", 2, 32, 8, s, s, 128, f32, 0, s,
          1000),
+        # phi-3-vision-4.2b's head dim 96: its prefill (patches and text)
+        # and a decode step against its cache, and the f32 form
+        ("phi3_prefill_d96", "tensor_core", b, 32, 32, pv, PHI3V_CACHE, 96,
+         bf16, 0, pv, None),
+        ("phi3_decode_d96", "split_kv", b, 32, 32, 1, PHI3V_CACHE, 96, bf16,
+         pv - 1, pv, None),
+        ("simt_f32_d96", "simt", 2, 32, 32, 1024, 1024, 96, f32, 0, 1024,
+         None),
     ]
+    # seamless-m4t-medium's calls without causality: its bidirectional
+    # encoder, cross-attention in prefill (target rows over the source)
+    # and at a decode step (one row over the whole source)
+    bidirectional = [
+        ("encoder_noncausal", "tensor_core", b, 16, 16, s, s, 64, bf16, 0, s,
+         None),
+        ("cross_prefill", "tensor_core", b, 16, 16, s, s, 64, bf16, 0, s,
+         None),
+        ("cross_decode", "split_kv", b, 16, 16, 1, s, 64, bf16, 0, s, None),
+    ]
+    cases = ([(True, *c) for c in causal_cases]
+             + [(False, *c) for c in bidirectional])
     records, worst, forms = {}, 0.0, {}
-    for i, (tag, form, b, h, hkv, sq, sk, d, dt, off, kvl, win) in enumerate(
-            cases):
+    for i, (causal, tag, form, b, h, hkv, sq, sk, d, dt, off, kvl,
+            win) in enumerate(cases):
         rand = cuda_rand(10 + i)
         q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
         k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
@@ -2041,7 +2086,7 @@ def phase_flash() -> dict:
         if kernel_form(q, k, v) != form:
             fail(f"flash_attention {tag}: runs on the {kernel_form(q, k, v)} "
                  f"form, expected {form}")
-        kw = dict(causal=True, q_offset=off, kv_len=kvl, window=win)
+        kw = dict(causal=causal, q_offset=off, kv_len=kvl, window=win)
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -2054,23 +2099,24 @@ def phase_flash() -> dict:
             fail(f"flash_attention {tag}: max |kernel - plain| / max |plain| "
                  f"= {scaled} > {FLASH_SCALED_TOL_BF16}")
         worst = max(worst, err)
-        lib = sdpa_library(q, k, v, True, off, kvl, win)
+        lib = sdpa_library(q, k, v, causal, off, kvl, win)
         lib_err = float((lib.float() - want.float()).abs().max())
-        nbytes, ops = flash_work(q, k, True, off, kvl, win)
+        nbytes, ops = flash_work(q, k, causal, off, kvl, win)
         b_ms, b_by = bound_ms(nbytes, ops,
                               PEAK_BF16_S if dt == bf16 else PEAK_FP32_S)
         rec = dict(form=form, shape=[b, h, hkv, sq, sk, d], dtype=str(dt),
-                   q_offset=off, kv_len=kvl, window=win, max_abs_err=err,
+                   causal=causal, q_offset=off, kv_len=kvl, window=win,
+                   max_abs_err=err,
                    tol=FLASH_TOL[dt], scaled_err=scaled,
                    ms=cuda_ms(lambda: flash_attention(q, k, v, **kw)),
                    graph_ms=graph_ms(lambda: flash_attention(q, k, v, **kw)),
                    plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                                   **kw),
                                     reps=3, warmup=1),
-                   library_ms=cuda_ms(lambda: sdpa_library(q, k, v, True,
+                   library_ms=cuda_ms(lambda: sdpa_library(q, k, v, causal,
                                                            off, kvl, win)),
                    library_graph_ms=graph_ms(lambda: sdpa_library(
-                       q, k, v, True, off, kvl, win)),
+                       q, k, v, causal, off, kvl, win)),
                    library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, operations=ops)
         line("flash", case=tag, **rec)
@@ -2207,20 +2253,25 @@ class plain_kernels:
         fa.flash_attention, scan.ssd_scan = self.saved
 
 
-def teacher_forced(spec, cfg, model, prompt, tokens) -> torch.Tensor:
-    """Logits [gen, B, V] of the prefill of ``prompt`` and of one decode
-    step per generated token, fed the given ``tokens``."""
+def teacher_forced(spec, cfg, model, res) -> torch.Tensor:
+    """Logits [gen, B, V] of the prefill of the served prompt (with its
+    frames or patches) and of one decode step per generated token, fed
+    the served ``tokens``, at the served decode lengths."""
+    from repro_torch.launch import serve
+
     fam = spec.family
+    prompt, tokens, sources = res["prompt"], res["tokens"], res["sources"]
     b, plen = prompt.shape
-    caches = fam.init_caches(cfg, b, plen + tokens.shape[1], device="cuda")
+    caches = serve.new_caches(spec, cfg, b, plen + tokens.shape[1], sources,
+                              device="cuda")
     logits, caches = fam.prefill(
-        model, {"tokens": torch.from_numpy(prompt).long().cuda()}, cfg,
-        caches)
+        model, serve.prefill_batch(cfg, prompt, sources, "cuda"), cfg, caches)
     out = [logits.float()]
+    start = serve.prefix_len(spec, cfg) + plen
     for t in range(tokens.shape[1] - 1):
         tok = torch.from_numpy(tokens[:, t:t + 1]).long().cuda()
         logits, caches = fam.decode_step(model, {"token": tok}, cfg, caches,
-                                         plen + t)
+                                         start + t)
         out.append(logits.float())
     return torch.stack(out)[..., :spec.vocab]
 
@@ -2278,26 +2329,25 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
     plain path with one kernel at a time, and with SDPA for B4 (a
     library's rounding: how far any other bf16 attention lands); the
     gate reads only the path with both kernels."""
-    import dataclasses
+    from repro_torch.launch import serve
 
     def forced(routes, **kw):
         with plain_kernels(**kw), moe_routing(replay=routes) as r:
-            logits = teacher_forced(spec, cfg_dt, model, res["prompt"],
-                                    res["tokens"])
+            logits = teacher_forced(spec, cfg_dt, model, res)
         return logits, r
 
     out = {}
-    passes = [(cfg.dtype, SERVE_REL_TOL)]
+    own = serve.config_dtype(cfg)
+    passes = [(own, SERVE_REL_TOL)]
     if f32:
         passes.append((torch.float32, SERVE_REL_TOL_F32))
     for dt, tol in passes:
-        cfg_dt = dataclasses.replace(cfg, dtype=dt)
-        if dt != cfg.dtype:  # a MoE router stays f32 in the model's dtype
+        cfg_dt = serve.with_config(cfg, dtype=dt)
+        if dt != own:  # a MoE router stays f32 in the model's dtype
             model = model.to(dt)
         routes = []
         with plain_kernels(), moe_routing(record=routes):
-            want = teacher_forced(spec, cfg_dt, model, res["prompt"],
-                                  res["tokens"])
+            want = teacher_forced(spec, cfg_dt, model, res)
         got, routing = forced(routes, flash="kernel", scan="kernel")
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             fail(f"{tag} {dt}: non-finite logits")
@@ -2310,8 +2360,7 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
         rec = dict(steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
                    rel=diff / scale, tol=tol, argmax_agreement=agree)
         if routes:
-            free = teacher_forced(spec, cfg_dt, model, res["prompt"],
-                                  res["tokens"])
+            free = teacher_forced(spec, cfg_dt, model, res)
             rec["free_routing"] = dict(
                 rel=float((free - want).abs().max()) / scale,
                 argmax_agreement=float(
@@ -2345,7 +2394,7 @@ def serve_path(arch: str, gen: int, want_launches: dict, *,
 
     spec = get_arch(arch)
     if layers is not None:
-        spec = dataclasses.replace(spec, config=dataclasses.replace(
+        spec = dataclasses.replace(spec, config=serve.with_config(
             spec.config, layers=layers))
     model = spec.family.init(spec.config, device="cuda", seed=0)
     reset_counts()
@@ -2357,8 +2406,9 @@ def serve_path(arch: str, gen: int, want_launches: dict, *,
         if launches[name] != n:
             fail(f"{arch} serve path launched {name} {launches[name]} "
                  f"times, expected {n}: {launches}")
-    rec = dict(arch=arch, layers=res["layers"], dtype=res["dtype"],
+    rec = dict(arch=arch, **serve.depth(spec.config), dtype=res["dtype"],
                batch=batch, prompt_len=prompt_len, gen=gen,
+               prefix_len=serve.prefix_len(spec, spec.config),
                params=sum(t.numel() for t in model.parameters()),
                prefill_s=res["prefill_s"], decode_s=res["decode_s"],
                decode_ms_per_step=res["decode_ms_per_step"],
@@ -2401,22 +2451,26 @@ def device_breakdown(fn) -> dict:
 def profile_serve(spec, model, res, steps: int = 4) -> dict:
     """``device_breakdown`` of one prefill of the served prompt and of
     ``steps`` decode steps after it."""
+    from repro_torch.launch import serve
+
     fam, cfg = spec.family, spec.config
     b, plen = res["prompt"].shape
-    caches = fam.init_caches(cfg, b, plen + steps, device="cuda")
+    sources = res["sources"]
+    caches = serve.new_caches(spec, cfg, b, plen + steps, sources,
+                              device="cuda")
+    batch = serve.prefill_batch(cfg, res["prompt"], sources, "cuda")
+    start = serve.prefix_len(spec, cfg) + plen
     state = {}
 
     def prefill():
-        state["out"] = fam.prefill(
-            model, {"tokens": torch.from_numpy(res["prompt"]).long().cuda()},
-            cfg, caches)
+        state["out"] = fam.prefill(model, batch, cfg, caches)
 
     def decode():
         logits, c = state["out"]
         for t in range(steps):
             tok = logits.argmax(-1, keepdim=True)
             logits, c = fam.decode_step(model, {"token": tok}, cfg, c,
-                                        plen + t)
+                                        start + t)
 
     return dict(prefill=device_breakdown(prefill),
                 decode_steps=steps, decode=device_breakdown(decode))
@@ -2426,24 +2480,31 @@ def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
     """At full width and ``layers`` depth in f32: prefill of the whole
     prompt against the prefix plus one decode step per remaining token,
     through the kernels (gated) and through the plain versions (for
-    comparison)."""
-    import dataclasses
+    comparison).  An encoder-decoder's two stacks are each cut to
+    ``layers`` and its source is ``total`` frames; a VLM's patches come
+    first, and its decode steps run at ``num_patches + t``."""
+    from repro_torch.launch import serve
 
-    cfg = dataclasses.replace(spec.config, layers=layers, dtype=torch.float32)
+    cfg = serve.with_config(spec.config, layers=layers, dtype=torch.float32)
     fam = spec.family
     model = fam.init(cfg, device="cuda", seed=1)
     rng = np.random.default_rng(5)
-    toks = torch.from_numpy(rng.integers(0, spec.vocab, (2, total))).cuda()
+    toks = rng.integers(0, spec.vocab, (2, total))
+    sources = serve.source_inputs(spec, cfg, rng, 2, total)
+    start = serve.prefix_len(spec, cfg)
 
     def run():
-        full, _ = fam.prefill(model, {"tokens": toks}, cfg,
-                              fam.init_caches(cfg, 2, total, device="cuda"))
+        full, _ = fam.prefill(
+            model, serve.prefill_batch(cfg, toks, sources, "cuda"), cfg,
+            serve.new_caches(spec, cfg, 2, total, sources, device="cuda"))
         logits, caches = fam.prefill(
-            model, {"tokens": toks[:, :split]}, cfg,
-            fam.init_caches(cfg, 2, total, device="cuda"))
+            model, serve.prefill_batch(cfg, toks[:, :split], sources, "cuda"),
+            cfg, serve.new_caches(spec, cfg, 2, total, sources,
+                                  device="cuda"))
         for t in range(split, total):
-            logits, caches = fam.decode_step(
-                model, {"token": toks[:, t:t + 1]}, cfg, caches, t)
+            tok = torch.from_numpy(toks[:, t:t + 1]).cuda()
+            logits, caches = fam.decode_step(model, {"token": tok}, cfg,
+                                             caches, start + t)
         got, want = logits[:, :spec.vocab], full[:, :spec.vocab]
         diff = (got - want).abs()
         scale = float(want.abs().max())
@@ -2459,8 +2520,9 @@ def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
     if not kernels["rel"] <= CONSISTENCY_TOL:
         fail(f"{spec.arch_id} f32 depth {layers}: prefix + decode differs "
              f"from the whole prefill: {kernels} (plain versions: {plain})")
-    return dict(layers=layers, dtype="float32", prompt=total, split=split,
-                tol=CONSISTENCY_TOL, kernels=kernels, plain=plain)
+    return dict(**serve.depth(cfg), dtype="float32", prompt=total,
+                split=split, prefix_len=start, tol=CONSISTENCY_TOL,
+                kernels=kernels, plain=plain)
 
 
 def phase_zamba2_serve() -> dict:
@@ -2547,6 +2609,56 @@ def phase_mixtral_serve() -> dict:
     return rec["launches"]
 
 
+def phase_seamless_serve() -> dict:
+    """The seamless-m4t-medium serve path at full width and depth
+    (12 + 12 layers, source frames as long as the prompt); returns its B4
+    launches.  Prefill: 12 encoder, 12 decoder self and 12 cross
+    attentions on the tensor-core form (24 of them not causal); each
+    decode step: 12 self and 12 cross on the split-KV form."""
+    layers = 12
+    spec, model, res, rec = serve_path(
+        "seamless-m4t-medium", SEAMLESS_GEN,
+        {"flash_attention": 3 * layers + 2 * layers * (SEAMLESS_GEN - 1),
+         "tensor_core": 3 * layers,
+         "split_kv": 2 * layers * (SEAMLESS_GEN - 1), "simt": 0,
+         "ssd_scan": 0})
+    line("seamless_serve", **rec)
+    line("seamless_profile", **profile_serve(spec, model, res))
+    line("seamless_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "seamless serve"))
+    del model
+    torch.cuda.empty_cache()
+    line("seamless_decode_consistency",
+         **decode_consistency(spec, 4, 300, 290))
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_phi3v_serve() -> dict:
+    """The phi-3-vision-4.2b serve path at full width and depth (32
+    layers, head dim 96, 1,024 patches ahead of a 1,024-token prompt);
+    returns its B4 launches: 32 prefill attentions on the tensor-core
+    form, 32 a decode step on the split-KV form, every one at D 96."""
+    layers = 32
+    spec, model, res, rec = serve_path(
+        "phi-3-vision-4.2b", PHI3V_GEN,
+        {"flash_attention": layers * PHI3V_GEN, "tensor_core": layers,
+         "split_kv": layers * (PHI3V_GEN - 1), "simt": 0, "ssd_scan": 0},
+        prompt_len=PHI3V_PROMPT)
+    if spec.config.num_patches != PHI3V_PATCHES:
+        fail(f"phi-3-vision has {spec.config.num_patches} patches")
+    line("phi3v_serve", **rec)
+    line("phi3v_profile", **profile_serve(spec, model, res))
+    line("phi3v_serve_vs_plain", **kernel_vs_plain_logits(
+        spec, spec.config, model, res, "phi3v serve"))
+    del model
+    torch.cuda.empty_cache()
+    line("phi3v_decode_consistency",
+         **decode_consistency(spec, 8, 300, 290))
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2586,6 +2698,8 @@ def main() -> int:
     by_path = {"zamba2-1.2b": serve_launches}
     by_path["llama3-8b"] = phase_llama3_serve()
     by_path["mixtral-8x7b"] = phase_mixtral_serve()
+    by_path["seamless-m4t-medium"] = phase_seamless_serve()
+    by_path["phi-3-vision-4.2b"] = phase_phi3v_serve()
     # B4 over every serve path; the window form is mixtral's launches
     flash_kernel["launches"] = sum(n["flash_attention"]
                                    for n in by_path.values())

@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_arch("<id>")`` /
-``--arch <id>`` for the ported families (``transformer``, ``ssm``,
-``hybrid``)."""
+``--arch <id>``, every architecture of the reference's registry
+(families ``transformer``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``)."""
 from repro_torch.configs.base import ArchSpec, Shape
 from repro_torch.configs import (  # noqa: E402
     arctic_480b,
@@ -9,6 +9,8 @@ from repro_torch.configs import (  # noqa: E402
     llama3_8b,
     mamba2_780m,
     mixtral_8x7b,
+    phi3_vision_4_2b,
+    seamless_m4t_medium,
     yi_34b,
     zamba2_1_2b,
 )
@@ -17,7 +19,8 @@ REGISTRY: dict[str, ArchSpec] = {
     m.SPEC.arch_id: m.SPEC
     for m in (
         mamba2_780m, yi_34b, deepseek_67b, llama3_8b, codeqwen15_7b,
-        arctic_480b, mixtral_8x7b, zamba2_1_2b,
+        arctic_480b, mixtral_8x7b, seamless_m4t_medium, phi3_vision_4_2b,
+        zamba2_1_2b,
     )
 }
 
@@ -25,8 +28,7 @@ REGISTRY: dict[str, ArchSpec] = {
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in REGISTRY:
         raise KeyError(
-            f"unknown or unported arch {arch_id!r}; ported: "
-            f"{sorted(REGISTRY)} (the rest: ROADMAP A-11)"
+            f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}"
         )
     return REGISTRY[arch_id]
 

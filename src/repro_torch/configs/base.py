@@ -19,8 +19,6 @@ class Shape:
     kind: str  # "train" | "prefill" | "decode"
 
 
-
-
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
@@ -34,4 +32,6 @@ class ArchSpec:
 
     @property
     def vocab(self) -> int:
-        return self.config.vocab
+        """The config's vocabulary, or its backbone's (a VLM)."""
+        cfg = self.config
+        return getattr(cfg, "vocab", None) or cfg.backbone.vocab

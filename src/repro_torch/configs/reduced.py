@@ -1,7 +1,6 @@
-"""Reduced (smoke-test) variants of the ported architectures — same
-family and code paths, small dims: the ``TransformerConfig``,
-``Mamba2Config`` and ``Zamba2Config`` branches of
-``repro/configs/reduced.py``, unchanged.
+"""Reduced (smoke-test) variants of every architecture — same family and
+code paths, small dims: the branches of ``repro/configs/reduced.py``,
+unchanged.
 """
 from __future__ import annotations
 
@@ -9,8 +8,10 @@ import dataclasses
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec
+from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.hybrid import Zamba2Config
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.multimodal import VLMConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import TransformerConfig
 
@@ -42,6 +43,16 @@ def reduced(spec: ArchSpec) -> ArchSpec:
             cfg, layers=5, d_model=32, vocab=256, heads=4, kv_heads=4,
             d_ff=64, ssm_state=16, head_dim=8, attn_every=2, chunk=8,
             block_q=16, vocab_pad_multiple=32,
+        )
+    elif isinstance(cfg, EncDecConfig):
+        small = dataclasses.replace(
+            cfg, enc_layers=2, dec_layers=2, d_model=32, heads=4, kv_heads=4,
+            d_ff=64, vocab=256, head_dim=8, block_q=16, vocab_pad_multiple=32,
+        )
+    elif isinstance(cfg, VLMConfig):
+        small = VLMConfig(
+            backbone=_reduce_transformer(cfg.backbone),
+            clip_dim=24, num_patches=8,
         )
     else:
         raise TypeError(type(cfg))

@@ -1,0 +1,26 @@
+"""seamless-m4t-medium [audio] — enc-dec multimodal backbone,
+arXiv:2308.11596.
+
+12L encoder + 12L decoder, d_model=1024, 16 heads (MHA kv=16,
+head_dim=64), d_ff=4096, vocab=256206 (padded to 256256).  The published
+widths of ``repro/configs/seamless_m4t_medium.py``, unchanged;
+977,860,608 parameters.  The audio frontend is a stub: the encoder takes
+precomputed frame embeddings.
+"""
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models.encdec import EncDecConfig
+
+SPEC = ArchSpec(
+    arch_id="seamless-m4t-medium",
+    family_name="encdec",
+    config=EncDecConfig(
+        enc_layers=12,
+        dec_layers=12,
+        d_model=1024,
+        heads=16,
+        kv_heads=16,
+        d_ff=4096,
+        vocab=256206,
+        head_dim=64,
+    ),
+)

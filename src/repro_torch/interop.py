@@ -118,34 +118,46 @@ def copy_params(module: torch.nn.Module, values: dict, lead=()) -> None:
 
 def model_from_reference(family_name: str, cfg, values: dict, *,
                          device) -> torch.nn.Module:
-    """The port's model of family ``transformer``, ``ssm`` or ``hybrid``
-    holding the reference's parameter values: ``unzip_params(fam.init(key,
-    cfg))[0]`` mapped to numpy (a nested dict of arrays).  Stacked blocks
-    are unstacked: the transformer's and the ssm's ``blocks`` ``[L, ...]``
-    (attention, ``mlp`` and ``moe.{router,wi,wg,wo}`` included), the
-    hybrid's ``groups`` ``[G, P, ...]`` and ``trailing`` ``[T, ...]``;
-    ``shared``, the ``embed`` table, ``final_norm`` and the transformer's
-    untied ``unembed`` copy as they are."""
-    from repro_torch.models import hybrid, ssm, transformer
+    """The port's model of any family holding the reference's parameter
+    values: ``unzip_params(fam.init(key, cfg))[0]`` mapped to numpy (a
+    nested dict of arrays).  Stacked blocks are unstacked: the
+    transformer's and the ssm's ``blocks`` ``[L, ...]`` (attention,
+    ``mlp`` and ``moe.{router,wi,wg,wo}`` included), the hybrid's
+    ``groups`` ``[G, P, ...]`` and ``trailing`` ``[T, ...]``, the encdec's
+    ``encoder`` and ``decoder`` (``ln_cross`` and ``cross`` included);
+    ``shared``, the ``embed`` table, ``final_norm``, the encdec's
+    ``enc_norm`` and ``dec_norm``, and the untied ``unembed`` copy as they
+    are.  A vlm's ``backbone`` is a transformer's, beside its
+    ``patch_proj``."""
+    from repro_torch.models.api import get_family
 
+    model = get_family(family_name).init(cfg, device=device)
+    _copy_model(model, family_name, values)
+    return model
+
+
+def _copy_model(model: torch.nn.Module, family_name: str,
+                values: dict) -> None:
+    if family_name == "vlm":
+        _copy_model(model.backbone, "transformer", values["backbone"])
+        copy_params(model.patch_proj, values["patch_proj"])
+        return
     if family_name == "hybrid":
-        model = hybrid.init(cfg, device=device)
         for g, group in enumerate(model.groups):
             for i, blk in enumerate(group):
                 copy_params(blk, values["groups"], (g, i))
-        for t, blk in enumerate(model.trailing):
-            copy_params(blk, values["trailing"], (t,))
-        copy_params(model.shared, values["shared"])
-    elif family_name in ("ssm", "transformer"):
-        fam = ssm if family_name == "ssm" else transformer
-        model = fam.init(cfg, device=device)
-        for i, blk in enumerate(model.blocks):
-            copy_params(blk, values["blocks"], (i,))
-        if family_name == "transformer":
-            copy_params(model.unembed, values["unembed"])
+        stacks, whole = ("trailing",), ("shared", "embed", "final_norm")
+    elif family_name == "ssm":
+        stacks, whole = ("blocks",), ("embed", "final_norm")
+    elif family_name == "transformer":
+        stacks, whole = ("blocks",), ("embed", "final_norm", "unembed")
+    elif family_name == "encdec":
+        stacks = ("encoder", "decoder")
+        whole = ("embed", "enc_norm", "dec_norm", "unembed")
     else:
-        raise NotImplementedError(
-            f"the {family_name} family is not ported yet (ROADMAP A-11)")
-    copy_params(model.embed, values["embed"])
-    copy_params(model.final_norm, values["final_norm"])
-    return model
+        raise ValueError(f"unknown family {family_name!r}")
+    for stack in stacks:
+        for i, blk in enumerate(getattr(model, stack)):
+            copy_params(blk, values[stack], (i,))
+    for name in whole:
+        copy_params(getattr(model, name), values[name])

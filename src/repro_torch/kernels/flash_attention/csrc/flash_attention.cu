@@ -22,6 +22,9 @@
 // (models/attention.py::_mask, mixtral), which the TPU kernel does not have.
 // Every form starts its KV stream at the lowest column its rows can see, so a
 // windowed call reads O(rows * (W + tile)) columns, not O(rows * kv_len).
+// Without causality (an encoder, cross-attention over a source: Sq and Sk may
+// differ) every row sees columns 0 .. kv_len - 1 and each form streams them
+// all; the q-tile order and the diagonal masks then have no effect.
 // The result is acc / max(l, 1e-30), as in the reference.  Masked scores are
 // -inf against a running max that starts at -1e30 (the reference's NEG_INF):
 // exp(-inf - m) is 0 even while a row has seen nothing, so a tile that lies
@@ -37,10 +40,10 @@
 // for one row per head: bytes.  f32 FMAs on the CUDA cores run the prefill
 // at ~68x that bound, and a 64-row q tile is 63/64 padding at decode, so
 // the wrapper picks one of three forms:
-//   tensor-core (flash_tc.cuh)   bf16, D in {64, 128}, more than kMaxRows q
+//   tensor-core (flash_tc.cuh)   bf16, D in {64, 96, 128}, more than kMaxRows q
 //       rows per kv head: mma.sync bf16 tiles, cp.async double buffering,
 //       S / softmax / O in registers (FlashAttention-2's shape);
-//   split-KV (flash_split.cuh)   bf16, D in {64, 128}, at most kMaxRows
+//   split-KV (flash_split.cuh)   bf16, D in {64, 96, 128}, at most kMaxRows
 //       rows per kv head (decode): the cache cut across blocks, each kv
 //       head's rows together, partials merged by a second kernel;
 //   CUDA-core (below)            f32, and bf16 at D in {8, 16, 32}.  f32
@@ -58,8 +61,11 @@
 //               reads K[c][:] (rows padded to D+1: no bank conflicts) once
 //               per d and broadcasts Q[r][d];
 //   softmax     four threads per row, combined with warp shuffles;
-//   O += P V    each thread owns one output column d = t % D and D / 4
-//               rows in registers, reads V[j][d] once per j.
+//   O += P V    C = min(D, 32) threads along a row: each thread owns the
+//               output columns d = t % C + C u (D / C of them; 3 at D = 96)
+//               and the rows t / C + (256 / C) i in registers, and reads
+//               V[j][d] once per j: a warp reads one V row's 32 neighbouring
+//               floats and one broadcast P value.
 // Ragged tails of Sq and Sk are masked in the loads (zeros) and the store.
 // The KV loop runs from the tile holding the first row's window edge to the
 // last tile a row of the q tile can see.
@@ -95,12 +101,17 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, Strides sq_,
             Strides sk_, Strides sv_, Strides so_, int sq, int group,
             int kv_len, int q_offset, int causal, int window, float scale) {
-  static_assert(kThreads % D == 0 && kThreads % kBlockK == 0, "tiling");
+  static_assert(kThreads % kBlockK == 0, "tiling");
   static_assert(kBlockQ * 4 == kThreads, "four softmax threads per row");
   constexpr int kRowsS = kBlockQ * kBlockK / kThreads;  // 16 score rows
   constexpr int kRowStepS = kThreads / kBlockK;         // 4
-  constexpr int kRowsO = kBlockQ * D / kThreads;        // D / 4
-  constexpr int kRowStepO = kThreads / D;
+  constexpr int kColThreads = D < 32 ? D : 32;          // threads along a row
+  constexpr int kColsO = D / kColThreads;               // columns per thread
+  constexpr int kRowStepO = kThreads / kColThreads;
+  constexpr int kRowsO = kBlockQ / kRowStepO;           // rows per thread
+  static_assert(D % kColThreads == 0 && kThreads % kColThreads == 0 &&
+                    kBlockQ % kRowStepO == 0,
+                "P V tiling");
 
   extern __shared__ float smem[];
   float* qs = smem;
@@ -139,14 +150,17 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int first_tile =
       window > 0 ? max(0, q_offset + q0 - window + 1) / kBlockK : 0;
 
-  float acc[kRowsO];
+  float acc[kRowsO][kColsO];
 #pragma unroll
-  for (int i = 0; i < kRowsO; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kRowsO; ++i) {
+#pragma unroll
+    for (int u = 0; u < kColsO; ++u) acc[i][u] = 0.0f;
+  }
 
   const int c_s = t % kBlockK;     // score column of this thread
   const int r_s = t / kBlockK;     // first score row
-  const int d_o = t % D;           // output column of this thread
-  const int r_o = t / D;           // first output row
+  const int d_o = t % kColThreads;  // first output column of this thread
+  const int r_o = t / kColThreads;  // first output row
   const int r_sm = t / 4;          // softmax row
   const int part = t % 4;          // softmax quarter of that row
 
@@ -212,13 +226,20 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // O = O * alpha + P V
 #pragma unroll
-    for (int i = 0; i < kRowsO; ++i) acc[i] *= a_s[r_o + kRowStepO * i];
+    for (int i = 0; i < kRowsO; ++i) {
+      const float alpha = a_s[r_o + kRowStepO * i];
+#pragma unroll
+      for (int u = 0; u < kColsO; ++u) acc[i][u] *= alpha;
+    }
     for (int j = 0; j < kBlockK; ++j) {
-      const float vv = vs[j * D + d_o];
+      float vv[kColsO];
+#pragma unroll
+      for (int u = 0; u < kColsO; ++u) vv[u] = vs[j * D + d_o + kColThreads * u];
 #pragma unroll
       for (int i = 0; i < kRowsO; ++i) {
-        acc[i] = fmaf(ps[(r_o + kRowStepO * i) * (kBlockK + 1) + j], vv,
-                      acc[i]);
+        const float p = ps[(r_o + kRowStepO * i) * (kBlockK + 1) + j];
+#pragma unroll
+        for (int u = 0; u < kColsO; ++u) acc[i][u] = fmaf(p, vv[u], acc[i][u]);
       }
     }
   }
@@ -229,7 +250,11 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = r_o + kRowStepO * i;
     const int row = q0 + r;
     if (row < sq) {
-      op[row * so_.s + d_o] = from_f32<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+      const float l = fmaxf(l_s[r], 1e-30f);
+#pragma unroll
+      for (int u = 0; u < kColsO; ++u) {
+        op[row * so_.s + d_o + kColThreads * u] = from_f32<T>(acc[i][u] / l);
+      }
     }
   }
 }
@@ -278,7 +303,7 @@ int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  form: 0 = CUDA-core, 1 = tensor-core,
-// 2 = split-KV (forms 1 and 2: bf16, head_dim 64 or 128).  strides: 12
+// 2 = split-KV (forms 1 and 2: bf16, head_dim 64, 96 or 128).  strides: 12
 // int64 values, (b, h, s) for q, k, v, o in elements.  window: 0 = none,
 // else W >= 1 (the last row must see a column: q_offset + sq - W < kv_len).
 // Split-KV only: n_splits splits of flash_attention_split_columns() columns
@@ -317,6 +342,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         scale, n_splits, (float*)part_ml, (float*)part_acc, \
                         s)
     if (head_dim == 64) FLASH_BF16(64);
+    if (head_dim == 96) FLASH_BF16(96);
     if (head_dim == 128) FLASH_BF16(128);
 #undef FLASH_BF16
     return (int)cudaErrorInvalidValue;
@@ -333,6 +359,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 16: FLASH_LAUNCH(T, 16);           \
     case 32: FLASH_LAUNCH(T, 32);           \
     case 64: FLASH_LAUNCH(T, 64);           \
+    case 96: FLASH_LAUNCH(T, 96);           \
     case 128: FLASH_LAUNCH(T, 128);         \
     default: return (int)cudaErrorInvalidValue; \
   }

@@ -1,5 +1,8 @@
-// Split-KV decode form: bf16, D = 64 or 128, at most kMaxRows q rows per
-// kv head (rows = group * Sq).
+// Split-KV decode form: bf16, D = 64, 96 or 128, at most kMaxRows q rows per
+// kv head (rows = group * Sq).  At D = 96 a block takes 65,536 bytes of
+// shared memory (past the 48 KB default: the opt-in in launch) and the
+// merge's lanes own D / 32 = 3 columns each.  Cross-attention decode (not
+// causal) visits every split up to kv_len.
 //
 // At decode the work is the bytes of the KV cache, and a grid over q tiles
 // has one block per head walking the whole cache in sequence.  Here the

@@ -1,4 +1,9 @@
-// Tensor-core prefill form: bf16, D = 64 or 128 (FlashAttention-2 shape).
+// Tensor-core prefill form: bf16, D = 64, 96 or 128 (FlashAttention-2 shape).
+// D = 96 is six 16-wide k-steps of Q K^T and twelve 8-wide n-tiles of P V
+// (every ldmatrix.x4 covers 16 of D, so no loop steps past it); its padded
+// rows of 104 bf16 (208 bytes) keep ldmatrix's eight row addresses in eight
+// distinct 16-byte bank groups, and a block takes 66,560 bytes of shared
+// memory (the opt-in below), two blocks an SM.
 //
 // One block of four warps per (head, batch, 64-row q tile); the q tile is
 // the slowest grid dimension and counts down, so the causal tiles with the

@@ -34,7 +34,7 @@ be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 The kernel has three forms; :func:`kernel_form` picks one per call and
 each launch also counts in :data:`LAUNCHES_BY_FORM`:
 
-* ``"split_kv"`` — bf16, D in :data:`TC_HEAD_DIMS`, at most
+* ``"split_kv"`` — bf16, D in :data:`TC_HEAD_DIMS` (64, 96, 128), at most
   :data:`SPLIT_MAX_ROWS` (16) q rows per kv head (``Sq * H / Hkv``: every
   decode step).  The visible columns are cut into splits of
   :data:`SPLIT_COLUMNS` (128), splits wholly below a window's band
@@ -43,7 +43,7 @@ each launch also counts in :data:`LAUNCHES_BY_FORM`:
   ``torch.empty``, and a second kernel merges them in split order.
   :func:`split_kv_plain` is the same decomposition in torch ops.
 * ``"tensor_core"`` — bf16, D in :data:`TC_HEAD_DIMS`, more rows
-  (prefill): ``mma.sync`` bf16 tiles with f32 accumulation; P is rounded
+  (prefill, an encoder, cross-attention over a source): ``mma.sync`` bf16 tiles with f32 accumulation; P is rounded
   to bf16 before P·V, as SDPA does.
 * ``"simt"`` — everything else: f32 (TF32 would break the f32 gates),
   bf16 at D in {8, 16, 32}, and bf16 tensors that are not 16-byte
@@ -65,9 +65,9 @@ LAUNCHES = {"flash_attention": 0}
 #: The same launches by form (:func:`kernel_form`); they sum to LAUNCHES.
 LAUNCHES_BY_FORM = {"tensor_core": 0, "split_kv": 0, "simt": 0}
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 #: Head dims of the tensor-core and split-KV forms (bf16 only).
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 96, 128)
 #: q rows per kv head up to which bf16 goes to the split-KV form
 #: (csrc/flash_split.cuh kMaxRows).
 SPLIT_MAX_ROWS = 16

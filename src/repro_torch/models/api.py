@@ -7,15 +7,18 @@ batch-dict interface, so serving code is family-agnostic.
     logits, caches = fam.prefill(model, batch, cfg, caches)
     logits, caches = fam.decode_step(model, batch, cfg, caches, length)
 
-Mirrors ``repro/models/api.py`` for the ``transformer``, ``ssm`` and
-``hybrid`` families.
+Mirrors ``repro/models/api.py`` for all five families, with the
+reference's batch keys: ``tokens`` for prefill (plus ``frames`` for
+``encdec``, ``patches`` for ``vlm``) and ``token`` for decode; the
+encdec family's ``init_caches`` also takes ``src_len``, and a vlm's
+``max_len`` counts its patch prefix.
 ``loss_fn`` (training) and ``cache_axes`` (sharding) are not ported.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import hybrid, ssm
+from repro_torch.models import encdec, hybrid, multimodal, ssm
 from repro_torch.models import transformer as tfm
 
 
@@ -63,12 +66,32 @@ HYBRID = Family(
     ),
 )
 
-FAMILIES = {f.name: f for f in (TRANSFORMER, SSM, HYBRID)}
-UNPORTED = ("encdec", "vlm")
+ENCDEC = Family(
+    name="encdec",
+    init=encdec.init,
+    init_caches=encdec.init_caches,
+    prefill=lambda p, batch, cfg, caches: encdec.prefill(
+        p, batch["frames"], batch["tokens"], cfg, caches
+    ),
+    decode_step=lambda p, batch, cfg, caches, length: encdec.decode_step(
+        p, batch["token"], cfg, caches, length
+    ),
+)
+
+VLM = Family(
+    name="vlm",
+    init=multimodal.init,
+    init_caches=multimodal.init_caches,
+    prefill=lambda p, batch, cfg, caches: multimodal.prefill(
+        p, batch["patches"], batch["tokens"], cfg, caches
+    ),
+    decode_step=lambda p, batch, cfg, caches, length: multimodal.decode_step(
+        p, batch["token"], cfg, caches, length
+    ),
+)
+
+FAMILIES = {f.name: f for f in (TRANSFORMER, SSM, HYBRID, ENCDEC, VLM)}
 
 
 def get_family(name: str) -> Family:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"the {name} family is not ported yet (ROADMAP A-11)")
     return FAMILIES[name]

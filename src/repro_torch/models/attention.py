@@ -1,5 +1,7 @@
-"""GQA attention: self-attention, prefill into a KV cache and decode,
-with an optional sliding window (mixtral), every call on kernel B4
+"""GQA attention: self-attention (causal, or bidirectional for an
+encoder), prefill into a KV cache and decode, cross-attention over
+projected encoder memory (``kv_override``), with an optional sliding
+window (mixtral), every call on kernel B4
 (:mod:`repro_torch.kernels.flash_attention`).
 
 Mirrors ``repro/models/attention.py`` for the cases the serving path
@@ -15,6 +17,9 @@ cache.length`` and ``kv_len = cache.length + S``, which is the
 reference's position mask (``_mask``: ``kv_pos < new_len``,
 ``kv_pos <= q_pos`` and, with a window, ``kv_pos > q_pos - window``) for
 positions ``length + arange(S)``; the window goes to B4 as it is.
+Cross-attention attends to every memory position (the reference's
+``kv_valid`` is all true there): ``causal=False``, no window, ``kv_len``
+the memory's length, and no cache update.
 """
 from __future__ import annotations
 
@@ -82,17 +87,22 @@ def gqa_attention(
 
     * self-attention: ``cache=None`` — keys/values from ``x`` itself;
     * prefill into a cache and decode: ``cache`` holds past KV; ``x``
-      is the new token(s), written at ``cache.length``.
+      is the new token(s), written at ``cache.length``;
+    * cross-attention: ``kv_override=(k_src, v_src)``, each ``[B, S_src,
+      Hkv, hd]``, already projected (:func:`project_kv`, no RoPE) — not
+      causal, no window, no cache update; q keeps RoPE at ``positions``.
 
     ``window`` (None = none) is the sliding window.  ``attn_impl`` and
     ``block_q`` have no effect (one kernel form).
     """
     del attn_impl, block_q
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) waits for the encdec slice "
-            "(ROADMAP A-11)")
     q = apply_rope(_project(x, params.wq), positions, rope_theta)
+    if kv_override is not None:
+        k, v = kv_override
+        out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=False)
+        y = out.transpose(1, 2).flatten(2) @ params.wo.flatten(0, 1)
+        return y, None
     k = apply_rope(_project(x, params.wk), positions, rope_theta)
     v = _project(x, params.wv)
     s_new = x.shape[1]
@@ -116,3 +126,9 @@ def gqa_attention(
     y = out.transpose(1, 2).flatten(2) @ params.wo.flatten(0, 1)
     return y, new_cache
 
+
+def project_kv(params: Attention,
+               memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoder-memory K/V ``[B, S_src, Hkv, hd]`` for cross-attention
+    (computed once per sequence; no RoPE, as in the reference)."""
+    return _project(memory, params.wk), _project(memory, params.wv)

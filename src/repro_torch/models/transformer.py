@@ -155,9 +155,15 @@ def init(cfg: TransformerConfig, *, device, seed: int = 0) -> TransformerLM:
 
 @torch.no_grad()
 def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
-            positions=None, caches: attn.KVCache | None = None):
-    """Returns (logits [B, S, Vp], new_caches, aux_loss)."""
+            positions=None, caches: attn.KVCache | None = None,
+            prefix_embeds=None):
+    """Returns (logits [B, P + S, Vp], new_caches, aux_loss).
+    ``prefix_embeds`` ``[B, P, D]`` (a VLM's projected patches) go before
+    the token embeddings; positions start at the caches' length (0
+    without caches), counting the prefix."""
     x = params.embed(tokens).to(cfg.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
     if positions is None:
         base = caches.length if caches is not None else 0
@@ -192,10 +198,13 @@ def init_caches(cfg: TransformerConfig, batch: int, max_len: int, *,
     )
 
 
-def prefill(params, tokens, cfg: TransformerConfig, caches):
-    """Run the full prompt through the stack, filling the caches.
-    Returns (last-token logits [B, Vp], caches)."""
-    logits, caches, _ = forward(params, tokens, cfg, caches=caches)
+def prefill(params, tokens, cfg: TransformerConfig, caches,
+            prefix_embeds=None):
+    """Run the full prompt (after ``prefix_embeds``, if given) through
+    the stack, filling the caches.  Returns (last-token logits [B, Vp],
+    caches)."""
+    logits, caches, _ = forward(params, tokens, cfg, caches=caches,
+                                prefix_embeds=prefix_embeds)
     return logits[:, -1, :], caches
 
 

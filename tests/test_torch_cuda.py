@@ -456,7 +456,7 @@ def test_flash_attention_kernel_vs_plain(cuda_device, dtype, atol, b, h, hkv,
         assert err / float(want.float().abs().max()) <= BF16_SCALED_TOL
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("b,h,hkv,sq,sk,q_offset,kv_len,form", [
     (4, 32, 32, 1, 2080, 2047, 2048, "split_kv"),   # decode, 16 splits
     (4, 32, 32, 1, 2080, 1999, 2000, "split_kv"),   # not a multiple of 128
@@ -535,6 +535,60 @@ def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
     before = fa.LAUNCHES_BY_FORM[form]
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.LAUNCHES_BY_FORM[form] == before + 1
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    refs = [fa.flash_attention_plain(q, k, v, **kw)]
+    if form == "split_kv":
+        refs.append(fa.split_kv_plain(q, k, v, **kw))
+    assert torch.isfinite(got.float()).all()
+    for ref in refs:
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= atol
+        if dtype == torch.bfloat16:
+            assert err / float(ref.float().abs().max()) <= BF16_SCALED_TOL
+
+
+@pytest.mark.parametrize("dtype,d,b,h,hkv,sq,sk,causal,q_offset,kv_len,form", [
+    # an encoder: bidirectional self-attention, ragged tiles
+    (torch.bfloat16, 64, 2, 16, 16, 300, 300, False, 0, 300, "tensor_core"),
+    # cross-attention prefill: 200 target rows over 330 source positions
+    (torch.bfloat16, 64, 2, 16, 16, 200, 330, False, 0, 330, "tensor_core"),
+    (torch.bfloat16, 96, 2, 8, 8, 330, 200, False, 0, 200, "tensor_core"),
+    # cross-attention decode: one row over the whole source
+    (torch.bfloat16, 64, 4, 16, 16, 1, 2048, False, 0, 2048, "split_kv"),
+    (torch.bfloat16, 96, 2, 8, 8, 1, 1000, False, 0, 1000, "split_kv"),
+    # phi-3's head dim 96: causal prefill, decode step, GQA
+    (torch.bfloat16, 96, 2, 8, 8, 200, 256, True, 0, 200, "tensor_core"),
+    (torch.bfloat16, 96, 2, 32, 32, 1, 2080, True, 2047, 2048, "split_kv"),
+    (torch.bfloat16, 96, 1, 16, 4, 4, 300, True, 126, 130, "split_kv"),
+    # the CUDA-core form at D 96 (three columns a thread), f32 and bf16
+    (torch.float32, 96, 2, 4, 4, 130, 130, True, 0, 130, "simt"),
+    (torch.float32, 96, 1, 4, 2, 70, 150, False, 0, 140, "simt"),
+    (torch.float32, 96, 2, 4, 4, 1, 300, True, 200, 201, "simt"),
+    (torch.float32, 64, 1, 4, 4, 100, 37, False, 0, 37, "simt"),
+], ids=["tc-encoder", "tc-cross", "tc-cross-d96", "split-cross",
+        "split-cross-d96", "tc-d96", "split-d96", "split-d96-gqa",
+        "simt-d96", "simt-d96-cross", "simt-d96-decode", "simt-cross"])
+def test_flash_attention_non_causal_and_d96_forms_vs_plain(
+        cuda_device, dtype, d, b, h, hkv, sq, sk, causal, q_offset, kv_len,
+        form):
+    """Bidirectional and cross-attention calls (Sq != Sk) and head dim
+    96 on each form, against the plain version (and the split-KV form
+    against its decomposition), at the reference's bounds."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * 7 + sk)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.float32).to(dtype)
+
+    q = rand(b, sq, h, d).transpose(1, 2)
+    k = rand(b, sk, hkv, d).transpose(1, 2)
+    v = rand(b, sk, hkv, d).transpose(1, 2)
+    assert fa.kernel_form(q, k, v) == form
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = fa.LAUNCHES_BY_FORM[form]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES_BY_FORM[form] == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     refs = [fa.flash_attention_plain(q, k, v, **kw)]
     if form == "split_kv":

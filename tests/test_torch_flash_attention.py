@@ -55,6 +55,27 @@ def test_plain_matches_reference_f32(b, h, hkv, s, d, causal):
     np.testing.assert_allclose(got, ref, atol=2e-5)
 
 
+@pytest.mark.parametrize("causal,b,h,hkv,sq,sk,d", [
+    (False, 1, 4, 4, 1, 256, 64),     # cross-attention decode: one row
+    (False, 2, 4, 2, 1, 384, 96),     # the same at D 96, GQA
+    (False, 1, 4, 4, 64, 384, 64),    # cross-attention prefill, Sq < Sk
+    (False, 1, 2, 2, 384, 128, 96),   # Sq > Sk
+    (False, 2, 4, 4, 256, 256, 96),   # an encoder at phi-3's D 96
+    (True, 1, 4, 2, 256, 256, 96),    # phi-3's causal prefill, GQA
+], ids=["cross-decode", "cross-decode-d96", "cross-prefill",
+        "cross-sq-gt-sk", "encoder-d96", "causal-d96"])
+def test_non_causal_and_d96_match_reference(causal, b, h, hkv, sq, sk, d):
+    """Bidirectional and cross-attention calls (Sq != Sk, Sq = 1 too)
+    and head dim 96 against the Pallas kernel in interpret mode and the
+    dense oracle (they agree here: no causal mask at Sq != Sk)."""
+    q, k, v = make(b, h, hkv, sq, sk, d, seed=sq + d)
+    got = port(q, k, v, causal=causal)
+    kernel = np.asarray(flash_ref(q, k, v, causal=causal, interpret=True))
+    ref = np.asarray(attention_ref(q, k, v, causal=causal))
+    np.testing.assert_allclose(got, kernel, atol=2e-5)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
 def test_bf16_inputs():
     q, k, v = make(1, 2, 1, 128, 128, 64, seed=1)
     qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
@@ -168,6 +189,22 @@ def test_split_kv_model_equals_plain(b, h, hkv, sq, sk, d, q_offset, kv_len):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal,q_offset,kv_len", [
+    (2, 8, 8, 1, 2080, True, 2047, 2048),   # phi-3's decode step
+    (1, 16, 4, 4, 300, True, 126, 130),     # 16 rows per kv head
+    (2, 4, 4, 1, 330, False, 0, 330),       # cross-attention decode
+], ids=["decode", "16-rows", "cross-decode"])
+def test_split_kv_model_at_head_dim_96(b, h, hkv, sq, sk, causal, q_offset,
+                                       kv_len):
+    q, k, v = decode_case(b, h, hkv, sq, sk, 96, seed=kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = fa.split_kv_plain(q, k, v, **kw)
+    assert fa.split_range(sq, causal, q_offset, kv_len) == (
+        0, -(-kv_len // fa.SPLIT_COLUMNS))
+    torch.testing.assert_close(got, fa.flash_attention_plain(q, k, v, **kw),
+                               atol=2e-5, rtol=0)
+
+
 def test_split_kv_model_with_a_small_split_and_without_causality():
     """Many splits (the last one small: kv_len 1041 is 8 full splits of
     128 and 17 columns), with and without the causal mask."""
@@ -210,6 +247,9 @@ def test_split_kv_model_matches_the_reference_cache_masks():
     (torch.float32, 4, 4, 1, 64, "simt"),
     (torch.bfloat16, 4, 4, 64, 32, "simt"),           # D 32
     (torch.bfloat16, 4, 4, 1, 8, "simt"),             # D 8
+    (torch.bfloat16, 32, 32, 1, 96, "split_kv"),      # phi-3 decode step
+    (torch.bfloat16, 32, 32, 2048, 96, "tensor_core"),  # phi-3 prefill
+    (torch.float32, 32, 32, 2048, 96, "simt"),
 ])
 def test_kernel_form_dispatch(dtype, h, hkv, sq, d, form):
     q = torch.zeros(1, sq, h, d, dtype=dtype).transpose(1, 2)

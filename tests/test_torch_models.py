@@ -1,12 +1,15 @@
 """The port's model zoo slice against the reference, in f32 (as
 ``tests/archs/test_decode_consistency.py`` runs it): ``gqa_attention``
-and ``block_apply`` on carried weights, and the reduced ``zamba2-1.2b``
+(self, cached, windowed and cross-attention) and ``block_apply`` on
+carried weights, and the reduced ``zamba2-1.2b``
 and ``mamba2-780m`` with every parameter carried across by
 ``repro_torch.interop.model_from_reference`` — prefill logits and every
 decode step's logits at rtol/atol 2e-4, on the CPU (the kernels' plain
 versions); the windowed attention the transformer family uses (its
 reduced architectures: ``tests/test_torch_transformer.py``).  Then the port's own prefill-then-decode against a full
-prefill, at the same bound.
+prefill, at the same bound; the ``encdec`` and ``vlm`` families take the
+reference's batch keys (their models: ``tests/test_torch_encdec.py``,
+``test_torch_vlm.py``).
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.reduced import SMOKE_DECODE, SMOKE_PREFILL
 from repro.configs.reduced import reduced_arch as ref_reduced_arch
 from repro.models import attention as ref_attn
 from repro.models import ssm as ref_ssm
 from repro.models.layers import unzip_params
 from repro_torch.configs.reduced import reduced_arch
 from repro_torch.interop import copy_params, model_from_reference
+from repro_torch.launch import serve
 from repro_torch.models import attention, ssm
 from repro_torch.models.api import get_family
 
@@ -122,13 +127,33 @@ def test_gqa_attention_with_a_window_matches_the_reference():
         close(got, want)
 
 
-def test_unported_attention_options_raise():
-    mod = attention.attn_init(8, 2, 2, 4, device="cpu",
+def test_gqa_attention_cross_attention_matches_the_reference():
+    """``kv_override`` on both paths: a 5-token query (RoPE at its
+    positions) over the projected memory of 9 source positions, GQA, not
+    causal, no cache update."""
+    d, h, hkv, hd, theta = 32, 4, 2, 16, 10000.0
+    vals = jax.tree.map(np.asarray, unzip_params(ref_attn.attn_init(
+        jax.random.key(5), d, h, hkv, hd))[0])
+    mod = attention.attn_init(d, h, hkv, hd, device="cpu",
                               generator=torch.Generator().manual_seed(0))
-    x, pos = torch.zeros(1, 3, 8), torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A-11"):
-        attention.gqa_attention(mod, x, positions=pos, rope_theta=1e4,
-                                kv_override=(x, x))
+    copy_params(mod, vals)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 5, d)).astype(np.float32)
+    memory = rng.standard_normal((2, 9, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(3, 8, dtype=np.int32), (2, 5))
+    want_kv = ref_attn.project_kv(vals, memory)
+    want, want_cache = ref_attn.gqa_attention(
+        vals, x, positions=pos, rope_theta=theta, causal=False,
+        kv_override=want_kv)
+    kv = attention.project_kv(mod, torch.from_numpy(memory))
+    assert kv[0].shape == (2, 9, hkv, hd)
+    close(kv[0], want_kv[0])
+    close(kv[1], want_kv[1])
+    got, cache = attention.gqa_attention(
+        mod, torch.from_numpy(x), positions=torch.from_numpy(pos.copy()),
+        rope_theta=theta, causal=False, kv_override=kv)
+    assert cache is None and want_cache is None
+    close(got, want)
 
 
 def test_block_apply_without_and_with_cache():
@@ -209,10 +234,47 @@ def test_prefill_then_decode_matches_full_prefill(arch_id):
                                **TOL)
 
 
-def test_unported_families_raise():
-    for name in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="A-11"):
-            get_family(name)
+@pytest.mark.parametrize("arch_id", ["seamless-m4t-medium",
+                                     "phi-3-vision-4.2b"])
+def test_encdec_and_vlm_families_take_the_reference_batch_keys(arch_id):
+    """``get_family`` gives the reference's family name, and its prefill
+    and decode take a batch with the keys of the reference's
+    ``input_specs`` at its smoke prefill and decode shapes."""
+    rspec, pspec = ref_reduced_arch(arch_id), reduced_arch(arch_id)
+    fam = get_family(pspec.family_name)
+    assert fam.name == pspec.family_name == rspec.family.name
+    cfg = serve.with_config(pspec.config, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+
+    def batch(shape):
+        out = {}
+        for name, sds in rspec.input_specs(shape).items():
+            if np.issubdtype(sds.dtype, np.integer):
+                out[name] = torch.from_numpy(rng.integers(
+                    0, pspec.vocab, sds.shape)).long()
+            else:
+                out[name] = torch.from_numpy(rng.standard_normal(
+                    sds.shape).astype(np.float32))
+        return out
+
+    prefill = batch(SMOKE_PREFILL)
+    assert set(prefill) == ({"frames", "tokens"} if fam.name == "encdec"
+                            else {"patches", "tokens"})
+    kw = rspec.cache_kwargs(SMOKE_PREFILL)
+    if fam.name == "vlm":
+        kw["max_len"] += 1   # the decode step's position
+    else:
+        kw["max_len"] = prefill["tokens"].shape[1] + 1
+    caches = fam.init_caches(cfg, **kw, device="cpu")
+    model = fam.init(cfg, device="cpu", seed=0)
+    logits, caches = fam.prefill(model, prefill, cfg, caches)
+    assert logits.shape == (2, cfg.padded_vocab)
+    step = batch(SMOKE_DECODE)
+    assert set(step) == {"token"}
+    logits, caches = fam.decode_step(model, step, cfg, caches,
+                                     caches.length)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits[:, :pspec.vocab]).all())
 
 
 def test_the_transformer_family_is_ported():
