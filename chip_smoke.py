@@ -149,6 +149,23 @@ with a non-zero exit:
     run builds nothing, the binned and sampling gates hold); and
     ``run_workload`` on the main workload at full size (24 cells), with
     seconds per part.
+9d. Model-derived traces: every ``model/<slug>/{prefill,decode}`` cell
+    (20) resolved on a store under ``build/chip_smoke_model_store`` and
+    recorded on the host (``analysis/aten_trace.py``: seconds of the
+    recording and of the trace build, refs, blocks, touched bytes);
+    predicted on the card over the Table-5 CPUs x cores {1, 2, 4, 8} x
+    round_robin and tpu-v5e at core 1 (one ``predict_many`` a cell, one
+    SDCM launch cold and warm), within 1e-6 of the float64 oracle and of
+    the CPU port's predict; all 20 cells in one ``predict_many`` (one
+    launch) with B1 against its plain version and timed at those rows;
+    the service on the reference's selftest payload
+    (``model/llama3_8b/decode`` on tpu-v5e: 200, ``Session.predict``'s
+    answer) and on a ``train`` cell (501, A-11b); every cell again from
+    the warm store with no recording and no build; ``run_validation`` on
+    ``model/llama3_8b/decode`` over the Table-5 CPUs x cores {1, 2, 4}
+    (exact LRU on the card, B2's binned check), and B2 against its plain
+    version on every distance stream that check feeds it (counts and
+    masses equal).
 13. The mamba2-780m serve path: batch 4, prompt 2048, 16 tokens, B5
     launches read around it, the same profile and the same
     teacher-forced check.
@@ -181,8 +198,8 @@ with a non-zero exit:
 
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
-a CUDA graph (the device time).  Every predict in 7-9b must make exactly
-one SDCM launch, and every service batch in 9c.  The last lines are the
+a CUDA graph (the device time).  Every predict in 7-9b and 9d must make
+exactly one SDCM launch, and every service batch in 9c.  The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1945,6 +1962,292 @@ def phase_validate_xxl() -> None:
          session_stats=payload["session_stats"])
 
 
+# --- model-derived traces (model/<arch>/{prefill,decode}) ---------------------
+
+MODEL_STORE = ROOT / "build" / "chip_smoke_model_store"  # made anew
+MODEL_CELLS = 20            # 10 archs x prefill, decode
+MODEL_VALIDATE = "model/llama3_8b/decode"
+
+
+def model_requests(src) -> list:
+    """A cell's grid: the Table-5 CPUs x cores x round_robin, and
+    tpu-v5e at core 1, both with the cell's op counts."""
+    from repro_torch.api import PredictionRequest
+
+    return [PredictionRequest(targets=TABLE5, core_counts=CORES,
+                              strategies=("round_robin",),
+                              counts=src.op_counts),
+            PredictionRequest(targets=("tpu-v5e",), core_counts=(1,),
+                              counts=src.op_counts)]
+
+
+def same_rates(got, want, tag: str) -> float:
+    """Every hit rate of two result lists within ``RATE_TOL``."""
+    worst = 0.0
+    for res, ref in zip(got, want):
+        for a, b in zip(res, ref):
+            for lvl, rate in b.hit_rates.items():
+                diff = abs(a.hit_rates[lvl] - rate)
+                worst = max(worst, diff)
+                if not diff <= RATE_TOL:
+                    fail(f"{tag} {a.target} cores={a.cores} {lvl}: card "
+                         f"{a.hit_rates[lvl]} vs CPU port {rate}")
+    return worst
+
+
+def phase_model_traces(smi: str) -> dict:
+    """Every ``model/<slug>/{prefill,decode}`` cell: resolved on a store
+    under ``build/`` and its trace recorded on the host (seconds of the
+    recording and of the trace build); predicted on the card over the
+    Table-5 CPUs x cores {1, 2, 4, 8} x round_robin and tpu-v5e at core 1
+    (one ``predict_many`` of the two requests a cell: one SDCM launch,
+    cold and warm), within 1e-6 of the float64 oracle and of the CPU
+    port's predict on the same trace; then all 20 cells in one
+    ``predict_many`` (one launch), with B1 held against its plain version
+    and timed at those rows.  Then the service warm on the reference's
+    selftest payload (200, equal to ``Session.predict``) and a ``train``
+    cell (501, A-11b); every cell resolved again from the warm store with
+    no recording; and the validation harness on one decode cell (exact
+    LRU on the card, B2's binned check), with B2 held against its plain
+    version on every distance stream that check feeds it.  Returns B1's
+    launches on the path (the 20 cells' predicts and the 20-cell batch),
+    B2's launches in the harness run and B2's max |kernel - plain|."""
+    import shutil
+
+    from repro_torch.analysis import aten_trace
+    from repro_torch.api import AnalyticalSDCM, Session
+    from repro_torch.api.batched import grid_rows, pack_ragged
+    from repro_torch.kernels.sdcm import (
+        sdcm_rates_ragged,
+        sdcm_rates_ragged_plain,
+    )
+    from repro_torch.validate.store import ArtifactStore
+    from repro_torch.workloads import registry
+
+    shutil.rmtree(MODEL_STORE, ignore_errors=True)
+    store = ArtifactStore(MODEL_STORE)
+    names = [n for n in registry.workload_names("model")
+             if not n.endswith("/train")]
+    if len(names) != MODEL_CELLS:
+        fail(f"{len(names)} model prefill/decode cells, want {MODEL_CELLS}")
+    card = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cuda", store=store)
+    host = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cpu")
+    sources, items = {}, []
+    reset_counts()
+    for name in names:
+        src = registry.resolve(name, "smoke", store=store)
+        trace, trace_s = timed(src.trace)
+        reqs = model_requests(src)
+        pairs = [(src, r) for r in reqs]
+        before = read_counts()["launches"]["sdcm_rates_ragged"]
+        res, cold_s = timed(lambda: card.predict_many(pairs))
+        after = read_counts()["launches"]["sdcm_rates_ragged"]
+        warm, warm_s = timed(lambda: card.predict_many(pairs))
+        if (after - before != 1
+                or read_counts()["launches"]["sdcm_rates_ragged"] != after + 1):
+            fail(f"{name}: a predict made other than one SDCM launch")
+        if [r.to_json() for r in warm] != [r.to_json() for r in res]:
+            fail(f"{name}: warm predict differs from cold predict")
+        oracle = max(check_against_oracle(card, src, r, out, name)
+                     for r, out in zip(reqs, res))
+        cpu = same_rates(res, host.predict_many(pairs), name)
+        sources[name] = src
+        items += pairs
+        info = src.info
+        line("model_traces", workload=name, card=smi,
+             fingerprint=src.declared_fingerprint, refs=len(trace),
+             blocks=info["num_blocks"], buffers=info["num_buffers"],
+             touched_bytes=info["touched_bytes"],
+             shared_refs=int(trace.shared_mask.sum()),
+             record_s=src.timings["record_s"],
+             trace_s=src.timings["trace_s"], resolve_and_trace_s=trace_s,
+             cold_predict_s=cold_s, warm_predict_s=warm_s,
+             cells=sum(len(r) for r in res), max_abs_err_vs_oracle=oracle,
+             max_abs_diff_vs_cpu_port=cpu,
+             op_counts=dict(vars(src.op_counts)),
+             tpu_vmem_hit_rate=res[1].predictions[0].hit_rates["VMEM"])
+
+    before = read_counts()["launches"]["sdcm_rates_ragged"]
+    batch, batch_s = timed(lambda: card.predict_many(items))
+    launches = read_counts()["launches"]
+    if launches["sdcm_rates_ragged"] - before != 1 or launches["sdcm_rates"]:
+        fail(f"20-cell predict_many: {launches}")
+    if [r.to_json() for r in batch] != [
+            r.to_json() for r in card.predict_many(items)]:
+        fail("20-cell predict_many is not repeatable")
+    path_launches = launches["sdcm_rates_ragged"]
+
+    # B1 at this path's rows: every cell's grid in one ragged launch
+    rows = grid_rows([item for src, req in items
+                      for item in path_items(card, src, req)])
+    args = pack_ragged(rows, device="cuda")
+    err = float((sdcm_rates_ragged(*args) - sdcm_rates_ragged_plain(*args))
+                .abs().max())
+    if not err <= RATE_TOL:
+        fail(f"B1 at the model cells' rows: {err} > {RATE_TOL}")
+    d, _, meta = (x.cpu().numpy() for x in args)
+    row_of = np.repeat(np.arange(len(rows)), meta[:, 1].astype(np.int64))
+    terms = phit_terms(d, meta[row_of, 2], meta[row_of, 3])
+    b_ms, b_by = bound_ms(8.0 * (2 * d.size + meta.size + len(rows)),
+                          terms * OPS_PER_TERM + 2.0 * d.size)
+    kernel = dict(
+        ms=cuda_ms(lambda: sdcm_rates_ragged(*args), reps=200, warmup=10),
+        graph_ms=graph_ms(lambda: sdcm_rates_ragged(*args)),
+        plain_ms=cuda_ms(lambda: sdcm_rates_ragged_plain(*args), reps=20),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    line("model_traces_batch", card=smi, cells=len(names),
+         requests=len(items), rows=len(rows), entries=int(d.size),
+         predict_many_s=batch_s, launches=path_launches,
+         max_row_entries=int(meta[:, 1].max()),
+         max_assoc=int(meta[:, 2].max()), max_blocks=int(meta[:, 3].max()),
+         **kernel)
+
+    model_service(smi)
+
+    # every cell again from the warm store: no recording, no build
+    recorded = []
+    record = aten_trace.record_model_step
+    aten_trace.record_model_step = lambda *a, **kw: recorded.append(a) or \
+        record(*a, **kw)
+    try:
+        warm_sess = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                            device="cuda", store=store)
+        again = [(registry.resolve(n, "smoke", store=store), r)
+                 for n in names for r in model_requests(sources[n])[:1]]
+        for src, _ in again:
+            if src.info != sources[src.workload_name].info:
+                fail(f"{src.workload_name}: info from the store differs")
+        warm_res, warm_s = timed(lambda: warm_sess.predict_many(again))
+    finally:
+        aten_trace.record_model_step = record
+    st = warm_sess.stats
+    if recorded or st.trace_builds or st.profile_builds or st.rd_builds:
+        fail(f"model cells from a warm store: {len(recorded)} recordings, "
+             f"{vars(st)}")
+    same_rates(warm_res, batch[::2], "warm store")
+    line("model_traces_warm", card=smi, cells=len(again), seconds=warm_s,
+         recordings=len(recorded), stats=dict(vars(st)))
+
+    hist_launches = model_validate(smi)
+    return {"sdcm_rates_ragged": path_launches,
+            "reuse_hist_moments": hist_launches,
+            "reuse_hist_moments_err": model_hist_checks(smi)}
+
+
+def model_service(smi: str) -> None:
+    """The reference's selftest payload through the port's server on the
+    card, warm on the model store: 200 and ``Session.predict``'s answer;
+    a ``train`` cell: 501 naming A-11b."""
+    from repro_torch.api import AnalyticalSDCM, Session
+    from repro_torch.service import PredictionService, ServiceConfig
+    from repro_torch.service.client import ServiceClient, ServiceError
+    from repro_torch.service.server import PredictionServer, build_request
+
+    payload = {"workload": "model/llama3_8b/decode", "sizes": "smoke",
+               "targets": ["tpu-v5e"], "core_counts": [1]}
+    svc = PredictionService(config=ServiceConfig(
+        device="cuda", artifact_dir=str(MODEL_STORE)))
+    with svc:
+        server = PredictionServer(svc, "127.0.0.1", 0)
+        w = server.resolver.get(payload["workload"], payload["sizes"])
+        want = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                       device="cuda").predict(w, build_request(payload, w))
+        want = json.loads(want.to_json())["predictions"]
+        server.serve_background()
+        try:
+            client = ServiceClient(server.url, timeout=300)
+            client.wait_ready()
+            got, secs = timed(lambda: client.predict(**payload))
+            if got["predictions"] != want:
+                fail(f"service on {payload['workload']}: {got} vs {want}")
+            try:
+                client.predict(**{**payload,
+                                  "workload": "model/llama3_8b/train"})
+                fail("service answered a train cell")
+            except ServiceError as exc:
+                if exc.status != 501 or "A-11b" not in str(exc):
+                    fail(f"service on a train cell: {exc.status} {exc}")
+            stats = client.stats()
+        finally:
+            server.shutdown()
+            server.server_close()
+    line("model_service", card=smi, workload=payload["workload"],
+         status=200, seconds=secs, train_status=501,
+         session=stats["session"])
+
+
+def model_validate(smi: str) -> int:
+    """``run_validation`` on one decode cell over the Table-5 CPUs x
+    cores {1, 2, 4}: exact LRU on the card, B2's binned check.  Returns
+    B2's launches in that run."""
+    from repro_torch.validate import MatrixSpec, run_validation
+
+    spec = MatrixSpec(workloads=(MODEL_VALIDATE,), targets=TABLE5,
+                      core_counts=(1, 2, 4), strategies=("round_robin",),
+                      sizes="smoke")
+    reset_counts()
+    summary, secs = timed(lambda: run_validation(
+        spec, artifact_dir=None, processes=1, device="cuda"))
+    launches = read_counts()["launches"]
+    recs = summary["records"]
+    binned = max(v for r in recs for v in r["binned_abs_dev"].values())
+    if len(recs) != len(TABLE5) * 3 or binned > BINNED_TOL:
+        fail(f"validation on {MODEL_VALIDATE}: {len(recs)} cells, binned "
+             f"deviation {binned}")
+    if launches["reuse_hist_moments"] <= 0:
+        fail(f"validation on {MODEL_VALIDATE}: the binned check launched "
+             "no B2")
+    line("model_validate", card=smi, workload=MODEL_VALIDATE,
+         cells=len(recs), seconds=secs, launches=launches,
+         max_binned_abs_dev=binned,
+         hit_err_pct=float(np.mean([e["abs_err_pct"] for r in recs
+                                    for e in r["levels"].values()])),
+         runtime_err_pct=float(np.mean([r["runtime_rel_err_pct"]
+                                        for r in recs])))
+    return launches["reuse_hist_moments"]
+
+
+def model_hist_checks(smi: str) -> float:
+    """``reuse_hist_moments`` against its plain version on the card, on
+    every distance stream the binned check of ``MODEL_VALIDATE`` feeds
+    it: at each Table-5 line size and cores {1, 2, 4}, the first private
+    trace's and the shared trace's reuse distances (unit weights, so
+    counts and masses must be equal).  Returns the max |kernel - plain|."""
+    from repro_torch.api import Session
+    from repro_torch.core.reuse.distance import reuse_distances
+    from repro_torch.hw.targets import resolve_target
+    from repro_torch.kernels import reuse_hist as rh
+    from repro_torch.workloads import registry
+
+    w = registry.resolve(MODEL_VALIDATE, "smoke")
+    sess = Session(device="cuda")
+    err, sizes = 0.0, []
+    for line_size in sorted({resolve_target(t).levels[0].line_size
+                             for t in TABLE5}):
+        for cores in (1, 2, 4):
+            art = sess.artifacts(w, cores, strategy="round_robin",
+                                 line_size=line_size, need_traces=True)
+            streams = [art.privates[0]] + (
+                [art.shared] if art.shared is not art.privates[0] else [])
+            for trace in streams:
+                d = reuse_distances(trace.addresses, line_size,
+                                    device="cuda")
+                got = rh.reuse_histogram_moments(d)
+                want = rh.reuse_histogram_moments_plain(d)
+                if not torch.equal(got, want):
+                    fail(f"B2 on {MODEL_VALIDATE}'s distances (line "
+                         f"{line_size}, cores={cores}, {d.numel()} refs) "
+                         "differs from its plain version")
+                err = max(err, float((got - want).abs().max()))
+                sizes.append(d.numel())
+    line("model_reuse_hist", card=smi, workload=MODEL_VALIDATE,
+         streams=len(sizes), smallest=min(sizes), largest=max(sizes),
+         max_abs_err=err)
+    return err
+
+
 # --- the model zoo: flash attention (B4), SSD scan (B5), serving --------------
 
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
@@ -2690,6 +2993,19 @@ def main() -> int:
     phase_validate_golden()
     phase_validate_smoke()
     phase_validate_xxl()
+    model = phase_model_traces(smi)
+    sdcm_kernel["launches_by_path"] = {
+        f"polybench/{MAIN_WORKLOAD}": sdcm_kernel["launches"],
+        "model_traces": model["sdcm_rates_ragged"]}
+    sdcm_kernel["launches"] = sum(sdcm_kernel["launches_by_path"].values())
+    for rec in hist_kernels:  # B2 in the model cell's binned check too
+        if rec["name"] == "reuse_hist_moments":
+            rec["launches_by_path"] = {
+                "binned_main_path": rec["launches"],
+                MODEL_VALIDATE: model["reuse_hist_moments"]}
+            rec["launches"] = sum(rec["launches_by_path"].values())
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     model["reuse_hist_moments_err"])
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     flash_kernel, ssd_kernel = phase_flash(), phase_ssd()
     serve_launches = phase_zamba2_serve()

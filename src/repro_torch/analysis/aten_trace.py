@@ -1,0 +1,416 @@
+"""ATen op recording -> basic-block-labeled memory trace and op census:
+the port's graph source for ``model/<arch>/<step>`` workloads.
+
+The reference lowers a model step to optimized HLO
+(``jax.jit(...).lower().compile().as_text()``) and reads the text with
+``analysis/hlo_trace.py`` and ``analysis/hlo_cost.py``.  The port does
+not import JAX, so it records its own graph of the same step: every
+ATen op that one call of a family's ``prefill`` or ``decode_step``
+dispatches, seen by a ``TorchDispatchMode``.  The step runs eagerly on
+the **CPU**, through the plain versions of the kernels, with weights
+from a seed.  This is host analysis, as XLA's abstract lowering is: it
+reads a program and touches no card; it is not a device path that
+falls back.  The plain path is the like-for-like program, because the
+reference lowers its plain-jnp models, which call no Pallas kernel;
+on the card the attention and scan kernels are ctypes launches that a
+dispatch recorder cannot see.
+
+The trace follows ``hlo_to_trace`` rule for rule, with ATen ops in
+place of HLO instructions:
+
+* an op is a basic block named ``"<op>:main"`` (``mm:main``,
+  ``_to_copy:main``); Python loops are unrolled, so every layer's ops
+  are emitted, the loop scale is 1.0 and no loop is truncated;
+* alias and view ops (``view``, ``permute``, ``expand``, ``select``,
+  ``slice``, ``t``, ``unsqueeze``, ``detach``, ``_unsafe_view``, ...:
+  any op whose schema returns an alias of an input that it does not
+  write, or that writes nothing and returns only tensors in its inputs'
+  storages) touch nothing,
+  as ``bitcast`` and ``get-tuple-element`` do, and neither do the
+  allocations ``empty``/``empty_like``/``empty_strided`` nor a scalar
+  read (``_local_scalar_dense``);
+* a buffer is a tensor storage: every view of one storage reads and
+  writes inside that storage's addresses.  While recording, a storage
+  is told apart by its data pointer, and every storage seen is held
+  alive so that no later one reuses the pointer; buffers are named and
+  placed in first-seen order, never by pointer, so that two processes
+  give bit-identical traces.  The step's inputs
+  (parameters, module buffers, batch, caches) are named after their
+  role and are the shared buffers (the entry parameters of
+  ``hlo_to_trace``); every other storage is private.  A write into an
+  input's storage (the caches' in-place update) is shared too: an
+  address keeps one label;
+* each op touches at most its first 6 tensor operands, then its
+  results (a mutated argument is a result, not an operand), each
+  through :class:`~repro_torch.analysis.hlo_trace._TraceState`
+  (``granule``, ``refs_cap``): a view emits the refs a buffer of its
+  extent would, from the granule holding its first byte; touched bytes
+  count every operand's and result's elements times their size;
+* emission stops once ``blocks * refs_cap`` passes :data:`MAX_REFS`.
+
+The census returns ``loop_aware_cost``'s keys, so ``op_class_mix``
+applies unchanged:
+
+* ``mm``/``bmm``/``addmm``/``baddbmm``: 2 · result elements · the
+  contracted extent, exact (``dot``);
+* the transcendental class of ``hlo_cost.py`` (exp, log, pow, tanh,
+  logistic, sin, cos, sqrt, rsqrt, divide, with the ATen ops that
+  lower to them: ``sigmoid``, ``silu``, ``gelu``, ``erf``,
+  ``reciprocal``, ``_softmax``, ``_log_softmax``): 1 FLOP and 1
+  transcendental per result element;
+* reductions (``sum``, ``mean``, ``amax``, ``max``, ``cumsum``, ...):
+  4 FLOPs per result element (``reduce``), the reference's estimate;
+* copies, gathers and fills (``_to_copy``, ``clone``, ``copy_``,
+  ``cat``, ``index``, ``embedding``, ``zeros``, ``arange``, ...): no
+  FLOPs;
+* every other op is elementwise: 1 FLOP per result element;
+* bytes are operands plus results for every op that touches memory.
+  An in-place update (``copy_`` into a cache slice, ``index_add_``)
+  writes the view it was given, so an update of an input charges the
+  payload only, ``hlo_cost.py``'s fused-DUS rule.
+
+:func:`largest_results` ranks op results by bytes, as
+``analysis/buffers.py::largest_buffers`` ranks instruction results.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.analysis.hlo_trace import _Buffer, _TraceState
+from repro_torch.core.trace.types import LabeledTrace, trace_from_blocks
+
+#: Operands each op touches in the trace (``hlo_to_trace``'s ``[:6]``).
+MAX_OPERANDS = 6
+#: References after which emission stops (``hlo_to_trace``'s default).
+MAX_REFS = 400_000
+#: The seed of a model step's weights and inputs.
+SEED = 0
+
+_DOT = {"mm", "bmm", "addmm", "baddbmm"}
+_TRANSCENDENTAL = {
+    "exp", "exp2", "expm1", "log", "log2", "log1p", "pow", "tanh",
+    "sigmoid", "sin", "cos", "sqrt", "rsqrt", "div", "reciprocal", "silu",
+    "gelu", "erf", "softplus", "_softmax", "_log_softmax",
+}
+_REDUCE = {
+    "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod",
+    "any", "all", "cumsum", "logsumexp", "var", "var_mean",
+}
+_MOVE = {
+    "_to_copy", "clone", "copy_", "cat", "stack", "index", "index_select",
+    "embedding", "gather", "scatter", "index_put_", "slice_scatter",
+    "select_scatter", "repeat", "constant_pad_nd", "flip", "roll",
+    "zeros", "ones", "full", "arange", "scalar_tensor", "fill_", "zero_",
+    "new_zeros", "new_ones", "new_full", "zeros_like", "ones_like",
+    "full_like",
+}
+_FREE = {
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+    "_local_scalar_dense",
+}
+
+
+@dataclass(frozen=True)
+class TensorRef:
+    """One tensor an op read or wrote: its storage (index in first-seen
+    order), the byte offset of its first element and the byte extent it
+    spans there, and its own bytes."""
+
+    storage: int
+    offset: int
+    span: int
+    nbytes: int
+
+
+@dataclass(frozen=True)
+class OpEvent:
+    op: str
+    kind: str                     # dot | transcendental | reduce | move | elementwise
+    flops: float
+    operands: tuple[TensorRef, ...]
+    results: tuple[TensorRef, ...]
+
+
+@dataclass
+class Recording:
+    """The ops of one recorded call, and its storages in first-seen
+    order: ``names[i]``, ``sizes[i]`` bytes, ``shared[i]`` (an input)."""
+
+    events: list[OpEvent] = field(default_factory=list)
+    names: list[str] = field(default_factory=list)
+    sizes: list[int] = field(default_factory=list)
+    shared: list[bool] = field(default_factory=list)
+    seconds: float = 0.0
+
+
+def _is_view(func) -> bool:
+    """The op returns an alias of an input and writes none."""
+    schema = func._schema
+    if any(a.alias_info is not None and a.alias_info.is_write
+           for a in schema.arguments):
+        return False
+    return any(r.alias_info is not None for r in schema.returns)
+
+
+def _mutated(func, args, kwargs) -> list:
+    """The tensors the op writes in place (``self`` of ``add_``, ``out=``)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        val = args[i] if i < len(args) and not a.kwarg_only else kwargs.get(
+            a.name)
+        if isinstance(val, torch.Tensor):
+            out.append(val)
+    return out
+
+
+def _aliases_only(out, inputs: list) -> bool:
+    """Every result lies in an input's storage (``_unsafe_view``)."""
+    given = {t.untyped_storage().data_ptr() for t in inputs}
+    outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+    return bool(outs) and all(
+        t.untyped_storage().data_ptr() in given for t in outs)
+
+
+def _kind(op: str) -> str:
+    if op in _DOT:
+        return "dot"
+    if op in _TRANSCENDENTAL:
+        return "transcendental"
+    if op in _REDUCE:
+        return "reduce"
+    if op in _MOVE:
+        return "move"
+    return "elementwise"
+
+
+def _flops(kind: str, op: str, tensors: list, results: list) -> float:
+    if kind == "dot":
+        a = tensors[1] if op in ("addmm", "baddbmm") else tensors[0]
+        return 2.0 * results[0].numel() * a.shape[-1]
+    elems = float(sum(t.numel() for t in results))
+    if kind == "reduce":
+        return 4.0 * elems
+    if kind == "move":
+        return 0.0
+    return elems
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, inputs: dict[str, torch.Tensor]):
+        super().__init__()
+        self.rec = Recording()
+        self._index: dict[int, int] = {}
+        self._alive: list = []      # storages seen: no address is reused
+        self._inputs = {}
+        for name, t in inputs.items():
+            st = t.untyped_storage()
+            self._inputs.setdefault(st.data_ptr(), (name, st))
+
+    def _ref(self, t: torch.Tensor) -> TensorRef | None:
+        nbytes = t.numel() * t.element_size()
+        if nbytes <= 0:
+            return None
+        st = t.untyped_storage()
+        key = st.data_ptr()
+        idx = self._index.get(key)
+        if idx is None:
+            idx = len(self.rec.names)
+            self._index[key] = idx
+            self._alive.append(st)
+            given = self._inputs.get(key)
+            self.rec.names.append(given[0] if given else f"%t{idx}")
+            self.rec.sizes.append(st.nbytes())
+            self.rec.shared.append(given is not None)
+        size = t.element_size()
+        last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        return TensorRef(idx, t.storage_offset() * size, (last + 1) * size,
+                         nbytes)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        op = func.overloadpacket.__name__
+        if op in _FREE or _is_view(func):
+            return out
+        written = _mutated(func, args, kwargs)
+        inputs = [t for t in tree_flatten((args, kwargs))[0]
+                  if isinstance(t, torch.Tensor)]
+        if not written and _aliases_only(out, inputs):
+            return out          # a view the schema does not mark
+        operands = [t for t in inputs
+                    if not any(t is w for w in written)]
+        results = list(written) + [
+            t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)
+            and not any(t is a for a in inputs)]
+        kind = _kind(op)
+        flops = _flops(kind, op, inputs, results or inputs)
+        refs_in = tuple(r for r in map(self._ref, operands) if r is not None)
+        refs_out = tuple(r for r in map(self._ref, results) if r is not None)
+        self.rec.events.append(OpEvent(op, kind, flops, refs_in, refs_out))
+        return out
+
+
+def record(fn, inputs: dict[str, torch.Tensor]) -> Recording:
+    """Run ``fn()`` once under the recorder.  ``inputs`` names the
+    step's input tensors (their storages are the shared buffers)."""
+    mode = _Recorder(inputs)
+    t0 = time.perf_counter()
+    with mode:
+        fn()
+    mode.rec.seconds = time.perf_counter() - t0
+    return mode.rec
+
+
+def _view_refs(state: _TraceState, base: int, ref: TensorRef) -> np.ndarray:
+    """The refs a buffer of the view's extent emits, from the granule
+    holding its first byte (``_TraceState.refs_for`` for a whole
+    storage)."""
+    g = state.granule
+    start = base + (ref.offset // g) * g
+    return state.refs_for(_Buffer(start, ref.span, False))
+
+
+def recording_to_trace(rec: Recording, granule: int = 512,
+                       refs_cap: int = 16) -> tuple[LabeledTrace, dict]:
+    """The labeled trace of a recording and ``hlo_to_trace``'s info
+    (touched bytes, loop scale 1.0, buffer and block counts)."""
+    state = _TraceState(granule, refs_cap)
+    for ev in rec.events:
+        if len(state.blocks) * refs_cap > MAX_REFS:
+            break
+        addrs, shared_mask = [], []
+        for ref in ev.operands[:MAX_OPERANDS] + ev.results:
+            shared = rec.shared[ref.storage]
+            buf = state.buffer(rec.names[ref.storage],
+                               rec.sizes[ref.storage], shared)
+            r = _view_refs(state, buf.base, ref)
+            addrs.append(r)
+            shared_mask.append(np.full(len(r), shared))
+            state.touched_bytes += ref.nbytes
+        if addrs:
+            state.blocks.append((f"{ev.op}:main", np.concatenate(addrs),
+                                 np.concatenate(shared_mask)))
+    trace = trace_from_blocks(state.blocks)
+    return trace, {
+        "touched_bytes": state.touched_bytes,
+        "loop_scale": 1.0,
+        "num_buffers": len(state.buffers),
+        "num_blocks": len(state.blocks),
+        "granule": granule,
+    }
+
+
+def recording_cost(rec: Recording) -> dict:
+    """``loop_aware_cost``'s dict for a recording (no collectives: one
+    device)."""
+    flops = nbytes = transcendental = 0.0
+    op_flops: dict[str, float] = {}
+    for ev in rec.events:
+        flops += ev.flops
+        nbytes += sum(r.nbytes for r in ev.operands + ev.results)
+        if ev.kind == "transcendental":
+            transcendental += ev.flops
+        elif ev.kind in ("dot", "reduce", "elementwise"):
+            op_flops[ev.kind] = op_flops.get(ev.kind, 0.0) + ev.flops
+    return {
+        "flops": flops,
+        "bytes": nbytes,
+        "ici_bytes": 0.0,
+        "transcendental": transcendental,
+        "collective_counts": {},
+        "collective_bytes": {},
+        "dominant_flop_ops": dict(sorted(
+            op_flops.items(), key=lambda kv: -kv[1])[:8]),
+    }
+
+
+def largest_results(rec: Recording, top: int = 8) -> list[dict]:
+    """The ``top`` largest op results: ``{"bytes", "op", "name"}``, as
+    ``largest_buffers(min_bytes=0)`` ranks instruction results."""
+    out = [{"bytes": r.nbytes, "op": ev.op, "name": rec.names[r.storage]}
+           for ev in rec.events for r in ev.results]
+    out.sort(key=lambda b: -b["bytes"])
+    return out[:top]
+
+
+# --- model steps ---------------------------------------------------------------
+
+
+def _named_tensors(prefix: str, obj) -> dict[str, torch.Tensor]:
+    """Tensors of a batch dict or a (nested) cache tuple by path."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif hasattr(obj, "_fields"):
+        items = zip(obj._fields, obj)
+    elif isinstance(obj, (list, tuple)):
+        items = enumerate(obj)
+    else:
+        return {}
+    out = {}
+    for key, val in items:
+        out.update(_named_tensors(f"{prefix}.{key}", val))
+    return out
+
+
+def _at_length(caches, length: int):
+    """``caches`` with every ``length`` field (nested tuples too) set."""
+    if not hasattr(caches, "_fields"):
+        return caches
+    return caches._replace(**{
+        f: (length if f == "length" else _at_length(v, length))
+        for f, v in zip(caches._fields, caches)})
+
+
+def step_call(arch_id: str, step: str):
+    """``(fn, inputs)`` for one model step of ``arch_id``'s reduced
+    config at the smoke shape (``configs/reduced.py``), on the CPU with
+    weights and inputs from :data:`SEED`: ``fn()`` runs ``prefill`` over seeded inputs
+    into empty caches, or ``decode_step`` of one seeded token at the
+    cache's last position (``max_len - 1``, caches as a prefill of that
+    many tokens leaves them; the plain attention reads the whole cache
+    whatever the position, as the reference's masked decode does);
+    ``inputs`` names every input tensor: ``params.*`` (parameters and
+    module buffers), ``batch.*`` and ``caches.*``."""
+    from repro_torch.configs.reduced import (
+        SMOKE_DECODE, SMOKE_PREFILL, reduced_arch,
+    )
+
+    shape = {"prefill": SMOKE_PREFILL, "decode": SMOKE_DECODE}.get(step)
+    if shape is None:
+        raise ValueError(f"no recorded form of step {step!r}")
+    spec = reduced_arch(arch_id)
+    fam, cfg = spec.family, spec.config
+    model = fam.init(cfg, device="cpu", seed=SEED)
+    batch = spec.example_inputs(shape, seed=SEED)
+    ckw = spec.cache_kwargs(shape)
+    caches = fam.init_caches(cfg, **ckw, device="cpu")
+    inputs = {f"params.{n}": t for n, t in model.named_parameters()}
+    inputs.update({f"params.{n}": t for n, t in model.named_buffers()})
+    if step == "prefill":
+        def fn():
+            return fam.prefill(model, batch, cfg, caches)
+    else:
+        length = ckw["max_len"] - 1
+        caches = _at_length(caches, length)
+
+        def fn():
+            return fam.decode_step(model, batch, cfg, caches, length)
+    inputs.update(_named_tensors("batch", batch))
+    inputs.update(_named_tensors("caches", caches))
+    return fn, inputs
+
+
+def record_model_step(arch_id: str, step: str) -> Recording:
+    """The recording of one model step (:func:`step_call`)."""
+    fn, inputs = step_call(arch_id, step)
+    return record(fn, inputs)

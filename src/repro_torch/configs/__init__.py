@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_arch("<id>")`` /
 ``--arch <id>``, every architecture of the reference's registry
 (families ``transformer``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``)."""
-from repro_torch.configs.base import ArchSpec, Shape
+from repro_torch.configs.base import (
+    ArchSpec, Shape, SHAPES, TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K,
+)
 from repro_torch.configs import (  # noqa: E402
     arctic_480b,
     codeqwen15_7b,
@@ -37,4 +39,7 @@ def list_archs() -> list[str]:
     return sorted(REGISTRY)
 
 
-__all__ = ["ArchSpec", "Shape", "REGISTRY", "get_arch", "list_archs"]
+__all__ = [
+    "ArchSpec", "Shape", "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+    "LONG_500K", "REGISTRY", "get_arch", "list_archs",
+]

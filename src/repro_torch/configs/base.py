@@ -1,12 +1,17 @@
 """ArchSpec: binds a model family and its exact config to the shapes it
-serves.  Mirrors ``repro/configs/base.py`` without the abstract input
-specs (``ShapeDtypeStruct``) and the sharding rules: the port runs on
-one device.
+serves.  Mirrors ``repro/configs/base.py`` without the sharding rules
+(the port runs on one device); in place of the reference's abstract
+input specs (``ShapeDtypeStruct``) :meth:`ArchSpec.example_inputs`
+returns concrete tensors of the same shapes and dtypes, drawn from a
+seed.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import numpy as np
+import torch
 
 from repro_torch.models.api import Family, get_family
 
@@ -17,6 +22,13 @@ class Shape:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = Shape("train_4k", 4096, 256, "train")
+PREFILL_32K = Shape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = Shape("decode_32k", 32768, 128, "decode")
+LONG_500K = Shape("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,3 +47,53 @@ class ArchSpec:
         """The config's vocabulary, or its backbone's (a VLM)."""
         cfg = self.config
         return getattr(cfg, "vocab", None) or cfg.backbone.vocab
+
+    def input_shapes(self, shape: Shape) -> dict[str, tuple]:
+        """``name -> (shape, dtype)`` of the step's batch: the reference's
+        ``input_specs``.  An encoder-decoder takes ``S/2`` frames and
+        ``S/2`` tokens, a VLM its patches and ``S - num_patches`` tokens;
+        decode takes one token.  ``labels`` only for ``train``."""
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"token": ((b, 1), i32)}
+        if self.family_name == "encdec":
+            n = s // 2
+            out = {"frames": ((b, n, self.config.d_model), self.config.dtype),
+                   "tokens": ((b, n), i32)}
+        elif self.family_name == "vlm":
+            cfg = self.config
+            n = s - cfg.num_patches
+            out = {"patches": ((b, cfg.num_patches, cfg.clip_dim),
+                               cfg.backbone.dtype),
+                   "tokens": ((b, n), i32)}
+        else:
+            n = s
+            out = {"tokens": ((b, n), i32)}
+        if shape.kind == "train":
+            out["labels"] = ((b, n), i32)
+        return out
+
+    def example_inputs(self, shape: Shape, *,
+                       seed: int = 0) -> dict[str, torch.Tensor]:
+        """Concrete tensors of :meth:`input_shapes` on the CPU, drawn from
+        ``seed``: ids uniform in the vocabulary, floats standard normal."""
+        rng = np.random.default_rng(seed)
+        out = {}
+        for name, (dims, dtype) in self.input_shapes(shape).items():
+            if dtype == torch.int32:
+                arr = rng.integers(0, self.vocab, size=dims, dtype=np.int32)
+            else:
+                arr = rng.standard_normal(dims, dtype=np.float32)
+            out[name] = torch.from_numpy(arr).to(dtype)
+        return out
+
+    def cache_kwargs(self, shape: Shape) -> dict[str, int]:
+        """``init_caches`` keywords for the shape (the reference's): an
+        encoder-decoder's caches hold ``S/2`` target and ``S/2`` source
+        positions, every other family's ``S`` (a VLM's count its
+        patches)."""
+        b, s = shape.global_batch, shape.seq_len
+        if self.family_name == "encdec":
+            return {"batch": b, "max_len": s // 2, "src_len": s // 2}
+        return {"batch": b, "max_len": s}

@@ -7,13 +7,17 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, Shape
 from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.hybrid import Zamba2Config
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.multimodal import VLMConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import TransformerConfig
+
+SMOKE_SHAPE = Shape("smoke", 64, 4, "train")
+SMOKE_PREFILL = Shape("smoke_prefill", 32, 2, "prefill")
+SMOKE_DECODE = Shape("smoke_decode", 32, 2, "decode")
 
 
 def _reduce_transformer(cfg: TransformerConfig) -> TransformerConfig:

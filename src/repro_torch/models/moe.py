@@ -82,7 +82,7 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
     if drop:
         raise NotImplementedError(
             "capacity-drop MoE routing (training) waits for the training "
-            "slice (ROADMAP A-11)")
+            "slice (ROADMAP A-11b)")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate, idx = route(params, xt, cfg)

@@ -42,10 +42,8 @@ SELFTEST_PAYLOADS = (
     # duplicate of the first VIA its alias: dedup must coalesce the
     # alias with the canonical spelling
     {"workload": "atx", "sizes": "smoke", "core_counts": [1, 2, 4]},
-    # a workload through the TPU VMEM target and its roofline runtime
-    # (the reference sends a model/ workload here, which the port does
-    # not serve yet: ROADMAP A-11)
-    {"workload": "synthetic/stride", "sizes": "smoke",
+    # model-derived workload through the TPU VMEM target
+    {"workload": "model/llama3_8b/decode", "sizes": "smoke",
      "targets": ["tpu-v5e"], "core_counts": [1]},
 )
 SELFTEST_CLIENTS = 6

@@ -27,10 +27,11 @@ future and returns the full ``run_explore`` result dict.
 
 Error mapping: bad payloads -> 400, queue-full load shed -> 503 (with
 ``Retry-After``), a workload the port does not serve yet
-(``model/<arch>/<step>``, ROADMAP A-11) -> 501, anything else -> 500.
+(``model/<arch>/train``, ROADMAP A-11b) -> 501, anything else -> 500.
 Workloads are resolved by registry name (``polybench/atx``,
-``synthetic/stream``; legacy Table-4 abbreviations stay routable as
-aliases) through a cache, so
+``synthetic/stream``, ``model/llama3_8b/decode``; legacy Table-4
+abbreviations and raw arch ids stay routable as aliases) through a
+cache, so
 equal (workload, sizes) specs share one source object — and therefore
 one declared fingerprint, one Session artifact set, and one dedup key
 (aliases coalesce with their canonical spelling).
@@ -176,6 +177,9 @@ class _Handler(BaseHTTPRequestHandler):
         except ServiceOverloadedError as exc:
             self._reply(503, {"error": str(exc)}, {"Retry-After": "1"})
             return
+        except NotImplementedError as exc:
+            self._reply(501, {"error": str(exc)})
+            return
         except ValueError as exc:
             self._reply(400, {"error": str(exc)})
             return
@@ -227,6 +231,9 @@ class _Handler(BaseHTTPRequestHandler):
             )
         except ServiceOverloadedError as exc:
             self._reply(503, {"error": str(exc)}, {"Retry-After": "5"})
+            return
+        except NotImplementedError as exc:
+            self._reply(501, {"error": str(exc)})
             return
         except ValueError as exc:
             self._reply(400, {"error": str(exc)})

@@ -5,16 +5,17 @@ Every trace source registers here under a namespaced name:
 
     polybench/<abbr>      Table-4 analytic generators (polybench.py)
     synthetic/<kind>      tracegen-built parametric access patterns
+    model/<arch>/<step>   model-step traces recorded from the port's
+                          own graph (model_trace.py)
 
 and a resolved workload carries a **declared fingerprint** — a stable
 content key computed from (name, generator version, resolved size
 kwargs) without building the trace, the reference's key for the same
-workload.  The Session uses it as the trace id.  Every polybench entry
-aliases its bare Table-4 abbreviation (``"atx"`` -> ``polybench/atx``).
-
-``model/<arch>/<step>`` names (HLO-derived model-step traces in the
-reference) raise ``NotImplementedError``: they need a graph source of
-the port's own (ROADMAP queue A, A-11).
+polybench and synthetic workload; model cells are keyed apart from the
+reference's (ROADMAP C8).  The Session uses it as the trace id.  Every
+polybench entry aliases its bare Table-4 abbreviation (``"atx"`` ->
+``polybench/atx``), every model cell its raw arch id
+(``model/llama3-8b/decode``).
 """
 from __future__ import annotations
 
@@ -95,10 +96,6 @@ class WorkloadRegistry:
             return name
         if name in self._aliases:
             return self._aliases[name]
-        if name.startswith("model/"):
-            from repro_torch.api.stages import not_in_slice
-
-            raise not_in_slice(f"model workload {name!r}", "A-11")
         raise KeyError(
             f"unknown workload {name!r} (choose from {self.names()} "
             f"or a legacy alias {sorted(self._aliases)})"
@@ -121,8 +118,7 @@ class WorkloadRegistry:
         """Build one workload source with its declared fingerprint set;
         ``sizes`` is one of the spec's presets (None for defaults).
         ``store`` is forwarded to sources that cache derived metadata on
-        disk (an ``attach_store`` method); no source of the port has one
-        yet."""
+        disk (an ``attach_store`` method: the model cells)."""
         spec = self.spec(name)
         if sizes is not None and sizes not in spec.presets:
             raise ValueError(
@@ -156,9 +152,11 @@ def _ensure_populated() -> None:
         if _POPULATED:
             return
         _POPULATED = True
+        from repro_torch.workloads import model_trace
         from repro_torch.workloads import polybench  # noqa: F401  registers on import
 
         _register_synthetics(REGISTRY)
+        model_trace.register_model_workloads(REGISTRY)
 
 
 def register(spec: WorkloadSpec) -> WorkloadSpec:

@@ -781,3 +781,27 @@ def test_store_round_trip_on_the_card(cuda_device, tmp_path):
         b = host.artifacts(registry.resolve("polybench/atx", "smoke"), cores)
         assert np.array_equal(a.crd.counts, b.crd.counts)
     assert host.stats.profile_builds == 0
+
+
+@pytest.mark.parametrize("name", ["model/llama3_8b/decode",
+                                  "model/mixtral_8x7b/prefill",
+                                  "model/zamba2_1_2b/decode"])
+def test_model_cell_predict_on_the_card_equals_the_cpu(cuda_device, name):
+    """A model cell's trace is recorded on the host; its predict on the
+    card (one ragged SDCM launch) is within 1e-6 of the CPU port's."""
+    from repro_torch.workloads import registry
+
+    src = registry.resolve(name, "smoke")
+    req = PredictionRequest(targets=("i7-5960X", "Xeon E5-2699 v4",
+                                     "EPYC 7702P", "tpu-v5e"),
+                            core_counts=(1, 4), counts=src.op_counts,
+                            respect_core_limit=False)
+    before = kernel.LAUNCHES["sdcm_rates_ragged"]
+    card = Session(device=cuda_device, cache_model="batched").predict(
+        src, req)
+    assert kernel.LAUNCHES["sdcm_rates_ragged"] == before + 1
+    host = Session(device="cpu", cache_model="batched").predict(src, req)
+    for a, b in zip(card.predictions, host.predictions):
+        assert (a.target, a.cores) == (b.target, b.cores)
+        for lvl in a.hit_rates:
+            assert abs(a.hit_rates[lvl] - b.hit_rates[lvl]) <= 1e-6

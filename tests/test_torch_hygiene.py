@@ -62,7 +62,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.core.tasklist, repro_torch.core.predictor, "
         "repro_torch.validate, repro_torch.explore, "
         "repro_torch.explore.__main__, repro_torch.service, "
-        "repro_torch.service.__main__, repro_torch.validate.__main__\n"
+        "repro_torch.service.__main__, repro_torch.validate.__main__, "
+        "repro_torch.analysis.hlo, repro_torch.analysis.hlo_cost, "
+        "repro_torch.analysis.buffers, repro_torch.analysis.hlo_trace, "
+        "repro_torch.analysis.roofline, repro_torch.analysis.aten_trace, "
+        "repro_torch.workloads.model_trace\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -167,8 +171,8 @@ def test_binned_and_window_session_options_construct():
 
 def test_unported_stages_raise():
     s = Session(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A: A-11"):
-        s.predict("model/llama3_8b/decode",
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A: A-11b"):
+        s.predict("model/llama3_8b/train",
                   PredictionRequest(targets=("i7-5960X",)))
 
 

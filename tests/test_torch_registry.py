@@ -1,7 +1,7 @@
 """The workload registry: the port's roster, aliases and declared
-fingerprints against the JAX package's (without its ``model/``
-namespace, which waits for the port's model traces), and registry
-names as trace sources of the port's Session."""
+fingerprints against the JAX package's (model cells are keyed apart:
+ROADMAP C8), and registry names as trace sources of the port's
+Session."""
 from __future__ import annotations
 
 import types
@@ -24,22 +24,50 @@ PRESETS = (None, "smoke", "validation", "validation-xl", "validation-xxl")
 
 
 def ref_roster() -> list[str]:
+    """The reference's names whose fingerprints the port shares."""
     return [n for n in ref_registry.workload_names()
             if not n.startswith("model/")]
 
 
 def test_names_and_aliases_equal_reference():
-    assert registry.workload_names() == ref_roster()
-    assert len(registry.workload_names()) == 16
-    ref_aliases = {a: n for a, n in ref_registry.workload_aliases().items()
-                   if not n.startswith("model/")}
-    assert registry.workload_aliases() == ref_aliases
+    assert registry.workload_names() == ref_registry.workload_names()
+    assert len(registry.workload_names()) == 16 + 10 * 3
+    assert registry.workload_aliases() == ref_registry.workload_aliases()
     for abbr in MAKERS:
         assert registry.canonical_name(abbr) == f"polybench/{abbr}"
     assert registry.workload_names("synthetic") == [
         "synthetic/stream", "synthetic/stride"]
-    assert registry.workload_names("model") == []
+    assert len(registry.workload_names("model")) == 30
     assert registry.GENERATOR_VERSION == ref_registry.GENERATOR_VERSION
+
+
+@pytest.mark.parametrize("sizes", PRESETS)
+def test_model_fingerprints_keyed_apart_from_reference(sizes):
+    """C8: every preset of a model cell shares one fingerprint, which is
+    not the reference's (its trace comes from another graph)."""
+    for name in registry.workload_names("model"):
+        fp = registry.declared_fingerprint(name, sizes)
+        assert fp == registry.declared_fingerprint(name, None)
+        assert fp != ref_registry.declared_fingerprint(name, sizes), name
+
+
+def test_model_op_counts_from_warm_store(tmp_path, monkeypatch):
+    """A cell resolved with a store records once; a second resolution on
+    the warm store answers ``op_counts`` without recording."""
+    from repro_torch.validate.store import ArtifactStore
+    from repro_torch.workloads.model_trace import ModelTraceSource
+
+    store = ArtifactStore(tmp_path)
+    first = registry.resolve("model/llama3_8b/decode", "smoke", store=store)
+    counts = first.op_counts
+    assert counts.fp_ops > 0 and counts.total_bytes > 0
+
+    def no_recording(self):
+        raise AssertionError("a warm store must not record")
+
+    monkeypatch.setattr(ModelTraceSource, "record", no_recording)
+    warm = registry.resolve("model/llama3-8b/decode", "smoke", store=store)
+    assert warm.op_counts == counts
 
 
 @pytest.mark.parametrize("sizes", PRESETS)
@@ -68,10 +96,15 @@ def test_resolved_traces_equal_reference(name):
 
 
 def test_model_names_and_unknown_names_raise():
+    """Every model cell resolves; a ``train`` cell's counts and trace
+    raise naming the training slice (A-11b)."""
     for fn in (registry.resolve, registry.canonical_name,
                registry.declared_fingerprint):
-        with pytest.raises(NotImplementedError, match="A-11"):
-            fn("model/llama3_8b/decode")
+        assert fn("model/llama3_8b/train")
+    src = registry.resolve("model/llama3_8b/train")
+    for get in (lambda: src.op_counts, src.trace, lambda: src.info):
+        with pytest.raises(NotImplementedError, match="A-11b"):
+            get()
     with pytest.raises(KeyError, match="unknown workload"):
         registry.resolve("polybench/nope")
     with pytest.raises(ValueError, match="unknown size preset"):

@@ -581,15 +581,39 @@ def test_concurrent_clients_coalesce(served):
 
 @pytest.mark.parametrize("endpoint", ["predict", "explore"])
 def test_model_workload_over_http_is_not_served_yet(served, endpoint):
-    """The reference serves ``model/<arch>/<step>`` workloads; the port
-    answers 501 naming the queue item that will port them (A-11)."""
+    """The reference serves every ``model/<arch>/<step>`` workload; the
+    port serves prefill and decode and answers a ``train`` cell with 501
+    naming the queue item that will port it (A-11b)."""
     _service, client = served
     kwargs = ({"targets": ["tpu-v5e"]} if endpoint == "predict"
               else {"space": SPACE})
-    with pytest.raises(ServiceError, match="A-11") as ei:
-        getattr(client, endpoint)("model/llama3_8b/decode", sizes="smoke",
+    with pytest.raises(ServiceError, match="A-11b") as ei:
+        getattr(client, endpoint)("model/llama3_8b/train", sizes="smoke",
                                   **kwargs)
     assert ei.value.status == 501
+
+
+def test_model_decode_over_http_equals_session_predict(served):
+    """The reference's selftest payload (``model/llama3_8b/decode`` on
+    ``tpu-v5e``) is served with 200 and the answer of a sequential
+    ``Session.predict`` with the service's cache model on the same
+    source, bit for bit after the JSON round trip; the raw arch id
+    routes to the same cell."""
+    from repro_torch.service.server import build_request
+
+    svc, client = served
+    payload = {"workload": "model/llama3_8b/decode", "sizes": "smoke",
+               "targets": ["tpu-v5e"], "core_counts": [1]}
+    got = client.predict(**payload)
+    assert got["workload"] == "model/llama3_8b/decode"
+    workload = resolve("model/llama3_8b/decode")
+    want = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cpu").predict(workload,
+                                         build_request(payload, workload))
+    assert got["predictions"] == json.loads(want.to_json())["predictions"]
+    alias = client.predict(**{**payload, "workload": "model/llama3-8b/decode"})
+    assert alias["workload"] == "model/llama3_8b/decode"
+    assert alias["predictions"] == got["predictions"]
 
 
 def test_error_mapping(served):

@@ -326,12 +326,56 @@ def test_defaults(monkeypatch):
 
 
 def test_model_workload_is_not_ported_yet():
-    spec = MatrixSpec(workloads=("model/llama3_8b/decode",),
+    """``train`` cells wait for the training graph (A-11b)."""
+    spec = MatrixSpec(workloads=("model/llama3_8b/train",),
                       targets=("tpu-v5e",), core_counts=(1,),
                       strategies=("round_robin",), sizes="smoke",
                       binned_check=False)
-    with pytest.raises(NotImplementedError, match="A-11"):
+    with pytest.raises(NotImplementedError, match="A-11b"):
         run_validation(spec, device="cpu")
+
+
+def test_model_cell_harness_row():
+    """A decode cell runs through the harness: a row per (target, cores)
+    holding this cell's SDCM prediction (``Session.predict``), its
+    exact-LRU hit rates (``Session.ground_truth_hit_rates``) and the
+    runtime from the cell's op counts, each within 1e-12, and the binned
+    check against ``Session(binned=True)``."""
+    from repro_torch.api import PredictionRequest, Session
+    from repro_torch.workloads import registry
+
+    name = "model/llama3_8b/decode"
+    spec = MatrixSpec(workloads=(name,), targets=("i7-5960X", "tpu-v5e"),
+                      core_counts=(1, 2), strategies=("round_robin",),
+                      sizes="smoke")
+    summary = run_validation(spec, device="cpu")
+    rows = summary["records"]
+    assert len(rows) == 4
+
+    src = registry.resolve(name, "smoke")
+    req = PredictionRequest(targets=spec.targets,
+                            core_counts=spec.core_counts,
+                            strategies=spec.strategies,
+                            counts=src.op_counts, respect_core_limit=False)
+    session = Session(device="cpu")
+    want = {(p.target, p.cores): p for p in session.predict(src, req)}
+    binned = {(p.target, p.cores): p.hit_rates for p in
+              Session(device="cpu", binned=True).predict(src, req)}
+    assert {(r["target"], r["cores"]) for r in rows} == want.keys()
+    for row in rows:
+        key = (row["target"], row["cores"])
+        assert row["workload"] == name
+        exact = session.ground_truth_hit_rates(src, row["target"],
+                                               row["cores"])
+        assert row["levels"].keys() == want[key].hit_rates.keys()
+        for lvl, got in row["levels"].items():
+            assert abs(got["predicted"] - want[key].hit_rates[lvl]) <= 1e-12
+            assert abs(got["exact"] - exact[lvl]) <= 1e-12
+            assert abs(row["binned_abs_dev"][lvl] - abs(
+                binned[key][lvl] - want[key].hit_rates[lvl])) <= 1e-12
+        assert row["t_pred_s"] == pytest.approx(want[key].t_pred_s,
+                                                rel=1e-12)
+        assert max(row["binned_abs_dev"].values()) < 1e-3
 
 
 def test_report_generation(tiny, tmp_path):
