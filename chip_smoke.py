@@ -160,7 +160,7 @@ with a non-zero exit:
     launch) with B1 against its plain version and timed at those rows;
     the service on the reference's selftest payload
     (``model/llama3_8b/decode`` on tpu-v5e: 200, ``Session.predict``'s
-    answer) and on a ``train`` cell (501, A-11b); every cell again from
+    answer) and on a ``train`` cell (200, the same); every cell again from
     the warm store with no recording and no build; ``run_validation`` on
     ``model/llama3_8b/decode`` over the Table-5 CPUs x cores {1, 2, 4}
     (exact LRU on the card, B2's binned check), and B2 against its plain
@@ -193,9 +193,28 @@ with a non-zero exit:
     ``num_patches + prompt + t``; B4 exactly 32 tensor-core and 992
     split-KV, all at D 96; the profile, the teacher-forced check (bf16 and
     f32) and, at 8 layers in f32, the decode consistency (1,024 patches and
-    300 tokens split at 290).  More validation-xxl workloads follow while
-    time allows.
+    300 tokens split at 290).
+18. Training (ROADMAP A-11b): ``repro_torch.launch.train.train`` on
+    zamba2-1.2b at full width and depth (38 Mamba2 layers, the shared
+    attention at 6 sites, about 1.1e9 parameters), bf16, AdamW, batch 4
+    x 2,048 tokens of seeded ``SyntheticStream`` data: one warm-up and 4
+    timed steps, the loss, gradient norm and every parameter finite
+    after each update; B4 exactly 6 launches a step (tensor-core form,
+    not remat'ed) and B5 exactly 76 (each Mamba2 layer's forward and its
+    remat recomputation); seconds a step, tokens/s, peak memory; a
+    ``torch.profiler`` split of one more step into forward, backward and
+    optimizer, with B4's and B5's backward (torch ops) timed alone; the
+    kernel path against the plain path on the same weights and batch (in
+    bf16 at full depth the loss within 1e-2 and the gradient norm within
+    ``SERVE_REL_TOL``; in f32 at 6 layers the loss within 1e-4 and every
+    gradient leaf within 1e-4 of its largest value); one step of each
+    architecture's reduced config (arctic-480b with Adafactor and bf16
+    accumulators); and the 10 ``model/<slug>/train`` cells recorded and
+    predicted as in 9d, one SDCM launch each.  More validation-xxl
+    workloads follow while time allows.
 
+B4's and B5's kernel records carry ``launches_by_path`` with the
+training path (``zamba2-1.2b/train``), B1's with ``model_traces/train``.
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
 a CUDA graph (the device time).  Every predict in 7-9b and 9d must make
@@ -2005,8 +2024,8 @@ def phase_model_traces(smi: str) -> dict:
     port's predict on the same trace; then all 20 cells in one
     ``predict_many`` (one launch), with B1 held against its plain version
     and timed at those rows.  Then the service warm on the reference's
-    selftest payload (200, equal to ``Session.predict``) and a ``train``
-    cell (501, A-11b); every cell resolved again from the warm store with
+    selftest payload and on a ``train`` cell (200, equal to
+    ``Session.predict``); every cell resolved again from the warm store with
     no recording; and the validation harness on one decode cell (exact
     LRU on the card, B2's binned check), with B2 held against its plain
     version on every distance stream that check feeds it.  Returns B1's
@@ -2138,44 +2157,45 @@ def phase_model_traces(smi: str) -> dict:
 
 def model_service(smi: str) -> None:
     """The reference's selftest payload through the port's server on the
-    card, warm on the model store: 200 and ``Session.predict``'s answer;
-    a ``train`` cell: 501 naming A-11b."""
+    card, warm on the model store, and the same request on a ``train``
+    cell: 200 and ``Session.predict``'s answer for each."""
     from repro_torch.api import AnalyticalSDCM, Session
     from repro_torch.service import PredictionService, ServiceConfig
-    from repro_torch.service.client import ServiceClient, ServiceError
+    from repro_torch.service.client import ServiceClient
     from repro_torch.service.server import PredictionServer, build_request
 
-    payload = {"workload": "model/llama3_8b/decode", "sizes": "smoke",
-               "targets": ["tpu-v5e"], "core_counts": [1]}
+    payloads = [{"workload": f"model/llama3_8b/{step}", "sizes": "smoke",
+                 "targets": ["tpu-v5e"], "core_counts": [1]}
+                for step in ("decode", "train")]
     svc = PredictionService(config=ServiceConfig(
         device="cuda", artifact_dir=str(MODEL_STORE)))
     with svc:
         server = PredictionServer(svc, "127.0.0.1", 0)
-        w = server.resolver.get(payload["workload"], payload["sizes"])
-        want = Session(cache_model=AnalyticalSDCM(backend="batched"),
-                       device="cuda").predict(w, build_request(payload, w))
-        want = json.loads(want.to_json())["predictions"]
+        wants = []
+        for payload in payloads:
+            w = server.resolver.get(payload["workload"], payload["sizes"])
+            want = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                           device="cuda").predict(w,
+                                                  build_request(payload, w))
+            wants.append(json.loads(want.to_json())["predictions"])
         server.serve_background()
         try:
             client = ServiceClient(server.url, timeout=300)
             client.wait_ready()
-            got, secs = timed(lambda: client.predict(**payload))
-            if got["predictions"] != want:
-                fail(f"service on {payload['workload']}: {got} vs {want}")
-            try:
-                client.predict(**{**payload,
-                                  "workload": "model/llama3_8b/train"})
-                fail("service answered a train cell")
-            except ServiceError as exc:
-                if exc.status != 501 or "A-11b" not in str(exc):
-                    fail(f"service on a train cell: {exc.status} {exc}")
+            secs = []
+            for payload, want in zip(payloads, wants):
+                got, t = timed(lambda: client.predict(**payload))
+                if got["predictions"] != want:
+                    fail(f"service on {payload['workload']}: {got} vs "
+                         f"{want}")
+                secs.append(t)
             stats = client.stats()
         finally:
             server.shutdown()
             server.server_close()
-    line("model_service", card=smi, workload=payload["workload"],
-         status=200, seconds=secs, train_status=501,
-         session=stats["session"])
+    line("model_service", card=smi, workload=payloads[0]["workload"],
+         status=200, seconds=secs[0], train_workload=payloads[1]["workload"],
+         train_status=200, train_seconds=secs[1], session=stats["session"])
 
 
 def model_validate(smi: str) -> int:
@@ -2722,13 +2742,31 @@ def serve_path(arch: str, gen: int, want_launches: dict, *,
     return spec, model, res, rec
 
 
-def device_breakdown(fn) -> dict:
+def _top(kernels, n: int = 8) -> list:
+    """The ``n`` kernel names that take the most device time among the
+    profiler's raw ``kernels``, with their ms and counts."""
+    by_name: dict = {}
+    for e in kernels:
+        ms, k = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [dict(kernel=k[:80], ms=ms, count=c) for k, (ms, c) in top]
+
+
+def device_breakdown(fn, ranges: tuple = ()) -> dict:
     """Wall time of ``fn`` (ending in a synchronise), the device's busy
-    time in it (the sum of every kernel's and copy's device time in a
-    ``torch.profiler`` trace; one stream, so no overlap) and the idle
-    share, with the kernels that take the most device time.  The
-    profiler adds host time to every launch, so the idle share is an
-    upper bound."""
+    time in it (the sum of every kernel's and copy's device time among a
+    ``torch.profiler`` trace's raw events; one stream, so no overlap) and
+    the idle share, with the kernels that take the most device time.
+    The raw events are read because ``key_averages()`` over a training
+    step's ~250,000 events takes minutes.  The profiler adds host time to
+    every launch, so the idle share is an upper bound.  With ``ranges``
+    (a training step's ``record_function`` names: forward, backward,
+    optimizer) the busy time is also split by range: a kernel belongs to
+    the first or last range whose device-side span holds its start; the
+    rest (launched by the autograd engine's own thread, outside any
+    range) to the middle one; each of the two outer ranges lists its top
+    kernels too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2739,16 +2777,28 @@ def device_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(ms for _, ms, _ in rows)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in events if e.name() in ranges}
+    kernels = [e for e in events if e.name() not in ranges]
+    busy_ms = sum(e.duration_ns() for e in kernels) / 1e6
     if busy_ms <= 0:
         fail("the profiler saw no device time")
-    top = sorted(rows, key=lambda r: -r[1])[:8]
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms,
-                top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms, top=_top(kernels))
+    if ranges:
+        split, tops = {}, {}
+        for name in (ranges[0], ranges[-1]):
+            if name not in spans:
+                fail(f"no device-side span of the range {name}")
+            lo, hi = spans[name]
+            inside = [e for e in kernels if lo <= e.start_ns() < hi]
+            split[name] = sum(e.duration_ns() for e in inside) / 1e6
+            tops[name] = _top(inside)
+        split[ranges[1]] = busy_ms - split[ranges[0]] - split[ranges[-1]]
+        out.update(ranges_ms=split, ranges_top=tops)
+    return out
 
 
 def profile_serve(spec, model, res, steps: int = 4) -> dict:
@@ -2962,6 +3012,315 @@ def phase_phi3v_serve() -> dict:
     return rec["launches"]
 
 
+# --- training (ROADMAP A-11b): zamba2-1.2b at full width and depth ---------
+
+TRAIN_ARCH = "zamba2-1.2b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048   # 8,192 tokens a step
+TRAIN_STEPS = 4                    # timed, after one warm-up step
+TRAIN_F32_LAYERS = 6               # one group: one shared-attention site
+TRAIN_LOSS_TOL = 1e-2              # bf16 loss, kernel vs plain path
+TRAIN_GRAD_TOL_F32 = 1e-4          # each gradient leaf / its largest |g|
+TRAIN_CELLS = 10                   # model/<arch>/train
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """What ``steps`` training steps of a hybrid launch: B4 once per
+    shared-attention site (not remat'ed, as in the reference), B5 once
+    per Mamba2 layer in the forward and once more in its remat
+    recomputation; every B4 call on the tensor-core form (bf16, D 64,
+    2,048 rows)."""
+    sites = cfg.num_groups
+    return {"flash_attention": steps * sites, "tensor_core": steps * sites,
+            "split_kv": 0, "simt": 0, "ssd_scan": steps * 2 * cfg.layers}
+
+
+def loss_and_grads(spec, cfg, model, batch):
+    """The family's loss of ``batch`` and its gradient for every
+    parameter (``torch.autograd.grad``), as one train step takes them."""
+    loss = spec.family.loss_fn(model, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def train_vs_plain(spec, smi: str) -> dict:
+    """The same weights and batch through the kernels and through the
+    plain versions on the card: at full depth in bf16 the loss (1e-2
+    relative) and the gradient norm (``SERVE_REL_TOL``); at 6 layers in
+    f32 the loss (``SERVE_REL_TOL_F32``) and every gradient leaf (1e-4 of
+    its largest |g|).  A kernel output without autograd history would
+    leave the gradients upstream of attention and the scan wrong."""
+    import dataclasses
+
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import serve
+    from repro_torch.train import global_norm
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import leaf_tensors
+
+    out = {}
+    for tag, dt, layers in (("bf16_full_depth", torch.bfloat16, None),
+                            ("f32_6_layers", torch.float32,
+                             TRAIN_F32_LAYERS)):
+        cfg = serve.with_config(spec.config, dtype=dt, layers=layers)
+        sp = dataclasses.replace(spec, config=cfg)
+        batch = {k: v.cuda() for k, v in synthetic_batch(
+            sp.input_shapes(Shape("train", TRAIN_SEQ, TRAIN_BATCH, "train")),
+            sp.vocab, seed=1, step=0).items()}
+        model = sp.family.init(cfg, device="cuda", seed=2)
+        model.requires_grad_(True)
+        (loss_k, grads_k), kernel_s = timed(
+            lambda: loss_and_grads(sp, cfg, model, batch))
+        with plain_kernels():
+            (loss_p, grads_p), plain_s = timed(
+                lambda: loss_and_grads(sp, cfg, model, batch))
+        rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        norm_k, norm_p = float(global_norm(grads_k)), float(
+            global_norm(grads_p))
+        rec = dict(layers=serve.depth(cfg)["layers"], dtype=str(dt),
+                   loss_kernel=float(loss_k), loss_plain=float(loss_p),
+                   loss_rel=rel_loss, grad_norm_kernel=norm_k,
+                   grad_norm_plain=norm_p,
+                   grad_norm_rel=abs(norm_k - norm_p) / norm_p,
+                   kernel_path_s=kernel_s, plain_path_s=plain_s)
+        if dt == torch.float32:
+            leaves_k = leaf_tensors(model, grads_k)
+            leaves_p = leaf_tensors(model, grads_p)
+            worst, worst_leaf = 0.0, None
+            for leaf, gp in leaves_p.items():
+                scale = float(gp.abs().max())
+                err = float((leaves_k[leaf] - gp).abs().max()) / scale
+                if err > worst:
+                    worst, worst_leaf = err, leaf
+            rec.update(worst_leaf_rel=worst, worst_leaf=worst_leaf,
+                       leaves=len(leaves_p), leaf_tol=TRAIN_GRAD_TOL_F32,
+                       loss_tol=SERVE_REL_TOL_F32)
+            if not (rel_loss <= SERVE_REL_TOL_F32
+                    and worst <= TRAIN_GRAD_TOL_F32):
+                fail(f"training f32 kernel vs plain: {rec}")
+        else:
+            rec.update(loss_tol=TRAIN_LOSS_TOL, grad_norm_tol=SERVE_REL_TOL)
+            if not (rel_loss <= TRAIN_LOSS_TOL
+                    and rec["grad_norm_rel"] <= SERVE_REL_TOL):
+                fail(f"training bf16 kernel vs plain: {rec}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads_k):
+            fail(f"training {tag}: a non-finite gradient")
+        out[tag] = rec
+        del model, grads_k, grads_p
+        torch.cuda.empty_cache()
+    line("train_vs_plain", card=smi, **out)
+    return out
+
+
+def backward_ms(spec) -> dict:
+    """Device ms of B4 and B5 forward (the kernels) and forward plus
+    backward (the kernel, then torch ops) at the training step's shapes
+    in bf16, CUDA events: the backward's share is the difference."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    cfg = spec.config
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rand = cuda_rand(40)
+
+    def grad_of(t):
+        return t.to(torch.bfloat16).requires_grad_()
+
+    q = grad_of(rand(b, cfg.heads, s, cfg.head_dim))
+    k = grad_of(rand(b, cfg.kv_heads, s, cfg.head_dim))
+    v = grad_of(rand(b, cfg.kv_heads, s, cfg.head_dim))
+    h, p, n = cfg.d_model * cfg.expand // cfg.head_dim, cfg.head_dim, \
+        cfg.ssm_state
+    x = rand(b, s, h, p).requires_grad_()
+    la = (-torch.nn.functional.softplus(rand(b, s, h))).requires_grad_()
+    bb = grad_of(rand(b, s, n) * 0.3)
+    cc = grad_of(rand(b, s, n) * 0.3)
+    go = torch.randn_like(q)
+    gy = torch.randn_like(x)
+
+    def fa_fwd():
+        with torch.no_grad():
+            flash_attention(q, k, v, causal=True)
+
+    def fa_both():
+        torch.autograd.grad(flash_attention(q, k, v, causal=True),
+                            (q, k, v), go)
+
+    def sc_fwd():
+        with torch.no_grad():
+            ssd_scan(x, la, bb, cc)
+
+    def sc_both():
+        torch.autograd.grad(ssd_scan(x, la, bb, cc)[0], (x, la, bb, cc), gy)
+
+    out = {}
+    for name, fwd, both in (("flash_attention", fa_fwd, fa_both),
+                            ("ssd_scan", sc_fwd, sc_both)):
+        f_ms = cuda_ms(fwd, reps=5, warmup=1)
+        b_ms = cuda_ms(both, reps=3, warmup=1)
+        out[name] = dict(forward_ms=f_ms, forward_and_backward_ms=b_ms,
+                         backward_ms=b_ms - f_ms)
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """(a) ``repro_torch.launch.train.train`` on zamba2-1.2b at full
+    width and depth in bf16: AdamW from ``make_optimizer``, batch 4 x
+    2,048 tokens of ``SyntheticStream`` data, one warm-up step and
+    ``TRAIN_STEPS`` timed; the loss, gradient norm and every parameter
+    finite after each update; B4 and B5 launches exactly as the remat
+    placement implies (``train_launches``, counts set to 0 just before
+    and read just after); seconds a step, tokens/s and peak memory.  Then
+    a ``torch.profiler`` breakdown of one more step, split by the step's
+    ranges (``train_step.RANGES``) into the forward (kernels B4 and B5),
+    the backward (the gradient in torch ops and each Mamba2 layer's
+    recomputation) and the optimizer; B4's and B5's backward timed
+    alone.  (b) ``train_vs_plain``.  (d) One step of every
+    architecture's reduced config on the card, finite.  Returns the
+    main run's launches."""
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.train import build_train_step
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.train_step import RANGES
+
+    spec = train_cli.train_spec(TRAIN_ARCH)
+    cfg = spec.config
+    model = spec.family.init(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.parameters())
+    steps = 1 + TRAIN_STEPS
+    params = list(model.parameters())
+
+    def gate(step, state, metrics):
+        finite = torch.stack([torch.isfinite(t).all() for t in params])
+        if not (bool(finite.all()) and bool(torch.isfinite(
+                metrics["loss"])) and bool(torch.isfinite(
+                    metrics["grad_norm"]))):
+            fail(f"training step {step}: a non-finite loss, gradient norm "
+                 "or parameter")
+
+    logs = []
+    reset_counts()
+    res, train_s = timed(lambda: train_cli.train(
+        TRAIN_ARCH, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+        device="cuda", model=model, log_every=1, callback=gate,
+        log=logs.append))
+    counts = read_counts()
+    want = train_launches(cfg, steps)
+    launches = counts["launches"]
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"training launched {name} {launches[name]} times in "
+                 f"{steps} steps, expected {n}: {launches}")
+    timed_s = res["step_s"][1:]
+    step_s = float(np.mean(timed_s))
+    rec = dict(arch=TRAIN_ARCH, params=n_params, layers=cfg.layers,
+               attention_sites=cfg.num_groups, dtype=res["dtype"],
+               optimizer=res["optimizer"], batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               tokens_per_step=res["tokens_per_step"],
+               warmup_step_s=res["step_s"][0], step_s=timed_s,
+               mean_step_s=step_s,
+               tokens_per_s=res["tokens_per_step"] / step_s,
+               max_memory_allocated=counts["max_memory_allocated"],
+               losses=[h["loss"] for h in res["history"]],
+               grad_norms=[h["grad_norm"] for h in res["history"]],
+               launches={k: launches[k] for k in want},
+               launches_per_step={k: n // steps for k, n in want.items()},
+               seconds=train_s)
+    line("train", card=smi, **rec)
+
+    # the profile of one more step, split by the step's ranges
+    state = res["state"]
+    step_fn = build_train_step(
+        lambda m, b: spec.family.loss_fn(m, b, cfg),
+        make_optimizer(spec, total_steps=steps), accum_dtype=spec.accum_dtype)
+    batch = {k: (v if v.is_floating_point() else v.long()).cuda()
+             for k, v in SyntheticStream(
+                 spec.input_shapes(Shape("cli", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train")),
+                 spec.vocab, seed=0).batch(steps).items()}
+    prof, prof_s = timed(lambda: device_breakdown(
+        lambda: step_fn(state, batch), RANGES))
+    part = {f"{name.split('.')[-1]}_ms": prof["ranges_ms"][name]
+            for name in RANGES}
+    line("train_profile", card=smi, arch=TRAIN_ARCH, **part,
+         step_device_ms=prof["device_busy_ms"],
+         step_wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
+         top=prof["top"], forward_top=prof["ranges_top"][RANGES[0]],
+         optimizer_top=prof["ranges_top"][RANGES[-1]], profile_s=prof_s,
+         kernels_fwd_bwd=backward_ms(spec))
+    del state, res, step_fn, params
+    model.requires_grad_(False)
+    del model
+    torch.cuda.empty_cache()
+
+    train_vs_plain(spec, smi)
+
+    # (d) every architecture's reduced config, one step on the card
+    from repro_torch.configs import list_archs
+
+    for arch in list_archs():
+        r, secs = timed(lambda: train_cli.train(
+            arch, reduced=True, steps=1, batch=4, seq=64, seed=0,
+            device="cuda", log=lambda *a: None))
+        h = r["history"][0]
+        if not all(np.isfinite(v) for v in h.values()):
+            fail(f"{arch} reduced training step: {h}")
+        line("train_reduced", card=smi, arch=arch, optimizer=r["optimizer"],
+             accum_dtype=str(train_cli.train_spec(
+                 arch, reduced=True).accum_dtype),
+             seconds=secs, **h)
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
+
+
+def phase_train_cells(smi: str) -> int:
+    """(e) Every ``model/<slug>/train`` cell (10) on the model store:
+    recorded on the host (the loss and its gradient, remat recomputation
+    included), predicted on the card over the Table-5 CPUs x cores {1, 2,
+    4, 8} x round_robin and tpu-v5e at core 1 (one ``predict_many`` a
+    cell: one SDCM launch), within 1e-6 of the float64 oracle and of the
+    CPU port's predict.  Returns B1's launches."""
+    from repro_torch.api import AnalyticalSDCM, Session
+    from repro_torch.validate.store import ArtifactStore
+    from repro_torch.workloads import registry
+
+    store = ArtifactStore(MODEL_STORE)
+    names = [n for n in registry.workload_names("model")
+             if n.endswith("/train")]
+    if len(names) != TRAIN_CELLS:
+        fail(f"{len(names)} model train cells, want {TRAIN_CELLS}")
+    card = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cuda", store=store)
+    host = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cpu")
+    reset_counts()
+    for name in names:
+        src = registry.resolve(name, "smoke", store=store)
+        trace, trace_s = timed(src.trace)
+        pairs = [(src, r) for r in model_requests(src)]
+        before = read_counts()["launches"]["sdcm_rates_ragged"]
+        res, cold_s = timed(lambda: card.predict_many(pairs))
+        if read_counts()["launches"]["sdcm_rates_ragged"] - before != 1:
+            fail(f"{name}: a predict made other than one SDCM launch")
+        oracle = max(check_against_oracle(card, src, r, out, name)
+                     for (_, r), out in zip(pairs, res))
+        cpu = same_rates(res, host.predict_many(pairs), name)
+        info = src.info
+        line("model_train_traces", workload=name, card=smi,
+             refs=len(trace), blocks=info["num_blocks"],
+             touched_bytes=info["touched_bytes"],
+             record_s=src.timings["record_s"],
+             trace_s=src.timings["trace_s"], resolve_and_trace_s=trace_s,
+             cold_predict_s=cold_s, max_abs_err_vs_oracle=oracle,
+             max_abs_diff_vs_cpu_port=cpu,
+             op_counts=dict(vars(src.op_counts)),
+             tpu_vmem_hit_rate=res[1].predictions[0].hit_rates["VMEM"])
+    launches = read_counts()["launches"]
+    if launches["sdcm_rates_ragged"] != len(names) or launches["sdcm_rates"]:
+        fail(f"train cells: {launches}")
+    return launches["sdcm_rates_ragged"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3016,7 +3375,17 @@ def main() -> int:
     by_path["mixtral-8x7b"] = phase_mixtral_serve()
     by_path["seamless-m4t-medium"] = phase_seamless_serve()
     by_path["phi-3-vision-4.2b"] = phase_phi3v_serve()
-    # B4 over every serve path; the window form is mixtral's launches
+    torch.backends.cudnn.allow_tf32 = False  # f32 gradients stay f32
+    by_path["zamba2-1.2b/train"] = phase_train(smi)
+    sdcm_kernel["launches_by_path"]["model_traces/train"] = \
+        phase_train_cells(smi)
+    sdcm_kernel["launches"] = sum(sdcm_kernel["launches_by_path"].values())
+    ssd_kernel["launches_by_path"] = {
+        "zamba2-1.2b": serve_launches["ssd_scan"],
+        "zamba2-1.2b/train": by_path["zamba2-1.2b/train"]["ssd_scan"]}
+    ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
+    # B4 over every serve path and the training path; the window form is
+    # mixtral's launches
     flash_kernel["launches"] = sum(n["flash_attention"]
                                    for n in by_path.values())
     flash_kernel["launches_by_path"] = {

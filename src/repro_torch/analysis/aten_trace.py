@@ -5,7 +5,8 @@ The reference lowers a model step to optimized HLO
 (``jax.jit(...).lower().compile().as_text()``) and reads the text with
 ``analysis/hlo_trace.py`` and ``analysis/hlo_cost.py``.  The port does
 not import JAX, so it records its own graph of the same step: every
-ATen op that one call of a family's ``prefill`` or ``decode_step``
+ATen op that one call of a family's ``prefill`` or ``decode_step``, or
+of its ``loss_fn`` and the gradient of that loss (a ``train`` step),
 dispatches, seen by a ``TorchDispatchMode``.  The step runs eagerly on
 the **CPU**, through the plain versions of the kernels, with weights
 from a seed.  This is host analysis, as XLA's abstract lowering is: it
@@ -374,28 +375,43 @@ def _at_length(caches, length: int):
 def step_call(arch_id: str, step: str):
     """``(fn, inputs)`` for one model step of ``arch_id``'s reduced
     config at the smoke shape (``configs/reduced.py``), on the CPU with
-    weights and inputs from :data:`SEED`: ``fn()`` runs ``prefill`` over seeded inputs
-    into empty caches, or ``decode_step`` of one seeded token at the
-    cache's last position (``max_len - 1``, caches as a prefill of that
-    many tokens leaves them; the plain attention reads the whole cache
-    whatever the position, as the reference's masked decode does);
+    weights and inputs from :data:`SEED`: ``fn()`` runs ``prefill`` over
+    seeded inputs into empty caches, or ``decode_step`` of one seeded
+    token at the cache's last position (``max_len - 1``, caches as a
+    prefill of that many tokens leaves them; the plain attention reads
+    the whole cache whatever the position, as the reference's masked
+    decode does), or (``train``, at ``SMOKE_SHAPE``) the family's
+    ``loss_fn`` and ``torch.autograd.grad`` of it with respect to every
+    parameter: the reference's ``jax.value_and_grad``.  The backward
+    runs on the calling thread (CPU tensors), so the recorder sees its
+    ops, the remat recomputation of each checkpointed layer among them.
     ``inputs`` names every input tensor: ``params.*`` (parameters and
     module buffers), ``batch.*`` and ``caches.*``."""
     from repro_torch.configs.reduced import (
-        SMOKE_DECODE, SMOKE_PREFILL, reduced_arch,
+        SMOKE_DECODE, SMOKE_PREFILL, SMOKE_SHAPE, reduced_arch,
     )
 
-    shape = {"prefill": SMOKE_PREFILL, "decode": SMOKE_DECODE}.get(step)
+    shape = {"prefill": SMOKE_PREFILL, "decode": SMOKE_DECODE,
+             "train": SMOKE_SHAPE}.get(step)
     if shape is None:
         raise ValueError(f"no recorded form of step {step!r}")
     spec = reduced_arch(arch_id)
     fam, cfg = spec.family, spec.config
     model = fam.init(cfg, device="cpu", seed=SEED)
     batch = spec.example_inputs(shape, seed=SEED)
-    ckw = spec.cache_kwargs(shape)
-    caches = fam.init_caches(cfg, **ckw, device="cpu")
     inputs = {f"params.{n}": t for n, t in model.named_parameters()}
     inputs.update({f"params.{n}": t for n, t in model.named_buffers()})
+    inputs.update(_named_tensors("batch", batch))
+    if step == "train":
+        model.requires_grad_(True)
+        params = list(model.parameters())
+
+        def fn():
+            loss = fam.loss_fn(model, batch, cfg)
+            return loss, torch.autograd.grad(loss, params)
+        return fn, inputs
+    ckw = spec.cache_kwargs(shape)
+    caches = fam.init_caches(cfg, **ckw, device="cpu")
     if step == "prefill":
         def fn():
             return fam.prefill(model, batch, cfg, caches)
@@ -405,7 +421,6 @@ def step_call(arch_id: str, step: str):
 
         def fn():
             return fam.decode_step(model, batch, cfg, caches, length)
-    inputs.update(_named_tensors("batch", batch))
     inputs.update(_named_tensors("caches", caches))
     return fn, inputs
 

@@ -3,9 +3,11 @@ hf:Snowflake/snowflake-arctic-base.
 
 35L, d_model=7168, 56 heads (GQA kv=8), per-expert d_ff=4864,
 vocab=32000.  The published widths of ``repro/configs/arctic_480b.py``,
-unchanged (its sharding rules and optimizer settings are the
-reference's alone).
+unchanged, with its training knobs: Adafactor and bf16 gradient
+accumulators (its sharding rules are the reference's alone).
 """
+import torch
+
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -26,4 +28,7 @@ SPEC = ArchSpec(
         moe=MoEConfig(num_experts=128, top_k=2, tokens_per_group=1024),
         dense_ff=True,          # arctic's dense residual MLP branch
     ),
+    grad_accum={"train_4k": 1},
+    accum_dtype=torch.bfloat16,
+    optimizer_name="adafactor",
 )

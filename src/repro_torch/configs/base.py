@@ -1,9 +1,10 @@
 """ArchSpec: binds a model family and its exact config to the shapes it
-serves.  Mirrors ``repro/configs/base.py`` without the sharding rules
-(the port runs on one device); in place of the reference's abstract
-input specs (``ShapeDtypeStruct``) :meth:`ArchSpec.example_inputs`
-returns concrete tensors of the same shapes and dtypes, drawn from a
-seed.
+serves and the training knobs (grad accumulation, its dtype, the
+optimizer and its peak learning rate).  Mirrors ``repro/configs/base.py``
+without the sharding rules (the port runs on one device); in place of
+the reference's abstract input specs (``ShapeDtypeStruct``)
+:meth:`ArchSpec.example_inputs` returns concrete tensors of the same
+shapes and dtypes, drawn from a seed.
 """
 from __future__ import annotations
 
@@ -36,6 +37,10 @@ class ArchSpec:
     arch_id: str
     family_name: str
     config: Any
+    grad_accum: dict[str, int] = dataclasses.field(default_factory=dict)
+    accum_dtype: torch.dtype = torch.float32
+    optimizer_name: str = "adamw"
+    peak_lr: float = 3e-4
     notes: str = ""
 
     @property
@@ -97,3 +102,6 @@ class ArchSpec:
         if self.family_name == "encdec":
             return {"batch": b, "max_len": s // 2, "src_len": s // 2}
         return {"batch": b, "max_len": s}
+
+    def grad_accum_for(self, shape: Shape) -> int:
+        return self.grad_accum.get(shape.name, 1)

@@ -20,4 +20,5 @@ SPEC = ArchSpec(
         head_dim=128,
         rope_theta=1_000_000.0,
     ),
+    grad_accum={"train_4k": 4},
 )

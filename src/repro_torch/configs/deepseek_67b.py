@@ -21,4 +21,5 @@ SPEC = ArchSpec(
         rope_theta=10000.0,
         sp_residuals=True,
     ),
+    grad_accum={"train_4k": 1},
 )

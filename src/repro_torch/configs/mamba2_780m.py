@@ -17,5 +17,6 @@ SPEC = ArchSpec(
         ssm_state=128,
         head_dim=64,
     ),
+    grad_accum={"train_4k": 1},
     notes="the SSD chunked scan (kernel B5) is the hot spot of its prefill",
 )

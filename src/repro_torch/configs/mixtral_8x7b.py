@@ -26,4 +26,5 @@ SPEC = ArchSpec(
         moe=MoEConfig(num_experts=8, top_k=2, tokens_per_group=4096),
         dense_ff=False,
     ),
+    grad_accum={"train_4k": 4},
 )

@@ -27,4 +27,5 @@ SPEC = ArchSpec(
         clip_dim=1024,
         num_patches=1024,
     ),
+    grad_accum={"train_4k": 4},
 )

@@ -60,7 +60,7 @@ def reduced(spec: ArchSpec) -> ArchSpec:
         )
     else:
         raise TypeError(type(cfg))
-    return dataclasses.replace(spec, config=small)
+    return dataclasses.replace(spec, config=small, grad_accum={"smoke": 2})
 
 
 def reduced_arch(arch_id: str) -> ArchSpec:

@@ -23,4 +23,5 @@ SPEC = ArchSpec(
         vocab=256206,
         head_dim=64,
     ),
+    grad_accum={"train_4k": 1},
 )

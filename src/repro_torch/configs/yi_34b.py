@@ -23,4 +23,5 @@ SPEC = ArchSpec(
         attn_sp=True,
         sp_residuals=True,
     ),
+    grad_accum={"train_4k": 1},
 )

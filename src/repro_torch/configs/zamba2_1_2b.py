@@ -23,4 +23,5 @@ SPEC = ArchSpec(
         head_dim=64,
         attn_every=6,
     ),
+    grad_accum={"train_4k": 8},
 )

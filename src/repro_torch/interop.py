@@ -97,6 +97,15 @@ def target_from_fields(name: str, levels: list[dict], **fields):
     return CPUTarget(name=name, levels=lvls, **f)
 
 
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 upcast to f32, which is exact)
+    as a CPU tensor."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr))
+
+
 def copy_params(module: torch.nn.Module, values: dict, lead=()) -> None:
     """Copy the nested dict ``values`` into ``module``'s parameters of
     the same names, taking index ``lead`` of each array's leading
@@ -106,58 +115,84 @@ def copy_params(module: torch.nn.Module, values: dict, lead=()) -> None:
         if isinstance(val, dict):
             copy_params(sub, val, lead)
             continue
-        arr = np.asarray(val)[lead]
-        if arr.dtype.name == "bfloat16":   # ml_dtypes: upcast is exact
-            arr = arr.astype(np.float32)
+        arr = _tensor(np.asarray(val)[lead])
         if tuple(arr.shape) != tuple(sub.shape):
-            raise ValueError(f"{name}: reference shape {arr.shape} vs port "
-                             f"{tuple(sub.shape)}")
+            raise ValueError(f"{name}: reference shape {tuple(arr.shape)} "
+                             f"vs port {tuple(sub.shape)}")
         with torch.no_grad():
-            sub.copy_(torch.from_numpy(np.array(arr)))
+            sub.copy_(arr)
+
+
+def _at(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _leaf_paths(tree: dict, prefix=()) -> set:
+    out = set()
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out |= _leaf_paths(val, prefix + (key,))
+        else:
+            out.add(prefix + (key,))
+    return out
 
 
 def model_from_reference(family_name: str, cfg, values: dict, *,
                          device) -> torch.nn.Module:
     """The port's model of any family holding the reference's parameter
     values: ``unzip_params(fam.init(key, cfg))[0]`` mapped to numpy (a
-    nested dict of arrays).  Stacked blocks are unstacked: the
-    transformer's and the ssm's ``blocks`` ``[L, ...]`` (attention,
-    ``mlp`` and ``moe.{router,wi,wg,wo}`` included), the hybrid's
-    ``groups`` ``[G, P, ...]`` and ``trailing`` ``[T, ...]``, the encdec's
-    ``encoder`` and ``decoder`` (``ln_cross`` and ``cross`` included);
-    ``shared``, the ``embed`` table, ``final_norm``, the encdec's
-    ``enc_norm`` and ``dec_norm``, and the untied ``unembed`` copy as they
-    are.  A vlm's ``backbone`` is a transformer's, beside its
-    ``patch_proj``."""
+    nested dict of arrays).  A port parameter's name is its reference
+    path with the layer indices of its stack (``blocks.3.attn.wq`` is
+    ``values["blocks"]["attn"]["wq"][3]``, ``groups.1.4.wx`` is
+    ``values["groups"]["wx"][1, 4]``;
+    :func:`repro_torch.train.optimizer.leaf_path`).  Every reference leaf
+    must be used: a tied embedding is one parameter, which the logits
+    head reads, as in the reference."""
     from repro_torch.models.api import get_family
+    from repro_torch.train.optimizer import leaf_path
 
     model = get_family(family_name).init(cfg, device=device)
-    _copy_model(model, family_name, values)
+    used = set()
+    for name, param in model.named_parameters():
+        path, index = leaf_path(name)
+        used.add(path)
+        arr = _tensor(np.asarray(_at(values, path))[index])
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {tuple(arr.shape)} "
+                             f"vs port {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(arr)
+    if used != _leaf_paths(values):
+        raise ValueError(f"reference leaves {_leaf_paths(values) - used} "
+                         f"have no port parameter")
     return model
 
 
-def _copy_model(model: torch.nn.Module, family_name: str,
-                values: dict) -> None:
-    if family_name == "vlm":
-        _copy_model(model.backbone, "transformer", values["backbone"])
-        copy_params(model.patch_proj, values["patch_proj"])
-        return
-    if family_name == "hybrid":
-        for g, group in enumerate(model.groups):
-            for i, blk in enumerate(group):
-                copy_params(blk, values["groups"], (g, i))
-        stacks, whole = ("trailing",), ("shared", "embed", "final_norm")
-    elif family_name == "ssm":
-        stacks, whole = ("blocks",), ("embed", "final_norm")
-    elif family_name == "transformer":
-        stacks, whole = ("blocks",), ("embed", "final_norm", "unembed")
-    elif family_name == "encdec":
-        stacks = ("encoder", "decoder")
-        whole = ("embed", "enc_norm", "dec_norm", "unembed")
-    else:
-        raise ValueError(f"unknown family {family_name!r}")
-    for stack in stacks:
-        for i, blk in enumerate(getattr(model, stack)):
-            copy_params(blk, values[stack], (i,))
-    for name in whole:
-        copy_params(getattr(model, name), values[name])
+def train_state_from_reference(family_name: str, cfg, state, *,
+                               device):
+    """The port's :class:`~repro_torch.train.train_step.TrainState` from
+    the reference's ``TrainState(step, params, opt_state)`` mapped to
+    numpy: the model of :func:`model_from_reference`, its parameters set
+    to require grad, the step, and the optimizer state by leaf (AdamW's
+    ``{"m": tree, "v": tree}``, Adafactor's tree of ``{"vr", "vc"}`` or
+    ``{"v"}``, each leaf's arrays as the reference stacks them)."""
+    from repro_torch.train.optimizer import param_leaves
+    from repro_torch.train.train_step import TrainState
+
+    model = model_from_reference(family_name, cfg, state.params,
+                                 device=device)
+    model.requires_grad_(True)
+    opt = state.opt_state
+    moments = set(opt) == {"m", "v"}     # AdamW's; Adafactor's mirrors params
+    out = {}
+    for leaf in param_leaves(model):
+        path = tuple(leaf.split("."))
+        own = ({k: _at(opt[k], path) for k in ("m", "v")} if moments
+               else _at(opt, path))
+        out[leaf] = {k: _tensor(v).to(device=device, dtype=torch.float32)
+                     for k, v in own.items()}
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(step, model, out)

@@ -6,6 +6,7 @@ from .flash_attention import (
     SPLIT_MAX_ROWS,
     TC_HEAD_DIMS,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_plain,
     kernel_form,
     split_kv_plain,
@@ -14,5 +15,5 @@ from .flash_attention import (
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_COLUMNS",
            "SPLIT_MAX_ROWS", "TC_HEAD_DIMS", "flash_attention",
-           "flash_attention_plain", "kernel_form", "split_kv_plain",
-           "split_range"]
+           "flash_attention_bwd", "flash_attention_plain", "kernel_form",
+           "split_kv_plain", "split_range"]

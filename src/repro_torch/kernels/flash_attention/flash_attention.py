@@ -26,7 +26,14 @@ which is the reference's position mask (``models/attention.py:_mask``).
 
 A wrapper given CPU tensors returns the plain version
 (:func:`flash_attention_plain`); given CUDA tensors it launches the
-kernel and counts the launch in :data:`LAUNCHES`, or raises.  The
+kernel and counts the launch in :data:`LAUNCHES`, or raises.  With grad
+enabled and an input that requires grad, the call goes through an
+``autograd.Function`` (:class:`_FlashAttention`): its forward is the
+same launch (or, on the CPU, the plain version), its backward
+:func:`flash_attention_bwd`, the closed-form gradient of the plain
+version's function in torch ops (the JAX package trains through jnp
+autodiff; its Pallas kernel has no VJP), so a kernel output always
+carries its autograd history.  The
 kernel reads q, k and v through their strides (the last dimension must
 be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 ``transpose(1, 2)`` views; the output has q's layout and dtype.
@@ -269,7 +276,16 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     ``j <= q_offset + i``, and with a ``window`` ``j > q_offset + i -
     window``.  ``scale`` defaults to ``D ** -0.5``; ``kv_len`` to
     ``Sk``; ``window`` None is no window.  f32 or bf16 in, f32
-    accumulation, output in q's dtype and memory layout."""
+    accumulation, output in q's dtype and memory layout.  Under grad,
+    with an input that requires it, through :class:`_FlashAttention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, scale, q_offset,
+                                     kv_len, window)
+    return _forward(q, k, v, causal, scale, q_offset, kv_len, window)
+
+
+def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
+    """The plain version on the CPU, the kernel's launch on the card."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     dev = q.device
     if dev.type == "cpu":
@@ -321,3 +337,71 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     count_launch(LAUNCHES, "flash_attention")
     count_launch(LAUNCHES_BY_FORM, form)
     return out
+
+
+# --- the gradient --------------------------------------------------------------
+
+
+def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
+                        q_offset: int = 0, kv_len=None, window=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain`'s function for
+    the output gradient ``grad`` ``[B, H, Sq, D]``, in closed form and
+    f32, q rows in the plain version's blocks: with ``P`` the row softmax
+    of ``S = scale q k^T`` (masked), ``dV = P^T dO``, ``dP = dO V^T``,
+    ``dS = P (dP - rowsum(P dP))``, ``dQ = scale dS K``, ``dK = scale dS^T
+    Q``; a kv head's gradients sum over the q heads that share it.
+    Returned in the inputs' dtypes."""
+    q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = d ** -0.5 if scale is None else float(scale)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    dq = torch.empty(b, h, sq, d, device=q.device)
+    dk = torch.zeros(b, h, sk, d, device=q.device)
+    dv = torch.zeros(b, h, sk, d, device=q.device)
+    cols = torch.arange(sk, device=q.device)
+    step = max(1, PLAIN_BLOCK_ELEMENTS // (b * h * sk))
+    for r0 in range(0, sq, step):
+        rows = torch.arange(r0, min(r0 + step, sq), device=q.device)
+        qs = q[:, :, r0:r0 + step].float() * scale
+        s = qs @ kf.transpose(-1, -2)
+        mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, window=window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        del s
+        g = grad[:, :, r0:r0 + step].float()
+        dv += p.transpose(-1, -2) @ g
+        dp = g @ vf.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        del p, dp
+        dq[:, :, r0:r0 + step] = (ds @ kf) * scale
+        dk += ds.transpose(-1, -2) @ qs
+        del ds
+    dk = dk.unflatten(1, (hkv, rep)).sum(dim=2)
+    dv = dv.unflatten(1, (hkv, rep)).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B4 with a gradient: the forward launches the kernel (the plain
+    version on the CPU) and saves q, k, v; the backward is
+    :func:`flash_attention_bwd`, torch ops, which recompute P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, scale=scale, q_offset=q_offset,
+                        kv_len=kv_len, window=window)
+        return _forward(q, k, v, causal, scale, q_offset, kv_len, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, grad, **ctx.args)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None, None, None, None)

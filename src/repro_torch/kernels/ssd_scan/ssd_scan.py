@@ -33,7 +33,13 @@ S]``, b, c ``[BH, S, N]``) is the case H = 1: ``x[:, :, None]``,
 
 A wrapper given CPU tensors returns the plain version
 (:func:`ssd_scan_plain`); given CUDA tensors it launches the kernel and
-counts the launch in :data:`LAUNCHES`, or raises.  A launch is two
+counts the launch in :data:`LAUNCHES`, or raises.  With grad enabled
+and an input that requires grad, the call goes through an
+``autograd.Function`` (:class:`_SSDScan`): its forward is the same
+launch (or, on the CPU, the plain version), its backward recomputes
+the plain version under autograd and differentiates it (the JAX
+package trains through jnp autodiff; its Pallas kernel has no VJP), so
+a kernel output always carries its autograd history.  A launch is two
 kernels: C B^T of every (batch, chunk), which does not depend on the
 head, into f32 scratch that the wrapper allocates; then the scan, which
 splits the state's P columns across blocks, 64 per block while N <= 64,
@@ -147,7 +153,17 @@ def ssd_scan(x, la, b, c, h0=None):
     """SSD scan of x ``[B, S, H, P]`` with log decays la ``[B, S, H]``
     and the shared b, c ``[B, S, N]`` streams (f32 or bf16), from state
     ``h0`` ``[B, H, N, P]`` (zeros when None).  Returns ``(y [B, S, H,
-    P] in x's dtype, contiguous; final state [B, H, N, P] f32)``."""
+    P] in x's dtype, contiguous; final state [B, H, N, P] f32)``.  Under
+    grad, with an input that requires it, through :class:`_SSDScan`."""
+    inputs = (x, la, b, c, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _SSDScan.apply(*inputs)
+    return _forward(*inputs)
+
+
+def _forward(x, la, b, c, h0):
+    """The plain version on the CPU, the kernel's launch on the card."""
     bsz, s, h, p, n = _check_args(x, la, b, c, h0)
     dev = x.device
     if dev.type == "cpu":
@@ -179,3 +195,32 @@ def ssd_scan(x, la, b, c, h0=None):
                            f"({msg})")
     count_launch(LAUNCHES, "ssd_scan")
     return y, final
+
+
+class _SSDScan(torch.autograd.Function):
+    """B5 with a gradient: the forward launches the kernel (the plain
+    version on the CPU) and saves its inputs; the backward runs
+    :func:`ssd_scan_plain` on them again under autograd and returns the
+    gradients of its outputs (torch ops, no launch)."""
+
+    @staticmethod
+    def forward(ctx, x, la, b, c, h0):
+        ctx.save_for_backward(x, la, b, c, h0)
+        ctx.set_materialize_grads(False)
+        return _forward(x, la, b, c, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            outs = ssd_scan_plain(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_final))
+                     if g is not None]
+            wanted = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [g for _, g in pairs],
+                allow_unused=True) if pairs else [None] * len(wanted))
+        return tuple(next(grads) if n else None for n in need)

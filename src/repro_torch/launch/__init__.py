@@ -1,1 +1,1 @@
-"""Entry points of the port's model zoo (``serve``)."""
+"""Entry points of the port's model zoo (``serve``, ``train``)."""

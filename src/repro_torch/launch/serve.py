@@ -17,7 +17,9 @@ prompt) or a VLM's patch embeddings ``[B, num_patches, clip_dim]``.
 Weights are random, from ``--seed``.  Greedy decoding is the parity
 mode; ``--temperature`` samples from a ``torch.Generator`` seeded with
 ``--seed``, which does not give JAX's draws.  Runs on the card unless
-``--device cpu`` is asked for (the kernels' plain versions).
+``--device cpu`` is asked for (the kernels' plain versions).  Serving
+builds no autograd graph: ``serve`` and the families' ``prefill`` and
+``decode_step`` run under ``torch.no_grad``.
 
 A VLM's decode steps run at ``length = num_patches + prompt_len + t``,
 the positions its cache holds; ``repro/launch/serve.py`` passes
@@ -120,6 +122,7 @@ def new_caches(spec, cfg, batch: int, text_len: int, sources: dict, *,
                            device=device)
 
 
+@torch.no_grad()
 def serve(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
           batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, temperature: float = 0.0, device=None,

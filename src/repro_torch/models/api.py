@@ -6,13 +6,17 @@ batch-dict interface, so serving code is family-agnostic.
     caches = fam.init_caches(cfg, batch_size, max_len, device=device)
     logits, caches = fam.prefill(model, batch, cfg, caches)
     logits, caches = fam.decode_step(model, batch, cfg, caches, length)
+    loss = fam.loss_fn(model, batch, cfg)
 
 Mirrors ``repro/models/api.py`` for all five families, with the
 reference's batch keys: ``tokens`` for prefill (plus ``frames`` for
-``encdec``, ``patches`` for ``vlm``) and ``token`` for decode; the
-encdec family's ``init_caches`` also takes ``src_len``, and a vlm's
-``max_len`` counts its patch prefix.
-``loss_fn`` (training) and ``cache_axes`` (sharding) are not ported.
+``encdec``, ``patches`` for ``vlm``), ``token`` for decode, and the
+prefill keys plus ``labels`` for ``loss_fn``; the encdec family's
+``init_caches`` also takes ``src_len``, and a vlm's ``max_len`` counts
+its patch prefix.  ``prefill`` and ``decode_step`` (serving) run
+without grad; ``loss_fn`` (training, ``repro_torch.train``) returns a
+scalar with its autograd graph when the parameters require grad.
+``cache_axes`` (sharding) is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ class Family(NamedTuple):
     init_caches: Callable
     prefill: Callable
     decode_step: Callable
+    loss_fn: Callable
 
 
 TRANSFORMER = Family(
@@ -40,6 +45,7 @@ TRANSFORMER = Family(
     decode_step=lambda p, batch, cfg, caches, length: tfm.decode_step(
         p, batch["token"], cfg, caches, length
     ),
+    loss_fn=tfm.loss_fn,
 )
 
 SSM = Family(
@@ -52,6 +58,7 @@ SSM = Family(
     decode_step=lambda p, batch, cfg, caches, length: ssm.decode_step(
         p, batch["token"], cfg, caches, length
     ),
+    loss_fn=ssm.loss_fn,
 )
 
 HYBRID = Family(
@@ -64,6 +71,7 @@ HYBRID = Family(
     decode_step=lambda p, batch, cfg, caches, length: hybrid.decode_step(
         p, batch["token"], cfg, caches, length
     ),
+    loss_fn=hybrid.loss_fn,
 )
 
 ENCDEC = Family(
@@ -76,6 +84,7 @@ ENCDEC = Family(
     decode_step=lambda p, batch, cfg, caches, length: encdec.decode_step(
         p, batch["token"], cfg, caches, length
     ),
+    loss_fn=encdec.loss_fn,
 )
 
 VLM = Family(
@@ -88,6 +97,7 @@ VLM = Family(
     decode_step=lambda p, batch, cfg, caches, length: multimodal.decode_step(
         p, batch["token"], cfg, caches, length
     ),
+    loss_fn=multimodal.loss_fn,
 )
 
 FAMILIES = {f.name: f for f in (TRANSFORMER, SSM, HYBRID, ENCDEC, VLM)}

@@ -10,7 +10,14 @@ and cross-attention not causal over the source.  ``prefill`` projects
 each decoder layer's cross K/V from the encoder memory once, into the
 cache; decode steps read them from there.  The decoder's self-attention
 caches are stacked ``[Ld, B, max_len, Hkv, hd]`` tensors updated in
-place; lengths are Python ints.  ``loss_fn`` (training) is not ported.
+place; lengths are Python ints.
+
+Training: :func:`loss_fn` encodes the frames and decodes the tokens
+without caches (each decoder layer projects its cross K/V from the
+memory), cross-entropy plus z-loss.  Under grad with ``cfg.remat`` each
+encoder and each decoder layer runs in ``torch.utils.checkpoint``, as
+the reference remats both scans' bodies.  ``prefill`` and
+``decode_step`` run without grad.
 """
 from __future__ import annotations
 
@@ -27,10 +34,10 @@ from repro_torch.models import layers as L
 @dataclasses.dataclass(frozen=True)
 class EncDecConfig:
     """The reference's fields.  ``attn_impl`` and ``block_q`` pick the
-    reference's jnp attention form, ``remat`` and ``scan_layers`` shape
-    its traced training step; the port runs one attention form (kernel
-    B4) eagerly, so they have no effect.  ``zloss`` belongs to the
-    training loss."""
+    reference's jnp attention form, ``scan_layers`` shapes its traced
+    step; the port runs one attention form (kernel B4) eagerly, so they
+    have no effect.  ``remat`` recomputes each layer in the backward;
+    ``zloss`` weighs the training loss's z-loss."""
 
     enc_layers: int
     dec_layers: int
@@ -123,7 +130,14 @@ def init(cfg: EncDecConfig, *, device, seed: int = 0) -> EncDecModel:
     return EncDecModel(cfg, device=device, generator=gen)
 
 
-@torch.no_grad()
+def _enc_block(cfg: EncDecConfig, blk: EncoderBlock, x, positions):
+    h = blk.ln_attn(x, cfg.norm_eps)
+    a, _ = attn.gqa_attention(blk.attn, h, positions=positions,
+                              rope_theta=cfg.rope_theta, causal=False)
+    x = x + a
+    return x + blk.mlp(blk.ln_mlp(x, cfg.norm_eps))
+
+
 def encode(params: EncDecModel, frames: torch.Tensor,
            cfg: EncDecConfig) -> torch.Tensor:
     """frames: [B, S_src, D] precomputed modality embeddings -> memory."""
@@ -131,11 +145,7 @@ def encode(params: EncDecModel, frames: torch.Tensor,
     positions = torch.arange(s, device=frames.device).expand(b, s)
     x = frames.to(cfg.dtype)
     for blk in params.encoder:
-        h = blk.ln_attn(x, cfg.norm_eps)
-        a, _ = attn.gqa_attention(blk.attn, h, positions=positions,
-                                  rope_theta=cfg.rope_theta, causal=False)
-        x = x + a
-        x = x + blk.mlp(blk.ln_mlp(x, cfg.norm_eps))
+        x = L.remat(cfg.remat, _enc_block, cfg, blk, x, positions)
     return params.enc_norm(x, cfg.norm_eps)
 
 
@@ -155,7 +165,16 @@ def _dec_block(cfg: EncDecConfig, blk: DecoderBlock, x, *, positions,
     return x + m, new_cache
 
 
-@torch.no_grad()
+def _dec_block_uncached(cfg: EncDecConfig, blk: DecoderBlock, x, positions,
+                        memory):
+    """A decoder layer without caches: its cross K/V projected from the
+    memory inside the layer (and so inside its checkpoint)."""
+    x, _ = _dec_block(cfg, blk, x, positions=positions,
+                      cross_kv=attn.project_kv(blk.cross, memory),
+                      self_cache=None)
+    return x
+
+
 def decode_stack(params: EncDecModel, tokens, memory, cfg: EncDecConfig, *,
                  caches: EncDecCache | None = None, positions=None):
     """memory: [B, S_src, D] (ignored when cross K/V come from caches).
@@ -167,13 +186,14 @@ def decode_stack(params: EncDecModel, tokens, memory, cfg: EncDecConfig, *,
     x = params.embed(tokens).to(cfg.dtype)
     for i, blk in enumerate(params.decoder):
         if caches is None:
-            cross_kv, self_c = attn.project_kv(blk.cross, memory), None
-        else:
-            cross_kv = (caches.cross_k[i], caches.cross_v[i])
-            kv = caches.self_kv
-            self_c = attn.KVCache(kv.k[i], kv.v[i], kv.length)
+            x = L.remat(cfg.remat, _dec_block_uncached, cfg, blk, x,
+                        positions, memory)
+            continue
+        kv = caches.self_kv
         x, _ = _dec_block(cfg, blk, x, positions=positions,
-                          cross_kv=cross_kv, self_cache=self_c)
+                          cross_kv=(caches.cross_k[i], caches.cross_v[i]),
+                          self_cache=attn.KVCache(kv.k[i], kv.v[i],
+                                                  kv.length))
     x = params.dec_norm(x, cfg.norm_eps)
     logits = L.mask_padded_vocab(params.unembed(x), cfg.vocab)
     new_caches = None
@@ -184,7 +204,16 @@ def decode_stack(params: EncDecModel, tokens, memory, cfg: EncDecConfig, *,
     return logits, new_caches
 
 
-@torch.no_grad()
+def loss_fn(params: EncDecModel, batch: dict, cfg: EncDecConfig):
+    """batch: ``{"frames": [B, Ss, D], "tokens": [B, St], "labels": [B,
+    St]}``."""
+    from repro_torch.models.transformer import softmax_xent
+
+    memory = encode(params, batch["frames"], cfg)
+    logits, _ = decode_stack(params, batch["tokens"], memory, cfg)
+    return softmax_xent(logits, batch["labels"], cfg.zloss)
+
+
 def project_cross_kv(params: EncDecModel, memory: torch.Tensor,
                      cfg: EncDecConfig):
     """Per-layer cross K/V from encoder memory (computed once), stacked
@@ -212,6 +241,7 @@ def init_caches(cfg: EncDecConfig, batch: int, max_len: int, src_len: int,
     )
 
 
+@torch.no_grad()
 def prefill(params, frames, tokens, cfg: EncDecConfig, caches: EncDecCache):
     """Encode the source, put its cross K/V in the caches and prefill the
     decoder's self-attention caches.  Returns (last-token logits [B, Vp],
@@ -224,6 +254,7 @@ def prefill(params, frames, tokens, cfg: EncDecConfig, caches: EncDecCache):
     return logits[:, -1, :], caches
 
 
+@torch.no_grad()
 def decode_step(params, token, cfg: EncDecConfig, caches: EncDecCache,
                 length: int):
     """One decode step.  token: [B, 1]; length: target tokens so far.

@@ -6,8 +6,16 @@ block (one set of weights) is applied before every group of
 concat(hidden, original embedding).  Weights are shared across
 applications; KV caches are not (one cache per application site).
 The reference scans over groups and layers; the port loops in Python.
-Every attention call runs kernel B4 and every prefill Mamba2 layer
-kernel B5.
+Every attention call runs kernel B4 and every Mamba2 layer without a
+decode cache kernel B5.
+
+Training: :func:`loss_fn` is the cross-entropy plus z-loss of a forward
+without caches.  Under grad with ``cfg.remat`` each Mamba2 layer runs in
+``torch.utils.checkpoint`` and the shared attention block does not, as
+the reference's ``mamba_fn`` is remat'ed and its shared block is not:
+a training step launches B4 once per application site and B5 twice per
+Mamba2 layer (the forward and the backward's recomputation).
+``prefill`` and ``decode_step`` run without grad.
 """
 from __future__ import annotations
 
@@ -25,9 +33,12 @@ from repro_torch.models.layers import fan_in_normal, param
 
 @dataclasses.dataclass(frozen=True)
 class Zamba2Config:
-    """``attn_impl`` and ``block_q`` select the reference's jnp attention
-    form; the port has one form (kernel B4), so they have no effect, nor
-    has ``chunk`` (see :class:`repro_torch.models.ssm.Mamba2Config`)."""
+    """The reference's fields but ``tie_embeddings`` and ``scan_layers``
+    (see :class:`repro_torch.models.ssm.Mamba2Config`).  ``attn_impl``
+    and ``block_q`` select the reference's jnp attention form; the port
+    has one form (kernel B4), so they have no effect, nor has ``chunk``.
+    ``remat`` recomputes each Mamba2 layer in the backward; ``zloss``
+    weighs the training loss's z-loss."""
 
     layers: int
     d_model: int
@@ -46,7 +57,9 @@ class Zamba2Config:
     vocab_pad_multiple: int = 128
     attn_impl: str = "blocked"
     block_q: int = 1024
+    remat: bool = True
     norm_eps: float = 1e-6
+    zloss: float = 1e-4
 
     @property
     def num_groups(self) -> int:
@@ -62,7 +75,7 @@ class Zamba2Config:
             ssm_state=self.ssm_state, head_dim=self.head_dim,
             expand=self.expand, conv_width=self.conv_width, chunk=self.chunk,
             dtype=self.dtype, vocab_pad_multiple=self.vocab_pad_multiple,
-            norm_eps=self.norm_eps,
+            remat=self.remat, norm_eps=self.norm_eps, zloss=self.zloss,
         )
 
     @property
@@ -131,7 +144,6 @@ def _shared_attn(cfg, sp: SharedBlock, x, x0, positions, kv_cache):
     return x + m, new_cache
 
 
-@torch.no_grad()
 def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
             caches: HybridCache | None = None, positions=None):
     mcfg = cfg.mamba_cfg()
@@ -143,10 +155,11 @@ def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
         positions = (base + torch.arange(s, device=x.device)).expand(b, s)
 
     def mamba(blk, x, stack, *index):
-        cache = ssm.layer_cache(stack, *index) if caches is not None else None
-        x, new = ssm.block_apply(mcfg, blk, x, cache=cache)
-        if caches is not None:
-            ssm.store_layer_cache(stack, new, *index)
+        if caches is None:
+            return ssm.apply_block(mcfg, blk, x)
+        x, new = ssm.block_apply(mcfg, blk, x,
+                                 cache=ssm.layer_cache(stack, *index))
+        ssm.store_layer_cache(stack, new, *index)
         return x
 
     for g, group in enumerate(params.groups):
@@ -174,6 +187,14 @@ def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
     return logits, new_caches
 
 
+def loss_fn(params: Zamba2LM, batch: dict, cfg: Zamba2Config):
+    """batch: ``{"tokens": [B, S], "labels": [B, S]}``."""
+    from repro_torch.models.transformer import softmax_xent
+
+    logits, _ = forward(params, batch["tokens"], cfg)
+    return softmax_xent(logits, batch["labels"], cfg.zloss)
+
+
 def init_caches(cfg: Zamba2Config, batch: int, max_len: int, *,
                 device) -> HybridCache:
     mcfg = cfg.mamba_cfg()
@@ -192,11 +213,13 @@ def init_caches(cfg: Zamba2Config, batch: int, max_len: int, *,
     )
 
 
+@torch.no_grad()
 def prefill(params, tokens, cfg: Zamba2Config, caches):
     logits, caches = forward(params, tokens, cfg, caches=caches)
     return logits[:, -1, :], caches
 
 
+@torch.no_grad()
 def decode_step(params, token, cfg: Zamba2Config, caches, length: int):
     b = token.shape[0]
     positions = torch.full((b, 1), int(length), device=token.device)

@@ -1,5 +1,5 @@
 """Common layers: initialisers, RMSNorm, linear, embedding, RoPE, SwiGLU
-MLP.
+MLP, and the remat helper of the training forward.
 
 Mirrors ``repro/models/layers.py`` without the parameter/axes machinery
 (``PSpec``, sharding): the port runs on one device, and a block's
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 # --- initializers ------------------------------------------------------------
@@ -34,6 +35,16 @@ def fan_in_normal(shape, fan_in: int, dtype, *, device,
 
 def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; under grad with ``enabled``, inside
+    ``torch.utils.checkpoint``, which saves only the arguments and
+    recomputes the rest in the backward (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --- norms -------------------------------------------------------------------

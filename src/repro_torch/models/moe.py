@@ -1,25 +1,33 @@
-"""Top-k mixture of experts (mixtral / arctic): the inference routing.
+"""Top-k mixture of experts (mixtral / arctic), with the reference's
+capacity-drop routing for training.
 
 Mirrors ``repro/models/moe.py``.  The reference routes with one-hot
 dispatch/combine einsums over ``[group, tokens, experts, capacity]``
-masks; with ``drop=False`` (every path that holds a cache) the capacity
-fits every token, so each token reaches each of its top-k experts and
-those einsums are a gather and a weighted scatter.  The port computes
-that function directly: route in f32, group the (token, choice) pairs
-by expert (a stable argsort), run each expert's SwiGLU on its rows with
-``torch.matmul`` (a plain large product, which the JAX package leaves
-to XLA outside any Pallas kernel), and add each row back weighted by its
-gate.  At mixtral's prefill (12,288 tokens) the masks would be 0.8 GB
-each and the dispatch einsum alone ~3e15 operations a layer.
+masks.  Each (token, choice) pair either takes a slot in its expert's
+buffer or is dropped, and a kept pair's row goes through the expert and
+comes back weighted by its gate, so those einsums are a gather and a
+weighted scatter over the kept pairs.  The port computes that function
+directly: route in f32, mark the kept pairs (:func:`capacity_keep`),
+group them by expert (a stable argsort), run each expert's SwiGLU on
+its rows with ``torch.matmul`` (a plain large product, which the JAX
+package leaves to XLA outside any Pallas kernel), and add each row back
+weighted by its gate.  At mixtral's prefill (12,288 tokens) the masks
+would be 0.8 GB each and the dispatch einsum alone ~3e15 operations a
+layer.
+
+``drop=True`` (every path without a cache: training) is the reference's
+Switch/GShard routing: tokens in groups of ``tokens_per_group`` (the
+largest divisor of the token count up to it), each expert taking
+``_capacity`` pairs a group, first choices before second ones
+(a choice-major running count), pairs past the capacity dropped.
+``drop=False`` (every path that holds a cache) sizes the buffers so
+that no pair is dropped.
 
 Two details carry the reference's rounding: the gate is rounded to x's
 dtype before the combine, as the reference's ``combine`` mask is, and
 the combine sums in f32 before the cast to x's dtype.  ``torch.topk``
 does not promise JAX's tie order (the lower index first); ties between
 the k-th and the next probability are measure-zero for real inputs.
-
-``drop=True`` (capacity-drop routing, the reference's training path)
-is not ported.
 """
 from __future__ import annotations
 
@@ -34,9 +42,9 @@ from repro_torch.models.layers import fan_in_normal, param
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """``capacity_factor`` and ``tokens_per_group`` size the reference's
-    dispatch buffers; inference routing drops no token, so they do not
-    change the port's result."""
+    """``capacity_factor`` and ``tokens_per_group`` size the expert
+    buffers of the capacity-drop routing (``drop=True``); inference
+    routing drops no pair, so they do not change its result."""
 
     num_experts: int
     top_k: int = 2
@@ -75,23 +83,52 @@ def route(params: MoE, xt: torch.Tensor, cfg: MoEConfig):
     return probs, gate / gate.sum(dim=-1, keepdim=True), idx
 
 
+def _capacity(group_tokens: int, cfg: MoEConfig) -> int:
+    c = int(group_tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts)
+    return max(4, -(-c // 4) * 4)  # round up to a multiple of 4, floor 4
+
+
+def group_size(tokens: int, cfg: MoEConfig) -> int:
+    """Tokens a group: the largest divisor of ``tokens`` up to
+    ``tokens_per_group``."""
+    g = min(cfg.tokens_per_group, tokens)
+    while tokens % g:
+        g -= 1
+    return g
+
+
+def capacity_keep(idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """``[T, k]`` boolean: the (token, choice) pairs of the top-k experts
+    ``idx`` ``[T, k]`` that take a slot.  Per group, a pair's slot is the
+    number of pairs before it, choice-major (every token's first choice,
+    then every token's second), that chose the same expert; it is kept
+    while the slot is below the capacity."""
+    t, k = idx.shape
+    g = group_size(t, cfg)
+    major = idx.reshape(t // g, g, k).transpose(1, 2).flatten(1, 2)
+    onehot = F.one_hot(major, cfg.num_experts)          # [G, k * g, E]
+    slot = (onehot.cumsum(dim=1) - onehot).gather(-1, major[..., None])
+    slot = slot.reshape(t // g, k, g).transpose(1, 2).reshape(t, k)
+    return slot < _capacity(g, cfg)
+
+
 def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
               drop: bool = True):
-    """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  Only the
-    inference routing (``drop=False``) is ported."""
-    if drop:
-        raise NotImplementedError(
-            "capacity-drop MoE routing (training) waits for the training "
-            "slice (ROADMAP A-11b)")
+    """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  ``drop``
+    routes by capacity (:func:`capacity_keep`), else every pair."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate, idx = route(params, xt, cfg)
     k, e = cfg.top_k, cfg.num_experts
-    flat = idx.flatten()                          # (token, choice) pairs
-    order = torch.argsort(flat, stable=True)      # grouped by expert
-    token = order // k
-    weight = gate.to(x.dtype).float().flatten()[order]
-    counts = torch.bincount(flat, minlength=e).tolist()
+    pairs = torch.arange(b * s * k, device=x.device)    # (token, choice)
+    if drop:
+        pairs = pairs[capacity_keep(idx, cfg).flatten()]
+    experts = idx.flatten()[pairs]
+    order = torch.argsort(experts, stable=True)         # grouped by expert
+    pairs = pairs[order]
+    token = pairs // k
+    weight = gate.to(x.dtype).float().flatten()[pairs]
+    counts = torch.bincount(experts, minlength=e).tolist()
     y = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
     start = 0
     for ex, n in enumerate(counts):

@@ -7,7 +7,9 @@ Mirrors ``repro/models/multimodal.py`` for serving.  The cache holds the
 ``num_patches`` prefix positions before the text, so a decode step after
 a prompt of ``S`` text tokens is at ``length = num_patches + S + t``, the
 model's contract (``repro/launch/serve.py`` passes ``S + t``, which the
-port does not copy: ROADMAP C7).  ``loss_fn`` (training) is not ported.
+port does not copy: ROADMAP C7).  :func:`loss_fn` puts the projected
+patches ahead of the text and takes the backbone's loss on the text
+positions only.  ``prefill`` and ``decode_step`` run without grad.
 """
 from __future__ import annotations
 
@@ -60,6 +62,14 @@ def _project(params: VLM, patches: torch.Tensor) -> torch.Tensor:
     return params.patch_proj(patches.to(params.patch_proj.w.dtype))
 
 
+def loss_fn(params: VLM, batch: dict, cfg: VLMConfig):
+    """batch: ``{"patches": [B, P, clip_dim], "tokens": [B, S_text],
+    "labels": [B, S_text]}``."""
+    b = dict(batch)
+    b["patch_embeds"] = _project(params, batch["patches"])
+    return tfm.loss_fn(params.backbone, b, cfg.backbone)
+
+
 def init_caches(cfg: VLMConfig, batch: int, max_len: int, *, device):
     """The backbone's caches; ``max_len`` counts the patch prefix."""
     return tfm.init_caches(cfg.backbone, batch, max_len, device=device)
@@ -74,6 +84,7 @@ def prefill(params: VLM, patches, tokens, cfg: VLMConfig, caches):
                        prefix_embeds=prefix)
 
 
+@torch.no_grad()
 def decode_step(params: VLM, token, cfg: VLMConfig, caches, length: int):
     """One decode step; ``length`` counts the patch prefix."""
     return tfm.decode_step(params.backbone, token, cfg.backbone, caches,

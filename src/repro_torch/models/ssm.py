@@ -13,6 +13,12 @@ TF32 off around it (:func:`causal_conv`) so the f32 path keeps f32.
 
 Caches are stacked ``[L, ...]`` tensors updated in place, layer by
 layer; ``length`` is a Python int.
+
+Training: :func:`loss_fn` is the cross-entropy plus z-loss of a forward
+without caches.  Under grad with ``cfg.remat`` each block runs in
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
+backward recomputes it, kernel B5 included.  ``prefill`` and
+``decode_step`` run without grad.
 """
 from __future__ import annotations
 
@@ -30,9 +36,13 @@ from repro_torch.models.layers import fan_in_normal, param
 
 @dataclasses.dataclass(frozen=True)
 class Mamba2Config:
-    """``chunk`` is the reference's SSD chunk length; the port's kernel
-    tiles at its own 64 steps (the result differs only in rounding), so
-    the field has no effect here."""
+    """The reference's fields but ``tie_embeddings`` and ``scan_layers``:
+    the embedding is always the logits head (every configuration ties
+    them) and the port loops over layers in Python.  ``chunk`` is the
+    reference's SSD chunk length; the port's kernel tiles at its own 64
+    steps (the result differs only in rounding), so the field has no
+    effect here.  ``remat`` recomputes each block in the backward;
+    ``zloss`` weighs the training loss's z-loss."""
 
     layers: int
     d_model: int
@@ -44,7 +54,9 @@ class Mamba2Config:
     chunk: int = 128
     dtype: torch.dtype = torch.bfloat16
     vocab_pad_multiple: int = 128
+    remat: bool = True
     norm_eps: float = 1e-6
+    zloss: float = 1e-4
 
     @property
     def d_inner(self) -> int:
@@ -242,20 +254,38 @@ def init(cfg: Mamba2Config, *, device, seed: int = 0) -> Mamba2LM:
     return Mamba2LM(cfg, device=device, generator=gen)
 
 
-@torch.no_grad()
+def apply_block(cfg: Mamba2Config, blk: Mamba2Block, x):
+    """One block without a cache, remat'ed with ``cfg.remat`` (the
+    reference's remat of the layer body)."""
+    return L.remat(cfg.remat, _uncached, cfg, blk, x)
+
+
+def _uncached(cfg: Mamba2Config, blk: Mamba2Block, x):
+    return block_apply(cfg, blk, x, cache=None)[0]
+
+
 def forward(params: Mamba2LM, tokens, cfg: Mamba2Config, *, caches=None):
     x = params.embed(tokens).to(cfg.dtype)
     for i, blk in enumerate(params.blocks):
-        cache = layer_cache(caches, i) if caches is not None else None
-        x, new = block_apply(cfg, blk, x, cache=cache)
-        if caches is not None:
-            store_layer_cache(caches, new, i)
+        if caches is None:
+            x = apply_block(cfg, blk, x)
+            continue
+        x, new = block_apply(cfg, blk, x, cache=layer_cache(caches, i))
+        store_layer_cache(caches, new, i)
     x = params.final_norm(x, cfg.norm_eps)
     logits = logits_of(params.embed, x, cfg.vocab)
     new_caches = None
     if caches is not None:
         new_caches = caches._replace(length=caches.length + tokens.shape[1])
     return logits, new_caches
+
+
+def loss_fn(params: Mamba2LM, batch: dict, cfg: Mamba2Config):
+    """batch: ``{"tokens": [B, S], "labels": [B, S]}``."""
+    from repro_torch.models.transformer import softmax_xent
+
+    logits, _ = forward(params, batch["tokens"], cfg)
+    return softmax_xent(logits, batch["labels"], cfg.zloss)
 
 
 def ssm_caches(lead: tuple, batch: int, cfg: Mamba2Config, *,
@@ -279,11 +309,13 @@ def init_caches(cfg: Mamba2Config, batch: int, max_len: int = 0, *,
     return ssm_caches((cfg.layers,), batch, cfg, device=device)
 
 
+@torch.no_grad()
 def prefill(params, tokens, cfg: Mamba2Config, caches):
     logits, caches = forward(params, tokens, cfg, caches=caches)
     return logits[:, -1, :], caches
 
 
+@torch.no_grad()
 def decode_step(params, token, cfg: Mamba2Config, caches, length):
     del length  # SSM state is position-free
     logits, caches = forward(params, token, cfg, caches=caches)

@@ -2,13 +2,19 @@
 mixtral / arctic): dense GQA, MoE (mixtral), MoE beside a dense MLP
 (arctic) and sliding-window attention.
 
-Mirrors ``repro/models/transformer.py`` for serving.  The reference
-scans over stacked layer parameters; the port loops over one module per
-layer in Python.  Every attention call runs kernel B4, windowed where
-the config has a window.  KV caches are stacked ``[L, B, max_len, Hkv,
-hd]`` tensors updated in place, layer by layer; ``length`` is a Python
-int.  ``loss_fn`` (training) is not ported, and a MoE config's forward
-without caches (the reference's capacity-drop routing) raises.
+Mirrors ``repro/models/transformer.py``.  The reference scans over
+stacked layer parameters; the port loops over one module per layer in
+Python.  Every attention call runs kernel B4, windowed where the config
+has a window.  KV caches are stacked ``[L, B, max_len, Hkv, hd]``
+tensors updated in place, layer by layer; ``length`` is a Python int.
+
+Training: :func:`loss_fn` is the mean cross-entropy plus z-loss
+(:func:`softmax_xent`) and the MoE layers' aux loss of a forward
+without caches, where a MoE layer routes by capacity.  Under grad with
+``cfg.remat``, each block runs in ``torch.utils.checkpoint`` (nothing
+saved but its input, the reference's ``jax.checkpoint`` with
+``nothing_saveable``), so the backward recomputes the block, attention
+included.  ``prefill`` and ``decode_step`` run without grad.
 """
 from __future__ import annotations
 
@@ -25,11 +31,12 @@ from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's fields.  ``attn_sp`` and ``sp_residuals`` shard
-    attention and the residual stream over a device mesh, ``remat`` and
-    ``scan_layers`` shape the traced training step, and ``attn_impl``
-    and ``block_q`` pick the reference's jnp attention form; the port
-    runs on one device, eagerly, with one attention form (kernel B4),
-    so they have no effect.  ``zloss`` belongs to the training loss."""
+    attention and the residual stream over a device mesh,
+    ``scan_layers`` shapes the traced step, and ``attn_impl`` and
+    ``block_q`` pick the reference's jnp attention form; the port runs
+    on one device, eagerly, with one attention form (kernel B4), so they
+    have no effect.  ``remat`` recomputes each block in the backward;
+    ``zloss`` weighs the training loss's z-loss."""
 
     layers: int
     d_model: int
@@ -123,7 +130,7 @@ def block_apply(cfg: TransformerConfig, params: Block, x, *, positions,
         y = y + params.mlp(h)
     if cfg.moe is not None:
         # inference (a cache present) routes every token, as the
-        # reference does; without a cache it would drop by capacity
+        # reference does; without a cache (training) it drops by capacity
         ym, aux = moe_apply(params.moe, h, cfg.moe, drop=cache is None)
         y = y + ym
     return x + y, new_cache, aux
@@ -153,14 +160,19 @@ def init(cfg: TransformerConfig, *, device, seed: int = 0) -> TransformerLM:
     return TransformerLM(cfg, device=device, generator=gen)
 
 
-@torch.no_grad()
+def _block_remat(cfg: TransformerConfig, blk: Block, x, positions):
+    x, _, aux = block_apply(cfg, blk, x, positions=positions, cache=None)
+    return x, aux
+
+
 def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
             positions=None, caches: attn.KVCache | None = None,
             prefix_embeds=None):
     """Returns (logits [B, P + S, Vp], new_caches, aux_loss).
     ``prefix_embeds`` ``[B, P, D]`` (a VLM's projected patches) go before
     the token embeddings; positions start at the caches' length (0
-    without caches), counting the prefix."""
+    without caches), counting the prefix.  Without caches, under grad
+    and with ``cfg.remat``, each block is checkpointed."""
     x = params.embed(tokens).to(cfg.dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
@@ -170,10 +182,12 @@ def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
         positions = (base + torch.arange(s, device=x.device)).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
-        cache = None
-        if caches is not None:
-            cache = attn.KVCache(caches.k[i], caches.v[i], caches.length)
-        x, _, a = block_apply(cfg, blk, x, positions=positions, cache=cache)
+        if caches is None:
+            x, a = L.remat(cfg.remat, _block_remat, cfg, blk, x, positions)
+        else:
+            x, _, a = block_apply(
+                cfg, blk, x, positions=positions,
+                cache=attn.KVCache(caches.k[i], caches.v[i], caches.length))
         aux = aux + a
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.mask_padded_vocab(params.unembed(x), cfg.vocab)
@@ -181,6 +195,30 @@ def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
     if caches is not None:
         new_caches = caches._replace(length=caches.length + s)
     return logits, new_caches, aux
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 zloss: float) -> torch.Tensor:
+    """Mean cross-entropy (+ z-loss) in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if zloss:
+        loss = loss + zloss * torch.mean(lse ** 2)
+    return loss
+
+
+def loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig):
+    """batch: ``{"tokens": [B, S], "labels": [B, S], ["patch_embeds":
+    [B, P, D]]}``; with a prefix, the loss is on the text positions
+    only.  The MoE layers' aux loss is added."""
+    prefix = batch.get("patch_embeds")
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             prefix_embeds=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:, :]
+    return softmax_xent(logits, batch["labels"], cfg.zloss) + aux
 
 
 # --- serving ------------------------------------------------------------------
@@ -198,6 +236,7 @@ def init_caches(cfg: TransformerConfig, batch: int, max_len: int, *,
     )
 
 
+@torch.no_grad()
 def prefill(params, tokens, cfg: TransformerConfig, caches,
             prefix_embeds=None):
     """Run the full prompt (after ``prefix_embeds``, if given) through
@@ -208,6 +247,7 @@ def prefill(params, tokens, cfg: TransformerConfig, caches,
     return logits[:, -1, :], caches
 
 
+@torch.no_grad()
 def decode_step(params, token, cfg: TransformerConfig, caches, length: int):
     """One decode step.  token: [B, 1]; length: tokens so far.
     Returns (logits [B, Vp], caches)."""

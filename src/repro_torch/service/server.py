@@ -26,8 +26,9 @@ worker lane), so a multi-second config sweep can never starve
 future and returns the full ``run_explore`` result dict.
 
 Error mapping: bad payloads -> 400, queue-full load shed -> 503 (with
-``Retry-After``), a workload the port does not serve yet
-(``model/<arch>/train``, ROADMAP A-11b) -> 501, anything else -> 500.
+``Retry-After``), a workload the port does not serve yet -> 501 (every
+registered workload is served, the ``model/<arch>/train`` cells
+included), anything else -> 500.
 Workloads are resolved by registry name (``polybench/atx``,
 ``synthetic/stream``, ``model/llama3_8b/decode``; legacy Table-4
 abbreviations and raw arch ids stay routable as aliases) through a

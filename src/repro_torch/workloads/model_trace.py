@@ -1,11 +1,12 @@
 """``model/<arch>/<step>`` workloads: model-derived labeled traces — port
 of ``repro/workloads/model_trace.py`` with the port's own graph source.
 
-``ModelTraceSource`` records one model step (prefill or decode of a
-``configs/`` architecture at its reduced smoke shape) with
+``ModelTraceSource`` records one model step (prefill, decode or train
+of a ``configs/`` architecture at its reduced smoke shape) with
 :mod:`repro_torch.analysis.aten_trace`: the ATen ops of the family's
-plain-path ``prefill``/``decode_step`` on the host, with weights from
-seed 0, turned into the granule-labeled memory trace (the step's inputs
+plain-path ``prefill``/``decode_step``, or of its ``loss_fn`` and the
+loss's gradient (the reference lowers ``jax.value_and_grad``), on the
+host, with weights from seed 0, turned into the granule-labeled memory trace (the step's inputs
 = weights, batch and caches = shared across mimicked cores), the
 Byfl-style ``OpCounts`` of the runtime model (``hlo_cost.op_class_mix``
 over the op census) and the largest op results for provenance.  The
@@ -27,9 +28,6 @@ fingerprint stand in for the trace content hash.  The fingerprint folds
 in ``torch.__version__`` and :data:`GRAPH_SOURCE` where the reference
 folds in ``jax.__version__``, so the port's model cells are keyed apart
 from the reference's (ROADMAP C8).
-
-``train`` cells are registered, so their names resolve; their trace and
-counts need the training graph (ROADMAP A-11b) and raise.
 """
 from __future__ import annotations
 
@@ -108,11 +106,6 @@ class ModelTraceSource:
 
     def record(self):
         """The step's ATen recording (``aten_trace.record_model_step``)."""
-        if self.step == "train":
-            from repro_torch.api.stages import not_in_slice
-
-            raise not_in_slice(
-                f"the training step's graph ({self.workload_name})", "A-11b")
         from repro_torch.analysis.aten_trace import record_model_step
 
         return record_model_step(self.arch_id, self.step)

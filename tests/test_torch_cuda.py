@@ -7,7 +7,8 @@ versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
 the histogram (from two threads and streams at once too), streaming reuse distances, a binned Session and the
 reduced serving paths on the card (zamba2, and the windowed MoE
-transformer), the fused config sweep in both inner
+transformer), B4's and B5's gradients (their ``autograd.Function``s)
+and a reduced training step, the fused config sweep in both inner
 forms and the artifact store on the card.  Imports nothing of JAX, so
 it runs where the port runs:
 
@@ -666,6 +667,101 @@ def test_ssd_scan_column_blocks_and_bf16_b_c(cuda_device, bc_dtype, b, s, h,
     for got, want in ((y, y_want), (final, f_want)):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) / scale <= 5e-6
+
+
+@pytest.mark.parametrize("dtype,form", [(torch.float32, "simt"),
+                                        (torch.bfloat16, "tensor_core")])
+def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
+    """Under grad the kernel's output has B4's ``grad_fn``; its gradients
+    (the closed form) equal autograd through the plain version on the
+    same card, within 1e-4 of each one's largest value in f32 (bf16:
+    the inputs' rounding, 2e-2)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(
+            dtype).requires_grad_()
+
+    q, k, v = rand(2, 8, 256, 64), rand(2, 4, 256, 64), rand(2, 4, 256, 64)
+    assert fa.kernel_form(q, k, v) == form
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert fa.LAUNCHES["flash_attention"] == before + 1  # backward: torch ops
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(q, k, v, causal=True), (q, k, v), g)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= \
+            tol * float(w.float().abs().max())
+
+
+def test_ssd_scan_gradient_on_the_card(cuda_device):
+    """Under grad the kernel's outputs have B5's ``grad_fn``; the
+    gradients (the plain version recomputed and differentiated) equal
+    autograd through the plain version, at 1e-5 of each one's largest
+    value (the two forwards differ by the kernel's rounding only)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    x = rand(2, 300, 4, 64).requires_grad_()
+    la = (-torch.nn.functional.softplus(rand(2, 300, 4))).requires_grad_()
+    bb = (rand(2, 300, 64) * 0.3).to(torch.bfloat16).requires_grad_()
+    cc = (rand(2, 300, 64) * 0.3).to(torch.bfloat16).requires_grad_()
+    before = scan.LAUNCHES["ssd_scan"]
+    y, _ = scan.ssd_scan(x, la, bb, cc)
+    assert scan.LAUNCHES["ssd_scan"] == before + 1
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    g = rand(*y.shape)
+    got = torch.autograd.grad(y, (x, la, bb, cc), g)
+    want = torch.autograd.grad(scan.ssd_scan_plain(x, la, bb, cc)[0],
+                               (x, la, bb, cc), g)
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= \
+            1e-5 * float(w.float().abs().max())
+
+
+def test_reduced_training_step_on_the_card(cuda_device):
+    """One train step of the reduced zamba2 in f32 on the card: B4 once
+    per shared-attention site, B5 twice per Mamba2 layer (forward and
+    remat); loss, gradient norm and parameters equal the CPU's step from
+    the same weights within 1e-4 relative."""
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.configs.reduced import SMOKE_SHAPE
+
+    spec = reduced_arch("zamba2-1.2b")
+    cfg = dataclasses.replace(spec.config, dtype=torch.float32)
+    spec = dataclasses.replace(spec, config=cfg)
+    batch = synthetic_batch(spec.input_shapes(SMOKE_SHAPE), spec.vocab,
+                            seed=0, step=0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = hybrid.init(cfg, device="cpu", seed=3).to(dev)
+        opt = make_optimizer(spec, total_steps=10)
+        step = build_train_step(lambda m, b: hybrid.loss_fn(m, b, cfg), opt)
+        before = (fa.LAUNCHES["flash_attention"], scan.LAUNCHES["ssd_scan"])
+        state, metrics = step(init_state(model, opt),
+                              {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (metrics, torch.cat([
+            p.detach().flatten().cpu() for p in model.parameters()]))
+        if dev != "cpu":
+            assert fa.LAUNCHES["flash_attention"] - before[0] == \
+                cfg.num_groups
+            assert scan.LAUNCHES["ssd_scan"] - before[1] == 2 * cfg.layers
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out[str(cuda_device)]
+    for key in ("loss", "grad_norm", "param_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) <= \
+            1e-4 * abs(float(m_cpu[key]))
+    assert torch.isfinite(p_gpu).all()
+    assert float((p_gpu - p_cpu).abs().max()) <= 1e-4 * float(
+        p_cpu.abs().max())
 
 
 def test_reduced_serve_launches_both_kernels(cuda_device):

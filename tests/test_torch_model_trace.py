@@ -1,7 +1,9 @@
-"""``model/<arch>/{prefill,decode}`` cells of the port against the JAX
-package's: the parity contract of the port's graph source
+"""``model/<arch>/{prefill,decode,train}`` cells of the port against the
+JAX package's: the parity contract of the port's graph source
 (``repro_torch.analysis.aten_trace``) and the source's registry, store
-and Session integration.
+and Session integration.  The ``train`` cells of four architectures
+(dense, MoE, hybrid, SSM) hold the port's recording of the loss and its
+gradient against the reference's lowered ``jax.value_and_grad``.
 
 The reference's trace is the optimized HLO of the step as ``xla:cpu``
 compiles it (fused, bf16 legalized to f32, the layers a ``while`` loop
@@ -149,7 +151,29 @@ SSD_DECODE = CellClass(
     Bound(0.2, 0.6, _WEIGHT_READS),
     Bound(0.4, 0.8, "references follow touched lines (see bytes)"))
 
-#: The 20 cells and the class whose bounds hold each.
+_B4_BACKWARD = ("B4's closed-form backward forms Q K^T again to rebuild "
+                "P: one attention product a layer more than the "
+                "reference's autodiff")
+DENSE_TRAIN = CellClass(
+    Bound(1.0, 1.05, "the same model matmuls, plus one: " + _B4_BACKWARD),
+    Bound(0.85, 1.1, "a training step's activations, gradients and remat "
+          "recomputation weigh most in both programs; ATen's unfused "
+          "buffers and the reference's f32 weight copies come near to "
+          "cancelling"),
+    Bound(0.95, 1.15, "references follow touched lines (see bytes)"))
+MOE_TRAIN = CellClass(
+    Bound(0.75, 0.9, _ROUTED + " (their gradients too)"),
+    Bound(0.7, 0.95, _ROUTED + " (their gradients too)"),
+    Bound(1.3, 1.9, "the port's per-expert gather, products and "
+          "index_add_, and their gradients, are unfused ops of their own"))
+SSD_TRAIN = CellClass(
+    Bound(1.25, 1.55, _CHUNK + ", in the forward, its recomputation and "
+          "the backward alike"),
+    Bound(1.25, 1.8, _CHUNK + ", three times a layer"),
+    Bound(0.95, 1.25, "more unfused ops; fewer refs for the reference's "
+          "capped chunk loop"))
+
+#: The 24 cells and the class whose bounds hold each.
 CONTRACT = {
     "arctic-480b/prefill": MOE_PREFILL,
     "arctic-480b/decode": MOE_DECODE,
@@ -171,6 +195,10 @@ CONTRACT = {
     "yi-34b/decode": DENSE_DECODE,
     "zamba2-1.2b/prefill": SSD_PREFILL,           # hybrid
     "zamba2-1.2b/decode": SSD_DECODE,
+    "llama3-8b/train": DENSE_TRAIN,
+    "mixtral-8x7b/train": MOE_TRAIN,
+    "mamba2-780m/train": SSD_TRAIN,
+    "zamba2-1.2b/train": SSD_TRAIN,
 }
 CELLS = sorted(CONTRACT)
 
@@ -497,7 +525,7 @@ def test_arch_slug_and_unknown_step():
     with pytest.raises(ValueError, match="unknown model step"):
         ModelTraceSource("llama3-8b", "finetune")
     with pytest.raises(ValueError, match="no recorded form"):
-        aten_trace.step_call("llama3-8b", "train")
+        aten_trace.step_call("llama3-8b", "finetune")
 
 
 def test_warm_store_answers_without_recording(tmp_path, monkeypatch):
@@ -526,11 +554,23 @@ def test_warm_store_answers_without_recording(tmp_path, monkeypatch):
 
 
 def test_train_cells_resolve_and_raise_a11b():
+    """A ``train`` cell resolves and records the loss and its gradient;
+    the backward's ops are in the trace (the gradient products: more
+    matmul FLOPs than twice the forward's) and, with remat, so is the
+    recomputation of each checkpointed layer."""
     src = registry.resolve("model/llama3_8b/train", "smoke")
     assert src.declared_fingerprint
-    for get in (src.trace, lambda: src.op_counts, lambda: src.info):
-        with pytest.raises(NotImplementedError, match="A-11b"):
-            get()
+    trace = src.trace()
+    assert trace.shared_mask.any() and not trace.shared_mask.all()
+    assert all(v > 0 for v in vars(src.op_counts).values())
+    assert src.info["touched_bytes"] > 0
+    ops = [e.op for e in aten_trace.record_model_step("llama3-8b",
+                                                      "train").events]
+    forward = [e.op for e in aten_trace.record_model_step(
+        "llama3-8b", "prefill").events]
+    assert "silu_backward" in ops and len(ops) > 2 * len(forward)
+    # each block's SwiGLU runs in the forward and again in its remat
+    assert ops.count("silu") == 2 * forward.count("silu") > 0
 
 
 @pytest.mark.parametrize("name", ["model/llama3_8b/decode",

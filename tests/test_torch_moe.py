@@ -110,8 +110,26 @@ def test_every_token_reaches_its_experts():
 
 
 def test_capacity_drop_routing_raises():
-    cfg = moe.MoEConfig(num_experts=4)
-    mod = moe.moe_init(8, 8, cfg, device="cpu",
+    """Capacity-drop routing (the default, ``drop=True``) is ported: with
+    every token routed to experts 0 then 1 and 4 slots an expert (8
+    tokens a group, capacity factor 1), the first four tokens keep both
+    choices and the last four lose both, so their output is 0; with
+    ``drop=False`` every token is served (``tests/test_torch_moe_drop.py``,
+    against the reference's ``moe_apply``, holds the general case)."""
+    d = 8
+    cfg = moe.MoEConfig(num_experts=4, top_k=2, tokens_per_group=8,
+                        capacity_factor=1.0)
+    mod = moe.moe_init(d, 8, cfg, device="cpu",
                        generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A-11"):
-        moe.moe_apply(mod, torch.zeros(1, 3, 8), cfg)
+    with torch.no_grad():
+        mod.router.zero_()
+        mod.router[0] = torch.tensor([3.0, 2.0, 0.0, 0.0])
+    x = torch.ones(1, 8, d) + 0.1 * torch.randn(
+        1, 8, d, generator=torch.Generator().manual_seed(1))
+    keep = moe.capacity_keep(moe.route(mod, x[0], cfg)[2], cfg)
+    assert keep.tolist() == [[True, True]] * 4 + [[False, False]] * 4
+    y, _ = moe.moe_apply(mod, x, cfg)
+    full, _ = moe.moe_apply(mod, x, cfg, drop=False)
+    assert torch.equal(y[0, 4:], torch.zeros(4, d))
+    torch.testing.assert_close(y[0, :4], full[0, :4], rtol=0, atol=0)
+    assert bool((full[0, 4:] != 0).any())

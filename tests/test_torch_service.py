@@ -581,16 +581,28 @@ def test_concurrent_clients_coalesce(served):
 
 @pytest.mark.parametrize("endpoint", ["predict", "explore"])
 def test_model_workload_over_http_is_not_served_yet(served, endpoint):
-    """The reference serves every ``model/<arch>/<step>`` workload; the
-    port serves prefill and decode and answers a ``train`` cell with 501
-    naming the queue item that will port it (A-11b)."""
+    """The reference serves every ``model/<arch>/<step>`` workload, and
+    so does the port: a ``train`` cell is answered with 200, ``/predict``
+    with a sequential ``Session.predict``'s answer, ``/explore`` with a
+    search over its trace."""
+    from repro_torch.service.server import build_request
+
     _service, client = served
-    kwargs = ({"targets": ["tpu-v5e"]} if endpoint == "predict"
-              else {"space": SPACE})
-    with pytest.raises(ServiceError, match="A-11b") as ei:
-        getattr(client, endpoint)("model/llama3_8b/train", sizes="smoke",
-                                  **kwargs)
-    assert ei.value.status == 501
+    name = "model/llama3_8b/train"
+    if endpoint == "explore":
+        out = client.explore(name, sizes="smoke", space=SPACE,
+                             agent="random", budget=8)
+        assert out["workload"] == name and out["best"]["score"] > 0
+        return
+    payload = {"workload": name, "sizes": "smoke", "targets": ["tpu-v5e"],
+               "core_counts": [1]}
+    got = client.predict(**payload)
+    assert got["workload"] == name
+    workload = resolve(name)
+    want = Session(cache_model=AnalyticalSDCM(backend="batched"),
+                   device="cpu").predict(workload,
+                                         build_request(payload, workload))
+    assert got["predictions"] == json.loads(want.to_json())["predictions"]
 
 
 def test_model_decode_over_http_equals_session_predict(served):

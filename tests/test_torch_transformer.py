@@ -220,11 +220,21 @@ def test_prefill_then_decode_matches_full_prefill(arch_id):
 
 
 def test_moe_forward_without_a_cache_raises():
-    cfg = dataclasses.replace(reduced_arch("mixtral-8x7b").config,
-                              dtype=torch.float32)
-    model = transformer.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A-11"):
-        transformer.forward(model, torch.zeros(1, 3, dtype=torch.long), cfg)
+    """A MoE forward without caches routes by capacity (the reference's
+    training path) and no longer raises: for mixtral and arctic its
+    logits and aux loss equal the reference's forward at the smoke shape
+    (256 tokens, groups of 32, where pairs overflow), at 2e-4."""
+    for arch_id in ("mixtral-8x7b", "arctic-480b"):
+        rspec, rcfg, values, pspec, pcfg, model = carried(arch_id)
+        toks = np.random.default_rng(4).integers(0, pspec.vocab, (4, 64))
+        want, _, want_aux = jax.jit(
+            lambda v, t: ref_tfm.forward(v, t, rcfg))(
+                values, toks.astype(np.int32))
+        logits, caches, aux = transformer.forward(
+            model, torch.from_numpy(toks), pcfg)
+        assert caches is None and logits.grad_fn is None
+        close(logits, want, pspec.vocab)
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
 
 
 def test_main_serves_the_reduced_family_on_cpu(capsys):

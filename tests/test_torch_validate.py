@@ -326,13 +326,19 @@ def test_defaults(monkeypatch):
 
 
 def test_model_workload_is_not_ported_yet():
-    """``train`` cells wait for the training graph (A-11b)."""
+    """``train`` cells run through the harness as the other model cells
+    do: a row per (target, cores), with the predicted and the exact-LRU
+    rate of every level."""
     spec = MatrixSpec(workloads=("model/llama3_8b/train",),
                       targets=("tpu-v5e",), core_counts=(1,),
                       strategies=("round_robin",), sizes="smoke",
                       binned_check=False)
-    with pytest.raises(NotImplementedError, match="A-11b"):
-        run_validation(spec, device="cpu")
+    rows = run_validation(spec, device="cpu")["records"]
+    assert len(rows) == 1
+    assert rows[0]["workload"] == "model/llama3_8b/train"
+    for got in rows[0]["levels"].values():
+        assert 0.0 <= got["predicted"] <= 1.0
+        assert 0.0 <= got["exact"] <= 1.0
 
 
 def test_model_cell_harness_row():
