@@ -212,9 +212,24 @@ with a non-zero exit:
     accumulators); and the 10 ``model/<slug>/train`` cells recorded and
     predicted as in 9d, one SDCM launch each.  More validation-xxl
     workloads follow while time allows.
+19. ``[lint]``: ``python -m repro_torch.lint --check`` with the committed
+    baseline over src, tools and tests (exit 0 or the run fails), with
+    files, findings and inline suppressions per family and the seconds.
+20. ``[lint_runtime]``: paths run under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with every warning
+    recorded and charged to the port line that synchronised: one warm
+    exact predict of 7 (B1), one cold binned predict (B1, B2), one cold
+    streaming predict at 2^16 (B1), and a 256-token prefill plus three
+    decode steps (``serve.serve``, batch 2) of mixtral-8x7b and
+    llama3-8b at full width and 2 layers and zamba2-1.2b at 8 (B4, B5).
+    A line that syncs more than once in one call is a sync in a loop:
+    the TS lint rules must report it (flagged or suppressed), or it is
+    in ``KNOWN_MISSED`` with the reason they cannot see it; never
+    ``models/moe.py:131`` and never a site of a predict path.
 
 B4's and B5's kernel records carry ``launches_by_path`` with the
-training path (``zamba2-1.2b/train``), B1's with ``model_traces/train``.
+training path (``zamba2-1.2b/train``), B1's with ``model_traces/train``,
+and B1's, B2's (moments), B4's and B5's with ``lint_runtime``.
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
 a CUDA graph (the device time).  Every predict in 7-9b and 9d must make
@@ -3321,6 +3336,219 @@ def phase_train_cells(smi: str) -> int:
     return launches["sdcm_rates_ragged"]
 
 
+
+# --- the linter, and the syncs the card reports ------------------------------
+
+LINT_PATHS = ("src", "tools", "tests")
+LINT_BASELINE = ".repro-lint-baseline.json"
+# [lint_runtime]'s serve paths: a short prefill and three decode steps at
+# full width.  llama3-8b and mixtral-8x7b at 2 layers; zamba2-1.2b at 8,
+# one group of 6 Mamba2 layers behind the shared attention and 2 trailing
+# ones (at 2 layers it has no attention site: attn_every is 6)
+SYNC_BATCH, SYNC_PROMPT, SYNC_GEN = 2, 256, 4
+SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
+SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
+                "tensor_core", "split_kv", "simt", "ssd_scan")
+# repeated sync sites that the TS rules cannot see, each with the reason
+# (also in ROADMAP).  Never moe.py:131 and never a site of a predict path.
+KNOWN_MISSED: dict[str, str] = {}
+NEVER_MISSED = ("src/repro_torch/models/moe.py:131",)
+SYNC_WARNING = "called a synchronizing CUDA operation"  # the debugger's
+
+
+def phase_lint(smi: str) -> None:
+    """``python -m repro_torch.lint --check`` with the committed baseline
+    over src, tools and tests, as CI runs the reference's linter: exit 0
+    or the run fails.  Files, findings and inline suppressions per family
+    from the same lint run again in this process (the CLI prints only
+    their totals)."""
+    import os
+
+    from repro_torch.lint.baseline import apply_baseline, load_baseline
+    from repro_torch.lint.engine import lint_paths
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "--check", "--baseline",
+         LINT_BASELINE, *LINT_PATHS],
+        cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"repro_torch.lint --check exited {out.returncode}:\n"
+             f"{out.stdout[-4000:]}{out.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    res = lint_paths([ROOT / p for p in LINT_PATHS], root=ROOT)
+    lint_s = time.perf_counter() - t0
+    new = apply_baseline(res.findings,
+                         load_baseline(ROOT / LINT_BASELINE)).new
+    by_family: dict = {}
+    for rule, n in sorted(res.suppressed_by_rule.items()):
+        fam = by_family.setdefault(rule[:2], {})
+        fam[rule] = n
+    line("lint", card=smi, files=res.files_checked,
+         findings=len(res.findings), unbaselined=len(new),
+         suppressed=res.suppressed, suppressed_by_family=by_family,
+         cli_s=cli_s, lint_s=lint_s, cli_summary=out.stdout.strip()[-200:])
+
+
+def record_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` with
+    every warning shown and recorded; returns ``fn``'s result and, for
+    each port line that made the CUDA runtime synchronise, how often it
+    did and the chain of port frames (outermost first) of its first
+    time.  The record is a ``showwarning`` hook, not a list of warnings:
+    it reads the Python stack when the warning is raised, so a sync
+    raised inside torch's own Python code is charged to the innermost
+    port frame that called it."""
+    import traceback
+    import warnings
+
+    port = ROOT / "src" / "repro_torch"
+    sites: dict = {}
+    chains: dict = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if Path(f.filename).is_relative_to(port)]
+        site = (f"{Path(frames[-1].filename).relative_to(ROOT).as_posix()}"
+                f":{frames[-1].lineno}" if frames else
+                f"{filename}:{lineno}")
+        sites[site] = sites.get(site, 0) + 1
+        chains.setdefault(site, [
+            f"{Path(f.filename).relative_to(ROOT).as_posix()}:{f.lineno}"
+            for f in frames])
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sites, chains
+
+
+def ts_sites() -> dict:
+    """``{"src/repro_torch/<file>:<line>": "TS1xx flagged|suppressed"}``
+    for every line of every TS finding over the port's sources."""
+    from repro_torch.lint.analyzers import torch_sync
+    from repro_torch.lint.engine import ModuleContext, iter_python_files
+
+    out = {}
+    for f in iter_python_files([ROOT / "src" / "repro_torch"]):
+        rel = f.relative_to(ROOT).as_posix()
+        ctx = ModuleContext(f, rel, f.read_text())
+        for ln, fd in torch_sync.sync_lines(ctx).items():
+            how = ("suppressed" if ctx.suppressed(fd.rule_id, fd.line)
+                   else "flagged")
+            out[f"{rel}:{ln}"] = f"{fd.rule_id} {how}"
+    return out
+
+
+def sync_paths(exact) -> list:
+    """[lint_runtime]'s paths: (name, is a predict path, kernels it must
+    launch, the call to record, its check)."""
+    from repro_torch.api import AnalyticalSDCM, Session
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    w, req, warm = main_path_session(MAIN_WORKLOAD)
+    warm.predict(w, req)
+
+    def predict(**kw):
+        sess = warm if not kw else Session(
+            cache_model=AnalyticalSDCM(backend="batched"), device="cuda",
+            **kw)
+        return lambda: sess.predict(w, req)
+
+    def same(res):
+        if res.to_json() != exact.to_json():
+            fail("lint_runtime: a predict differs from the main path's")
+
+    def served(arch):
+        layers = SYNC_LAYERS[arch]
+        spec = get_arch(arch)
+        cfg = serve.with_config(spec.config, layers=layers)
+
+        def run():
+            model = spec.family.init(cfg, device="cuda", seed=0)
+            return lambda: serve.serve(
+                arch, batch=SYNC_BATCH, prompt_len=SYNC_PROMPT, gen=SYNC_GEN,
+                seed=0, device="cuda", layers=layers, model=model)
+        return run
+
+    def tokens(res):
+        if res["tokens"].shape != (SYNC_BATCH, SYNC_GEN):
+            fail(f"lint_runtime: tokens of shape {res['tokens'].shape}")
+
+    return [
+        ("predict_exact_warm", True, ("sdcm_rates_ragged",),
+         lambda: predict(), same),
+        ("predict_binned", True, ("sdcm_rates_ragged", "reuse_hist_moments"),
+         lambda: predict(binned=True),
+         lambda res: close_to_exact(res, exact, "lint_runtime binned")),
+        ("predict_streaming", True, ("sdcm_rates_ragged",),
+         lambda: predict(window_size=STREAM_WINDOW), same),
+        ("mixtral-8x7b/decode", False, ("flash_attention",),
+         served("mixtral-8x7b"), tokens),
+        ("llama3-8b/decode", False, ("flash_attention",),
+         served("llama3-8b"), tokens),
+        ("zamba2-1.2b/decode", False, ("flash_attention", "ssd_scan"),
+         served("zamba2-1.2b"), tokens),
+    ]
+
+
+def phase_lint_runtime(smi: str, exact) -> dict:
+    """Each path once under the sync debugger.  A port line that syncs
+    more than once in one call is a sync in a loop: TS must report it
+    (flagged or suppressed), or it is listed in KNOWN_MISSED with the
+    reason TS cannot see it.  Returns each path's kernel launches."""
+    t_phase = time.perf_counter()
+    bad = [s for s in KNOWN_MISSED if s in NEVER_MISSED]
+    if bad:
+        fail(f"KNOWN_MISSED lists {bad}, which TS must report")
+    ts = ts_sites()
+    by_path = {}
+    for name, is_predict, needs, make, check in sync_paths(exact):
+        call = make()
+        reset_counts()
+        t0 = time.perf_counter()
+        res, sites, chains = record_syncs(call)
+        secs = time.perf_counter() - t0
+        launches = {k: read_counts()["launches"][k] for k in SYNC_KERNELS}
+        check(res)
+        for k in needs:
+            if launches[k] <= 0:
+                fail(f"lint_runtime {name} launched no {k}: {launches}")
+        repeated = {s: n for s, n in sites.items() if n > 1}
+        known = [s for s in repeated if s in KNOWN_MISSED]
+        missed = [s for s in repeated if s not in ts and s not in known]
+        line("lint_runtime", card=smi, path=name, seconds=secs,
+             sites=sites, repeated=sorted(repeated),
+             ts={s: ts[s] for s in sites if s in ts},
+             known_missed=known, missed=missed,
+             missed_chains={s: chains[s] for s in missed},
+             launches=launches)
+        if is_predict and known:
+            fail(f"lint_runtime {name}: predict-path sites {known} are in "
+                 "KNOWN_MISSED")
+        if missed:
+            fail(f"lint_runtime {name}: repeated sync sites TS does not "
+                 f"report: {missed}")
+        by_path[name] = launches
+        del call, res
+        torch.cuda.empty_cache()
+    line("lint_runtime", card=smi, paths=list(by_path),
+         phase_s=time.perf_counter() - t_phase)
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3395,6 +3623,20 @@ def main() -> int:
                            if form == "window" else
                            sum(n[form] for n in by_path.values()))
     phase_more_workloads(t_start)
+    phase_lint(smi)
+    synced = phase_lint_runtime(smi, exact)
+    for rec, name in ((sdcm_kernel, "sdcm_rates_ragged"),
+                      *((r, r["name"]) for r in hist_kernels
+                        if r["name"] == "reuse_hist_moments"),
+                      (flash_kernel, "flash_attention"),
+                      (ssd_kernel, "ssd_scan")):
+        rec["launches_by_path"]["lint_runtime"] = sum(
+            n[name] for n in synced.values())
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    for form, rec in flash_kernel["forms"].items():
+        rec["launches"] += (synced["mixtral-8x7b/decode"]["flash_attention"]
+                            if form == "window" else
+                            sum(n[form] for n in synced.values()))
     kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
                + [flash_kernel, ssd_kernel])
     for rec in kernels:  # the worst error over every path's own inputs

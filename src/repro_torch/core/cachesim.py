@@ -54,7 +54,7 @@ def simulate_hierarchy(
     results: list[LevelResult] = []
     for cfg in levels:
         hit_mask = simulate_level(current, cfg, device=dev)
-        hits = int(hit_mask.sum())
+        hits = int(hit_mask.sum())  # repro-lint: disable=TS102 -- exact-LRU ground truth: one hit count per cache level
         misses = current.numel() - hits
         results.append(
             LevelResult(

@@ -94,9 +94,9 @@ def as_device_lines(addresses, line_size: int,
                     dev: torch.device) -> torch.Tensor:
     """An address array or tensor as int64 line ids on ``dev``."""
     if isinstance(addresses, torch.Tensor):
-        arr = addresses.to(dev, torch.int64)
+        arr = addresses.to(dev, torch.int64)  # repro-lint: disable=TS103 -- ROADMAP "Profile builds sync once per cell"
     else:
-        arr = torch.from_numpy(np.asarray(addresses, dtype=np.int64)).to(dev)
+        arr = torch.from_numpy(np.asarray(addresses, dtype=np.int64)).to(dev)  # repro-lint: disable=TS103 -- ROADMAP "Profile builds sync once per cell"
     return arr // line_size if line_size > 1 else arr
 
 
@@ -206,7 +206,7 @@ def _last_occurrence_order(seq: torch.Tensor) -> torch.Tensor:
     sv = seq[order]
     last = torch.ones(seq.numel(), dtype=torch.bool, device=seq.device)
     last[:-1] = sv[:-1] != sv[1:]
-    return seq[torch.sort(order[last]).values]
+    return seq[torch.sort(order[last]).values]  # repro-lint: disable=TS102 -- ROADMAP "Streaming profiles sync once per window"
 
 
 def reuse_distance_windows_device(
@@ -241,7 +241,7 @@ def reuse_distance_windows_device(
         if awin.size == 0:
             yield torch.empty(0, dtype=torch.int64, device=dev)
             continue
-        seq = torch.cat([live, torch.from_numpy(awin).to(dev)])
+        seq = torch.cat([live, torch.from_numpy(awin).to(dev)])  # repro-lint: disable=TS103 -- ROADMAP "Streaming profiles sync once per window"
         t1 = time.perf_counter()
         rds = _offline_pass(seq, counted=False)[live.numel():]
         t2 = time.perf_counter()
@@ -267,7 +267,7 @@ def reuse_distance_windows(
     for rds in reuse_distance_windows_device(
         source, line_size, window_size=window_size, device=device
     ):
-        yield rds.cpu().numpy()
+        yield rds.cpu().numpy()  # repro-lint: disable=TS102 -- host-window API: a host array per window is its contract
 
 
 def reuse_distances_streaming(

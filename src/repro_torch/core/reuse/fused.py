@@ -68,7 +68,7 @@ class FusedReuseHistogram:
         return self
 
     def histogram(self) -> np.ndarray:
-        return self._hist.cpu().numpy()
+        return self._hist.cpu().numpy()  # repro-lint: disable=TS102 -- ROADMAP "Profile builds sync once per cell"
 
     def profile(self) -> ReuseProfile:
         return profile_from_binned_hist(self.histogram())

@@ -98,9 +98,9 @@ def profile_from_distances(rds: torch.Tensor) -> ReuseProfile:
     and their counts come back as host int64 arrays.
     """
     rds = torch.as_tensor(rds).to(torch.int64)
-    uniq, counts = torch.unique(rds, sorted=True, return_counts=True)
+    uniq, counts = torch.unique(rds, sorted=True, return_counts=True)  # repro-lint: disable=TS102 -- ROADMAP "Profile builds sync once per cell"
     return ReuseProfile(
-        uniq.cpu().numpy(), counts.to(torch.int64).cpu().numpy(),
+        uniq.cpu().numpy(), counts.to(torch.int64).cpu().numpy(),  # repro-lint: disable=TS102 -- ROADMAP "Profile builds sync once per cell"
         int(rds.numel()),
     )
 
@@ -127,10 +127,10 @@ def profile_from_distances_incremental(rd_windows) -> ReuseProfile:
         rds = torch.as_tensor(rds).to(torch.int64)
         if rds.numel() == 0:
             continue
-        u, c = torch.unique(rds, sorted=True, return_counts=True)
+        u, c = torch.unique(rds, sorted=True, return_counts=True)  # repro-lint: disable=TS102 -- ROADMAP "Streaming profiles sync once per window"
         merged = profile_from_pairs(
-            np.concatenate([acc_d, u.cpu().numpy()]),
-            np.concatenate([acc_c, c.to(torch.int64).cpu().numpy()]),
+            np.concatenate([acc_d, u.cpu().numpy()]),  # repro-lint: disable=TS102 -- ROADMAP "Streaming profiles sync once per window"
+            np.concatenate([acc_c, c.to(torch.int64).cpu().numpy()]),  # repro-lint: disable=TS102 -- ROADMAP "Streaming profiles sync once per window"
         )
         acc_d, acc_c = merged.distances, merged.counts
     return ReuseProfile(acc_d, acc_c, int(acc_c.sum()))

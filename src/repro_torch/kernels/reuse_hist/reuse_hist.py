@@ -77,19 +77,19 @@ def _exact_mass(bins: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     per-bin sums stay below 2^53 (for fewer than 2^32 distances) and so
     are exact in any order; Python integers put them together."""
     x = d.clamp_min(0)
-    limbs = [torch.bincount(bins, weights=((x >> s) & _LIMB).to(torch.float64),
+    limbs = [torch.bincount(bins, weights=((x >> s) & _LIMB).to(torch.float64),  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
                             minlength=NUM_BINS).tolist()
              for s in (0, 21, 42)]
     sums = [int(a) + (int(b) << 21) + (int(c) << 42) for a, b, c in zip(*limbs)]
-    return torch.tensor([float(v) for v in sums], dtype=torch.float64,
+    return torch.tensor([float(v) for v in sums], dtype=torch.float64,  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
                         device=d.device)
 
 
 def _counts(bins: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:
     if w is None:
-        return torch.bincount(bins, minlength=NUM_BINS).to(torch.float64)
+        return torch.bincount(bins, minlength=NUM_BINS).to(torch.float64)  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
     # (bincount of an empty input comes back int64 whatever the weights)
-    return torch.bincount(bins, weights=w.to(torch.float64),
+    return torch.bincount(bins, weights=w.to(torch.float64),  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
                           minlength=NUM_BINS).to(torch.float64)
 
 
@@ -103,7 +103,7 @@ def reuse_histogram_moments_plain(d: torch.Tensor, w: torch.Tensor | None = None
     if w is None:
         mass = _exact_mass(bins, d)
     else:
-        mass = torch.bincount(
+        mass = torch.bincount(  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
             bins, weights=w.to(torch.float64) * d.clamp_min(0).to(torch.float64),
             minlength=NUM_BINS).to(torch.float64)
     return torch.stack([_counts(bins, w), mass])

@@ -101,7 +101,7 @@ def sdcm_rates_ragged_plain(d, probs, meta) -> torch.Tensor:
     Rows the kernel gives NaN for (a record out of range or with no
     bucket) are NaN here too."""
     dev = d.device
-    recs = meta.tolist()
+    recs = meta.tolist()  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
     rates = torch.full((len(recs),), math.nan, dtype=torch.float64, device=dev)
     groups: dict[tuple[int, int], list[int]] = {}
     for r, (off, length, _a, _b, a_max) in enumerate(recs):
@@ -117,24 +117,24 @@ def sdcm_rates_ragged_plain(d, probs, meta) -> torch.Tensor:
         at = (off[:, None] + cols[None, :]).clamp(0, max(d.numel() - 1, 0))
         grid_d = torch.zeros((g, m), dtype=torch.float64, device=dev)
         grid_p = torch.zeros((g, m), dtype=torch.float64, device=dev)
-        inside, at = inside.to(dev), at.to(dev)
+        inside, at = inside.to(dev), at.to(dev)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
         if d.numel():
             grid_d[:len(idx)] = torch.where(inside, d[at], 0.0)
             grid_p[:len(idx)] = torch.where(inside, probs[at], 0.0)
         assoc = torch.ones(g, dtype=torch.float64, device=dev)
         blocks = torch.full((g,), 2.0, dtype=torch.float64, device=dev)
-        assoc[:len(idx)] = rec[:, 2].to(dev)
-        blocks[:len(idx)] = rec[:, 3].to(dev)
+        assoc[:len(idx)] = rec[:, 2].to(dev)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
+        blocks[:len(idx)] = rec[:, 3].to(dev)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
         out = sdcm_rates_plain(grid_d, grid_p, assoc, blocks, a_max)
-        rates[torch.tensor(idx, device=dev)] = out[:len(idx)]
+        rates[torch.tensor(idx, device=dev)] = out[:len(idx)]  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
     return rates
 
 
 def sdcm_hit_probs_plain(d, assoc: int, blocks: int) -> torch.Tensor:
     """P(h | D) of a flat distance stream at one geometry (float32)."""
     a_max = a_max_bucket(assoc, blocks)
-    a = torch.tensor(float(assoc), dtype=torch.float64, device=d.device)
-    b = torch.tensor(float(blocks), dtype=torch.float64, device=d.device)
+    a = torch.tensor(float(assoc), dtype=torch.float64, device=d.device)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
+    b = torch.tensor(float(blocks), dtype=torch.float64, device=d.device)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
     return phit_plain(d, a, b, a_max).to(torch.float32)
 
 

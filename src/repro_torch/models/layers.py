@@ -118,7 +118,7 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
-    freqs = torch.from_numpy(rope_frequencies(x.shape[-1], theta)).to(x.device)
+    freqs = torch.from_numpy(rope_frequencies(x.shape[-1], theta)).to(x.device)  # repro-lint: disable=TS103 -- ROADMAP "Decode is host-bound": RoPE frequencies copied per attention call
     ang = positions[..., :, None].float() * freqs        # [..., S, hd/2]
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

@@ -8,7 +8,8 @@ composition invariance of the SDCM grid form, bit-reproducibility of
 the histogram (from two threads and streams at once too), streaming reuse distances, a binned Session and the
 reduced serving paths on the card (zamba2, and the windowed MoE
 transformer), B4's and B5's gradients (their ``autograd.Function``s)
-and a reduced training step, the fused config sweep in both inner
+and a reduced training step, the repeated host syncs of a reduced
+mixtral decode against the TS lint rules, the fused config sweep in both inner
 forms and the artifact store on the card.  Imports nothing of JAX, so
 it runs where the port runs:
 
@@ -801,6 +802,57 @@ def test_reduced_mixtral_serve_on_the_card(cuda_device):
                       model=model.to(cuda_device), **kw)
     assert fa.LAUNCHES_BY_FORM["simt"] - before == 2 * 4
     np.testing.assert_array_equal(res["tokens"], cpu["tokens"])
+
+
+def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
+    """The reduced mixtral (2 layers) prefilled and decoded three steps
+    on the card under ``set_sync_debug_mode("warn")``: every port line
+    that synchronises more than once in the call is a site the TS rules
+    report (flagged or suppressed), the MoE's per-layer expert counts
+    (``models/moe.py:131``) among them."""
+    import traceback
+    import warnings
+    from pathlib import Path
+
+    from repro_torch.lint.analyzers import torch_sync
+    from repro_torch.lint.engine import ModuleContext
+
+    root = Path(__file__).resolve().parents[1]
+    port = root / "src" / "repro_torch"
+    cfg = reduced_arch("mixtral-8x7b").config
+    model = transformer.init(cfg, device=cuda_device, seed=1)
+    sites: dict = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if Path(f.filename).is_relative_to(port)]
+        if frames:
+            site = (Path(frames[-1].filename).relative_to(root).as_posix(),
+                    frames[-1].lineno)
+            sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = serve.serve("mixtral-8x7b", reduced=True, batch=2,
+                              prompt_len=24, gen=4, device=cuda_device,
+                              model=model)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert res["tokens"].shape == (2, 4)
+    repeated = {s for s, n in sites.items() if n > 1}
+    ts = set()
+    for rel in {r for r, _ in repeated}:
+        path = root / rel
+        ctx = ModuleContext(path, rel, path.read_text())
+        ts |= {(rel, ln) for ln in torch_sync.sync_lines(ctx)}
+    assert ("src/repro_torch/models/moe.py", 131) in repeated
+    assert repeated <= ts, sorted(repeated - ts)
 
 
 SWEEP_SPACE = dict(sets=(64, 512, 4096, 32768), ways=(1, 4, 8, 16),

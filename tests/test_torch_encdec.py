@@ -131,7 +131,8 @@ def test_prefill_and_every_decode_step_match_the_reference(carried, s_src):
                 "tokens": torch.from_numpy(toks[:, :split]).long()}, pcfg, pc)
     close(got, want, rspec.vocab)
     close(pc.cross_k, rc.cross_k)
-    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n))
+    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n),
+                     donate_argnums=(2,))
     for t in range(split, total):
         tok = toks[:, t:t + 1]
         want, rc = decode(values, {"token": jnp.asarray(tok)}, rc,
@@ -151,8 +152,10 @@ def reference_greedy(spec, cfg, values, prompt, sources, gen):
     b, plen = prompt.shape
     caches = fam.init_caches(cfg, batch=b, max_len=plen + gen,
                              src_len=sources["frames"].shape[1])
-    prefill = jax.jit(lambda p, bt, c: fam.prefill(p, bt, cfg, c))
-    decode = jax.jit(lambda p, bt, c, n: fam.decode_step(p, bt, cfg, c, n))
+    prefill = jax.jit(lambda p, bt, c: fam.prefill(p, bt, cfg, c),
+                      donate_argnums=(2,))
+    decode = jax.jit(lambda p, bt, c, n: fam.decode_step(p, bt, cfg, c, n),
+                     donate_argnums=(2,))
     logits, caches = prefill(values, {"tokens": jnp.asarray(prompt),
                                       "frames": jnp.asarray(
                                           sources["frames"])}, caches)

@@ -72,7 +72,8 @@ def test_gqa_attention_self_prefill_and_decode():
     x = rng.standard_normal((2, 11, d)).astype(np.float32)
     pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
     ref = jax.jit(lambda v, x, p, c: ref_attn.gqa_attention(
-        v, x, positions=p, rope_theta=theta, cache=c))
+        v, x, positions=p, rope_theta=theta, cache=c),
+                  donate_argnums=(3,))
     want, _ = ref(vals, x, pos, None)
     got, _ = attention.gqa_attention(mod, torch.from_numpy(x),
                                      positions=torch.from_numpy(pos.copy()),
@@ -108,7 +109,8 @@ def test_gqa_attention_with_a_window_matches_the_reference():
     x = rng.standard_normal((2, 11, d)).astype(np.float32)
     pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
     ref = jax.jit(lambda v, x, p, c: ref_attn.gqa_attention(
-        v, x, positions=p, rope_theta=theta, cache=c, window=window))
+        v, x, positions=p, rope_theta=theta, cache=c, window=window),
+                  donate_argnums=(3,))
     want, _ = ref(vals, x, pos, None)
     got, _ = attention.gqa_attention(mod, torch.from_numpy(x),
                                      positions=torch.from_numpy(pos.copy()),
@@ -165,15 +167,17 @@ def test_block_apply_without_and_with_cache():
     copy_params(blk, vals)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 10, pcfg.d_model)).astype(np.float32)
-    ref = jax.jit(lambda v, x, c: ref_ssm.block_apply(rcfg, v, x, cache=c))
-    want, _ = ref(vals, x, None)
+    ref_block = jax.jit(
+        lambda v, x, c: ref_ssm.block_apply(rcfg, v, x, cache=c),
+        donate_argnums=(2,))
+    want, _ = ref_block(vals, x, None)
     got, _ = ssm.block_apply(pcfg, blk, torch.from_numpy(x), cache=None)
     close(got, want)
 
     rc = jax.tree.map(lambda a: a[0], ref_ssm.init_caches(rcfg, 2))
     pc = ssm.layer_cache(ssm.init_caches(pcfg, 2, device="cpu"), 0)
     for lo, hi in [(0, 6), (6, 7), (7, 8), (8, 10)]:
-        want, rc = ref(vals, x[:, lo:hi], rc)
+        want, rc = ref_block(vals, x[:, lo:hi], rc)
         got, pc = ssm.block_apply(pcfg, blk, torch.from_numpy(x[:, lo:hi]),
                                   cache=pc)
         close(got, want)
@@ -198,7 +202,8 @@ def test_reduced_model_prefill_and_decode_match_reference(arch_id):
     got, pc = pfam.prefill(
         model, {"tokens": torch.from_numpy(toks[:, :split]).long()}, pcfg, pc)
     close(got, want, rspec.vocab)
-    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n))
+    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n),
+                     donate_argnums=(2,))
     for t in range(split, total):
         tok = toks[:, t:t + 1]
         want, rc = decode(values, {"token": jnp.asarray(tok)}, rc,

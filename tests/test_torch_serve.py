@@ -34,8 +34,10 @@ def reference_greedy(spec, cfg, values, prompt, gen):
     fam = spec.family
     caches = fam.init_caches(cfg, batch=prompt.shape[0],
                              max_len=prompt.shape[1] + gen)
-    prefill = jax.jit(lambda p, b, c: fam.prefill(p, b, cfg, c))
-    decode = jax.jit(lambda p, b, c, n: fam.decode_step(p, b, cfg, c, n))
+    prefill = jax.jit(lambda p, b, c: fam.prefill(p, b, cfg, c),
+                      donate_argnums=(2,))
+    decode = jax.jit(lambda p, b, c, n: fam.decode_step(p, b, cfg, c, n),
+                     donate_argnums=(2,))
     logits, caches = prefill(values, {"tokens": jnp.asarray(prompt)}, caches)
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
     out, length = [tok], jnp.asarray(prompt.shape[1], jnp.int32)

@@ -74,6 +74,7 @@ def reference_steps(arch):
     out = {"batch": batch, "grads": np_tree(grads),
            "state0": np_tree(state0)}
     for accum in (1, 2):
+        # repro-lint: disable=JP120 -- one reference step per grad_accum value
         step = jax.jit(ref_build(lambda p, b: fam.loss_fn(p, b, cfg), opt,
                                  grad_accum=accum,
                                  accum_dtype=rspec.accum_dtype))

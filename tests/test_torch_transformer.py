@@ -99,7 +99,8 @@ def test_block_apply_matches_the_reference(kind):
         (b, total, pcfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(total, dtype=np.int32), (b, total))
     ref = jax.jit(lambda v, x, p, c: ref_tfm.block_apply(
-        rcfg, v, x, positions=p, cache=c))
+        rcfg, v, x, positions=p, cache=c),
+                  donate_argnums=(3,))
     if pcfg.moe is None:  # without a cache the reference's MoE drops
         want, _, _ = ref(vals, x, pos, None)
         got, _, _ = transformer.block_apply(
@@ -151,7 +152,8 @@ def test_reduced_model_prefill_and_decode_match_reference(arch_id):
     got, pc = pfam.prefill(
         model, {"tokens": torch.from_numpy(toks[:, :split]).long()}, pcfg, pc)
     close(got, want, rspec.vocab)
-    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n))
+    decode = jax.jit(lambda p, bt, c, n: rfam.decode_step(p, bt, rcfg, c, n),
+                     donate_argnums=(2,))
     for t in range(split, total):
         tok = toks[:, t:t + 1]
         want, rc = decode(values, {"token": jnp.asarray(tok)}, rc,
@@ -169,8 +171,10 @@ def reference_greedy(spec, cfg, values, prompt, gen):
     fam = spec.family
     caches = fam.init_caches(cfg, batch=prompt.shape[0],
                              max_len=prompt.shape[1] + gen)
-    prefill = jax.jit(lambda p, b, c: fam.prefill(p, b, cfg, c))
-    decode = jax.jit(lambda p, b, c, n: fam.decode_step(p, b, cfg, c, n))
+    prefill = jax.jit(lambda p, b, c: fam.prefill(p, b, cfg, c),
+                      donate_argnums=(2,))
+    decode = jax.jit(lambda p, b, c, n: fam.decode_step(p, b, cfg, c, n),
+                     donate_argnums=(2,))
     logits, caches = prefill(values, {"tokens": jnp.asarray(prompt)}, caches)
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
     out, length = [tok], jnp.asarray(prompt.shape[1], jnp.int32)
@@ -227,6 +231,7 @@ def test_moe_forward_without_a_cache_raises():
     for arch_id in ("mixtral-8x7b", "arctic-480b"):
         rspec, rcfg, values, pspec, pcfg, model = carried(arch_id)
         toks = np.random.default_rng(4).integers(0, pspec.vocab, (4, 64))
+        # repro-lint: disable=JP120 -- one reference forward per arch's config
         want, _, want_aux = jax.jit(
             lambda v, t: ref_tfm.forward(v, t, rcfg))(
                 values, toks.astype(np.int32))

@@ -145,7 +145,8 @@ def test_prefill_and_every_decode_step_match_the_reference(head_dim):
                 "tokens": torch.from_numpy(toks[:, :split]).long()}, pcfg, pc)
     close(got, want, rspec.vocab)
     assert pc.length == p + split
-    decode = jax.jit(lambda v, bt, c, n: rfam.decode_step(v, bt, rcfg, c, n))
+    decode = jax.jit(lambda v, bt, c, n: rfam.decode_step(v, bt, rcfg, c, n),
+                     donate_argnums=(2,))
     for t in range(split, total):
         tok = toks[:, t:t + 1]
         want, rc = decode(values, {"token": jnp.asarray(tok)}, rc,
@@ -165,8 +166,10 @@ def reference_greedy(spec, cfg, values, prompt, patches, gen):
     b, plen = prompt.shape
     p = cfg.num_patches
     caches = fam.init_caches(cfg, batch=b, max_len=plen + gen + p)
-    prefill = jax.jit(lambda v, bt, c: fam.prefill(v, bt, cfg, c))
-    decode = jax.jit(lambda v, bt, c, n: fam.decode_step(v, bt, cfg, c, n))
+    prefill = jax.jit(lambda v, bt, c: fam.prefill(v, bt, cfg, c),
+                      donate_argnums=(2,))
+    decode = jax.jit(lambda v, bt, c, n: fam.decode_step(v, bt, cfg, c, n),
+                     donate_argnums=(2,))
     logits, caches = prefill(values, {"tokens": jnp.asarray(prompt),
                                       "patches": jnp.asarray(patches)},
                              caches)
@@ -229,8 +232,10 @@ def test_c7_reference_serve_length_moves_away_from_the_full_forward():
     toks, patches = inputs(pcfg, rspec.vocab, b, s + 1, seed=7)
     p = pcfg.num_patches
     rfam = rspec.family
-    prefill = jax.jit(lambda v, bt, c: rfam.prefill(v, bt, rcfg, c))
-    decode = jax.jit(lambda v, bt, c, n: rfam.decode_step(v, bt, rcfg, c, n))
+    prefill = jax.jit(lambda v, bt, c: rfam.prefill(v, bt, rcfg, c),
+                      donate_argnums=(2,))
+    decode = jax.jit(lambda v, bt, c, n: rfam.decode_step(v, bt, rcfg, c, n),
+                     donate_argnums=(2,))
     full, _ = prefill(values, {"patches": jnp.asarray(patches),
                                "tokens": jnp.asarray(toks)},
                       rfam.init_caches(rcfg, batch=b, max_len=p + s + 1))
