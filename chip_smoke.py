@@ -212,6 +212,24 @@ with a non-zero exit:
     accumulators); and the 10 ``model/<slug>/train`` cells recorded and
     predicted as in 9d, one SDCM launch each.  More validation-xxl
     workloads follow while time allows.
+18b. ``[checkpoint]`` (ROADMAP A-11c): phase 18's zamba2-1.2b state
+    saved through ``runtime.checkpoint.CheckpointManager`` (async, the
+    reference's format, about 13.4 GB, under ``build/``, deleted after):
+    snapshot, write and restore seconds and bytes; the restore into a
+    freshly built model, in place, bit-equal to the saved state; 2 steps
+    from the live state and 2 from the restored one under
+    ``torch.use_deterministic_algorithms(True)``, losses, gradient norms
+    and every leaf bit-equal (an op without a deterministic CUDA form is
+    named and the two runs held to ``SERVE_REL_TOL`` instead); B4 and
+    B5 launches on the resumed steps (``launches_by_path
+    ["zamba2-1.2b/resume"]``); ``plan_remesh`` onto the host mesh with
+    ``fits`` against the card's memory.
+18c. ``[dryrun]``: ``launch.dryrun.run_cell`` on the host mesh for one
+    full-size cell a family (``prefill_32k``), recorded on the meta
+    device; the dry-run's predicted peak (arguments + temporaries)
+    against ``max_memory_allocated`` for zamba2-1.2b's train step and
+    llama3-8b's prefill, both at 4 x 2,048, each ratio within
+    [0.9, 1.15].
 19. ``[lint]``: ``python -m repro_torch.lint --check`` with the committed
     baseline over src, tools and tests (exit 0 or the run fails), with
     files, findings and inline suppressions per family and the seconds.
@@ -225,10 +243,11 @@ with a non-zero exit:
     A line that syncs more than once in one call is a sync in a loop:
     the TS lint rules must report it (flagged or suppressed), or it is
     in ``KNOWN_MISSED`` with the reason they cannot see it; never
-    ``models/moe.py:131`` and never a site of a predict path.
+    ``models/moe.py:157`` and never a site of a predict path.
 
 B4's and B5's kernel records carry ``launches_by_path`` with the
-training path (``zamba2-1.2b/train``), B1's with ``model_traces/train``,
+training path (``zamba2-1.2b/train``) and the resumed steps
+(``zamba2-1.2b/resume``), B1's with ``model_traces/train``,
 and B1's, B2's (moments), B4's and B5's with ``lint_runtime``.
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
@@ -3166,13 +3185,33 @@ def backward_ms(spec) -> dict:
     def sc_both():
         torch.autograd.grad(ssd_scan(x, la, bb, cc)[0], (x, la, bb, cc), gy)
 
+    # the backward's least time: B4 recomputes P and makes dV, dP, dQ, dK,
+    # 10·D operations per visible pair in bf16 (its forward's 4·D, 2.5x),
+    # reading q, k, v, o, dO and writing dq, dk, dv; B5 two multiply-adds
+    # of gradient per multiply-add of its forward (no recomputation), f32
+    # on the CUDA cores, reading x, la, b, c, dy and writing their grads
+    from repro_torch.kernels.flash_attention import attention_ops
+    from repro_torch.kernels.ssd_scan import scan_ops
+
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    bounds = {
+        "flash_attention": bound_ms(
+            nb(q, k, v, q, go, q, k, v),
+            2.5 * attention_ops(b, cfg.heads, s, cfg.head_dim, causal=True,
+                                q_offset=0, kv_len=s), PEAK_BF16_S),
+        "ssd_scan": bound_ms(
+            2 * nb(x, la, bb, cc) + nb(gy),
+            2.0 * scan_ops(b, s, h, p, n), PEAK_FP32_S),
+    }
     out = {}
     for name, fwd, both in (("flash_attention", fa_fwd, fa_both),
                             ("ssd_scan", sc_fwd, sc_both)):
         f_ms = cuda_ms(fwd, reps=5, warmup=1)
         b_ms = cuda_ms(both, reps=3, warmup=1)
         out[name] = dict(forward_ms=f_ms, forward_and_backward_ms=b_ms,
-                         backward_ms=b_ms - f_ms)
+                         backward_ms=b_ms - f_ms,
+                         backward_bound_ms=bounds[name][0],
+                         backward_bound_by=bounds[name][1])
     return out
 
 
@@ -3190,7 +3229,7 @@ def phase_train(smi: str) -> dict:
     recomputation) and the optimizer; B4's and B5's backward timed
     alone.  (b) ``train_vs_plain``.  (d) One step of every
     architecture's reduced config on the card, finite.  Returns the
-    main run's launches."""
+    main run's launches and its state (for ``[checkpoint]``)."""
     from repro_torch.configs.base import Shape
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.steps import make_optimizer
@@ -3263,9 +3302,7 @@ def phase_train(smi: str) -> dict:
          top=prof["top"], forward_top=prof["ranges_top"][RANGES[0]],
          optimizer_top=prof["ranges_top"][RANGES[-1]], profile_s=prof_s,
          kernels_fwd_bwd=backward_ms(spec))
-    del state, res, step_fn, params
-    model.requires_grad_(False)
-    del model
+    del res, step_fn, params
     torch.cuda.empty_cache()
 
     train_vs_plain(spec, smi)
@@ -3285,7 +3322,7 @@ def phase_train(smi: str) -> dict:
                  arch, reduced=True).accum_dtype),
              seconds=secs, **h)
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in want}
+    return {k: launches[k] for k in want}, state
 
 
 def phase_train_cells(smi: str) -> int:
@@ -3337,6 +3374,298 @@ def phase_train_cells(smi: str) -> int:
 
 
 
+# --- checkpoint, resume and the dry-run (ROADMAP A-11c) ---------------------
+
+RESUME_STEPS = 2                   # steps after the restore, each side
+DRYRUN_CELLS = (("llama3-8b", "prefill_32k"), ("mixtral-8x7b", "prefill_32k"),
+                ("mamba2-780m", "prefill_32k"), ("zamba2-1.2b", "prefill_32k"),
+                ("seamless-m4t-medium", "prefill_32k"),
+                ("phi-3-vision-4.2b", "prefill_32k"))
+# measured / predicted peak bytes: sound predictions read 1.0001
+# (zamba2 train) and 1.05 (llama3 prefill, cuBLAS's workspace); leaving
+# out AdamW's moments or the saved activations reads about 1.5
+DRYRUN_PEAK_RANGE = (0.9, 1.15)
+NONDETERMINISTIC = "does not have a deterministic implementation"
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def leaves_equal(a, b) -> tuple[int, list]:
+    """(leaves compared, names of those not bit-equal) of two port train
+    states: every stacked parameter leaf (one at a time on the card),
+    every optimizer moment and the step."""
+    from repro_torch.train.optimizer import param_leaves, stack_leaf
+
+    pa, pb = dict(a.params.named_parameters()), dict(
+        b.params.named_parameters())
+    bad, n = [], 0
+    with torch.no_grad():
+        for leaf, info in param_leaves(a.params).items():
+            n += 1
+            x = stack_leaf([pa[k] for k in info.names], info.lead)
+            y = stack_leaf([pb[k] for k in info.names], info.lead)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                bad.append(leaf)
+        for leaf, s in a.opt_state.items():
+            for k, t in s.items():
+                n += 1
+                if not torch.equal(t, b.opt_state[leaf][k]):
+                    bad.append(f"opt_state.{leaf}.{k}")
+    n += 1
+    if not torch.equal(a.step, b.step):
+        bad.append("step")
+    return n, bad
+
+
+def resumed_steps(step_fn, state, stream, first: int) -> tuple:
+    """``RESUME_STEPS`` steps of ``state`` on the stream's batches from
+    ``first``: (state, [loss], [grad norm]) as floats."""
+    losses, norms = [], []
+    for step in range(first, first + RESUME_STEPS):
+        batch = {k: (v if v.is_floating_point() else v.long()).cuda()
+                 for k, v in stream.batch(step).items()}
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return state, losses, norms
+
+
+def phase_checkpoint(smi: str, state) -> dict:
+    """``[checkpoint]``: phase 18's zamba2-1.2b state (full width and
+    depth, bf16, AdamW) through ``runtime.checkpoint.CheckpointManager``
+    (async) under ``build/``: the snapshot's seconds (``save`` returns once
+    the state is on the host), the write's and the restore's, bytes on
+    disk; the restore into a freshly built model (in place, onto the
+    run's one device, allocating at most one tensor's staging beyond
+    the state) bit-equal to the saved state, leaf by leaf; then ``RESUME_STEPS`` steps from the live state
+    and as many from the restored one under
+    ``torch.use_deterministic_algorithms(True)`` (warnings only, each
+    op without a deterministic CUDA form named): losses, gradient norms
+    and every leaf after them bit-equal (or, with such an op, within
+    ``SERVE_REL_TOL``); B4/B5 launches on the resumed steps; and
+    ``plan_remesh`` of the checkpoint onto the host mesh with ``fits``
+    against the card's memory.  Returns the resumed steps' launches."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.configs.base import Shape
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models.layers import param_axes
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.elastic import fits, plan_remesh
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.train_step import TrainState
+
+    spec = train_cli.train_spec(TRAIN_ARCH)
+    cfg = spec.config
+    optimizer = make_optimizer(spec, total_steps=1 + TRAIN_STEPS)
+    paxes = param_axes(state.params)
+    axes = TrainState((), paxes, optimizer.state_axes(paxes))
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt.",
+                                     dir=ROOT / "build"))
+    try:
+        step = int(state.step)
+        mgr = CheckpointManager(ckpt_dir, keep=1, async_write=True)
+        _, snapshot_s = timed(lambda: mgr.save(step, state, axes))
+        _, write_s = timed(mgr.wait)
+        nbytes = dir_bytes(ckpt_dir)
+        plan = plan_remesh(ckpt_dir / f"step_{step:08d}", make_host_mesh())
+        hbm = torch.cuda.get_device_properties(0).total_memory
+
+        fresh = init_state(spec.family.init(cfg, device="cuda", seed=7),
+                           optimizer)
+        rules = ShardingRules(make_device_mesh(), spec.rules_for("train"))
+        # restored in place: the card holds no second copy of the state,
+        # only one tensor's staging at a time (f32, twice for slack)
+        one_tensor = 2 * 4 * max(t.numel() for t in (
+            *fresh.params.parameters(),
+            *(x for s in fresh.opt_state.values() for x in s.values())))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (got, restored), restore_s = timed(
+            lambda: mgr.restore_latest(fresh, rules))
+        restore_extra = torch.cuda.max_memory_allocated() - base
+        if got != step:
+            fail(f"checkpoint: restored step {got}, saved {step}")
+        if restore_extra > one_tensor:
+            fail(f"checkpoint: the restore allocated {restore_extra} bytes "
+                 f"beyond the state, more than {one_tensor}")
+        n_leaves, bad = leaves_equal(state, restored)
+        if bad:
+            fail(f"checkpoint: restored leaves differ from the saved "
+                 f"state: {bad[:8]}")
+
+        step_fn = build_train_step(
+            lambda m, b: spec.family.loss_fn(m, b, cfg), optimizer,
+            accum_dtype=spec.accum_dtype)
+        stream = SyntheticStream(
+            spec.input_shapes(Shape("cli", TRAIN_SEQ, TRAIN_BATCH, "train")),
+            spec.vocab, seed=0)
+        old_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                live, live_losses, live_norms = resumed_steps(
+                    step_fn, state, stream, step)
+                reset_counts()
+                back, back_losses, back_norms = resumed_steps(
+                    step_fn, restored, stream, step)
+                counts = read_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if old_cfg is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cfg
+        nondeterministic = sorted({str(w.message).split(" does not")[0]
+                                   for w in caught
+                                   if NONDETERMINISTIC in str(w.message)})
+        n_after, bad_after = leaves_equal(live, back)
+        same = (live_losses == back_losses and live_norms == back_norms
+                and not bad_after)
+        if nondeterministic:
+            line("checkpoint_nondeterministic_ops", card=smi,
+                 ops=nondeterministic, bound=SERVE_REL_TOL)
+            worst = max(abs(a - b) / abs(b) for a, b in zip(
+                live_losses + live_norms, back_losses + back_norms))
+            if worst > SERVE_REL_TOL:
+                fail(f"resume: losses / grad norms {worst} apart")
+        elif not same:
+            fail(f"resume: not bit-identical: losses {live_losses} vs "
+                 f"{back_losses}, grad norms {live_norms} vs {back_norms}, "
+                 f"leaves {bad_after[:8]}")
+        want = train_launches(cfg, RESUME_STEPS)
+        launches = {k: counts["launches"][k] for k in want}
+        if launches != want:
+            fail(f"resumed steps launched {launches}, expected {want}")
+        line("checkpoint", card=smi, arch=TRAIN_ARCH,
+             params=sum(t.numel() for t in state.params.parameters()),
+             optimizer=optimizer.name, step=step, bytes=nbytes,
+             leaves=n_leaves, snapshot_s=snapshot_s, write_s=write_s,
+             restore_s=restore_s, restore_extra_bytes=restore_extra,
+             restore_extra_bound=one_tensor, restore_bit_identical=True,
+             resume_steps=RESUME_STEPS, live_losses=live_losses,
+             resumed_losses=back_losses, live_grad_norms=live_norms,
+             resumed_grad_norms=back_norms, resume_bit_identical=same,
+             leaves_after_resume=n_after,
+             nondeterministic_ops=nondeterministic, launches=launches,
+             plan_bytes_per_device=plan.bytes_per_device,
+             plan_fallbacks=len(plan.fallbacks), total_memory=hbm,
+             fits=fits(plan, hbm))
+        del live, back, restored, fresh
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def measured_peak(fn) -> int:
+    """Peak bytes allocated on the card while ``fn`` builds its arguments
+    and runs, above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_dryrun(smi: str) -> None:
+    """``[dryrun]``: ``launch.dryrun.run_cell`` on the host mesh for one
+    full-size cell a family (prefill_32k; the MoE layer at the uniform
+    load), recorded on the meta device; then the dry-run's predicted
+    peak (arguments + temporaries, one device) against the card's
+    ``max_memory_allocated`` for two steps it really runs: zamba2-1.2b's
+    train step at 4 x 2,048 (phase 18's step) and llama3-8b's prefill
+    at 4 x 2,048, each within ``DRYRUN_PEAK_RANGE``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train.data import synthetic_batch
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    for arch, shape in DRYRUN_CELLS:
+        rec, secs = timed(lambda: dryrun.run_cell(arch, shape, "host",
+                                                  out_dir))
+        mem = rec["memory"]
+        line("dryrun", card=smi, arch=arch, shape=shape, mesh="host",
+             lower_s=rec["lower_s"], seconds=secs, ops=rec["ops"],
+             flops=rec["cost"]["flops"],
+             bytes_accessed=rec["cost"]["bytes accessed"],
+             argument_bytes=mem["argument_bytes"],
+             temp_bytes=mem["temp_bytes"], device_bytes=rec["device_bytes"],
+             fits=rec["fits"], moe_counts=rec.get("moe_counts"))
+
+    def zamba2_train():
+        spec = get_arch(TRAIN_ARCH)
+        cfg = spec.config
+        opt = make_optimizer(spec, total_steps=1 + TRAIN_STEPS)
+        holder = {}
+
+        def run():
+            model = spec.family.init(cfg, device="cuda", seed=0)
+            state = init_state(model, opt)
+            batch = {k: (v if v.is_floating_point() else v.long()).cuda()
+                     for k, v in synthetic_batch(
+                         spec.input_shapes(Shape("cli", TRAIN_SEQ,
+                                                 TRAIN_BATCH, "train")),
+                         spec.vocab, seed=0, step=0).items()}
+            step_fn = build_train_step(
+                lambda m, b: spec.family.loss_fn(m, b, cfg), opt,
+                accum_dtype=spec.accum_dtype)
+            holder["out"] = step_fn(state, batch)
+        return spec, Shape("cli", TRAIN_SEQ, TRAIN_BATCH, "train"), run
+
+    def llama3_prefill():
+        spec = get_arch("llama3-8b")
+        cfg, fam = spec.config, spec.family
+        shape = Shape("cli", SERVE_PROMPT, SERVE_BATCH, "prefill")
+        holder = {}
+
+        def run():
+            model = fam.init(cfg, device="cuda", seed=0)
+            caches = fam.init_caches(cfg, **spec.cache_kwargs(shape),
+                                     device="cuda")
+            batch = {k: v.long().cuda() for k, v in
+                     spec.example_inputs(shape, seed=0).items()}
+            holder["out"] = fam.prefill(model, batch, cfg, caches)
+        return spec, shape, run
+
+    for name, make in (("zamba2-1.2b/train", zamba2_train),
+                       ("llama3-8b/prefill", llama3_prefill)):
+        spec, shape, run = make()
+        rec, secs = timed(lambda: dryrun.dry_run(spec, shape, "host"))
+        predicted = rec["device_bytes"]
+        measured = measured_peak(run)
+        ratio = measured / predicted
+        line("dryrun_peak", card=smi, step=name, batch=shape.global_batch,
+             seq=shape.seq_len, predicted_bytes=predicted,
+             argument_bytes=rec["memory"]["argument_bytes"],
+             temp_bytes=rec["memory"]["temp_bytes"],
+             measured_max_memory_allocated=measured, ratio=ratio,
+             allowed=DRYRUN_PEAK_RANGE, lower_s=rec["lower_s"],
+             dry_run_s=secs)
+        if not DRYRUN_PEAK_RANGE[0] <= ratio <= DRYRUN_PEAK_RANGE[1]:
+            fail(f"dry-run peak of {name}: predicted {predicted}, measured "
+                 f"{measured} (ratio {ratio})")
+        torch.cuda.empty_cache()
+
+
 # --- the linter, and the syncs the card reports ------------------------------
 
 LINT_PATHS = ("src", "tools", "tests")
@@ -3350,9 +3679,9 @@ SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
 SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
                 "tensor_core", "split_kv", "simt", "ssd_scan")
 # repeated sync sites that the TS rules cannot see, each with the reason
-# (also in ROADMAP).  Never moe.py:131 and never a site of a predict path.
+# (also in ROADMAP).  Never moe.py:157 and never a site of a predict path.
 KNOWN_MISSED: dict[str, str] = {}
-NEVER_MISSED = ("src/repro_torch/models/moe.py:131",)
+NEVER_MISSED = ("src/repro_torch/models/moe.py:157",)
 SYNC_WARNING = "called a synchronizing CUDA operation"  # the debugger's
 
 
@@ -3604,16 +3933,25 @@ def main() -> int:
     by_path["seamless-m4t-medium"] = phase_seamless_serve()
     by_path["phi-3-vision-4.2b"] = phase_phi3v_serve()
     torch.backends.cudnn.allow_tf32 = False  # f32 gradients stay f32
-    by_path["zamba2-1.2b/train"] = phase_train(smi)
+    by_path["zamba2-1.2b/train"], train_state = phase_train(smi)
+    t_phase = time.perf_counter()
+    by_path["zamba2-1.2b/resume"] = phase_checkpoint(smi, train_state)
+    del train_state
+    torch.cuda.empty_cache()
+    checkpoint_s = time.perf_counter() - t_phase
+    _, dryrun_s = timed(lambda: phase_dryrun(smi))
+    line("a11c_phases", card=smi, checkpoint_s=checkpoint_s,
+         dryrun_s=dryrun_s)
     sdcm_kernel["launches_by_path"]["model_traces/train"] = \
         phase_train_cells(smi)
     sdcm_kernel["launches"] = sum(sdcm_kernel["launches_by_path"].values())
     ssd_kernel["launches_by_path"] = {
         "zamba2-1.2b": serve_launches["ssd_scan"],
-        "zamba2-1.2b/train": by_path["zamba2-1.2b/train"]["ssd_scan"]}
+        "zamba2-1.2b/train": by_path["zamba2-1.2b/train"]["ssd_scan"],
+        "zamba2-1.2b/resume": by_path["zamba2-1.2b/resume"]["ssd_scan"]}
     ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
-    # B4 over every serve path and the training path; the window form is
-    # mixtral's launches
+    # B4 over every serve path, the training path and the resumed steps;
+    # the window form is mixtral's launches
     flash_kernel["launches"] = sum(n["flash_attention"]
                                    for n in by_path.values())
     flash_kernel["launches_by_path"] = {

@@ -33,7 +33,9 @@ place of HLO instructions:
 * a buffer is a tensor storage: every view of one storage reads and
   writes inside that storage's addresses.  While recording, a storage
   is told apart by its data pointer, and every storage seen is held
-  alive so that no later one reuses the pointer; buffers are named and
+  alive so that no later one reuses the pointer (on the meta device,
+  where storages have no data, by the storage's own identity, and a
+  storage is let go when its last tensor dies: see below); buffers are named and
   placed in first-seen order, never by pointer, so that two processes
   give bit-identical traces.  The step's inputs
   (parameters, module buffers, batch, caches) are named after their
@@ -68,7 +70,18 @@ applies unchanged:
 * bytes are operands plus results for every op that touches memory.
   An in-place update (``copy_`` into a cache slice, ``index_add_``)
   writes the view it was given, so an update of an input charges the
-  payload only, ``hlo_cost.py``'s fused-DUS rule.
+  payload only, ``hlo_cost.py``'s fused-DUS rule;
+* a kernel's meta-device op (``repro_torch::flash_attention``,
+  ``repro_torch::ssd_scan``: one op for one launch) is a ``dot`` whose
+  FLOPs are the kernel's own count (:data:`repro_torch.kernels.META_OPS`)
+  and whose bytes are its operands plus its results, as for any op; the
+  plain versions' intermediates (B4's scores) do not exist there.
+
+On the meta device the recording also follows memory: every storage
+that an op makes (allocations included) is live from then until its
+last tensor dies (autograd's saved tensors included), and
+:attr:`Recording.peak_bytes` is the peak of the live bytes of the
+storages that are not the step's inputs (the dry-run's ``temp_bytes``).
 
 :func:`largest_results` ranks op results by bytes, as
 ``analysis/buffers.py::largest_buffers`` ranks instruction results.
@@ -76,14 +89,15 @@ applies unchanged:
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis.hlo_trace import _Buffer, _TraceState
+from repro_torch.kernels import META_OPS
 from repro_torch.core.trace.types import LabeledTrace, trace_from_blocks
 
 #: Operands each op touches in the trace (``hlo_to_trace``'s ``[:6]``).
@@ -147,37 +161,72 @@ class Recording:
     names: list[str] = field(default_factory=list)
     sizes: list[int] = field(default_factory=list)
     shared: list[bool] = field(default_factory=list)
+    #: Each storage's device type (``"cpu"``, ``"meta"``).
+    devices: list[str] = field(default_factory=list)
     seconds: float = 0.0
+    #: Peak live bytes of the storages the call made (meta device only).
+    peak_bytes: int = 0
+
+
+_SCHEMAS: dict = {}
+
+
+def _schema(func) -> tuple:
+    """``(is_view, written)`` of an op's schema, read once per op: it
+    returns an alias of an input and writes none; the ``(position,
+    name, keyword-only)`` of each argument it writes."""
+    got = _SCHEMAS.get(func)
+    if got is None:
+        schema = func._schema
+        written = tuple((i, a.name, a.kwarg_only)
+                        for i, a in enumerate(schema.arguments)
+                        if a.alias_info is not None and a.alias_info.is_write)
+        view = not written and any(r.alias_info is not None
+                                   for r in schema.returns)
+        got = _SCHEMAS[func] = (view, written)
+    return got
 
 
 def _is_view(func) -> bool:
     """The op returns an alias of an input and writes none."""
-    schema = func._schema
-    if any(a.alias_info is not None and a.alias_info.is_write
-           for a in schema.arguments):
-        return False
-    return any(r.alias_info is not None for r in schema.returns)
+    return _schema(func)[0]
 
 
 def _mutated(func, args, kwargs) -> list:
     """The tensors the op writes in place (``self`` of ``add_``, ``out=``)."""
     out = []
-    for i, a in enumerate(func._schema.arguments):
-        if a.alias_info is None or not a.alias_info.is_write:
-            continue
-        val = args[i] if i < len(args) and not a.kwarg_only else kwargs.get(
-            a.name)
+    for i, name, kwarg_only in _schema(func)[1]:
+        val = args[i] if i < len(args) and not kwarg_only else kwargs.get(
+            name)
         if isinstance(val, torch.Tensor):
             out.append(val)
     return out
 
 
+def _tensors(obj) -> list:
+    """The tensors in an op's arguments or results (nested lists, tuples
+    and dicts)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _tensors(x)]
+    if isinstance(obj, dict):
+        return [t for x in obj.values() for t in _tensors(x)]
+    return []
+
+
+def _key(st) -> int:
+    """A storage's identity while it lives: its data pointer, or on the
+    meta device (no data) the address of the storage itself."""
+    return st._cdata if st.device.type == "meta" else st.data_ptr()
+
+
 def _aliases_only(out, inputs: list) -> bool:
     """Every result lies in an input's storage (``_unsafe_view``)."""
-    given = {t.untyped_storage().data_ptr() for t in inputs}
-    outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+    given = {_key(t.untyped_storage()) for t in inputs}
+    outs = _tensors(out)
     return bool(outs) and all(
-        t.untyped_storage().data_ptr() in given for t in outs)
+        _key(t.untyped_storage()) in given for t in outs)
 
 
 def _kind(op: str) -> str:
@@ -211,25 +260,46 @@ class _Recorder(TorchDispatchMode):
         self._index: dict[int, int] = {}
         self._alive: list = []      # storages seen: no address is reused
         self._inputs = {}
+        self._live = 0              # bytes of the meta storages alive
+        self._tracked: set = set()
         for name, t in inputs.items():
             st = t.untyped_storage()
-            self._inputs.setdefault(st.data_ptr(), (name, st))
+            self._inputs.setdefault(_key(st), (name, st))
+
+    def _alloc(self, t: torch.Tensor) -> None:
+        """A meta storage the call made is live until its last tensor
+        dies; a later storage at its address is another buffer."""
+        st = t.untyped_storage()
+        key = _key(st)
+        if key in self._tracked or key in self._inputs:
+            return
+        self._tracked.add(key)
+        self._live += st.nbytes()
+        self.rec.peak_bytes = max(self.rec.peak_bytes, self._live)
+        weakref.finalize(st, self._free, key, st.nbytes())
+
+    def _free(self, key: int, nbytes: int) -> None:
+        self._live -= nbytes
+        self._tracked.discard(key)
+        self._index.pop(key, None)
 
     def _ref(self, t: torch.Tensor) -> TensorRef | None:
         nbytes = t.numel() * t.element_size()
         if nbytes <= 0:
             return None
         st = t.untyped_storage()
-        key = st.data_ptr()
+        key = _key(st)
         idx = self._index.get(key)
         if idx is None:
             idx = len(self.rec.names)
             self._index[key] = idx
-            self._alive.append(st)
+            if st.device.type != "meta":
+                self._alive.append(st)
             given = self._inputs.get(key)
             self.rec.names.append(given[0] if given else f"%t{idx}")
             self.rec.sizes.append(st.nbytes())
             self.rec.shared.append(given is not None)
+            self.rec.devices.append(st.device.type)
         size = t.element_size()
         last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
         return TensorRef(idx, t.storage_offset() * size, (last + 1) * size,
@@ -239,20 +309,25 @@ class _Recorder(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         op = func.overloadpacket.__name__
+        outs = _tensors(out)
+        for t in outs:
+            if t.device.type == "meta":
+                self._alloc(t)
         if op in _FREE or _is_view(func):
             return out
         written = _mutated(func, args, kwargs)
-        inputs = [t for t in tree_flatten((args, kwargs))[0]
-                  if isinstance(t, torch.Tensor)]
+        inputs = _tensors(args) + _tensors(kwargs)
         if not written and _aliases_only(out, inputs):
             return out          # a view the schema does not mark
-        operands = [t for t in inputs
-                    if not any(t is w for w in written)]
-        results = list(written) + [
-            t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)
-            and not any(t is a for a in inputs)]
-        kind = _kind(op)
-        flops = _flops(kind, op, inputs, results or inputs)
+        w_ids = {id(w) for w in written}
+        in_ids = {id(t) for t in inputs}
+        operands = [t for t in inputs if id(t) not in w_ids]
+        results = list(written) + [t for t in outs if id(t) not in in_ids]
+        if func.namespace == "repro_torch":     # a kernel's meta op
+            kind, flops = "dot", META_OPS[op](args, kwargs)
+        else:
+            kind = _kind(op)
+            flops = _flops(kind, op, inputs, results or inputs)
         refs_in = tuple(r for r in map(self._ref, operands) if r is not None)
         refs_out = tuple(r for r in map(self._ref, results) if r is not None)
         self.rec.events.append(OpEvent(op, kind, flops, refs_in, refs_out))
@@ -372,7 +447,7 @@ def _at_length(caches, length: int):
         for f, v in zip(caches._fields, caches)})
 
 
-def step_call(arch_id: str, step: str):
+def step_call(arch_id: str, step: str, device: str = "cpu"):
     """``(fn, inputs)`` for one model step of ``arch_id``'s reduced
     config at the smoke shape (``configs/reduced.py``), on the CPU with
     weights and inputs from :data:`SEED`: ``fn()`` runs ``prefill`` over
@@ -386,7 +461,9 @@ def step_call(arch_id: str, step: str):
     runs on the calling thread (CPU tensors), so the recorder sees its
     ops, the remat recomputation of each checkpointed layer among them.
     ``inputs`` names every input tensor: ``params.*`` (parameters and
-    module buffers), ``batch.*`` and ``caches.*``."""
+    module buffers), ``batch.*`` and ``caches.*``.  ``device="meta"``
+    gives the same call on the meta device (the dry-run's form: no
+    values, one op per kernel launch)."""
     from repro_torch.configs.reduced import (
         SMOKE_DECODE, SMOKE_PREFILL, SMOKE_SHAPE, reduced_arch,
     )
@@ -397,8 +474,9 @@ def step_call(arch_id: str, step: str):
         raise ValueError(f"no recorded form of step {step!r}")
     spec = reduced_arch(arch_id)
     fam, cfg = spec.family, spec.config
-    model = fam.init(cfg, device="cpu", seed=SEED)
-    batch = spec.example_inputs(shape, seed=SEED)
+    model = fam.init(cfg, device=device, seed=SEED)
+    batch = {k: v.to(device)
+             for k, v in spec.example_inputs(shape, seed=SEED).items()}
     inputs = {f"params.{n}": t for n, t in model.named_parameters()}
     inputs.update({f"params.{n}": t for n, t in model.named_buffers()})
     inputs.update(_named_tensors("batch", batch))
@@ -411,7 +489,7 @@ def step_call(arch_id: str, step: str):
             return loss, torch.autograd.grad(loss, params)
         return fn, inputs
     ckw = spec.cache_kwargs(shape)
-    caches = fam.init_caches(cfg, **ckw, device="cpu")
+    caches = fam.init_caches(cfg, **ckw, device=device)
     if step == "prefill":
         def fn():
             return fam.prefill(model, batch, cfg, caches)
@@ -425,7 +503,8 @@ def step_call(arch_id: str, step: str):
     return fn, inputs
 
 
-def record_model_step(arch_id: str, step: str) -> Recording:
+def record_model_step(arch_id: str, step: str,
+                      device: str = "cpu") -> Recording:
     """The recording of one model step (:func:`step_call`)."""
-    fn, inputs = step_call(arch_id, step)
+    fn, inputs = step_call(arch_id, step, device)
     return record(fn, inputs)

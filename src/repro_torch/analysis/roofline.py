@@ -101,11 +101,19 @@ def model_flops(kind: str, active_params: int, seq_len: int,
 
 
 def from_record(rec: dict, target: TPUTarget = TPU_V5E) -> Roofline:
-    """Build roofline terms from one launch/dryrun JSON record."""
+    """Build roofline terms from one launch/dryrun JSON record.  The
+    port's dry-run records a ``host`` cell as one chip; a record with
+    ``partitioned: false`` (the pod meshes' sharding plan, ROADMAP C12)
+    has no per-chip cost and raises."""
     from repro_torch.configs import SHAPES
 
+    if rec.get("partitioned") is False:
+        raise ValueError(
+            f"{rec['arch']} x {rec['shape']} x {rec['mesh']}: an "
+            "unpartitioned dry-run record (a sharding plan) has no per-chip "
+            "cost (ROADMAP C12)")
     shape = SHAPES[rec["shape"]]
-    chips = 512 if rec["mesh"] == "multipod" else 256
+    chips = {"multipod": 512, "host": 1}.get(rec["mesh"], 256)
     flops = float(rec["cost"].get("flops", 0.0))
     bytes_acc = float(rec["cost"].get("bytes accessed", 0.0))
     ici = float(rec["collectives"]["ici_bytes"])

@@ -55,13 +55,6 @@ from repro_torch.device import resolve_device
 from repro_torch.hw.targets import resolve_target
 
 
-def not_in_slice(what: str, item: str) -> NotImplementedError:
-    """The error every not-yet-ported option raises."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue A: {item})"
-    )
-
-
 # --- targets -----------------------------------------------------------------
 
 

@@ -1,10 +1,12 @@
 """ArchSpec: binds a model family and its exact config to the shapes it
-serves and the training knobs (grad accumulation, its dtype, the
-optimizer and its peak learning rate).  Mirrors ``repro/configs/base.py``
-without the sharding rules (the port runs on one device); in place of
-the reference's abstract input specs (``ShapeDtypeStruct``)
-:meth:`ArchSpec.example_inputs` returns concrete tensors of the same
-shapes and dtypes, drawn from a seed.
+serves, the sharding-rule overrides (``rules``, ``serve_rules``,
+``opt_rules``; :mod:`repro_torch.dist.sharding`), the skipped shapes and
+the training knobs (grad accumulation, its dtype, the optimizer and its
+peak learning rate).  Mirrors ``repro/configs/base.py`` field for field.
+In place of the reference's abstract input specs (``ShapeDtypeStruct``)
+:meth:`ArchSpec.input_shapes` gives ``(shape, dtype)`` pairs and
+:meth:`ArchSpec.example_inputs` concrete tensors of them, drawn from a
+seed.
 """
 from __future__ import annotations
 
@@ -31,17 +33,31 @@ DECODE_32K = Shape("decode_32k", 32768, 128, "decode")
 LONG_500K = Shape("long_500k", 524288, 1, "decode")
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
+FULL_ATTN_SKIP = (
+    "pure full attention — long_500k requires sub-quadratic attention "
+    "(DESIGN.md §4); decode over a 512k KV cache would be O(S) per token "
+    "with an O(S) resident cache"
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
     family_name: str
     config: Any
+    rules: dict[str, str | None] = dataclasses.field(default_factory=dict)
+    serve_rules: dict[str, str | None] = dataclasses.field(default_factory=dict)
     grad_accum: dict[str, int] = dataclasses.field(default_factory=dict)
     accum_dtype: torch.dtype = torch.float32
     optimizer_name: str = "adamw"
     peak_lr: float = 3e-4
+    skip: dict[str, str] = dataclasses.field(default_factory=dict)
     notes: str = ""
+    # MODEL_FLOPS accounting: fraction of shape.seq_len each parameter
+    # actually processes (enc-dec splits seq_len into src/tgt halves)
+    flops_token_factor: float = 1.0
+    # optimizer-state sharding rules may differ from the parameter rules
+    opt_rules: dict[str, str | None] = dataclasses.field(default_factory=dict)
 
     @property
     def family(self) -> Family:
@@ -52,6 +68,17 @@ class ArchSpec:
         """The config's vocabulary, or its backbone's (a VLM)."""
         cfg = self.config
         return getattr(cfg, "vocab", None) or cfg.backbone.vocab
+
+    def shapes(self) -> list[Shape]:
+        return [s for s in SHAPES.values() if s.name not in self.skip]
+
+    def rules_for(self, kind: str) -> dict[str, str | None]:
+        """The rule overrides of a step kind: ``rules``, and for serving
+        (``prefill``, ``decode``) ``serve_rules`` over them."""
+        merged = dict(self.rules)
+        if kind != "train":
+            merged.update(self.serve_rules)
+        return merged
 
     def input_shapes(self, shape: Shape) -> dict[str, tuple]:
         """``name -> (shape, dtype)`` of the step's batch: the reference's
@@ -78,6 +105,12 @@ class ArchSpec:
         if shape.kind == "train":
             out["labels"] = ((b, n), i32)
         return out
+
+    def batch_axes(self, shape: Shape) -> dict[str, tuple]:
+        """Logical axes of each batch input: ``act_batch`` on its first
+        dimension, the rest replicated."""
+        return {name: ("act_batch",) + (None,) * (len(dims) - 1)
+                for name, (dims, _) in self.input_shapes(shape).items()}
 
     def example_inputs(self, shape: Shape, *,
                        seed: int = 0) -> dict[str, torch.Tensor]:

@@ -4,7 +4,7 @@
 vocab=102400.  The published widths of ``repro/configs/deepseek_67b.py``,
 unchanged.
 """
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 SPEC = ArchSpec(
@@ -22,4 +22,5 @@ SPEC = ArchSpec(
         sp_residuals=True,
     ),
     grad_accum={"train_4k": 1},
+    skip={"long_500k": FULL_ATTN_SKIP},
 )

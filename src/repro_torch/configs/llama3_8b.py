@@ -4,7 +4,7 @@
 vocab=128256, rope theta 5e5.  The published widths of
 ``repro/configs/llama3_8b.py``, unchanged; 8,030,261,248 parameters.
 """
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 SPEC = ArchSpec(
@@ -21,4 +21,5 @@ SPEC = ArchSpec(
         rope_theta=500000.0,
     ),
     grad_accum={"train_4k": 4},
+    skip={"long_500k": FULL_ATTN_SKIP},
 )

@@ -17,6 +17,19 @@ SPEC = ArchSpec(
         ssm_state=128,
         head_dim=64,
     ),
+    # the reference's mesh-axis names "dp", "tp" and "dp+tp" match no
+    # mesh axis, so each of these overrides replicates (ROADMAP C10)
+    rules={
+        "act_batch": "dp+tp", "inner": None, "conv_dim": None,
+        "ssm_heads": None, "act_mlp": None, "act_heads": None,
+        "vocab": None, "act_vocab": None, "embed": None,
+    },
+    opt_rules={"embed": "dp+tp"},
+    serve_rules={
+        "act_batch": "dp", "inner": "tp", "conv_dim": "tp",
+        "ssm_heads": "tp", "act_mlp": "tp", "act_heads": "tp",
+        "vocab": "tp", "act_vocab": "tp", "embed": "dp",
+    },
     grad_accum={"train_4k": 1},
     notes="the SSD chunked scan (kernel B5) is the hot spot of its prefill",
 )

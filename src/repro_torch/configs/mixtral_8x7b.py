@@ -26,5 +26,6 @@ SPEC = ArchSpec(
         moe=MoEConfig(num_experts=8, top_k=2, tokens_per_group=4096),
         dense_ff=False,
     ),
+    rules={"experts": None},   # 8 % 16 != 0 -> TP-MoE over the FFN dim
     grad_accum={"train_4k": 4},
 )

@@ -6,7 +6,7 @@ vocab=32064; 1024 patches of clip_dim=1024 projected ahead of the text.
 The published widths of ``repro/configs/phi3_vision_4_2b.py``,
 unchanged; 3,824,618,496 parameters.
 """
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.models.multimodal import VLMConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -27,5 +27,9 @@ SPEC = ArchSpec(
         clip_dim=1024,
         num_patches=1024,
     ),
+    # the reference's mesh-axis name "tp" matches no mesh axis, so these
+    # replicate (ROADMAP C10)
+    rules={"kv_heads": "tp", "act_kv_heads": "tp", "act_kv_seq": None},
     grad_accum={"train_4k": 4},
+    skip={"long_500k": FULL_ATTN_SKIP},
 )

@@ -60,7 +60,9 @@ def reduced(spec: ArchSpec) -> ArchSpec:
         )
     else:
         raise TypeError(type(cfg))
-    return dataclasses.replace(spec, config=small, grad_accum={"smoke": 2})
+    return dataclasses.replace(
+        spec, config=small, grad_accum={"smoke": 2}, skip={},
+    )
 
 
 def reduced_arch(arch_id: str) -> ArchSpec:

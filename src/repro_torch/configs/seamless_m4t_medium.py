@@ -7,7 +7,7 @@ widths of ``repro/configs/seamless_m4t_medium.py``, unchanged;
 977,860,608 parameters.  The audio frontend is a stub: the encoder takes
 precomputed frame embeddings.
 """
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.models.encdec import EncDecConfig
 
 SPEC = ArchSpec(
@@ -23,5 +23,10 @@ SPEC = ArchSpec(
         vocab=256206,
         head_dim=64,
     ),
+    # the reference's mesh-axis name "tp" matches no mesh axis, so these
+    # replicate (ROADMAP C10)
+    rules={"kv_heads": "tp", "act_kv_heads": "tp", "act_kv_seq": None},
     grad_accum={"train_4k": 1},
+    flops_token_factor=0.5,  # src/tgt halves each traverse half the stack
+    skip={"long_500k": FULL_ATTN_SKIP},
 )

@@ -5,7 +5,7 @@ vocab=64000.  The published widths of ``repro/configs/yi_34b.py``,
 unchanged; ``attn_sp``/``sp_residuals`` are the reference's mesh
 layout and have no effect on one device.
 """
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 SPEC = ArchSpec(
@@ -23,5 +23,7 @@ SPEC = ArchSpec(
         attn_sp=True,
         sp_residuals=True,
     ),
+    rules={"heads": None},          # 56 % 16 != 0
     grad_accum={"train_4k": 1},
+    skip={"long_500k": FULL_ATTN_SKIP},
 )

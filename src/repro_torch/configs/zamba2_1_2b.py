@@ -23,5 +23,8 @@ SPEC = ArchSpec(
         head_dim=64,
         attn_every=6,
     ),
+    # the reference's mesh-axis name "tp" matches no mesh axis, so these
+    # replicate (ROADMAP C10)
+    rules={"kv_heads": "tp", "act_kv_heads": "tp", "act_kv_seq": None},
     grad_accum={"train_4k": 8},
 )

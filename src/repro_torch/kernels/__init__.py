@@ -10,6 +10,11 @@ import threading
 
 _COUNT_LOCK = threading.Lock()
 
+#: Operations of each kernel's meta-device op (``repro_torch::<name>``,
+#: one recorded op standing for one launch) as a function of its
+#: arguments; :mod:`repro_torch.analysis.aten_trace` counts them.
+META_OPS: dict = {}
+
 
 def count_launch(counts: dict, name: str) -> None:
     """Add one launch of ``name`` to a kernel module's ``LAUNCHES``-style

@@ -5,6 +5,7 @@ from .flash_attention import (
     SPLIT_COLUMNS,
     SPLIT_MAX_ROWS,
     TC_HEAD_DIMS,
+    attention_ops,
     flash_attention,
     flash_attention_bwd,
     flash_attention_plain,
@@ -14,6 +15,6 @@ from .flash_attention import (
 )
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_COLUMNS",
-           "SPLIT_MAX_ROWS", "TC_HEAD_DIMS", "flash_attention",
+           "SPLIT_MAX_ROWS", "TC_HEAD_DIMS", "attention_ops", "flash_attention",
            "flash_attention_bwd", "flash_attention_plain", "kernel_form",
            "split_kv_plain", "split_range"]

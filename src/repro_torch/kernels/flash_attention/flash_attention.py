@@ -26,7 +26,11 @@ which is the reference's position mask (``models/attention.py:_mask``).
 
 A wrapper given CPU tensors returns the plain version
 (:func:`flash_attention_plain`); given CUDA tensors it launches the
-kernel and counts the launch in :data:`LAUNCHES`, or raises.  With grad
+kernel and counts the launch in :data:`LAUNCHES`, or raises.  Given
+meta tensors (an abstract step: the dry-run) it is one op,
+``repro_torch::flash_attention``, whose result has the kernel's shape,
+dtype and layout and which a recording counts as the kernel's work
+(:func:`attention_ops`); nothing is launched or counted.  With grad
 enabled and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_FlashAttention`): its forward is the
 same launch (or, on the CPU, the plain version), its backward
@@ -63,9 +67,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import META_OPS, build, count_launch
 
 #: Kernel launches; only the wrapper's launch adds to it.
 LAUNCHES = {"flash_attention": 0}
@@ -245,6 +250,44 @@ def kernel_form(q, k, v) -> str:
         else "tensor_core"
 
 
+def attention_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
+                  q_offset: int, kv_len: int, window=None) -> float:
+    """The kernel's operations: 4·D per visible (row, column) pair (Q K^T
+    and P V, two per multiply-add; the softmax's exps not counted), over
+    ``b`` batch rows and ``h`` q heads."""
+    rows = np.arange(sq)
+    hi = (np.minimum(kv_len, q_offset + rows + 1) if causal
+          else np.full(sq, kv_len))
+    lo = (np.maximum(0, q_offset + rows - window + 1) if window
+          else np.zeros(sq, np.int64))
+    return 4.0 * d * float(np.maximum(hi - lo, 0).sum()) * b * h
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: float, q_offset: int, kv_len: int,
+             window: int) -> torch.Tensor:
+    """One launch of the kernel on the meta device (``window`` 0: none);
+    it has no implementation on a device with values."""
+    raise RuntimeError("repro_torch::flash_attention runs on meta tensors "
+                       "only")
+
+
+@_meta_op.register_fake
+def _(q, k, v, causal, scale, q_offset, kv_len, window):
+    return torch.empty_like(q)   # the kernel's output: q's layout
+
+
+def _meta_ops(args, kwargs) -> float:
+    q, _, _, causal, _, q_offset, kv_len, window = args
+    b, h, sq, d = q.shape
+    return attention_ops(b, h, sq, d, causal=causal, q_offset=q_offset,
+                         kv_len=kv_len, window=window or None)
+
+
+META_OPS["flash_attention"] = _meta_ops
+
+
 # --- the CUDA kernel ---------------------------------------------------------
 
 
@@ -292,6 +335,10 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len,
                                      window=window)
+    if dev.type == "meta":
+        scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+        return _meta_op(q, k, v, bool(causal), scale, q_offset, kv_len,
+                        0 if window is None else window)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b, h, sq, d = q.shape

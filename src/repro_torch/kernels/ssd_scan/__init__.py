@@ -1,3 +1,6 @@
-from .ssd_scan import CHUNK, LAUNCHES, MAX_N, ssd_scan, ssd_scan_plain
+from .ssd_scan import (
+    CHUNK, LAUNCHES, MAX_N, scan_ops, ssd_scan, ssd_scan_plain,
+)
 
-__all__ = ["CHUNK", "LAUNCHES", "MAX_N", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["CHUNK", "LAUNCHES", "MAX_N", "scan_ops", "ssd_scan",
+           "ssd_scan_plain"]

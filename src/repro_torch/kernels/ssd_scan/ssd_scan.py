@@ -33,7 +33,10 @@ S]``, b, c ``[BH, S, N]``) is the case H = 1: ``x[:, :, None]``,
 
 A wrapper given CPU tensors returns the plain version
 (:func:`ssd_scan_plain`); given CUDA tensors it launches the kernel and
-counts the launch in :data:`LAUNCHES`, or raises.  With grad enabled
+counts the launch in :data:`LAUNCHES`, or raises.  Given meta tensors
+(an abstract step: the dry-run) it is one op, ``repro_torch::ssd_scan``,
+with the kernel's result shapes, which a recording counts as the
+kernel's work (:func:`scan_ops`); nothing is launched or counted.  With grad enabled
 and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_SSDScan`): its forward is the same
 launch (or, on the CPU, the plain version), its backward recomputes
@@ -53,7 +56,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import META_OPS, build, count_launch
 
 #: Kernel launches; only the wrapper's launch adds to it.
 LAUNCHES = {"ssd_scan": 0}
@@ -134,6 +137,45 @@ def ssd_scan_plain(x, la, b, c, h0=None):
     return y.to(x.dtype), state
 
 
+def scan_ops(bsz: int, s: int, h: int, p: int, n: int) -> float:
+    """The kernel's operations: per chunk of ``lc`` steps the lc(lc+1)/2
+    score pairs times N (C B^T, once per batch row: it does not depend on
+    the head) and, per head, times P (scores · x), and lc·N·P twice per
+    head (C h_in and the state update); two per multiply-add."""
+    total = 0.0
+    for c0 in range(0, s, CHUNK):
+        lc = min(CHUNK, s - c0)
+        total += 2.0 * (lc * (lc + 1) / 2 * (n + h * p)
+                        + 2.0 * h * lc * n * p)
+    return total * bsz
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _meta_op(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor,
+             h0: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on the meta device; it has no
+    implementation on a device with values."""
+    raise RuntimeError("repro_torch::ssd_scan runs on meta tensors only")
+
+
+@_meta_op.register_fake
+def _(x, la, b, c, h0):
+    bsz, _, h, p = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty(bsz, h, b.shape[-1], p, dtype=torch.float32,
+                        device=x.device))
+
+
+def _meta_ops(args, kwargs) -> float:
+    x, _, b = args[:3]
+    bsz, s, h, p = x.shape
+    return scan_ops(bsz, s, h, p, b.shape[-1])
+
+
+META_OPS["ssd_scan"] = _meta_ops
+
+
 # --- the CUDA kernel ---------------------------------------------------------
 
 
@@ -168,6 +210,8 @@ def _forward(x, la, b, c, h0):
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_plain(x, la, b, c, h0)
+    if dev.type == "meta":
+        return _meta_op(x, la, b, c, h0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if n > MAX_N:

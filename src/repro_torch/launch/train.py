@@ -13,9 +13,20 @@ accumulator dtype, and the straggler monitor with the reference's
 deadline prior.  There is no mesh: the model lives on one device, the
 card unless ``--device cpu`` is asked for (the kernels' plain versions).
 ``--reduced`` swaps in the smoke-scale config of ``configs/reduced.py``.
-Weights are random, from ``--seed``.  Checkpointing (``--checkpoint-dir``,
-``--resume``) waits for ``runtime/checkpoint.py`` (ROADMAP A-11c) and
-raises.
+Weights are random, from ``--seed``.
+
+Checkpoints (``runtime/checkpoint.py``, the reference's format):
+``--checkpoint-dir D`` saves ``step + 1`` after every step whose index
+is a positive multiple of ``--checkpoint-every``, and ``--steps`` at
+the end (async; the run waits for the last write), keeping the 3
+newest; ``--resume`` restarts from the latest checkpoint in ``D``,
+restored in place into the freshly built state on the run's one device
+(``launch/mesh.py::make_device_mesh``).  The data
+stream is a pure function of ``(seed, step)``, so a resumed run with
+the same ``--steps`` is bit-identical to an uninterrupted one.  A
+checkpoint already at ``--steps`` leaves nothing to do: the run says so
+and exits 0 (the reference's loop then raises ``IndexError``: ROADMAP
+C11).
 """
 from __future__ import annotations
 
@@ -28,11 +39,17 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import Shape
 from repro_torch.configs.reduced import reduced as reduce_spec
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import ShardingRules
+from repro_torch.launch.mesh import make_device_mesh
 from repro_torch.launch.serve import _sync
 from repro_torch.launch.steps import make_optimizer
+from repro_torch.models.layers import param_axes
+from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train.data import SyntheticStream
-from repro_torch.train.train_step import build_train_step, init_state
+from repro_torch.train.train_step import (
+    TrainState, build_train_step, init_state,
+)
 
 DEFAULT_ARCH = "llama3-8b"
 
@@ -45,13 +62,17 @@ def train_spec(arch: str, *, reduced: bool = False):
 
 def train(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
           steps: int = 200, batch: int = 8, seq: int = 128, seed: int = 0,
-          device=None, model=None,
+          device=None, model=None, checkpoint_dir=None,
+          checkpoint_every: int = 50, resume: bool = False,
           log_every: int = 10, callback=None, log=print) -> dict:
-    """Train for ``steps`` steps; returns the logged losses, every step's
-    metrics (floats) and seconds (each step ends in a device
-    synchronise), tokens a step, and the final state.  ``model``
-    replaces the seeded init; ``callback(step, state, metrics)`` runs
-    after each step."""
+    """Train steps ``start_step .. steps - 1`` (``start_step`` 0, or the
+    latest checkpoint's step with ``resume``); returns the logged losses,
+    every step's metrics (floats) and seconds (each step ends in a
+    device synchronise), tokens a step, ``start_step`` and the final
+    state.  ``model`` replaces the seeded init;
+    ``callback(step, state, metrics)`` runs after each step (and its
+    checkpoint).  With ``checkpoint_dir``, checkpoints as the module
+    says; a pending write is waited for however the loop ends."""
     if steps < 1 or batch < 1 or seq < 1:
         raise ValueError("steps, batch and seq must be >= 1")
     device = resolve_device(device)
@@ -70,33 +91,58 @@ def train(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
     monitor = StragglerMonitor(num_workers=1, predicted_step_s=10.0,
                                slack=5.0)
 
+    mgr, axes, start_step = None, None, 0
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir)
+        paxes = param_axes(model)
+        axes = TrainState((), paxes, optimizer.state_axes(paxes))
+        if resume:
+            rules = ShardingRules(make_device_mesh(device),
+                                  spec.rules_for("train"))
+            got, restored = mgr.restore_latest(state, rules)
+            if got is not None:
+                start_step, state = got, restored
+                log(f"resumed from step {start_step}")
+
     losses, history, step_s = [], [], []
     t0 = time.time()
-    for step in range(steps):
-        batch_t = {k: (v if v.is_floating_point() else v.long()).to(device)
-                   for k, v in stream.batch(step).items()}
-        _sync(device)
-        ts = time.perf_counter()
-        state, metrics = step_fn(state, batch_t)
-        _sync(device)
-        step_s.append(time.perf_counter() - ts)
-        history.append({k: float(v) for k, v in metrics.items()})
-        monitor.heartbeat(0, step)
-        if callback is not None:
-            callback(step, state, metrics)
-        if step % log_every == 0 or step == steps - 1:
-            losses.append(history[-1]["loss"])
-            dec = monitor.check()
-            log(f"step {step:5d}  loss {losses[-1]:.4f}  "
-                f"gnorm {history[-1]['grad_norm']:.3f}  "
-                f"({(time.time() - t0):.1f}s, deadline "
-                f"{dec.deadline_s:.1f}s, stragglers {dec.stragglers})")
+    try:
+        for step in range(start_step, steps):
+            batch_t = {k: (v if v.is_floating_point() else v.long())
+                       .to(device) for k, v in stream.batch(step).items()}
+            _sync(device)
+            ts = time.perf_counter()
+            state, metrics = step_fn(state, batch_t)
+            _sync(device)
+            step_s.append(time.perf_counter() - ts)
+            history.append({k: float(v) for k, v in metrics.items()})
+            monitor.heartbeat(0, step)
+            if step % log_every == 0 or step == steps - 1:
+                losses.append(history[-1]["loss"])
+                dec = monitor.check()
+                log(f"step {step:5d}  loss {losses[-1]:.4f}  "
+                    f"gnorm {history[-1]['grad_norm']:.3f}  "
+                    f"({(time.time() - t0):.1f}s, deadline "
+                    f"{dec.deadline_s:.1f}s, stragglers {dec.stragglers})")
+            if mgr and step and step % checkpoint_every == 0:
+                mgr.save(step + 1, state, axes)
+            if callback is not None:
+                callback(step, state, metrics)
+        if mgr and start_step < steps:
+            mgr.save(steps, state, axes)
+    finally:
+        if mgr:
+            mgr.wait()
+    if start_step >= steps:
+        log(f"nothing to do: the checkpoint is at step {start_step}, "
+            f"--steps is {steps}")
     return {"arch": spec.arch_id, "device": str(device),
             "dtype": str(cfg.backbone.dtype if hasattr(cfg, "backbone")
                          else cfg.dtype),
             "optimizer": optimizer.name, "batch": batch, "seq": seq,
-            "tokens_per_step": batch * seq, "losses": losses,
-            "history": history, "step_s": step_s, "state": state}
+            "tokens_per_step": batch * seq, "start_step": start_step,
+            "losses": losses, "history": history, "step_s": step_s,
+            "state": state}
 
 
 def main(argv=None) -> int:
@@ -115,16 +161,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint_dir is not None or args.resume:
-        from repro_torch.api.stages import not_in_slice
-
-        raise not_in_slice("checkpointing (--checkpoint-dir, --resume)",
-                           "A-11c")
 
     res = train(args.arch, reduced=args.reduced, steps=args.steps,
                 batch=args.batch, seq=args.seq, seed=args.seed,
-                device=args.device, log_every=args.log_every)
+                device=args.device, checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                log_every=args.log_every)
     losses = res["losses"]
+    if not losses:      # resumed at --steps (ROADMAP C11)
+        return 0
     if not math.isfinite(losses[-1]):
         print("FAIL: non-finite final loss")
         return 1

@@ -16,12 +16,19 @@ prefill keys plus ``labels`` for ``loss_fn``; the encdec family's
 its patch prefix.  ``prefill`` and ``decode_step`` (serving) run
 without grad; ``loss_fn`` (training, ``repro_torch.train``) returns a
 scalar with its autograd graph when the parameters require grad.
-``cache_axes`` (sharding) is not ported.
+
+``cache_axes(cfg)`` returns a logical-axes tree parallel to the cache
+tuple (tuples at leaf positions; the reference's, including its
+``length`` entries, which the port holds as Python ints), for
+:mod:`repro_torch.dist.sharding`.  A parameter's axes live on the
+parameter itself: ``models/layers.py::param_axes(model)`` reads them
+(from a model built on the meta device, which allocates nothing).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+from repro_torch.models import attention as attn
 from repro_torch.models import encdec, hybrid, multimodal, ssm
 from repro_torch.models import transformer as tfm
 
@@ -33,6 +40,43 @@ class Family(NamedTuple):
     prefill: Callable
     decode_step: Callable
     loss_fn: Callable
+    cache_axes: Callable
+
+
+_KV_AXES = ("layers", "act_batch", "act_kv_seq", "act_kv_heads", None)
+
+
+def _kv_cache_axes(_cfg):
+    return attn.KVCache(k=_KV_AXES, v=_KV_AXES, length=("layers",))
+
+
+def _ssm_cache_axes(_cfg, lead=("layers",)):
+    return ssm.SSMCache(
+        conv_x=lead + ("act_batch", None, "act_mlp"),
+        conv_b=lead + ("act_batch", None, None),
+        conv_c=lead + ("act_batch", None, None),
+        state=lead + ("act_batch", "act_heads", None, None),
+        length=lead,
+    )
+
+
+def _hybrid_cache_axes(cfg: hybrid.Zamba2Config):
+    ga = ("groups", "act_batch", "act_kv_seq", "act_kv_heads", None)
+    return hybrid.HybridCache(
+        groups=_ssm_cache_axes(None, lead=("groups", "layers")),
+        trailing=_ssm_cache_axes(None) if cfg.trailing else None,
+        attn=attn.KVCache(k=ga, v=ga, length=("groups",)),
+        length=(),
+    )
+
+
+def _encdec_cache_axes(_cfg):
+    return encdec.EncDecCache(
+        self_kv=attn.KVCache(k=_KV_AXES, v=_KV_AXES, length=("layers",)),
+        cross_k=_KV_AXES,
+        cross_v=_KV_AXES,
+        length=(),
+    )
 
 
 TRANSFORMER = Family(
@@ -46,6 +90,7 @@ TRANSFORMER = Family(
         p, batch["token"], cfg, caches, length
     ),
     loss_fn=tfm.loss_fn,
+    cache_axes=_kv_cache_axes,
 )
 
 SSM = Family(
@@ -59,6 +104,7 @@ SSM = Family(
         p, batch["token"], cfg, caches, length
     ),
     loss_fn=ssm.loss_fn,
+    cache_axes=_ssm_cache_axes,
 )
 
 HYBRID = Family(
@@ -72,6 +118,7 @@ HYBRID = Family(
         p, batch["token"], cfg, caches, length
     ),
     loss_fn=hybrid.loss_fn,
+    cache_axes=_hybrid_cache_axes,
 )
 
 ENCDEC = Family(
@@ -85,6 +132,7 @@ ENCDEC = Family(
         p, batch["token"], cfg, caches, length
     ),
     loss_fn=encdec.loss_fn,
+    cache_axes=_encdec_cache_axes,
 )
 
 VLM = Family(
@@ -98,6 +146,7 @@ VLM = Family(
         p, batch["token"], cfg, caches, length
     ),
     loss_fn=multimodal.loss_fn,
+    cache_axes=lambda cfg: _kv_cache_axes(cfg.backbone),
 )
 
 FAMILIES = {f.name: f for f in (TRANSFORMER, SSM, HYBRID, ENCDEC, VLM)}

@@ -49,13 +49,17 @@ class Attention(nn.Module):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.wq = param(fan_in_normal((d_model, num_heads, head_dim),
-                                      d_model, dtype, **kw))
+                                      d_model, dtype, **kw),
+                        ("embed", "heads", "head_dim"))
         self.wk = param(fan_in_normal((d_model, num_kv_heads, head_dim),
-                                      d_model, dtype, **kw))
+                                      d_model, dtype, **kw),
+                        ("embed", "kv_heads", "head_dim"))
         self.wv = param(fan_in_normal((d_model, num_kv_heads, head_dim),
-                                      d_model, dtype, **kw))
+                                      d_model, dtype, **kw),
+                        ("embed", "kv_heads", "head_dim"))
         self.wo = param(fan_in_normal((num_heads, head_dim, d_model),
-                                      num_heads * head_dim, dtype, **kw))
+                                      num_heads * head_dim, dtype, **kw),
+                        ("heads", "head_dim", "embed"))
 
 
 def attn_init(d_model: int, num_heads: int, num_kv_heads: int,

@@ -121,12 +121,13 @@ class EncDecModel(nn.Module):
         self.decoder = nn.ModuleList(DecoderBlock(cfg, **kw)
                                      for _ in range(cfg.dec_layers))
         self.dec_norm = L.RMSNorm(d, dt, device=device)
-        self.unembed = L.Linear(d, cfg.padded_vocab, dt, **kw)
+        self.unembed = L.Linear(d, cfg.padded_vocab, dt,
+                                axes=("embed", "vocab"), **kw)
 
 
 def init(cfg: EncDecConfig, *, device, seed: int = 0) -> EncDecModel:
     """Random weights from ``seed`` on ``device``."""
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     return EncDecModel(cfg, device=device, generator=gen)
 
 

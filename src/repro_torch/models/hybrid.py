@@ -69,6 +69,22 @@ class Zamba2Config:
     def trailing(self) -> int:
         return self.layers - self.num_groups * self.attn_every
 
+    @property
+    def param_count(self) -> int:
+        """The reference's count (tied embedding)."""
+        d, hd = self.d_model, self.head_dim
+        mcfg = self.mamba_cfg()
+        per_mamba = (mcfg.param_count - self.padded_vocab * d - d) // self.layers
+        shared = (
+            2 * d * d                                   # w_cat
+            + d * (self.heads + 2 * self.kv_heads) * hd
+            + self.heads * hd * d
+            + 3 * d * self.d_ff + 3 * d
+        )
+        return self.layers * per_mamba + shared + self.padded_vocab * d + d
+
+    active_param_count = param_count
+
     def mamba_cfg(self) -> ssm.Mamba2Config:
         return ssm.Mamba2Config(
             layers=self.layers, d_model=self.d_model, vocab=self.vocab,
@@ -96,7 +112,8 @@ class SharedBlock(nn.Module):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
         kw = dict(device=device, generator=generator)
-        self.w_cat = param(fan_in_normal((2 * d, d), 2 * d, dt, **kw))
+        self.w_cat = param(fan_in_normal((2 * d, d), 2 * d, dt, **kw),
+                           ("embed", None))
         self.ln_attn = L.RMSNorm(d, dt, device=device)
         self.attn = attn.attn_init(d, cfg.heads, cfg.kv_heads, cfg.head_dim,
                                    dt, **kw)
@@ -126,7 +143,7 @@ class Zamba2LM(nn.Module):
 
 def init(cfg: Zamba2Config, *, device, seed: int = 0) -> Zamba2LM:
     """Random weights from ``seed`` on ``device``."""
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     return Zamba2LM(cfg, device=device, generator=gen)
 
 

@@ -1,11 +1,12 @@
 """Common layers: initialisers, RMSNorm, linear, embedding, RoPE, SwiGLU
 MLP, and the remat helper of the training forward.
 
-Mirrors ``repro/models/layers.py`` without the parameter/axes machinery
-(``PSpec``, sharding): the port runs on one device, and a block's
-parameters are the ``nn.Parameter``s of its module, in the reference's
-layouts (``[d_in, d_out]`` weights), so that the reference's values
-carry across unchanged (:mod:`repro_torch.interop`).  Initialisers draw
+Mirrors ``repro/models/layers.py``.  A block's parameters are the
+``nn.Parameter``s of its module, in the reference's layouts (``[d_in,
+d_out]`` weights), so that the reference's values carry across unchanged
+(:mod:`repro_torch.interop`); each carries the logical axes of the
+reference's ``PSpec`` (:func:`param`), which :func:`param_axes` reads for
+the sharding rules.  Initialisers draw
 from a ``torch.Generator``; they do not reproduce ``jax.random``'s
 numbers, so parity tests carry the reference's weights across instead.
 """
@@ -21,7 +22,10 @@ from torch.utils.checkpoint import checkpoint
 
 
 def normal(shape, scale: float, dtype, *, device, generator) -> torch.Tensor:
-    """``scale * N(0, 1)`` drawn in f32, cast to ``dtype``."""
+    """``scale * N(0, 1)`` drawn in f32, cast to ``dtype`` (on the meta
+    device, an empty tensor: nothing is drawn)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (scale * x).to(dtype)
@@ -33,8 +37,36 @@ def fan_in_normal(shape, fan_in: int, dtype, *, device,
                   generator=generator)
 
 
-def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def param(t: torch.Tensor, axes: tuple) -> nn.Parameter:
+    """A parameter carrying the logical axis names of its dims
+    (``axes``, the reference's ``PSpec`` axes, one per dim)."""
+    if len(axes) != t.dim():
+        raise ValueError(f"axes {axes} for a {t.dim()}-D parameter")
+    p = nn.Parameter(t, requires_grad=False)
+    p.axes = tuple(axes)
+    return p
+
+
+def generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    the meta device, where nothing is drawn (an abstract model)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def param_axes(model: nn.Module) -> dict[str, tuple]:
+    """``{leaf: logical axes}`` of ``model``'s parameters, by the leaves
+    of :func:`repro_torch.train.optimizer.param_leaves`: a leaf's own
+    axes behind one ``"layers"`` per stacked dimension, as the
+    reference's ``stack_layer_params`` prepends them (twice for the
+    hybrid's groups of layers)."""
+    from repro_torch.train.optimizer import param_leaves
+
+    params = dict(model.named_parameters())
+    return {leaf: ("layers",) * len(info.lead) + params[info.names[0]].axes
+            for leaf, info in param_leaves(model).items()}
 
 
 def remat(enabled: bool, fn, *args):
@@ -53,7 +85,8 @@ def remat(enabled: bool, fn, *args):
 class RMSNorm(nn.Module):
     def __init__(self, d: int, dtype, *, device):
         super().__init__()
-        self.scale = param(torch.ones(d, dtype=dtype, device=device))
+        self.scale = param(torch.ones(d, dtype=dtype, device=device),
+                           ("embed",))
 
     def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         """The reference's order: an f32 sum of squares, the inverse
@@ -67,13 +100,15 @@ class RMSNorm(nn.Module):
 
 
 class Linear(nn.Module):
-    """``w [d_in, d_out]``, fan-in normal (the reference's
-    ``linear_init``/``linear``)."""
+    """``w [d_in, d_out]``, fan-in normal, with the logical ``axes`` of
+    its two dims (the reference's ``linear_init``/``linear``)."""
 
-    def __init__(self, d_in: int, d_out: int, dtype, *, device, generator):
+    def __init__(self, d_in: int, d_out: int, dtype, *, axes, device,
+                 generator):
         super().__init__()
         self.w = param(fan_in_normal((d_in, d_out), d_in, dtype,
-                                     device=device, generator=generator))
+                                     device=device, generator=generator),
+                       axes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.w
@@ -88,7 +123,7 @@ class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, dtype, *, device, generator):
         super().__init__()
         self.table = param(normal((vocab, d), 1.0, dtype, device=device,
-                                  generator=generator))
+                                  generator=generator), ("vocab", "embed"))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.table[tokens]
@@ -134,9 +169,12 @@ class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, dtype, *, device, generator):
         super().__init__()
         kw = dict(device=device, generator=generator)
-        self.wi = param(fan_in_normal((d, d_ff), d, dtype, **kw))
-        self.wg = param(fan_in_normal((d, d_ff), d, dtype, **kw))
-        self.wo = param(fan_in_normal((d_ff, d), d_ff, dtype, **kw))
+        self.wi = param(fan_in_normal((d, d_ff), d, dtype, **kw),
+                        ("embed", "mlp"))
+        self.wg = param(fan_in_normal((d, d_ff), d, dtype, **kw),
+                        ("embed", "mlp"))
+        self.wo = param(fan_in_normal((d_ff, d), d_ff, dtype, **kw),
+                        ("mlp", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x @ self.wi

@@ -63,10 +63,14 @@ class MoE(nn.Module):
         super().__init__()
         e = cfg.num_experts
         kw = dict(device=device, generator=generator)
-        self.router = param(fan_in_normal((d, e), d, torch.float32, **kw))
-        self.wi = param(fan_in_normal((e, d, d_ff), d, dtype, **kw))
-        self.wg = param(fan_in_normal((e, d, d_ff), d, dtype, **kw))
-        self.wo = param(fan_in_normal((e, d_ff, d), d_ff, dtype, **kw))
+        self.router = param(fan_in_normal((d, e), d, torch.float32, **kw),
+                            ("embed", "experts"))
+        self.wi = param(fan_in_normal((e, d, d_ff), d, dtype, **kw),
+                        ("experts", "embed", "mlp"))
+        self.wg = param(fan_in_normal((e, d, d_ff), d, dtype, **kw),
+                        ("experts", "embed", "mlp"))
+        self.wo = param(fan_in_normal((e, d_ff, d), d_ff, dtype, **kw),
+                        ("experts", "mlp", "embed"))
 
 
 def moe_init(d: int, d_ff: int, cfg: MoEConfig, dtype=torch.float32, *,
@@ -112,23 +116,45 @@ def capacity_keep(idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     return slot < _capacity(g, cfg)
 
 
+def uniform_counts(tokens: int, cfg: MoEConfig, drop: bool) -> list[int]:
+    """Pairs each expert takes at the uniform load, ``tokens * top_k /
+    E`` (the remainder to the lowest experts), at most its capacity in
+    every group when ``drop``: the counts of an abstract (meta-device)
+    step, whose router has no values."""
+    k, e = cfg.top_k, cfg.num_experts
+    total = tokens * k
+    counts = [total // e + (ex < total % e) for ex in range(e)]
+    if drop:
+        g = group_size(tokens, cfg)
+        cap = _capacity(g, cfg) * (tokens // g)
+        counts = [min(n, cap) for n in counts]
+    return counts
+
+
 def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
               drop: bool = True):
     """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  ``drop``
-    routes by capacity (:func:`capacity_keep`), else every pair."""
+    routes by capacity (:func:`capacity_keep`), else every pair.  On the
+    meta device every expert takes :func:`uniform_counts`' pairs."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate, idx = route(params, xt, cfg)
     k, e = cfg.top_k, cfg.num_experts
     pairs = torch.arange(b * s * k, device=x.device)    # (token, choice)
+    meta = x.device.type == "meta"
     if drop:
-        pairs = pairs[capacity_keep(idx, cfg).flatten()]
+        keep = capacity_keep(idx, cfg).flatten()
+        pairs = pairs[:sum(uniform_counts(b * s, cfg, drop))] if meta \
+            else pairs[keep]
     experts = idx.flatten()[pairs]
     order = torch.argsort(experts, stable=True)         # grouped by expert
     pairs = pairs[order]
     token = pairs // k
     weight = gate.to(x.dtype).float().flatten()[pairs]
-    counts = torch.bincount(experts, minlength=e).tolist()  # repro-lint: disable=TS102 -- ROADMAP "MoE decode reads the expert counts on the host once per layer"
+    if meta:    # no values to count: the uniform load
+        counts = uniform_counts(b * s, cfg, drop)
+    else:
+        counts = torch.bincount(experts, minlength=e).tolist()  # repro-lint: disable=TS102 -- ROADMAP "MoE decode reads the expert counts on the host once per layer"
     y = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
     start = 0
     for ex, n in enumerate(counts):

@@ -49,12 +49,13 @@ class VLM(nn.Module):
         self.backbone = tfm.TransformerLM(bb, device=device,
                                           generator=generator)
         self.patch_proj = L.Linear(cfg.clip_dim, bb.d_model, bb.dtype,
-                                   device=device, generator=generator)
+                                   axes=("embed", None), device=device,
+                                   generator=generator)
 
 
 def init(cfg: VLMConfig, *, device, seed: int = 0) -> VLM:
     """Random weights from ``seed`` on ``device``."""
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     return VLM(cfg, device=device, generator=gen)
 
 

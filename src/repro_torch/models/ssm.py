@@ -71,6 +71,19 @@ class Mamba2Config:
         m = self.vocab_pad_multiple
         return -(-self.vocab // m) * m
 
+    @property
+    def param_count(self) -> int:
+        """The reference's count (tied embedding)."""
+        d, di, n, h = self.d_model, self.d_inner, self.ssm_state, self.heads
+        per_layer = (
+            d * (2 * di + 2 * n + h)        # wz, wx, wB, wC, wdt
+            + self.conv_width * (di + 2 * n)
+            + 3 * h + di + di * d + d       # A_log/D/dt_bias, ln_gate, wo, ln
+        )
+        return self.layers * per_layer + self.padded_vocab * d + d
+
+    active_param_count = param_count
+
 
 class SSMCache(NamedTuple):
     """Constant-size decode state, stacked over a leading layer axis."""
@@ -96,22 +109,31 @@ class Mamba2Block(nn.Module):
         dt, f32 = cfg.dtype, torch.float32
         kw = dict(device=device, generator=generator)
         self.ln = L.RMSNorm(d, dt, device=device)
-        self.wz = param(fan_in_normal((d, di), d, dt, **kw))
-        self.wx = param(fan_in_normal((d, di), d, dt, **kw))
-        self.wB = param(fan_in_normal((d, n), d, dt, **kw))
-        self.wC = param(fan_in_normal((d, n), d, dt, **kw))
-        self.wdt = param(fan_in_normal((d, h), d, f32, **kw))
+        self.wz = param(fan_in_normal((d, di), d, dt, **kw),
+                        ("embed", "inner"))
+        self.wx = param(fan_in_normal((d, di), d, dt, **kw),
+                        ("embed", "inner"))
+        self.wB = param(fan_in_normal((d, n), d, dt, **kw),
+                        ("embed", "ssm_state"))
+        self.wC = param(fan_in_normal((d, n), d, dt, **kw),
+                        ("embed", "ssm_state"))
+        self.wdt = param(fan_in_normal((d, h), d, f32, **kw),
+                         ("embed", "ssm_heads"))
         self.conv_x = param(torch.full((w, di), 1.0 / w, dtype=dt,
-                                       device=device))
+                                       device=device), (None, "inner"))
         self.conv_b = param(torch.full((w, n), 1.0 / w, dtype=dt,
-                                       device=device))
+                                       device=device), (None, "ssm_state"))
         self.conv_c = param(torch.full((w, n), 1.0 / w, dtype=dt,
-                                       device=device))
-        self.A_log = param(torch.zeros(h, dtype=f32, device=device))
-        self.D = param(torch.ones(h, dtype=f32, device=device))
-        self.dt_bias = param(torch.full((h,), -2.0, dtype=f32, device=device))
+                                       device=device), (None, "ssm_state"))
+        self.A_log = param(torch.zeros(h, dtype=f32, device=device),
+                           ("ssm_heads",))
+        self.D = param(torch.ones(h, dtype=f32, device=device),
+                       ("ssm_heads",))
+        self.dt_bias = param(torch.full((h,), -2.0, dtype=f32, device=device),
+                             ("ssm_heads",))
         self.ln_gate = L.RMSNorm(di, dt, device=device)
-        self.wo = param(fan_in_normal((di, d), di, dt, **kw))
+        self.wo = param(fan_in_normal((di, d), di, dt, **kw),
+                        ("inner", "embed"))
 
 
 def block_init(cfg: Mamba2Config, *, device, generator) -> Mamba2Block:
@@ -250,7 +272,7 @@ class Mamba2LM(nn.Module):
 
 def init(cfg: Mamba2Config, *, device, seed: int = 0) -> Mamba2LM:
     """Random weights from ``seed`` on ``device``."""
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     return Mamba2LM(cfg, device=device, generator=gen)
 
 

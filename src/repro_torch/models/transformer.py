@@ -151,12 +151,12 @@ class TransformerLM(nn.Module):
                                     for _ in range(cfg.layers))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.unembed = L.Linear(cfg.d_model, cfg.padded_vocab, cfg.dtype,
-                                **kw)
+                                axes=("embed", "vocab"), **kw)
 
 
 def init(cfg: TransformerConfig, *, device, seed: int = 0) -> TransformerLM:
     """Random weights from ``seed`` on ``device``."""
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     return TransformerLM(cfg, device=device, generator=gen)
 
 

@@ -1,6 +1,13 @@
 """Runtime pieces of the training loop (port of ``repro/runtime/``):
-the straggler monitor.  Checkpointing and elastic re-meshing wait for
-ROADMAP A-11c."""
+checkpoint/restart on the reference's format, elastic re-meshing and
+the straggler monitor."""
+from repro_torch.runtime.checkpoint import (
+    CheckpointManager, save_checkpoint, restore_checkpoint,
+)
+from repro_torch.runtime.elastic import plan_remesh
 from repro_torch.runtime.straggler import StragglerMonitor
 
-__all__ = ["StragglerMonitor"]
+__all__ = [
+    "CheckpointManager", "save_checkpoint", "restore_checkpoint",
+    "plan_remesh", "StragglerMonitor",
+]

@@ -17,8 +17,10 @@ stacked leaf.  ``update`` is pure: ``update(grads, state, params, step)
 of the leaves, so the step can update one leaf at a time); each update
 runs in f32 and casts back to the parameter's dtype.  The state is
 ``{leaf: {name: f32 tensor}}``: AdamW's ``m`` and ``v``, Adafactor's
-``vr`` and ``vc`` (rank >= 2) or ``v``.  ``state_axes`` (sharding
-metadata) is not ported.
+``vr`` and ``vc`` (rank >= 2) or ``v``.  ``state_axes(param_axes)``
+maps the parameters' ``{leaf: logical axes}`` to the state's ``{leaf:
+{name: axes}}``: the reference's axes for each moment (the sharding
+rules and the checkpoint's manifest read them).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ class Optimizer:
     init: Callable[[dict], dict]
     update: Callable[[dict, dict, dict, torch.Tensor], tuple[dict, dict]]
     # update(grads, opt_state, params, step) -> (new_params, new_state)
+    state_axes: Callable[[dict], dict] = None
+    # state_axes({leaf: axes}) -> {leaf: {name: axes}} matching init()
 
 
 class Leaf(NamedTuple):
@@ -123,7 +127,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             new_state[k] = {"m": m, "v": v}
         return new_params, new_state
 
-    return Optimizer("adamw", init, update)
+    def state_axes(param_axes):
+        return {k: {"m": ax, "v": ax} for k, ax in param_axes.items()}
+
+    return Optimizer("adamw", init, update, state_axes)
 
 
 def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
@@ -172,4 +179,12 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
             new_params[k] = (p.float() - lr_t * upd).to(p.dtype)
         return new_params, new_state
 
-    return Optimizer("adafactor", init, update)
+    def state_axes(param_axes):
+        def leaf(ax):
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+
+        return {k: leaf(ax) for k, ax in param_axes.items()}
+
+    return Optimizer("adafactor", init, update, state_axes)

@@ -67,7 +67,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.analysis.buffers, repro_torch.analysis.hlo_trace, "
         "repro_torch.analysis.roofline, repro_torch.analysis.aten_trace, "
         "repro_torch.workloads.model_trace, repro_torch.lint, "
-        "repro_torch.lint.__main__\n"
+        "repro_torch.lint.__main__, repro_torch.launch.mesh, "
+        "repro_torch.launch.steps, repro_torch.launch.dryrun, "
+        "repro_torch.launch.train, repro_torch.runtime.checkpoint, "
+        "repro_torch.runtime.elastic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

@@ -53,7 +53,7 @@ MOE_SHAPE = """
 
 
 @pytest.mark.parametrize("source,want", [
-    # models/moe.py:131's shape: the helper runs once per layer
+    # models/moe.py:157's shape: the helper runs once per layer
     (MOE_SHAPE, [("TS102", 4)]),
     ("""
         import torch
@@ -342,16 +342,19 @@ def test_sync_lines_cover_a_call_that_spans_lines(tmp_path):
 
 
 def test_the_port_moe_readback_is_reported():
-    """``models/moe.py:131`` (the per-layer expert counts): TS reports it,
-    suppressed with the ROADMAP item that will remove it."""
+    """``models/moe.py:157`` (the per-layer expert counts, the line of
+    ``torch.bincount(...).tolist()``): TS reports it, suppressed with the
+    ROADMAP item that will remove it."""
     path = PORT / "models" / "moe.py"
     rel = path.relative_to(ROOT).as_posix()
     ctx = ModuleContext(path, rel, path.read_text())
-    hits = [f for f in torch_sync.analyze(ctx) if f.line == 131]
+    line = 157
+    assert ".tolist()" in ctx.line_text(line)
+    hits = [f for f in torch_sync.analyze(ctx) if f.line == line]
     assert [f.rule_id for f in hits] == ["TS102"]
-    assert ctx.suppressed("TS102", 131)
+    assert ctx.suppressed("TS102", line)
     assert "MoE decode reads the expert counts on the host once per " \
-           "layer" in ctx.line_text(131)
+           "layer" in ctx.line_text(line)
 
 
 def test_every_ts_finding_in_the_port_is_suppressed_with_a_reason():

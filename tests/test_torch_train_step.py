@@ -25,7 +25,7 @@ across by ``interop.train_state_from_reference``):
 The reference's step is compiled once per architecture and accumulation
 for the module (a fixture).  Also the driver
 (``python -m repro_torch.launch.train``) on the CPU, and its
-checkpointing flags raising for A-11c.
+checkpointing flags (which raised until A-11c).
 """
 from __future__ import annotations
 
@@ -202,7 +202,16 @@ def test_the_driver_trains_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"],
                                   ["--resume"]])
-def test_checkpointing_waits_for_a11c(flag):
-    with pytest.raises(NotImplementedError, match="A-11c"):
-        train_cli.main(["--reduced", "--steps", "1", "--device", "cpu",
-                        *flag])
+def test_checkpointing_waits_for_a11c(flag, tmp_path, capsys):
+    """The checkpoint flags run since A-11c (``runtime/checkpoint.py``):
+    ``--checkpoint-dir`` writes the final step's checkpoint, and
+    ``--resume`` without a directory trains from step 0, as the
+    reference's driver does (``tests/test_torch_checkpoint.py`` holds
+    resume and the format to the reference's)."""
+    flag = [str(tmp_path / f) if f == "ckpt" else f for f in flag]
+    assert train_cli.main(["--reduced", "--steps", "1", "--device", "cpu",
+                           "--batch", "2", "--seq", "16", *flag]) == 0
+    assert "done: loss" in capsys.readouterr().out
+    if "--checkpoint-dir" in flag:
+        assert (tmp_path / "ckpt" / "step_00000001" /
+                "manifest.json").exists()
