@@ -230,6 +230,19 @@ with a non-zero exit:
     against ``max_memory_allocated`` for zamba2-1.2b's train step and
     llama3-8b's prefill, both at 4 x 2,048, each ratio within
     [0.9, 1.15].
+18d. ``[dryrun_partition]`` (ROADMAP A-11d): ``launch.dryrun.dry_run``
+    of zamba2-1.2b x prefill_32k on the 16 x 16 pod mesh, partitioned
+    on the meta device (DTensor over a fake process group of 256):
+    per-partition FLOPs, ``ici_bytes``, collective counts and
+    ``device_bytes``; then rank 0's partition of that step run on the
+    card (its local shards made on the card from a seed, the
+    collectives through the fake group, which allocates their results
+    and moves nothing), its predicted peak (arguments + temporaries)
+    within [0.9, 1.15] of ``max_memory_allocated``, the logits finite;
+    B4 and B5 launched on the local shards (``launches_by_path
+    ["pod/zamba2-1.2b/prefill_32k"]``: 6 and 38) and, on a second run,
+    their first launch's outputs held to their plain versions on the
+    same local shards (``FLASH_TOL``, ``SSD_TOL``).
 19. ``[lint]``: ``python -m repro_torch.lint --check`` with the committed
     baseline over src, tools and tests (exit 0 or the run fails), with
     files, findings and inline suppressions per family and the seconds.
@@ -243,11 +256,12 @@ with a non-zero exit:
     A line that syncs more than once in one call is a sync in a loop:
     the TS lint rules must report it (flagged or suppressed), or it is
     in ``KNOWN_MISSED`` with the reason they cannot see it; never
-    ``models/moe.py:157`` and never a site of a predict path.
+    ``models/moe.py:193`` and never a site of a predict path.
 
 B4's and B5's kernel records carry ``launches_by_path`` with the
-training path (``zamba2-1.2b/train``) and the resumed steps
-(``zamba2-1.2b/resume``), B1's with ``model_traces/train``,
+training path (``zamba2-1.2b/train``), the resumed steps
+(``zamba2-1.2b/resume``) and the pod partition
+(``pod/zamba2-1.2b/prefill_32k``), B1's with ``model_traces/train``,
 and B1's, B2's (moments), B4's and B5's with ``lint_runtime``.
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
@@ -259,7 +273,9 @@ exactly one SDCM launch, and every service batch in 9c.  The last lines are the
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -302,6 +318,15 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the reference's
 # A decode row over 2048 columns has outputs of ~0.04, below the absolute
 # 3e-2, so a merge that dropped or misweighted a split would pass it.
 FLASH_SCALED_TOL_BF16 = 1e-2
+# bf16 attention on a long causal row, besides FLASH_TOL: the largest
+# |kernel - plain| of a row over that row's rms of plain, over every row.
+# Row i averages ~i values, so its outputs are ~1/sqrt(i) of the first
+# rows': at 32,768 rows they are ~0.03, as small as FLASH_TOL.  On the pod
+# partition's shards a sound kernel reads 0.0297 (two bf16 ulps of a
+# row's largest output, ~3x its rms); one that drops a KV tile of 64 from
+# every row past 16,384 reads 0.224, while its absolute error (0.0078)
+# passes FLASH_TOL (H100, PERF.md).
+FLASH_ROW_TOL_BF16 = 6e-2
 SSD_TOL = 5e-6        # SSD scan, |kernel - plain| / max |plain|
 # kernel path vs plain path, bf16 logits at full depth: max |diff| over
 # max |plain logits|.  bf16 keeps 8 bits (relative rounding 2^-9 = 0.002);
@@ -3666,6 +3691,207 @@ def phase_dryrun(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the partitioned dry-run (ROADMAP A-11d) --------------------------------
+
+# a pod cell that runs B4 (6 shared-attention calls) and B5 (38 Mamba2
+# layers), whose partition (~7.7 GB predicted) fits the card with room
+# and whose meta recording takes seconds (zamba2's train cell: minutes)
+PARTITION_CELL = ("zamba2-1.2b", "prefill_32k", "pod")
+PARTITION_LAUNCHES = {"flash_attention": 6, "ssd_scan": 38}
+
+
+def on_device(cell, vocab: int, seed: int):
+    """``cell``'s DTensor arguments with their local shards made on the
+    card from ``seed``: floating tensors N(0, 0.02^2) (a norm's scale
+    1), token ids below ``vocab``, caches zero.  The model is changed in
+    place; returns the new arguments.  On the fake process group a
+    collective moves nothing, so a vocab-parallel lookup sums rank 0's
+    rows only: ``vocab`` at most the rows of rank 0's table shard keeps
+    every embedding a real one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(t, fill):
+        loc = t.to_local()
+        if fill == "zero":
+            new = torch.zeros(loc.shape, dtype=loc.dtype, device="cuda")
+        elif fill == "one":
+            new = torch.ones(loc.shape, dtype=loc.dtype, device="cuda")
+        elif loc.is_floating_point():
+            new = (0.02 * torch.randn(loc.shape, generator=gen,
+                                      device="cuda")).to(loc.dtype)
+        else:
+            new = torch.randint(0, vocab, loc.shape, generator=gen,
+                                device="cuda").to(loc.dtype)
+        return DTensor.from_local(new, t.device_mesh, t.placements,
+                                  run_check=False)
+
+    model, batch, caches = cell.abstract_args[:3]
+    for module in model.modules():
+        for key, p in list(module._parameters.items()):
+            new = torch.nn.Parameter(make(
+                p, "one" if key == "scale" else "rand"), requires_grad=False)
+            new.axes = p.axes
+            module._parameters[key] = new
+    batch = {k: make(v, "rand") for k, v in batch.items()}
+    caches = tree_map(lambda t: make(t, "zero")
+                      if isinstance(t, DTensor) else t, caches)
+    return (model, batch, caches, *cell.abstract_args[3:])
+
+
+def row_rel_err(out: torch.Tensor, plain: torch.Tensor) -> dict:
+    """Over the rows of B4's output ``[B, H, S, D]``, the largest
+    |out - plain| in a row over the row's rms of ``plain``: its largest
+    value (``err``), that row (``row``: b, h, s) and its rms, and the
+    value the worst 0.1 % of rows exceed (``q999``)."""
+    o, p = out.float(), plain.float()
+    rms = p.pow(2).mean(-1).sqrt()
+    rel = (o - p).abs().amax(-1) / rms.clamp_min(
+        torch.finfo(torch.float32).tiny)
+    worst = int(rel.argmax())
+    row = [int(i) for i in np.unravel_index(worst, tuple(rel.shape))]
+    return {"err": float(rel.max()), "row": row,
+            "row_rms": float(rms.flatten()[worst]),
+            "q999": float(torch.quantile(rel.flatten()[::17], 0.999))}
+
+
+def phase_dryrun_partition(smi: str) -> dict:
+    """``[dryrun_partition]``: the pod cell's partitioned dry-run on the
+    meta device, then rank 0's partition of its step on the card: the
+    predicted peak against ``max_memory_allocated``, B4's and B5's
+    launches on the local shards, and their outputs against their plain
+    versions on those shards.  Returns the card run's launches (B4's
+    by form too)."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+    from repro_torch.launch.steps import build_cell, distribute_cell, run_step
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    arch, shape_name, mesh_name = PARTITION_CELL
+    spec, shape = get_arch(arch), SHAPES[shape_name]
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    sc = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    rec, secs = timed(lambda: dryrun.dry_run(spec, shape, mesh_name))
+    mem = rec["memory"]
+    line("dryrun_partition", card=smi, arch=arch, shape=shape_name,
+         mesh=mesh_name, devices=rec["devices"], lower_s=rec["lower_s"],
+         seconds=secs, ops=rec["ops"], flops=rec["cost"]["flops"],
+         bytes_accessed=rec["cost"]["bytes accessed"],
+         ici_bytes=rec["collectives"]["ici_bytes"],
+         collectives=rec["collectives"]["counts"],
+         argument_bytes=mem["argument_bytes"],
+         temp_bytes=mem["temp_bytes"], device_bytes=rec["device_bytes"],
+         replicated_ops=rec["replicated_ops"], fits_tpu_16gb=rec["fits"])
+    if not rec["partitioned"] or rec["devices"] != 256:
+        fail(f"the pod record is not a partition: {rec['devices']}")
+    mesh = make_production_mesh()
+
+    def run_partition(check: dict | None):
+        """Build and run rank 0's partition on the card; with ``check``,
+        keep the first B4 and B5 launch's local inputs and outputs."""
+        saved = {}
+
+        def keep(mod, name):
+            orig = mod._forward
+
+            def wrapped(*args):
+                out = orig(*args)
+                if name not in saved:
+                    saved[name] = (tuple(a.clone() if isinstance(
+                        a, torch.Tensor) else a for a in args), (
+                        out.clone() if isinstance(out, torch.Tensor)
+                        else tuple(o.clone() for o in out)))
+                return out
+            return orig, wrapped
+
+        patches = []
+        if check is not None:
+            for mod, name in ((fa, "flash_attention"), (sc, "ssd_scan")):
+                orig, wrapped = keep(mod, name)
+                patches.append((mod, orig))
+                mod._forward = wrapped
+        try:
+            with fake_device_mesh(mesh, "cuda") as dm:
+                cell = distribute_cell(build_cell(spec, shape, mesh), dm)
+                rows = cell.abstract_args[0].embed.table.to_local().shape[0]
+                args = on_device(cell, min(spec.vocab, rows), seed=0)
+                (logits, _), _ = run_step(cell, args)
+                local = logits.to_local()
+                finite = bool(torch.isfinite(local).all())
+                del args, cell, logits
+        finally:
+            for mod, orig in patches:
+                mod._forward = orig
+        if check is not None:
+            check.update(saved)
+        return finite, tuple(local.shape)
+
+    reset_counts()
+    holder = {}
+    measured = measured_peak(lambda: holder.update(
+        out=run_partition(None)))
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_scan": sc.LAUNCHES["ssd_scan"]}
+    forms = dict(fa.LAUNCHES_BY_FORM)
+    finite, logits_shape = holder["out"]
+    predicted = rec["device_bytes"]
+    ratio = measured / predicted
+    line("dryrun_partition_peak", card=smi, arch=arch, shape=shape_name,
+         mesh=mesh_name, predicted_bytes=predicted,
+         argument_bytes=mem["argument_bytes"], temp_bytes=mem["temp_bytes"],
+         measured_max_memory_allocated=measured, ratio=ratio,
+         allowed=DRYRUN_PEAK_RANGE, local_logits_shape=logits_shape,
+         logits_finite=finite, launches=launches)
+    if not finite:
+        fail("the pod partition's logits are not finite")
+    if not DRYRUN_PEAK_RANGE[0] <= ratio <= DRYRUN_PEAK_RANGE[1]:
+        fail(f"pod partition peak: predicted {predicted}, measured "
+             f"{measured} (ratio {ratio})")
+    if launches != PARTITION_LAUNCHES:
+        fail(f"pod partition launches {launches}, expected "
+             f"{PARTITION_LAUNCHES}")
+    launches.update(forms)
+    torch.cuda.empty_cache()
+
+    saved: dict = {}
+    run_partition(saved)
+    (q, k, v, causal, scale, q_offset, kv_len, window), out = \
+        saved["flash_attention"]
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     window=window)
+    flash_err = float((out.float() - plain.float()).abs().max())
+    rows = row_rel_err(out, plain)
+    flash_row_err = rows.pop("err")
+    (x, la, b, c, h0), (y, final) = saved["ssd_scan"]
+    py, pfinal = sc.ssd_scan_plain(x, la, b, c, h0)
+    ssd_err = max(float((y.float() - py.float()).abs().max()
+                        / py.float().abs().max()),
+                  float((final - pfinal).abs().max() / pfinal.abs().max()))
+    line("dryrun_partition_kernels", card=smi, flash_q=list(q.shape),
+         flash_kv=list(k.shape), flash_dtype=str(q.dtype),
+         flash_max_abs_err=flash_err, flash_tol=FLASH_TOL[q.dtype],
+         flash_row_rel_err=flash_row_err, flash_row=rows,
+         flash_row_tol=FLASH_ROW_TOL_BF16 if q.dtype == torch.bfloat16
+         else None,
+         ssd_x=list(x.shape), ssd_rel_err=ssd_err, ssd_tol=SSD_TOL)
+    if not flash_err <= FLASH_TOL[q.dtype]:
+        fail(f"B4 on the partition's shards: {flash_err}")
+    if q.dtype == torch.bfloat16 and not flash_row_err <= FLASH_ROW_TOL_BF16:
+        fail(f"B4 on the partition's shards: row error {flash_row_err} > "
+             f"{FLASH_ROW_TOL_BF16}")
+    if not ssd_err <= SSD_TOL:
+        fail(f"B5 on the partition's shards: {ssd_err}")
+    del saved
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --- the linter, and the syncs the card reports ------------------------------
 
 LINT_PATHS = ("src", "tools", "tests")
@@ -3679,9 +3905,9 @@ SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
 SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
                 "tensor_core", "split_kv", "simt", "ssd_scan")
 # repeated sync sites that the TS rules cannot see, each with the reason
-# (also in ROADMAP).  Never moe.py:157 and never a site of a predict path.
+# (also in ROADMAP).  Never moe.py:193 and never a site of a predict path.
 KNOWN_MISSED: dict[str, str] = {}
-NEVER_MISSED = ("src/repro_torch/models/moe.py:157",)
+NEVER_MISSED = ("src/repro_torch/models/moe.py:193",)
 SYNC_WARNING = "called a synchronizing CUDA operation"  # the debugger's
 
 
@@ -3882,12 +4108,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the kernels record here as JSON")
+    ap.add_argument("--phase", choices=("dryrun_partition",), default=None,
+                    help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     smi = phase_device()
+    if args.phase == "dryrun_partition":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        launches, secs = timed(lambda: phase_dryrun_partition(smi))
+        line("phase_alone", phase=args.phase, seconds=secs,
+             launches=launches)
+        return 0
     probs = phase_hit_probs()
     phase_rates()
     phase_reuse_distances()
@@ -3940,15 +4174,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     checkpoint_s = time.perf_counter() - t_phase
     _, dryrun_s = timed(lambda: phase_dryrun(smi))
+    by_path[f"{PARTITION_CELL[2]}/{PARTITION_CELL[0]}/{PARTITION_CELL[1]}"], \
+        dryrun_partition_s = timed(lambda: phase_dryrun_partition(smi))
     line("a11c_phases", card=smi, checkpoint_s=checkpoint_s,
-         dryrun_s=dryrun_s)
+         dryrun_s=dryrun_s, dryrun_partition_s=dryrun_partition_s)
     sdcm_kernel["launches_by_path"]["model_traces/train"] = \
         phase_train_cells(smi)
     sdcm_kernel["launches"] = sum(sdcm_kernel["launches_by_path"].values())
     ssd_kernel["launches_by_path"] = {
         "zamba2-1.2b": serve_launches["ssd_scan"],
         "zamba2-1.2b/train": by_path["zamba2-1.2b/train"]["ssd_scan"],
-        "zamba2-1.2b/resume": by_path["zamba2-1.2b/resume"]["ssd_scan"]}
+        "zamba2-1.2b/resume": by_path["zamba2-1.2b/resume"]["ssd_scan"],
+        "pod/zamba2-1.2b/prefill_32k":
+            by_path["pod/zamba2-1.2b/prefill_32k"]["ssd_scan"]}
     ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
     # B4 over every serve path, the training path and the resumed steps;
     # the window form is mixtral's launches

@@ -83,6 +83,21 @@ last tensor dies (autograd's saved tensors included), and
 :attr:`Recording.peak_bytes` is the peak of the live bytes of the
 storages that are not the step's inputs (the dry-run's ``temp_bytes``).
 
+A partitioned step (DTensors on a ``DeviceMesh``) is recorded per
+partition: the recorder steps aside for every op on DTensors (returns
+``NotImplemented``), so it sees the ops DTensor runs on this partition's
+local shards, and it records nothing that runs under a
+``FakeTensorMode`` (DTensor's own shape propagation, at global shapes
+and only on a cache miss), so a second recording equals the first.
+Every storage it follows is a local one.  A functional collective
+(``_c10d_functional.all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single``, and DTensor's
+``_dtensor.shard_dim_alltoall``) is an op of kind
+``"collective"`` with no FLOPs: its local result bytes and its group's
+size give ``recording_cost``'s collective counts, result bytes and
+``ici_bytes`` by the reference's ring model
+(:func:`repro_torch.analysis.hlo._traffic`).
+
 :func:`largest_results` ranks op results by bytes, as
 ``analysis/buffers.py::largest_buffers`` ranks instruction results.
 """
@@ -127,7 +142,16 @@ _MOVE = {
 }
 _FREE = {
     "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
-    "_local_scalar_dense",
+    "_local_scalar_dense", "wait_tensor", "_wrap_tensor_autograd",
+}
+#: Functional collectives (DTensor's all-to-all of one shard dim for
+#: another among them) by the HLO names of the reference's census.
+COLLECTIVES = {
+    "all_reduce": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
 }
 
 
@@ -146,10 +170,12 @@ class TensorRef:
 @dataclass(frozen=True)
 class OpEvent:
     op: str
-    kind: str                     # dot | transcendental | reduce | move | elementwise
+    kind: str       # dot | transcendental | reduce | move | elementwise | collective
     flops: float
     operands: tuple[TensorRef, ...]
     results: tuple[TensorRef, ...]
+    #: A collective's group size (0 for any other op).
+    group: int = 0
 
 
 @dataclass
@@ -166,6 +192,10 @@ class Recording:
     seconds: float = 0.0
     #: Peak live bytes of the storages the call made (meta device only).
     peak_bytes: int = 0
+    #: A partitioned step's operands gathered for an op that runs on
+    #: local shards, ``{"site: shape": count}``
+    #: (:func:`repro_torch.dist.sharding.replicated_ops`).
+    replicated: dict = field(default_factory=dict)
 
 
 _SCHEMAS: dict = {}
@@ -253,6 +283,24 @@ def _flops(kind: str, op: str, tensors: list, results: list) -> float:
     return elems
 
 
+def _in_fake_mode() -> bool:
+    """A ``FakeTensorMode`` is active (DTensor's shape propagation)."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _group_size(args) -> int:
+    """The size of a functional collective's process group, by the group
+    name it is given."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(args[-1]).size()
+
+
+def _is_dtensor_type(cls) -> bool:
+    return cls.__name__ == "DTensor" and hasattr(cls, "device_mesh")
+
+
 class _Recorder(TorchDispatchMode):
     def __init__(self, inputs: dict[str, torch.Tensor]):
         super().__init__()
@@ -263,6 +311,8 @@ class _Recorder(TorchDispatchMode):
         self._live = 0              # bytes of the meta storages alive
         self._tracked: set = set()
         for name, t in inputs.items():
+            if _is_dtensor_type(type(t)):
+                t = t.to_local()
             st = t.untyped_storage()
             self._inputs.setdefault(_key(st), (name, st))
 
@@ -306,8 +356,12 @@ class _Recorder(TorchDispatchMode):
                          nbytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented       # DTensor runs it on local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _in_fake_mode():
+            return out                  # DTensor's shape propagation
         op = func.overloadpacket.__name__
         outs = _tensors(out)
         for t in outs:
@@ -323,14 +377,20 @@ class _Recorder(TorchDispatchMode):
         in_ids = {id(t) for t in inputs}
         operands = [t for t in inputs if id(t) not in w_ids]
         results = list(written) + [t for t in outs if id(t) not in in_ids]
+        group = 0
         if func.namespace == "repro_torch":     # a kernel's meta op
             kind, flops = "dot", META_OPS[op](args, kwargs)
+        elif func.namespace in ("_c10d_functional", "_dtensor"):
+            if op not in COLLECTIVES:
+                raise NotImplementedError(f"collective {func} not counted")
+            kind, flops, group = "collective", 0.0, _group_size(args)
         else:
             kind = _kind(op)
             flops = _flops(kind, op, inputs, results or inputs)
         refs_in = tuple(r for r in map(self._ref, operands) if r is not None)
         refs_out = tuple(r for r in map(self._ref, results) if r is not None)
-        self.rec.events.append(OpEvent(op, kind, flops, refs_in, refs_out))
+        self.rec.events.append(OpEvent(op, kind, flops, refs_in, refs_out,
+                                       group))
         return out
 
 
@@ -385,24 +445,37 @@ def recording_to_trace(rec: Recording, granule: int = 512,
 
 
 def recording_cost(rec: Recording) -> dict:
-    """``loop_aware_cost``'s dict for a recording (no collectives: one
-    device)."""
-    flops = nbytes = transcendental = 0.0
+    """``loop_aware_cost``'s dict for a recording: FLOPs, bytes and
+    transcendentals of every op, and the collectives (none on one
+    device) by the reference's names, with their result bytes and
+    ``ici_bytes`` (each collective's ring traffic at its group's size,
+    :func:`repro_torch.analysis.hlo._traffic`)."""
+    from repro_torch.analysis.hlo import _traffic
+
+    flops = nbytes = transcendental = ici = 0.0
     op_flops: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    coll_bytes: dict[str, float] = {}
     for ev in rec.events:
         flops += ev.flops
         nbytes += sum(r.nbytes for r in ev.operands + ev.results)
-        if ev.kind == "transcendental":
+        if ev.kind == "collective":
+            name = COLLECTIVES[ev.op]
+            rb = sum(r.nbytes for r in ev.results)
+            counts[name] = counts.get(name, 0) + 1
+            coll_bytes[name] = coll_bytes.get(name, 0) + rb
+            ici += _traffic(name, rb, ev.group)
+        elif ev.kind == "transcendental":
             transcendental += ev.flops
         elif ev.kind in ("dot", "reduce", "elementwise"):
             op_flops[ev.kind] = op_flops.get(ev.kind, 0.0) + ev.flops
     return {
         "flops": flops,
         "bytes": nbytes,
-        "ici_bytes": 0.0,
+        "ici_bytes": ici,
         "transcendental": transcendental,
-        "collective_counts": {},
-        "collective_bytes": {},
+        "collective_counts": {k: float(v) for k, v in counts.items()},
+        "collective_bytes": {k: float(v) for k, v in coll_bytes.items()},
         "dominant_flop_ops": dict(sorted(
             op_flops.items(), key=lambda kv: -kv[1])[:8]),
     }

@@ -101,10 +101,12 @@ def model_flops(kind: str, active_params: int, seq_len: int,
 
 
 def from_record(rec: dict, target: TPUTarget = TPU_V5E) -> Roofline:
-    """Build roofline terms from one launch/dryrun JSON record.  The
-    port's dry-run records a ``host`` cell as one chip; a record with
-    ``partitioned: false`` (the pod meshes' sharding plan, ROADMAP C12)
-    has no per-chip cost and raises."""
+    """Build roofline terms from one launch/dryrun JSON record: its cost
+    and collectives are one partition's, over ``devices`` chips (the
+    port's records: 1 on the ``host`` mesh, 256 or 512 on the pods;
+    the reference's records, which have no ``devices``, by mesh name).
+    A record with ``partitioned: false`` (a sharding plan, no per-chip
+    cost: ROADMAP C12) raises."""
     from repro_torch.configs import SHAPES
 
     if rec.get("partitioned") is False:
@@ -113,7 +115,8 @@ def from_record(rec: dict, target: TPUTarget = TPU_V5E) -> Roofline:
             "unpartitioned dry-run record (a sharding plan) has no per-chip "
             "cost (ROADMAP C12)")
     shape = SHAPES[rec["shape"]]
-    chips = {"multipod": 512, "host": 1}.get(rec["mesh"], 256)
+    chips = rec.get("devices") or {"multipod": 512, "host": 1}.get(
+        rec["mesh"], 256)
     flops = float(rec["cost"].get("flops", 0.0))
     bytes_acc = float(rec["cost"].get("bytes accessed", 0.0))
     ici = float(rec["collectives"]["ici_bytes"])

@@ -16,10 +16,17 @@ the reference's, mesh-aware and total:
 * a mesh axis is never used twice within one PartitionSpec.
 
 A PartitionSpec is a tuple with the reference's entries — ``None``, an
-axis name, or a tuple of names — and no trailing ``None``.  On one
-device nothing is partitioned: :func:`shard` returns its input, and the
-model code does not call it (its 29 ``shard`` sites in the reference
-only constrain a partitioner, which the port has not: ROADMAP C12).
+axis name, or a tuple of names — and no trailing ``None``.  On a
+production mesh the port partitions with DTensor
+(``torch.distributed.tensor``) over a ``DeviceMesh`` of the mesh's axes
+(:func:`repro_torch.launch.mesh.fake_device_mesh`): :func:`placements`
+turns a PartitionSpec into DTensor placements, and inside
+:func:`use_sharding` :func:`shard` redistributes a DTensor to the
+placements its logical axes resolve to, the reference's
+``with_sharding_constraint``; outside it, and on one device, it returns
+its input.  Where an operand must be replicated for an op that has no
+sharded form (:func:`place_for`), the site is counted
+(:func:`replicated_ops`), never silently.
 The port's reuse engines run one pass on one device and take
 ``num_shards`` only for the reference's signatures, so nothing routes
 work through :func:`partition_segments` until there are real
@@ -177,15 +184,80 @@ def param_shardings(abstract_tree, axes_tree, rules: ShardingRules):
                     with_path=True), fallbacks
 
 
+# --- DTensor placements -------------------------------------------------------
+
+
+def is_dtensor(x) -> bool:
+    """``x`` is a ``torch.distributed.tensor.DTensor`` (checked without
+    importing the distributed package on paths that have none)."""
+    return type(x).__name__ == "DTensor" and hasattr(x, "device_mesh")
+
+
+def placements(spec: tuple, device_mesh) -> tuple:
+    """DTensor placements of a PartitionSpec on a ``DeviceMesh`` with the
+    mesh's axis names: ``Shard(d)`` on each mesh dim that tensor dim
+    ``d`` names (one dim over ``("pod", "data")`` is sharded on both,
+    the first the major one, as the reference lays it out),
+    ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * device_mesh.ndim
+    for dim, entry in enumerate(spec):
+        for axis in _as_tuple(entry):
+            out[names.index(axis)] = Shard(dim)
+    return tuple(out)
+
+
+def local_shape(shape, pl, device_mesh) -> tuple:
+    """The shape of one partition's shard of a tensor of ``shape``
+    placed by ``pl`` (every sharded dim divides evenly: ``pspec_for``
+    shards nothing else)."""
+    out = list(shape)
+    for mesh_dim, p in enumerate(pl):
+        if p.is_shard():
+            out[p.dim] //= device_mesh.size(mesh_dim)
+    return tuple(out)
+
+
+def distribute(t: torch.Tensor, spec: tuple, device_mesh):
+    """A DTensor of ``t``'s global shape and dtype placed by ``spec``,
+    ``requires_grad`` as ``t``.  On the meta device its local shard is an
+    empty meta tensor (nothing allocated); else it is this partition's
+    slice of ``t``, which every partition holds whole (no collective)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    pl = placements(spec, device_mesh)
+    if t.device.type == "meta":
+        local = torch.empty(local_shape(t.shape, pl, device_mesh),
+                            dtype=t.dtype, device=t.device)
+        out = DTensor.from_local(local, device_mesh, pl, run_check=False)
+    else:
+        out = distribute_tensor(t.detach(), device_mesh, pl,
+                                src_data_rank=None)
+    return out.requires_grad_(t.requires_grad) if t.is_floating_point() \
+        else out
+
+
 # --- the shard() constraint ---------------------------------------------------
 
-_ACTIVE: list[ShardingRules] = []
+
+@dataclasses.dataclass
+class _Scope:
+    rules: ShardingRules
+    device_mesh: Any
+    replicated: dict
+
+
+_ACTIVE: list[_Scope] = []
 
 
 @contextlib.contextmanager
-def use_sharding(rules: ShardingRules):
-    """Activate ``rules`` for :func:`shard` calls in this block."""
-    _ACTIVE.append(rules)
+def use_sharding(rules: ShardingRules, device_mesh=None):
+    """Activate ``rules`` for :func:`shard` calls in this block;
+    ``device_mesh`` (a ``DeviceMesh`` of ``rules.mesh``'s axes) places
+    the plain tensors that a :func:`shard` site meets."""
+    _ACTIVE.append(_Scope(rules, device_mesh, {}))
     try:
         yield rules
     finally:
@@ -193,20 +265,271 @@ def use_sharding(rules: ShardingRules):
 
 
 def current_rules() -> ShardingRules | None:
-    return _ACTIVE[-1] if _ACTIVE else None
+    return _ACTIVE[-1].rules if _ACTIVE else None
+
+
+def replicated_ops() -> dict:
+    """``{"site: op": count}`` of the operands that
+    :func:`place_for` gathered in the innermost
+    :func:`use_sharding` block."""
+    return dict(_ACTIVE[-1].replicated) if _ACTIVE else {}
 
 
 def shard(x, *logical_axes):
-    """Constrain ``x``'s sharding by logical axis names: ``x`` itself
-    outside :func:`use_sharding` and on a one-device mesh; a mesh of
-    more devices needs a partitioner, which the port has not (ROADMAP
-    A-11d), and raises."""
+    """Constrain ``x``'s sharding by logical axis names (the reference's
+    ``with_sharding_constraint``): ``x`` itself outside
+    :func:`use_sharding` and on a one-device mesh; else ``x`` as a
+    DTensor redistributed to the placements that ``pspec_for`` resolves
+    for its shape (a plain tensor is taken as replicated on the block's
+    device mesh).  A Partial operand is reduced there, as the
+    reference's partitioner reduces it at the constraint."""
     rules = current_rules()
     if rules is None or rules.mesh.size == 1:
         return x
-    raise NotImplementedError(
-        f"shard{logical_axes} over a {rules.mesh.size}-device mesh needs a "
-        "partitioner (ROADMAP A-11d)")
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if is_dtensor(x):
+        mesh = x.device_mesh
+    else:
+        mesh = _ACTIVE[-1].device_mesh
+        if mesh is None:
+            raise RuntimeError(f"shard{logical_axes} of a plain tensor on "
+                               f"a {rules.mesh.size}-device mesh needs the "
+                               "block's device mesh")
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    pl = placements(pspec_for(tuple(x.shape), logical_axes, rules), mesh)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
+
+
+def kept(x, dims) -> tuple:
+    """``x``'s placements with every one but ``Shard(d)`` for ``d`` in
+    ``dims`` made ``Replicate()``."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if p.is_shard() and p.dim in dims else Replicate()
+                 for p in x.placements)
+
+
+def place_for(x, pl, site: str):
+    """``x`` (a DTensor) redistributed to placements ``pl`` for an op that
+    runs on local shards (a kernel): a Partial sum is reduced, a
+    replicated dim is split locally, and a sharded dim that ``pl``
+    replicates is gathered and counted at ``site`` in
+    :func:`replicated_ops`."""
+    pl = tuple(pl)
+    if pl == tuple(x.placements):
+        return x
+    if _ACTIVE and any(p.is_shard() and p != q
+                       for p, q in zip(x.placements, pl)):
+        key = f"{site}: {list(x.shape)}"
+        scope = _ACTIVE[-1].replicated
+        scope[key] = scope.get(key, 0) + 1
+    return x.redistribute(x.device_mesh, pl)
+
+
+def from_local(t: torch.Tensor, device_mesh, pl):
+    """The DTensor whose partition's shard is ``t`` (differentiable);
+    every partition's shard has ``t``'s shape and strides."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, device_mesh, pl, run_check=False)
+
+
+def like(x, ref):
+    """``x`` placed as ``ref`` when both are DTensors (a step's new state
+    held to its input's sharding: the reference's ``out_shardings``, and
+    a gradient reduced to its parameter's); else ``x``."""
+    if not (is_dtensor(x) and is_dtensor(ref)) or \
+            tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def microbatches(x, n: int) -> list:
+    """``x`` ``[B, ...]`` cut into ``n`` microbatches of ``B/n`` rows in
+    order (``x.reshape((n, B/n, ...))[i]``).  A DTensor sharded over its
+    rows is gathered first, since a microbatch cuts across every
+    partition's rows, and each microbatch is placed as ``x``: the
+    gather is counted at ``"train_step.microbatch"``."""
+    if not is_dtensor(x):
+        return [x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+                for i in range(n)]
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(x.placements)
+    whole = place_for(x, tuple(Replicate() if p.is_shard(0) else p
+                               for p in pl), "train_step.microbatch")
+    whole = whole.reshape((n, x.shape[0] // n) + x.shape[1:])
+    return [whole[i].redistribute(x.device_mesh, pl) for i in range(n)]
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, dim=-1)``.  A DTensor sharded over its last
+    dim reduces each partition's slice, then across the slices: the
+    max, and the sum of exponentials below it (the shift detached: the
+    result does not depend on it), where DTensor's own logsumexp would
+    gather the whole dim on every partition."""
+    if not is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    x = place_for(x, kept(x, tuple(range(x.dim()))), "logsumexp_last.x")
+    if not any(p.is_shard(last) for p in x.placements):
+        return torch.logsumexp(x, dim=-1)
+    xl = x.to_local()
+    rest = tuple(Replicate() if p.is_shard(last) else p
+                 for p in x.placements)
+
+    def across(t, op):
+        return from_local(t, mesh, tuple(
+            Partial(op) if p.is_shard(last) else p
+            for p in x.placements)).redistribute(mesh, rest).to_local()
+
+    top = across(xl.detach().amax(dim=-1), "max")
+    total = across(torch.exp(xl - top[..., None]).sum(dim=-1), "sum")
+    return from_local(top + torch.log(total), mesh, rest)
+
+
+def unflatten_last(x, sizes: tuple):
+    """``x.unflatten(-1, sizes)``.  A DTensor sharded over its last dim
+    more ways than ``sizes[0]`` divides is gathered over that dim first
+    (counted at ``"unflatten_last"``): DTensor views no uneven split,
+    and the dims that come out could not take that sharding anyway."""
+    if is_dtensor(x):
+        last = x.dim() - 1
+        mesh = x.device_mesh
+        n = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard(last))
+        if sizes[0] % n:
+            x = place_for(x, kept(x, tuple(range(last))), "unflatten_last")
+    return x.unflatten(-1, sizes)
+
+
+def take_last(x, index):
+    """``x.gather(-1, index[..., None])[..., 0]``.  A DTensor ``x`` sharded
+    over its last dim (the vocabulary of a logits tensor) gathers on each
+    partition's slice, an index outside it reading 0, and the slices'
+    values are summed: the vocab-parallel gather that XLA's partitioner
+    makes, whose gradient stays a scatter into the local slice (DTensor's
+    own gather would make the whole global tensor on every partition)."""
+    if not is_dtensor(x):
+        return x.gather(-1, index[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    x = place_for(x, kept(x, tuple(range(x.dim()))), "take_last.x")
+    index = place_for(index, tuple(
+        p if p.is_shard() and p.dim < last else Replicate()
+        for p in x.placements), "take_last.index")
+    xl, il = x.to_local(), index.to_local()
+    first = shard_index(mesh, x.placements, last)[0] * xl.shape[-1]
+    local = il - first
+    inside = (local >= 0) & (local < xl.shape[-1])
+    got = xl.gather(-1, local.clamp(0, xl.shape[-1] - 1)[..., None])[..., 0]
+    got = torch.where(inside, got, torch.zeros((), dtype=got.dtype,
+                                               device=got.device))
+    out = from_local(got, mesh, tuple(
+        Partial() if p.is_shard(last) else p for p in x.placements))
+    return out.redistribute(mesh, tuple(
+        Replicate() if p.is_partial() else p for p in out.placements))  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+
+
+def lookup_rows(table, index):
+    """``table[index]``, rows of a ``[V, d]`` table.  A DTensor table
+    sharded over its rows (a vocabulary) looks up each partition's rows,
+    an index outside them reading zeros, and the partitions' rows are
+    summed: the vocab-parallel gather that XLA's partitioner makes, where
+    DTensor's indexing would gather the whole table on every partition.
+    A mesh dim that shards the table's columns shards the result's last
+    dim; one that shards the index (and not the table) shards the
+    result as the index; an index sharded where the table is too is
+    gathered (counted at ``"lookup_rows.index"``)."""
+    if not is_dtensor(table):
+        return table[index]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last = table.device_mesh, index.dim()
+    table = place_for(table, kept(table, (0, 1)), "lookup_rows.table")
+    index = place_for(index, tuple(
+        q if q.is_shard() and p.is_replicate() else Replicate()
+        for p, q in zip(table.placements, index.placements)),
+        "lookup_rows.index")
+    out_pl = tuple(Partial() if p.is_shard(0) else Shard(last)
+                   if p.is_shard(1) else q
+                   for p, q in zip(table.placements, index.placements))
+    tl = local_shard(table, tuple(not p.is_replicate() for p in out_pl))
+    il = index.to_local()
+    if any(p.is_shard(0) for p in table.placements):
+        il = il - shard_index(mesh, table.placements, 0)[0] * tl.shape[0]
+        inside = (il >= 0) & (il < tl.shape[0])
+        rows = tl[il.clamp(0, tl.shape[0] - 1)]
+        rows = torch.where(inside[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+    else:
+        rows = tl[il]
+    out = from_local(rows, mesh, out_pl)
+    return out.redistribute(mesh, tuple(
+        Replicate() if p.is_partial() else p for p in out_pl))  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+
+
+def shard_index(device_mesh, pl, dim: int) -> tuple[int, int]:
+    """(index, count) of this partition's shard of a tensor's dim ``dim``
+    placed by ``pl`` on ``device_mesh``, among the shards the mesh splits
+    it into (the mesh dims sharding it, the first the major one)."""
+    coord = device_mesh.get_coordinate()
+    idx, count = 0, 1
+    for mesh_dim, p in enumerate(pl):
+        if p.is_shard(dim):
+            n = device_mesh.size(mesh_dim)
+            idx, count = idx * n + coord[mesh_dim], count * n
+    return idx, count
+
+
+def local_shard(x, split):
+    """This partition's shard of DTensor ``x`` for a computation on local
+    shards whose result differs across the mesh dims where ``split`` is
+    true: over such a dim where ``x`` is replicated, each partition's
+    gradient of its shard is a partial sum (``Partial()``), which
+    DTensor reduces; elsewhere it is placed as ``x``."""
+    from torch.distributed.tensor import Partial
+
+    return x.to_local(grad_placements=tuple(
+        Partial() if s and p.is_replicate() else p
+        for p, s in zip(x.placements, split)))
+
+
+def on_shards(fn, site: str, operands, out_placements):
+    """``fn`` run on one partition's local shards: the kernels and the
+    ops that DTensor has no sharded form for.  ``operands`` are ``(name,
+    x, pl)``: a DTensor ``x`` is placed by ``pl`` (:func:`place_for`,
+    counted at ``site.name``) and passed as its local shard, anything
+    else as it is.  Each output of ``fn`` (one tensor or a tuple) becomes
+    the DTensor on the operands' mesh placed by the matching entry of
+    ``out_placements`` (one placement tuple, or one for each output).
+    The outputs must agree on which mesh dims they are split over; an
+    operand replicated over such a dim takes a partial gradient there
+    (:func:`local_shard`)."""
+    single = hasattr(out_placements[0], "is_shard")
+    outs = (out_placements,) if single else tuple(out_placements)
+    split = tuple(not p.is_replicate() for p in outs[0])
+    if any(tuple(not p.is_replicate() for p in pl) != split for pl in outs):
+        raise NotImplementedError(
+            f"{site}: outputs split over different mesh dims {outs}")
+    mesh, args = None, []
+    for name, x, pl in operands:
+        if is_dtensor(x):
+            x = place_for(x, pl, f"{site}.{name}")
+            mesh = x.device_mesh
+            x = local_shard(x, split)
+        args.append(x)
+    out = fn(*args)
+    if single:
+        return from_local(out, mesh, outs[0])
+    return tuple(from_local(o, mesh, pl) for o, pl in zip(out, outs))
 
 
 # --- work partitioning for the sharded reuse engines -------------------------
@@ -245,7 +568,10 @@ def partition_segments(lengths, num_shards: int) -> list[list[int]]:
 
 __all__ = [
     "DEFAULT_RULES", "NamedSharding", "ShardingRules", "current_rules",
-    "is_axes", "leaf_shape", "local_shard_count", "param_shardings",
-    "partition_segments", "pspec_for", "shard", "spec_devices",
-    "use_sharding",
+    "distribute", "from_local", "is_axes", "is_dtensor", "kept",
+    "leaf_shape", "like", "local_shape", "local_shard", "local_shard_count",
+    "logsumexp_last", "lookup_rows", "microbatches", "on_shards",
+    "param_shardings", "partition_segments", "place_for", "placements",
+    "pspec_for", "replicated_ops", "shard", "shard_index", "spec_devices",
+    "take_last", "unflatten_last", "use_sharding",
 ]

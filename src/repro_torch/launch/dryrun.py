@@ -5,11 +5,12 @@ Port of ``repro/launch/dryrun.py``.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
         --shape train_4k --mesh host
     python -m repro_torch.launch.dryrun --all --mesh host
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
+        --jobs 8
 
 The reference lowers and compiles SPMD programs over 256 and 512 fake
 devices; XLA's partitioner then gives it each partition's cost, memory
-and collectives.  The port has no SPMD partitioner (ROADMAP C12, A-11d),
-so it records what it can know honestly:
+and collectives.  The port records:
 
 * ``--mesh host`` (the card: one device) — the whole step, recorded on
   the meta device (:func:`repro_torch.launch.steps.lower_cell`): nothing
@@ -24,11 +25,26 @@ so it records what it can know honestly:
   ``total_memory``; both ``null`` with ``--device cpu``).  A MoE layer's expert
   counts have no values on meta: every expert takes the uniform load
   (``moe_counts: "uniform"``, ``models/moe.py::uniform_counts``).
-* ``--mesh pod`` / ``multipod`` — the sharding plan: every argument
-  leaf's PartitionSpec, the replication fallbacks and the per-device
-  argument, output and alias bytes.  ``partitioned: false``; no cost,
-  no temporaries, no collectives (``null``), which
-  ``analysis/roofline.py::from_record`` refuses.
+* ``--mesh pod`` / ``multipod`` — one partition's step of the SPMD
+  program over 256 / 512 chips: the cell's arguments are DTensors on a
+  ``DeviceMesh`` of the mesh's axes over a fake process group of that
+  many ranks, opened in this process for the cell and closed after it
+  (:func:`repro_torch.launch.mesh.fake_device_mesh`; the mesh is typed
+  ``cuda``, so DTensor picks the collectives it would on cards, and the
+  local shards are on the meta device, so nothing is allocated), each
+  placed by its sharding (:func:`repro_torch.launch.steps.distribute_cell`);
+  the step runs under the cell's rules, its ``shard`` sites placing the
+  activations, and rank 0's local ops and functional collectives are
+  recorded (``cost``, ``loop_aware_cost`` with ``ici_bytes``,
+  ``collectives``, ``memory`` with ``temp_bytes``: the reference's keys,
+  per partition).  ``partitioned: true``, ``devices``, the sharding
+  ``plan``, and ``replicated_ops``: the operands gathered for an op that
+  runs only on local shards (``dist/sharding.py::place_for``), by site
+  and global shape, with their count.  ``device_bytes`` (arguments +
+  temporaries) is held against the reference's target, 16 GB a chip of
+  the TPU pod (:data:`TARGET_CHIP_BYTES`; a TPU figure, not the card's):
+  ``fits``.  ``--all`` runs each pod cell in a spawned process of its
+  own, so no process group outlives a cell.
 
 Records go to ``experiments/results/torch/dryrun/`` (git-ignored), one
 JSON file a cell, the reference's keys and these.  ``--jobs N`` records
@@ -38,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 import traceback
@@ -50,10 +67,10 @@ from repro_torch.configs.base import ArchSpec, Shape
 from repro_torch.dist.sharding import leaf_shape, pspec_for, spec_devices
 from repro_torch.dist.tree import keystr, leaves_with_path
 from repro_torch.launch.mesh import (
-    Mesh, make_device_mesh, make_production_mesh,
+    Mesh, fake_device_mesh, make_device_mesh, make_production_mesh,
 )
 from repro_torch.launch.steps import (
-    build_cell, lower_cell, make_optimizer, stacked_params,
+    build_cell, distribute_cell, lower_cell, make_optimizer, stacked_params,
 )
 from repro_torch.models.layers import param_axes
 from repro_torch.train.train_step import TrainState
@@ -61,6 +78,10 @@ from repro_torch.train.train_step import TrainState
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "results" \
     / "torch" / "dryrun"
 MESHES = ("host", "pod", "multipod")
+#: The reference's memory target for a partition: 16 GB a chip of the
+#: TPU pod (``repro/launch/dryrun.py``'s docstring).  A TPU figure, not
+#: the card's.
+TARGET_CHIP_BYTES = 16 * 2**30
 
 
 def make_mesh(mesh_name: str, device=None) -> Mesh:
@@ -166,20 +187,30 @@ def card_bytes(mesh: Mesh) -> int | None:
 
 
 def dry_run(spec: ArchSpec, shape: Shape, mesh_name: str, *,
-            device=None) -> dict:
-    """The record of one cell (not written)."""
+            device=None, mesh: Mesh | None = None) -> dict:
+    """The record of one cell (not written).  ``mesh`` (default: the
+    mesh named ``mesh_name``) partitions the step when it has more than
+    one device."""
     from repro_torch.analysis.aten_trace import recording_cost
 
-    mesh = make_mesh(mesh_name, device)
+    mesh = mesh or make_mesh(mesh_name, device)
     t0 = time.perf_counter()
     cell = build_cell(spec, shape, mesh)
-    partitioned = mesh.size == 1
-    rec = result = None
-    if partitioned:
+    plan = sharding_plan(spec, shape, cell)
+    if mesh.size == 1:
         rec, result = lower_cell(cell)
+        memory = _memory(cell, mesh, rec, result)
+    else:
+        memory = _memory(cell, mesh, None,
+                         _abstract_outputs(spec, shape, cell))
+        with fake_device_mesh(mesh, "cuda") as device_mesh:
+            rec, _ = lower_cell(distribute_cell(cell, device_mesh))
+        memory["temp_bytes"] = int(rec.peak_bytes)
     t_lower = time.perf_counter() - t0
-    memory = _memory(cell, mesh, rec, result if result is not None
-                     else _abstract_outputs(spec, shape, cell))
+    aware = recording_cost(rec)
+    cost = {"flops": aware["flops"], "bytes accessed": aware["bytes"],
+            "transcendentals": aware["transcendental"]}
+    peak = memory["argument_bytes"] + memory["temp_bytes"]
     out = {
         "arch": spec.arch_id, "shape": shape.name, "mesh": mesh_name,
         "status": "ok",
@@ -188,27 +219,31 @@ def dry_run(spec: ArchSpec, shape: Shape, mesh_name: str, *,
         "compile_s": 0.0,
         "memory": memory,
         "bf16_legalization_overhead_bytes": 0,
-        "cost": None,
-        "loop_aware_cost": None,
-        "collectives": None,
+        "cost": {k: v for k, v in cost.items() if abs(v) > 0},
+        "loop_aware_cost": aware,
+        "collectives": {
+            "counts": {k: int(v) for k, v in
+                       aware["collective_counts"].items()},
+            "result_bytes": {k: int(v) for k, v in
+                             aware["collective_bytes"].items()},
+            "ici_bytes": int(aware["ici_bytes"]),
+        },
         "param_count": spec.config.param_count,
         "active_param_count": spec.config.active_param_count,
-        "partitioned": partitioned,
+        "partitioned": True,
         "devices": mesh.size,
-        "plan": sharding_plan(spec, shape, cell),
+        "plan": plan,
+        "ops": len(rec.events),
+        "device_bytes": peak,
     }
-    if rec is not None:
-        aware = recording_cost(rec)
-        cost = {"flops": aware["flops"], "bytes accessed": aware["bytes"],
-                "transcendentals": aware["transcendental"]}
-        peak = memory["argument_bytes"] + memory["temp_bytes"]
+    if mesh.size == 1:
         card = card_bytes(mesh)
-        out.update(
-            cost={k: v for k, v in cost.items() if abs(v) > 0},
-            loop_aware_cost=aware,
-            collectives={"counts": {}, "result_bytes": {}, "ici_bytes": 0},
-            ops=len(rec.events), device_bytes=peak,
-            card_bytes=card, fits=None if card is None else peak <= card)
+        out.update(card_bytes=card,
+                   fits=None if card is None else peak <= card)
+    else:
+        out.update(replicated_ops=rec.replicated,
+                   target_bytes=TARGET_CHIP_BYTES,
+                   fits=peak <= TARGET_CHIP_BYTES)
     if getattr(getattr(spec.config, "backbone", spec.config), "moe",
                None) is not None:
         out["moe_counts"] = "uniform"
@@ -246,6 +281,8 @@ def _write(rec: dict, out_dir: Path) -> None:
 
 def _run_one(job) -> tuple | None:
     arch_id, shape_name, mesh_name, out_dir, device = job
+    # DTensor warns of every two-step redistribution; the census counts them
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
     try:
         run_cell(arch_id, shape_name, mesh_name, out_dir, device=device)
     except Exception:
@@ -261,28 +298,35 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=[*MESHES, "both"], default="pod",
                     help="host (the card), pod, multipod, or both pods")
     ap.add_argument("--all", action="store_true",
-                    help="every (arch x shape) cell")
+                    help="every (arch x shape) cell (of --shapes, if given)")
+    ap.add_argument("--shapes", nargs="+", choices=sorted(SHAPES),
+                    help="with --all: only these shapes")
     ap.add_argument("--out", type=Path, default=OUT_DIR)
     ap.add_argument("--device", default=None,
                     help="the host mesh's device: cuda (default; raises "
                          "without a card) or cpu")
     ap.add_argument("--jobs", type=int, default=1,
-                    help="cells recorded at once, one process each")
+                    help="cells recorded at once, one process each (pod "
+                         "cells always run in a process of their own)")
     args = ap.parse_args(argv)
 
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
     if args.all:
-        cells = [(a, s) for a in list_archs() for s in SHAPES]
+        cells = [(a, s) for a in list_archs() for s in SHAPES
+                 if not args.shapes or s in args.shapes]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape required unless --all")
         cells = [(args.arch, args.shape)]
     jobs = [(a, s, m, args.out, args.device) for a, s in cells
             for m in meshes]
-    if args.jobs > 1:
+    if args.jobs > 1 or args.mesh != "host":
         import multiprocessing
 
-        with multiprocessing.get_context("spawn").Pool(args.jobs) as pool:
+        # one spawned process a cell: a pod cell's process group and its
+        # DTensor caches die with it
+        with multiprocessing.get_context("spawn").Pool(
+                args.jobs, maxtasksperchild=1) as pool:
             results = pool.map(_run_one, jobs, chunksize=1)
     else:
         results = [_run_one(j) for j in jobs]

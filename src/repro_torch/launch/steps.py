@@ -8,7 +8,12 @@ state, caches and batch have shapes and dtypes and allocate nothing.
 The reference jits and lowers a cell; the port's counterpart of that
 lowering is :func:`lower_cell`, which records the cell's step on those
 arguments (every ATen op, and one op per kernel launch:
-:mod:`repro_torch.analysis.aten_trace`).  Shardings are
+:mod:`repro_torch.analysis.aten_trace`).  On a production mesh,
+:func:`distribute_cell` makes the arguments DTensors on a
+``DeviceMesh`` (:func:`repro_torch.launch.mesh.fake_device_mesh`),
+each placed by its sharding, and :func:`lower_cell` records one
+partition's step: the reference's SPMD lowering, partition by
+partition.  Shardings are
 :class:`~repro_torch.dist.sharding.NamedSharding` trees parallel to the
 arguments: a model's parameters by their ``{leaf: ...}``
 (``train/optimizer.py::param_leaves``), a cache length the port holds
@@ -23,8 +28,10 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, Shape
 from repro_torch.dist.sharding import (
-    NamedSharding, ShardingRules, param_shardings, pspec_for,
+    NamedSharding, ShardingRules, distribute, param_shardings,
+    placements, pspec_for, replicated_ops, use_sharding,
 )
+from repro_torch.dist.tree import tree_map
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.layers import param_axes
 from repro_torch.train.optimizer import (
@@ -93,6 +100,9 @@ class CellArtifacts:
     abstract_args: tuple         # meta tensors, a meta model and its state
     donate_argnums: tuple
     rules: ShardingRules
+    #: The ``DeviceMesh`` the arguments are DTensors on (None: one
+    #: device, plain tensors).
+    device_mesh: Any = None
 
 
 # --- train --------------------------------------------------------------------
@@ -248,16 +258,92 @@ def cell_inputs(cell: CellArtifacts) -> dict[str, torch.Tensor]:
     return out
 
 
+def _place(tree, shardings, device_mesh):
+    """``tree`` with every tensor leaf a DTensor placed by its sharding."""
+    return tree_map(
+        lambda leaf, sh: distribute(leaf, sh.spec, device_mesh)
+        if isinstance(leaf, torch.Tensor) else leaf, tree, shardings)
+
+
+def _place_params(model, rules: ShardingRules, device_mesh) -> None:
+    """Every parameter of ``model`` made, in place, a DTensor Parameter
+    placed by its logical axes (its stacked leaf's PartitionSpec without
+    the unsharded layer dims)."""
+    for module in model.modules():
+        for name, p in list(module._parameters.items()):
+            if p is None:
+                continue
+            spec = pspec_for(tuple(p.shape), p.axes, rules)
+            new = torch.nn.Parameter(
+                distribute(p.detach(), spec, device_mesh),
+                requires_grad=p.requires_grad)
+            new.axes = p.axes
+            module._parameters[name] = new
+
+
+def distribute_cell(cell: CellArtifacts, device_mesh) -> CellArtifacts:
+    """The cell with its abstract arguments as DTensors on
+    ``device_mesh`` (a ``DeviceMesh`` of the cell's mesh axes), each
+    placed by ``cell.in_shardings`` (the model's parameters by their
+    own axes; a length the port keeps as an int stays one).  Their local
+    shards are on the meta device.  The model is converted in place."""
+    args, shs = cell.abstract_args, cell.in_shardings
+    if cell.kind == "train":
+        state, batch = args
+        _place_params(state.params, cell.rules, device_mesh)
+        state = TrainState(
+            distribute(state.step, (), device_mesh), state.params,
+            _place(state.opt_state, shs[0].opt_state, device_mesh))
+        new = (state, _place(batch, shs[1], device_mesh))
+    else:
+        model, batch, caches = args[:3]
+        _place_params(model, cell.rules, device_mesh)
+        new = (model, _place(batch, shs[1], device_mesh),
+               _place(caches, shs[2], device_mesh), *args[3:])
+    return dataclasses.replace(cell, abstract_args=new,
+                               device_mesh=device_mesh)
+
+
+def run_step(cell: CellArtifacts, args: tuple | None = None):
+    """One call of the cell's step on ``args`` (its abstract arguments by
+    default): ``(result, replicated_ops)``.  A distributed cell's step
+    runs under its rules on its device mesh (its ``shard`` sites placing
+    DTensors), plain tensors taken as replicated, and the logits leave
+    as ``out_shardings`` places them (the train step holds its state to
+    its inputs' shardings itself); ``replicated_ops`` are the sites that
+    gathered an operand (:func:`~repro_torch.dist.sharding.place_for`),
+    ``{}`` on one device.  The dry-run records this call, and a
+    partition that runs on the card makes it."""
+    args = cell.abstract_args if args is None else args
+    if cell.device_mesh is None:
+        return cell.fn(*args), {}
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with use_sharding(cell.rules, cell.device_mesh), \
+            implicit_replication():
+        result = cell.fn(*args)
+        if cell.kind != "train":
+            logits, caches = result
+            pl = placements(cell.out_shardings[0].spec, cell.device_mesh)
+            if tuple(logits.placements) != pl:
+                logits = logits.redistribute(cell.device_mesh, pl)
+            result = (logits, caches)
+        return result, replicated_ops()
+
+
 def lower_cell(cell: CellArtifacts):
     """Record one call of the cell's step on its abstract arguments (the
-    port's lowering): an :class:`~repro_torch.analysis.aten_trace.Recording`
-    and the step's result."""
+    port's lowering, :func:`run_step`): an
+    :class:`~repro_torch.analysis.aten_trace.Recording` and the step's
+    result.  A distributed cell's recording is one partition's."""
     from repro_torch.analysis.aten_trace import record
 
     out = {}
 
     def call():
-        out["result"] = cell.fn(*cell.abstract_args)
+        out["result"], out["replicated"] = run_step(cell)
 
     rec = record(call, cell_inputs(cell))
+    if cell.device_mesh is not None:
+        rec.replicated = out["replicated"]
     return rec, out["result"]

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
@@ -136,15 +137,17 @@ def _enc_block(cfg: EncDecConfig, blk: EncoderBlock, x, positions):
     a, _ = attn.gqa_attention(blk.attn, h, positions=positions,
                               rope_theta=cfg.rope_theta, causal=False)
     x = x + a
-    return x + blk.mlp(blk.ln_mlp(x, cfg.norm_eps))
+    m = blk.mlp(blk.ln_mlp(x, cfg.norm_eps))
+    return x + shard(m, "act_batch", "act_seq", "act_embed")
 
 
 def encode(params: EncDecModel, frames: torch.Tensor,
            cfg: EncDecConfig) -> torch.Tensor:
     """frames: [B, S_src, D] precomputed modality embeddings -> memory."""
     b, s, _ = frames.shape
-    positions = torch.arange(s, device=frames.device).expand(b, s)
-    x = frames.to(cfg.dtype)
+    positions = shard(torch.arange(s, device=frames.device).expand(b, s),
+                      "act_batch", "act_seq")
+    x = shard(frames.to(cfg.dtype), "act_batch", "act_seq", "act_embed")
     for blk in params.encoder:
         x = L.remat(cfg.remat, _enc_block, cfg, blk, x, positions)
     return params.enc_norm(x, cfg.norm_eps)
@@ -163,7 +166,7 @@ def _dec_block(cfg: EncDecConfig, blk: DecoderBlock, x, *, positions,
                               kv_override=cross_kv)
     x = x + c
     m = blk.mlp(blk.ln_mlp(x, cfg.norm_eps))
-    return x + m, new_cache
+    return x + shard(m, "act_batch", "act_seq", "act_embed"), new_cache
 
 
 def _dec_block_uncached(cfg: EncDecConfig, blk: DecoderBlock, x, positions,
@@ -184,7 +187,9 @@ def decode_stack(params: EncDecModel, tokens, memory, cfg: EncDecConfig, *,
     if positions is None:
         base = caches.length if caches is not None else 0
         positions = (base + torch.arange(s, device=tokens.device)).expand(b, s)
-    x = params.embed(tokens).to(cfg.dtype)
+    positions = shard(positions, "act_batch", "act_seq")
+    x = shard(params.embed(tokens).to(cfg.dtype), "act_batch", "act_seq",
+              "act_embed")
     for i, blk in enumerate(params.decoder):
         if caches is None:
             x = L.remat(cfg.remat, _dec_block_uncached, cfg, blk, x,
@@ -196,7 +201,8 @@ def decode_stack(params: EncDecModel, tokens, memory, cfg: EncDecConfig, *,
                           self_cache=attn.KVCache(kv.k[i], kv.v[i],
                                                   kv.length))
     x = params.dec_norm(x, cfg.norm_eps)
-    logits = L.mask_padded_vocab(params.unembed(x), cfg.vocab)
+    logits = shard(params.unembed(x), "act_batch", "act_seq", "act_vocab")
+    logits = L.mask_padded_vocab(logits, cfg.vocab)
     new_caches = None
     if caches is not None:
         kv = caches.self_kv

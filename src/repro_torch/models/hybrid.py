@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -158,7 +159,7 @@ def _shared_attn(cfg, sp: SharedBlock, x, x0, positions, kv_cache):
     )
     x = x + a
     m = sp.mlp(sp.ln_mlp(x, cfg.norm_eps))
-    return x + m, new_cache
+    return x + shard(m, "act_batch", "act_seq", "act_embed"), new_cache
 
 
 def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
@@ -170,6 +171,8 @@ def forward(params: Zamba2LM, tokens, cfg: Zamba2Config, *,
     if positions is None:
         base = caches.length if caches is not None else 0
         positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+    positions = shard(positions, "act_batch", "act_seq")
+    x = shard(x, "act_batch", "act_seq", "act_embed")
 
     def mamba(blk, x, stack, *index):
         if caches is None:

@@ -17,6 +17,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import lookup_rows
+
 
 # --- initializers ------------------------------------------------------------
 
@@ -126,7 +128,7 @@ class Embedding(nn.Module):
                                   generator=generator), ("vocab", "embed"))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens]
+        return lookup_rows(self.table, tokens)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-weights logits head: (..., d) @ (vocab, d)^T."""

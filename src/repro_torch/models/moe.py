@@ -37,6 +37,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist.sharding import (
+    current_rules, from_local, is_dtensor, local_shard, place_for, placements,
+    pspec_for, shard, shard_index,
+)
 from repro_torch.models.layers import fan_in_normal, param
 
 
@@ -101,14 +105,16 @@ def group_size(tokens: int, cfg: MoEConfig) -> int:
     return g
 
 
-def capacity_keep(idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+def capacity_keep(idx: torch.Tensor, cfg: MoEConfig,
+                  group: int | None = None) -> torch.Tensor:
     """``[T, k]`` boolean: the (token, choice) pairs of the top-k experts
-    ``idx`` ``[T, k]`` that take a slot.  Per group, a pair's slot is the
-    number of pairs before it, choice-major (every token's first choice,
-    then every token's second), that chose the same expert; it is kept
-    while the slot is below the capacity."""
+    ``idx`` ``[T, k]`` that take a slot.  Per group (``group`` tokens,
+    by default :func:`group_size`'s), a pair's slot is the number of
+    pairs before it, choice-major (every token's first choice, then
+    every token's second), that chose the same expert; it is kept while
+    the slot is below the capacity."""
     t, k = idx.shape
-    g = group_size(t, cfg)
+    g = group or group_size(t, cfg)
     major = idx.reshape(t // g, g, k).transpose(1, 2).flatten(1, 2)
     onehot = F.one_hot(major, cfg.num_experts)          # [G, k * g, E]
     slot = (onehot.cumsum(dim=1) - onehot).gather(-1, major[..., None])
@@ -116,16 +122,19 @@ def capacity_keep(idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     return slot < _capacity(g, cfg)
 
 
-def uniform_counts(tokens: int, cfg: MoEConfig, drop: bool) -> list[int]:
+def uniform_counts(tokens: int, cfg: MoEConfig, drop: bool,
+                   group: int | None = None) -> list[int]:
     """Pairs each expert takes at the uniform load, ``tokens * top_k /
     E`` (the remainder to the lowest experts), at most its capacity in
-    every group when ``drop``: the counts of an abstract (meta-device)
-    step, whose router has no values."""
+    every group of ``group`` tokens (:func:`group_size`'s by default)
+    when ``drop``: the counts of an abstract (meta-device) step, whose
+    router has no values.  A partition's tokens take the counts of its
+    own experts from this list."""
     k, e = cfg.top_k, cfg.num_experts
     total = tokens * k
     counts = [total // e + (ex < total % e) for ex in range(e)]
     if drop:
-        g = group_size(tokens, cfg)
+        g = group or group_size(tokens, cfg)
         cap = _capacity(g, cfg) * (tokens // g)
         counts = [min(n, cap) for n in counts]
     return counts
@@ -135,38 +144,137 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
               drop: bool = True):
     """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  ``drop``
     routes by capacity (:func:`capacity_keep`), else every pair.  On the
-    meta device every expert takes :func:`uniform_counts`' pairs."""
+    meta device every expert takes :func:`uniform_counts`' pairs.  A
+    DTensor x is routed on each partition (:func:`_partitioned`)."""
+    if is_dtensor(x):
+        return _partitioned(params, x, cfg, drop)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate, idx = route(params, xt, cfg)
+    e = cfg.num_experts
+    y = _experts(xt, gate, idx, cfg, drop, group_size(b * s, cfg), 0,
+                 (params.wi, params.wg, params.wo))
+    # Switch aux loss: E * sum_e fraction_routed_e * mean_router_prob_e
+    frac = F.one_hot(idx[:, 0], e).float().mean(dim=0)   # top-1 routing
+    aux = cfg.aux_loss_weight * e * torch.sum(frac * probs.mean(dim=0))
+    return y.to(x.dtype).reshape(b, s, d), aux
+
+
+def _experts(xt, gate, idx, cfg: MoEConfig, drop: bool, group: int,
+             first: int, weights) -> torch.Tensor:
+    """``[T, d]`` f32: every kept (token, choice) pair of tokens ``xt``
+    whose expert is one of the ``len(wi)`` experts from ``first`` (all of
+    them on one device), through that expert's SwiGLU (``weights`` =
+    ``(wi, wg, wo)``, a partition's shards of them under DTensor) and
+    weighted by its gate.  On the meta device every expert takes
+    :func:`uniform_counts`' pairs."""
+    wi, wg, wo = weights
+    t, d = xt.shape
     k, e = cfg.top_k, cfg.num_experts
-    pairs = torch.arange(b * s * k, device=x.device)    # (token, choice)
-    meta = x.device.type == "meta"
+    last = first + wi.shape[0]
+    pairs = torch.arange(t * k, device=xt.device)       # (token, choice)
+    meta = xt.device.type == "meta"
+    if meta:    # no values to count: the uniform load
+        counts = uniform_counts(t, cfg, drop, group)[first:last]
     if drop:
-        keep = capacity_keep(idx, cfg).flatten()
-        pairs = pairs[:sum(uniform_counts(b * s, cfg, drop))] if meta \
-            else pairs[keep]
+        keep = capacity_keep(idx, cfg, group).flatten()
+        pairs = pairs[:sum(counts)] if meta else pairs[keep]
+    elif meta and (first, last) != (0, e):
+        pairs = pairs[:sum(counts)]
     experts = idx.flatten()[pairs]
+    if not meta and (first, last) != (0, e):    # another partition's
+        pairs = pairs[(experts >= first) & (experts < last)]  # repro-lint: disable=TS102 -- a partition's pairs on the card: a mask like the drop path's keep; ROADMAP "MoE decode reads the expert counts on the host once per layer"
+        experts = idx.flatten()[pairs] - first
     order = torch.argsort(experts, stable=True)         # grouped by expert
     pairs = pairs[order]
     token = pairs // k
-    weight = gate.to(x.dtype).float().flatten()[pairs]
-    if meta:    # no values to count: the uniform load
-        counts = uniform_counts(b * s, cfg, drop)
-    else:
-        counts = torch.bincount(experts, minlength=e).tolist()  # repro-lint: disable=TS102 -- ROADMAP "MoE decode reads the expert counts on the host once per layer"
-    y = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
+    weight = gate.to(xt.dtype).float().flatten()[pairs]
+    if not meta:
+        counts = torch.bincount(experts, minlength=last - first).tolist()  # repro-lint: disable=TS102 -- ROADMAP "MoE decode reads the expert counts on the host once per layer"
+    y = torch.zeros(t, d, dtype=torch.float32, device=xt.device)
     start = 0
     for ex, n in enumerate(counts):
         if n == 0:
             continue
         rows = token[start:start + n]
         xe = xt[rows]
-        h = F.silu(xe @ params.wg[ex]) * (xe @ params.wi[ex])
-        y.index_add_(0, rows, (h @ params.wo[ex]).float()
+        h = F.silu(xe @ wg[ex]) * (xe @ wi[ex])
+        y.index_add_(0, rows, (h @ wo[ex]).float()
                      * weight[start:start + n, None])
         start += n
-    # Switch aux loss: E * sum_e fraction_routed_e * mean_router_prob_e
-    frac = F.one_hot(idx[:, 0], e).float().mean(dim=0)   # top-1 routing
-    aux = cfg.aux_loss_weight * e * torch.sum(frac * probs.mean(dim=0))
+    return y
+
+
+def _partitioned(params: MoE, x, cfg: MoEConfig, drop: bool):
+    """The MoE layer on one partition: the reference's groups of tokens
+    sharded by ``act_batch`` (its ``xt`` constraint), its experts by
+    ``act_experts`` and their hidden dim by ``act_mlp`` (its ``xe`` and
+    ``h`` constraints), each partition routing its groups' tokens (the
+    router gathered whole: the softmax and top-k read every expert) to
+    its own experts' columns.  Their sum over the partitions that split
+    experts or columns is reduced in f32 before the cast to x's dtype,
+    as the reference's combine sums in f32.  The aux loss reads the
+    token sums over every partition."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rules = current_rules()
+    b, s, d = x.shape
+    t = b * s
+    g = group_size(t, cfg)
+    e, f = cfg.num_experts, params.wi.shape[-1]
+    xg = shard(x.reshape(t // g, g, d), "act_batch", None, None)
+    mesh = xg.device_mesh
+    # the expert buffers' layout: [groups, experts, capacity, d] and f
+    xe_pl = placements(pspec_for((t // g, e, 1, d), (
+        "act_batch", "act_experts", None, None), rules), mesh)
+    h_pl = placements(pspec_for((t // g, e, 1, f), (
+        "act_batch", "act_experts", None, "act_mlp"), rules), mesh)
+    w_pl = tuple(Shard(0) if p.is_shard(1) else
+                 Shard(2) if q.is_shard(3) else Replicate()
+                 for p, q in zip(xe_pl, h_pl))
+    wo_pl = tuple(Shard(1) if p == Shard(2) else p for p in w_pl)
+    if any(w != Replicate() and p.is_shard(0)
+           for w, p in zip(w_pl, xe_pl)):
+        raise NotImplementedError(
+            "experts split over a mesh axis that splits the tokens (an "
+            "all-to-all): no such rules")
+    xg = place_for(xg, tuple(p if p.is_shard(0) else Replicate()  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+                             for p in xg.placements), "moe.xt")
+    tok = tuple(p.is_shard(0) for p in xg.placements)
+    # the mesh dims over which the partitions compute different parts:
+    # an operand replicated over one gets a partial sum as its gradient
+    split = tuple(t_ or w != Replicate() for t_, w in zip(tok, w_pl))
+    wi = place_for(params.wi, w_pl, "moe.wi")
+    first = shard_index(mesh, wi.placements, 0)[0] * wi.to_local().shape[0]
+    wi = local_shard(wi, split)
+    wg = local_shard(place_for(params.wg, w_pl, "moe.wg"), split)
+    wo = local_shard(place_for(params.wo, wo_pl, "moe.wo"), split)
+    router = local_shard(place_for(params.router, (Replicate(),) * mesh.ndim,
+                                   "moe.router"), split)
+    xl = local_shard(xg, split).reshape(-1, d)
+    probs = torch.softmax(xl.float() @ router, dim=-1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+    y = _experts(xl, gate, idx, cfg, drop, g, first, (wi, wg, wo))
+    y = from_local(y.reshape(-1, g, d), mesh, tuple(
+        Shard(0) if t_ else Partial() if w != Replicate() else Replicate()  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+        for t_, w in zip(tok, w_pl)))
+    y = y.redistribute(mesh, tuple(p if p.is_shard() else Replicate()  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+                                   for p in y.placements))
+    # Switch aux loss over every token: sums per partition, then reduced.
+    # The router's probabilities are the same on every partition of a
+    # dim that splits the experts; each takes 1/n of their sum there (n
+    # a power of two: exact), so that the router's partial gradients
+    # add up to one aux gradient.
+    n_w = 1
+    for m, (t_, w) in enumerate(zip(tok, split)):
+        n_w *= mesh.size(m) if w and not t_ else 1  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+    frac = from_local(F.one_hot(idx[:, 0], e).float().sum(dim=0), mesh, tuple(
+        Partial() if t_ else Replicate() for t_ in tok)) / t  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+    mean_prob = from_local(probs.sum(dim=0) / n_w, mesh, tuple(
+        Partial() if w else Replicate() for w in split)) / t  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+    aux = cfg.aux_loss_weight * e * torch.sum(
+        frac.redistribute(mesh, (Replicate(),) * mesh.ndim)
+        * mean_prob.redistribute(mesh, (Replicate(),) * mesh.ndim))
     return y.to(x.dtype).reshape(b, s, d), aux
+

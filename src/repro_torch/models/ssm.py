@@ -29,6 +29,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist.sharding import (
+    is_dtensor, kept, on_shards, shard, unflatten_last,
+)
 from repro_torch.kernels import ssd_scan as scan
 from repro_torch.models import layers as L
 from repro_torch.models.layers import fan_in_normal, param
@@ -147,7 +150,10 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
                 tail: torch.Tensor | None = None):
     """x: [B, S, C]; kernel: [W, C].  ``tail`` [B, W-1, C] is the decode
     conv state (pre-activation inputs preceding x); zeros when None.
-    Returns (y [B, S, C], new_tail [B, W-1, C])."""
+    Returns (y [B, S, C], new_tail [B, W-1, C]).  A DTensor x runs on
+    each partition's shards (:func:`_partitioned_conv`)."""
+    if is_dtensor(x):
+        return _partitioned_conv(x, kernel, tail)
     b, s, c = x.shape
     w = kernel.shape[0]
     if tail is None:
@@ -170,6 +176,25 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
     return y.transpose(1, 2).contiguous().to(x.dtype), new_tail
 
 
+def _partitioned_conv(x, kernel, tail):
+    """The depthwise conv on one partition's shards: x and the tail over
+    x's batch shards and over the channel shards of either (a
+    replicated one is split locally), the kernel over those channels
+    (the sequence whole); y and the new tail placed as x then is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    tail_pl = tail.placements if tail is not None else \
+        (Replicate(),) * x.device_mesh.ndim
+    pl = tuple(
+        Shard(0) if p.is_shard(0) else  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+        Shard(2) if p.is_shard(2) or q.is_shard(2) else Replicate()  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+        for p, q in zip(x.placements, tail_pl))
+    kernel_pl = tuple(Shard(1) if p.is_shard(2) else Replicate() for p in pl)  # repro-lint: disable=TS110 -- branches on DTensor placements (host objects), not on device values
+    return on_shards(causal_conv, "causal_conv", (
+        ("x", x, pl), ("kernel", kernel, kernel_pl), ("tail", tail, pl)),
+        (pl, pl))
+
+
 # --- chunked SSD --------------------------------------------------------------
 
 
@@ -178,9 +203,34 @@ def ssd_chunked(xh, la, b, c, state0=None):
     decay); b,c: [B,S,N].  Returns (y [B,S,H,P] f32, final_state
     [B,H,N,P]).  la goes in as f32; b and c in the model's dtype (f32 or
     bf16), which the kernel widens to f32 exactly, as the reference casts
-    them to its f32 compute dtype for the model path's f32 xh."""
-    y, final = scan.ssd_scan(xh, la.float(), b, c, state0)
+    them to its f32 compute dtype for the model path's f32 xh.  The
+    reference's constraints inside its jnp scan (the chunk cumsum of la
+    and the decay matrix, head-sharded) constrain B5's la and x here."""
+    la = shard(la.float(), "act_batch", None, "act_heads")
+    xh = shard(xh, "act_batch", None, "act_heads", None)
+    y, final = _scan(xh, la, b, c, state0)
     return y.float(), final
+
+
+def _scan(x, la, b, c, h0):
+    """B5.  DTensors run on one partition's shards: sharded over batch
+    and heads (x's), the sequence and the state dims whole; la follows
+    x's batch and heads, b and c its batch, h0 its batch and heads.  y
+    is placed as x, the final state over x's batch and heads."""
+    if not is_dtensor(x):
+        return scan.ssd_scan(x, la, b, c, h0)
+    from torch.distributed.tensor import Replicate, Shard
+
+    x_pl = kept(x, (0, 2))
+
+    def like_x(heads_dim):
+        return tuple(Shard(0) if p.is_shard(0) else
+                     Shard(heads_dim) if p.is_shard(2) and heads_dim
+                     else Replicate() for p in x_pl)
+
+    return on_shards(scan.ssd_scan, "ssd_scan", (
+        ("x", x, x_pl), ("la", la, like_x(2)), ("b", b, like_x(None)),
+        ("c", c, like_x(None)), ("h0", h0, like_x(1))), (x_pl, like_x(1)))
 
 
 # --- block apply --------------------------------------------------------------
@@ -189,6 +239,7 @@ def ssd_chunked(xh, la, b, c, state0=None):
 def block_apply(cfg: Mamba2Config, params: Mamba2Block, x, *,
                 cache: SSMCache | None):
     """Pre-norm Mamba2 block; returns (x, new_cache)."""
+    x = shard(x, "act_batch", "act_seq", "act_embed")
     hin = params.ln(x, cfg.norm_eps)
 
     z = hin @ params.wz
@@ -205,10 +256,12 @@ def block_apply(cfg: Mamba2Config, params: Mamba2Block, x, *,
     bb, tail_b = causal_conv(bb, params.conv_b, tails[1])
     cc, tail_c = causal_conv(cc, params.conv_c, tails[2])
     xs, bb, cc = F.silu(xs), F.silu(bb), F.silu(cc)
+    xs = shard(xs, "act_batch", "act_seq", "act_mlp")
 
     bsz, s, _ = xs.shape
     h, p = cfg.heads, cfg.head_dim
-    xh = xs.reshape(bsz, s, h, p)
+    xh = shard(unflatten_last(xs, (h, p)), "act_batch", "act_seq",
+               "act_heads", None)
     la = -torch.exp(params.A_log) * dt                  # [B,S,H] log decay
     xin = xh.float() * dt[..., None]
 
@@ -223,11 +276,12 @@ def block_apply(cfg: Mamba2Config, params: Mamba2Block, x, *,
         final = state
     else:
         y, final = ssd_chunked(xin, la, bb, cc, state0)
+    final = shard(final, "act_batch", "act_heads", None, None)
 
     y = y + params.D[None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
     y = params.ln_gate(y * F.silu(z), cfg.norm_eps)
-    out = y @ params.wo
+    out = shard(y @ params.wo, "act_batch", "act_seq", "act_embed")
 
     new_cache = None
     if cache is not None:
@@ -254,7 +308,8 @@ def store_layer_cache(caches: SSMCache, new: SSMCache, *index) -> None:
 def logits_of(embed: L.Embedding, x: torch.Tensor,
               vocab: int) -> torch.Tensor:
     """Tied logits with the padded vocabulary masked to -1e30."""
-    return L.mask_padded_vocab(embed.unembed(x), vocab)
+    logits = shard(embed.unembed(x), "act_batch", "act_seq", "act_vocab")
+    return L.mask_padded_vocab(logits, vocab)
 
 
 class Mamba2LM(nn.Module):
@@ -287,7 +342,8 @@ def _uncached(cfg: Mamba2Config, blk: Mamba2Block, x):
 
 
 def forward(params: Mamba2LM, tokens, cfg: Mamba2Config, *, caches=None):
-    x = params.embed(tokens).to(cfg.dtype)
+    x = shard(params.embed(tokens).to(cfg.dtype), "act_batch", "act_seq",
+              "act_embed")
     for i, blk in enumerate(params.blocks):
         if caches is None:
             x = apply_block(cfg, blk, x)

@@ -23,6 +23,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import logsumexp_last, shard, take_last
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
@@ -116,10 +117,13 @@ def block_apply(cfg: TransformerConfig, params: Block, x, *, positions,
     """Pre-norm residual block; returns (x, new_cache, aux_loss).  The
     reference's order, in x's dtype: ``x + attn``, then ``y = 0 + mlp``,
     ``y + moe``, and ``x + y``."""
+    res_seq = "act_sp_seq" if (cfg.sp_residuals and cache is None) \
+        else "act_seq"
+    x = shard(x, "act_batch", res_seq, "act_embed")
     h = params.ln_attn(x, cfg.norm_eps)
     a, new_cache = attn.gqa_attention(
         params.attn, h, positions=positions, rope_theta=cfg.rope_theta,
-        causal=True, window=cfg.window, cache=cache,
+        causal=True, window=cfg.window, cache=cache, sp=cfg.attn_sp,
         attn_impl=cfg.attn_impl, block_q=cfg.block_q,
     )
     x = x + a
@@ -127,13 +131,13 @@ def block_apply(cfg: TransformerConfig, params: Block, x, *, positions,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     y = torch.zeros_like(x)
     if cfg.moe is None or cfg.dense_ff:
-        y = y + params.mlp(h)
+        y = y + shard(params.mlp(h), "act_batch", res_seq, "act_embed")
     if cfg.moe is not None:
         # inference (a cache present) routes every token, as the
         # reference does; without a cache (training) it drops by capacity
         ym, aux = moe_apply(params.moe, h, cfg.moe, drop=cache is None)
         y = y + ym
-    return x + y, new_cache, aux
+    return shard(x + y, "act_batch", res_seq, "act_embed"), new_cache, aux
 
 
 # --- stacked model ------------------------------------------------------------
@@ -180,6 +184,8 @@ def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
     if positions is None:
         base = caches.length if caches is not None else 0
         positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+    positions = shard(positions, "act_batch", "act_seq")
+    x = shard(x, "act_batch", "act_seq", "act_embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
         if caches is None:
@@ -190,7 +196,8 @@ def forward(params: TransformerLM, tokens, cfg: TransformerConfig, *,
                 cache=attn.KVCache(caches.k[i], caches.v[i], caches.length))
         aux = aux + a
     x = params.final_norm(x, cfg.norm_eps)
-    logits = L.mask_padded_vocab(params.unembed(x), cfg.vocab)
+    logits = shard(params.unembed(x), "act_batch", "act_seq", "act_vocab")
+    logits = L.mask_padded_vocab(logits, cfg.vocab)
     new_caches = None
     if caches is not None:
         new_caches = caches._replace(length=caches.length + s)
@@ -201,8 +208,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  zloss: float) -> torch.Tensor:
     """Mean cross-entropy (+ z-loss) in f32."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    lse = logsumexp_last(lf)
+    ll = take_last(lf, labels.long())
     loss = torch.mean(lse - ll)
     if zloss:
         loss = loss + zloss * torch.mean(lse ** 2)

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.dist.sharding import is_dtensor, like, microbatches
 from repro_torch.train.optimizer import (
     Optimizer, leaf_tensors, param_leaves, stack_leaf,
 )
@@ -51,8 +52,10 @@ def init_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    return [{k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
-             for k, x in batch.items()} for i in range(n)]
+    """Microbatch ``i`` takes rows ``[i B/n, (i+1) B/n)`` of every entry;
+    a DTensor's microbatches are placed as it is (:func:`microbatches`)."""
+    split = {k: microbatches(x, n) for k, x in batch.items()}
+    return [{k: split[k][i] for k in batch} for i in range(n)]
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -84,8 +87,9 @@ def build_train_step(
         if grad_accum == 1:
             loss, grads = value_and_grad(model, params, batch)
             return loss.detach().float(), grads
-        acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-               for p in params]
+        acc = [torch.zeros_like(p, dtype=accum_dtype) if is_dtensor(p) else
+               torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+               for p in params]    # a DTensor's accumulator placed as it
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
         for mb in _split_microbatches(batch, grad_accum):
@@ -108,6 +112,7 @@ def build_train_step(
         names = [n for n, _ in model.named_parameters()]
         loss, grads = compute_grads(model, batch)
         with torch.no_grad(), record_function(RANGES[2]):
+            grads = [like(g, p) for g, p in zip(grads, model.parameters())]
             gnorm = global_norm(grads)
             grads = dict(zip(names, grads))
             scale = None
@@ -122,8 +127,10 @@ def build_train_step(
                 p = stack_leaf([params[n] for n in leaf.names], leaf.lead)
                 new_p, new_s = optimizer.update(
                     {k: g}, {k: state.opt_state[k]}, {k: p}, state.step)
-                new_opt[k] = new_s[k]
-                flat = new_p[k].reshape((-1,) + params[leaf.names[0]].shape)
+                new_opt[k] = {n: like(v, state.opt_state[k][n])
+                              for n, v in new_s[k].items()}
+                flat = like(new_p[k], p).reshape(
+                    (-1,) + params[leaf.names[0]].shape)
                 for n, v in zip(leaf.names, flat):
                     params[n].copy_(v)
             metrics = {"loss": loss, "grad_norm": gnorm,

@@ -15,9 +15,12 @@ allocated):
 * ``run_cell`` on a full-size cell of every family on the host mesh
   completes in a fresh process whose RSS grows by less than 1 GB;
 * the records: the reference's keys, skipped cells as the reference
-  writes them, ``--all --mesh pod`` writes all 40, and
+  writes them, ``--all --mesh pod`` over the decode shapes writes every
+  partitioned record and skip (each pod cell a partition's recording:
+  the train cells take minutes, so the full sweep runs by hand,
+  ``tests/test_torch_dryrun_partitioned.py``), and
   ``analysis/roofline.py::from_record`` reads a host record as one chip
-  and refuses an unpartitioned one.
+  and a pod record as 256, and refuses one marked unpartitioned.
 """
 from __future__ import annotations
 
@@ -237,14 +240,18 @@ def test_records_have_the_references_keys_and_roofline_reads_them():
     assert host["fits"] is None and host["card_bytes"] is None  # no card
     assert host["memory"]["alias_bytes"] <= host["memory"]["argument_bytes"]
     pod = dryrun.dry_run(spec, SMOKE_SHAPE, "pod")
-    assert REF_KEYS <= set(pod) and not pod["partitioned"]
-    assert pod["collectives"] is None and pod["memory"]["temp_bytes"] is None
+    assert REF_KEYS <= set(pod) and pod["partitioned"]
+    assert pod["devices"] == 256 and pod["memory"]["temp_bytes"] > 0
+    assert pod["collectives"]["ici_bytes"] > 0
+    assert pod["cost"]["flops"] < host["cost"]["flops"]
     assert pod["memory"]["argument_bytes"] < host["memory"]["argument_bytes"]
     rec = dict(host, shape="train_4k")
     r = roofline.from_record(rec)
     assert r.chips == 1 and r.hlo_flops_chip == host["cost"]["flops"]
+    r = roofline.from_record(dict(pod, shape="train_4k"))
+    assert r.chips == 256 and r.hlo_flops_chip == pod["cost"]["flops"]
     with pytest.raises(ValueError, match="C12"):
-        roofline.from_record(dict(pod, shape="train_4k"))
+        roofline.from_record(dict(pod, shape="train_4k", partitioned=False))
 
 
 def test_fits_holds_the_peak_against_the_cards_memory(monkeypatch):
@@ -271,20 +278,23 @@ def test_fits_holds_the_peak_against_the_cards_memory(monkeypatch):
 
 
 def test_all_cells_on_the_pod_mesh(tmp_path, capsys):
-    """``--all --mesh pod``: the 33 plans and the 7 skipped cells, the
-    skips as the reference writes them."""
-    assert dryrun.main(["--all", "--mesh", "pod", "--out",
+    """``--all --mesh pod`` over the decode shapes: 13 partitioned records
+    and the 7 skipped cells, the skips as the reference writes them."""
+    assert dryrun.main(["--all", "--mesh", "pod", "--shapes", "decode_32k",
+                        "long_500k", "--jobs", "2", "--out",
                         str(tmp_path)]) == 0
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
-    assert len(recs) == 40
+    assert len(recs) == 20
     skipped = [r for r in recs if r["status"] == "skipped"]
     assert len(skipped) == 7
     for r in skipped:
         assert set(r) == {"arch", "shape", "mesh", "status", "reason"}
         assert r["reason"] == REGISTRY[r["arch"]].skip[r["shape"]]
     plans = [r for r in recs if r["status"] == "ok"]
-    assert all(not r["partitioned"] and r["plan"]["specs"] for r in plans)
+    assert all(r["partitioned"] and r["devices"] == 256
+               and r["plan"]["specs"] for r in plans)
     mamba = next(r for r in plans if r["arch"] == "mamba2-780m"
                  and r["shape"] == "decode_32k")
     assert mamba["plan"]["specs"]["[1]['token']"] == []     # C10
-    assert np.isfinite([r["memory"]["argument_bytes"] for r in plans]).all()
+    assert np.isfinite([r["memory"]["argument_bytes"] + r["memory"][
+        "temp_bytes"] + r["cost"]["flops"] for r in plans]).all()

@@ -232,9 +232,29 @@ def test_shard_is_the_identity_on_one_device():
         assert sharding.current_rules() is not None
         assert sharding.shard(x, "act_batch", None) is x
     assert sharding.current_rules() is None
-    with sharding.use_sharding(sharding.ShardingRules(port_mesh("pod"))):
-        with pytest.raises(NotImplementedError, match="A-11d"):
-            sharding.shard(x, "act_batch", None)
+    # a production mesh: the constraint places the tensor on the mesh's
+    # DeviceMesh (a plain tensor taken as replicated), a DTensor is
+    # redistributed, and a dim the mesh does not divide stays whole
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_device_mesh
+
+    pod = port_mesh("pod")
+    rules = sharding.ShardingRules(pod)
+    with fake_device_mesh(pod) as dm, sharding.use_sharding(rules, dm):
+        y = sharding.shard(torch.ones(32, 8), "act_batch", None)
+        assert y.placements == (Shard(0), Replicate())
+        assert tuple(y.to_local().shape) == (2, 8)
+        z = sharding.shard(y, "act_batch", "act_vocab")
+        assert z.placements == (Shard(0), Replicate())     # 8 % 16
+        w = sharding.shard(sharding.shard(torch.ones(32, 32), None, None),
+                           "act_batch", "act_vocab")
+        assert w.placements == (Shard(0), Shard(1))
+        assert tuple(w.to_local().shape) == (2, 2)
+        assert sharding.shard(w, "act_batch", "act_vocab") is w
+        with pytest.raises(RuntimeError, match="device mesh"):
+            with sharding.use_sharding(rules):
+                sharding.shard(x, "act_batch", None)
 
 
 def test_meshes():
