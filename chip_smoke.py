@@ -194,6 +194,20 @@ with a non-zero exit:
     split-KV, all at D 96; the profile, the teacher-forced check (bf16 and
     f32) and, at 8 layers in f32, the decode consistency (1,024 patches and
     300 tokens split at 290).
+17b. ``[kernel_backward]`` (ROADMAP B8): the backward kernels of B4
+    (``flash_bwd.cu``: tensor-core and CUDA-core forms) and B5
+    (``ssd_scan_bwd.cu``) against their plain versions on the card: B4's
+    against ``flash_attention_bwd`` and autograd through
+    ``flash_attention_plain``, B5's against ``ssd_scan_bwd_plain`` and
+    autograd through ``ssd_scan_plain``, each gradient's max |kernel -
+    plain| over its largest |plain| within ``BWD_TOL`` and each row's over
+    the row's rms within ``BWD_ROW_TOL``, every case launched twice with
+    equal bits; at the train shapes in bf16 and f32
+    and, for B4, GQA, a window, not causal with Sq != Sk, D 96, D 16 and
+    ``q_offset`` / ``kv_len``; for B5 N 128, ragged S, ``h0``, a
+    final-state gradient, bf16 x, b and c.  Timed at the train shapes
+    (eager, replayed, the plain versions; SDPA's backward beside B4's).
+    ``python3 chip_smoke.py --phase kernel_backward`` runs it alone.
 18. Training (ROADMAP A-11b): ``repro_torch.launch.train.train`` on
     zamba2-1.2b at full width and depth (38 Mamba2 layers, the shared
     attention at 6 sites, about 1.1e9 parameters), bf16, AdamW, batch 4
@@ -201,9 +215,10 @@ with a non-zero exit:
     timed steps, the loss, gradient norm and every parameter finite
     after each update; B4 exactly 6 launches a step (tensor-core form,
     not remat'ed) and B5 exactly 76 (each Mamba2 layer's forward and its
-    remat recomputation); seconds a step, tokens/s, peak memory; a
+    remat recomputation), and their backward kernels 6 (tensor-core) and
+    38; seconds a step, tokens/s, peak memory; a
     ``torch.profiler`` split of one more step into forward, backward and
-    optimizer, with B4's and B5's backward (torch ops) timed alone; the
+    optimizer (the backward kernels' own times are 17b's); the
     kernel path against the plain path on the same weights and batch (in
     bf16 at full depth the loss within 1e-2 and the gradient norm within
     ``SERVE_REL_TOL``; in f32 at 6 layers the loss within 1e-4 and every
@@ -252,12 +267,16 @@ with a non-zero exit:
     exact predict of 7 (B1), one cold binned predict (B1, B2), one cold
     streaming predict at 2^16 (B1), and a 256-token prefill plus three
     decode steps (``serve.serve``, batch 2) of mixtral-8x7b and
-    llama3-8b at full width and 2 layers and zamba2-1.2b at 8 (B4, B5).
+    llama3-8b at full width and 2 layers and zamba2-1.2b at 8 (B4, B5),
+    and zamba2-1.2b's loss and gradient at 8 layers (B4, B5 and their
+    backward kernels, whose wrappers may not sync at all).
     A line that syncs more than once in one call is a sync in a loop:
     the TS lint rules must report it (flagged or suppressed), or it is
     in ``KNOWN_MISSED`` with the reason they cannot see it; never
     ``models/moe.py:193`` and never a site of a predict path.
 
+The backward kernels' records carry ``launches_by_path`` with the
+training path, the resumed steps and ``lint_runtime``.
 B4's and B5's kernel records carry ``launches_by_path`` with the
 training path (``zamba2-1.2b/train``), the resumed steps
 (``zamba2-1.2b/resume``) and the pod partition
@@ -910,7 +929,8 @@ def launch_counts() -> tuple:
     from repro_torch.kernels import flash_attention, reuse_hist, sdcm, ssd_scan
 
     return (sdcm.LAUNCHES, reuse_hist.LAUNCHES, flash_attention.LAUNCHES,
-            flash_attention.LAUNCHES_BY_FORM, ssd_scan.LAUNCHES)
+            flash_attention.LAUNCHES_BY_FORM,
+            flash_attention.LAUNCHES_BY_BWD_FORM, ssd_scan.LAUNCHES)
 
 
 def reset_counts():
@@ -3086,11 +3106,15 @@ def train_launches(cfg, steps: int) -> dict:
     """What ``steps`` training steps of a hybrid launch: B4 once per
     shared-attention site (not remat'ed, as in the reference), B5 once
     per Mamba2 layer in the forward and once more in its remat
-    recomputation; every B4 call on the tensor-core form (bf16, D 64,
-    2,048 rows)."""
+    recomputation; each backward kernel once per site and per layer;
+    every B4 call, forward and backward, on the tensor-core form (bf16,
+    D 64, 2,048 rows)."""
     sites = cfg.num_groups
     return {"flash_attention": steps * sites, "tensor_core": steps * sites,
-            "split_kv": 0, "simt": 0, "ssd_scan": steps * 2 * cfg.layers}
+            "split_kv": 0, "simt": 0, "ssd_scan": steps * 2 * cfg.layers,
+            "flash_attention_bwd": steps * sites,
+            "tensor_core_bwd": steps * sites, "simt_bwd": 0,
+            "ssd_scan_bwd": steps * cfg.layers}
 
 
 def loss_and_grads(spec, cfg, model, batch):
@@ -3169,75 +3193,289 @@ def train_vs_plain(spec, smi: str) -> dict:
     return out
 
 
-def backward_ms(spec) -> dict:
-    """Device ms of B4 and B5 forward (the kernels) and forward plus
-    backward (the kernel, then torch ops) at the training step's shapes
-    in bf16, CUDA events: the backward's share is the difference."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+# backward kernels vs their plain versions: max |kernel - plain| over the
+# plain gradient's largest |value|, per gradient.  f32: sums in other
+# orders (B5 also its warp-scan cumsum), readings up to 1.9e-6 (B4) and
+# 4.6e-6 (B5) in the first runs (H100, PERF.md); bf16 gradients: B4's
+# tensor-core form rounds P and dS to bf16 as operands (readings up to
+# 6.8e-3), and a bf16 output is one rounding of the f32 sum (one bf16
+# step is at most 2^-7 = 7.8e-3 of a value; B5's readings up to 2.1e-3).
+BWD_TOL = {"flash_attention_bwd": {torch.float32: 1e-5,
+                                   torch.bfloat16: 2e-2},
+           "ssd_scan_bwd": {torch.float32: 2e-5, torch.bfloat16: 1e-2}}
+# ... and row by row (``bwd_row_err``): a gradient's rows differ in size
+# (causal B4: a late kv row of dk, dv sees few q rows), and a term lost
+# from small rows hides under the largest value.  Each row is held to its
+# own rms.  Set from my chip readings (H100, PERF.md, PR 26): B4 bf16
+# tensor-core up to 0.0352 (bf16 P and dS operands, the output's rounding:
+# a few bf16 steps of a row's largest element), f32 1.07e-4 (the late kv
+# rows of dk, few terms that cancel); B5 f32 5.7e-3 (dla's in-chunk suffix
+# sums of ds terms that cancel), bf16 outputs 1.85e-2.  A dK/dV that drops
+# the diagonal q row of the last KV tile's kv rows (a causal off-by-one)
+# reads ~0.012 of the largest value and passes ``BWD_TOL``; its row error
+# is ~4 and fails these.
+BWD_ROW_TOL = {"flash_attention_bwd": {torch.float32: 5e-4,
+                                       torch.bfloat16: 6e-2},
+               "ssd_scan_bwd": {torch.float32: 2e-2, torch.bfloat16: 5e-2}}
+# a row's rms is floored at this share of the whole gradient's rms: a row
+# that is zero up to rounding (dq of a row that sees one column) has no
+# relative error to speak of
+BWD_ROW_FLOOR = 1e-3
 
-    cfg = spec.config
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    rand = cuda_rand(40)
 
-    def grad_of(t):
-        return t.to(torch.bfloat16).requires_grad_()
+_BF16, _F32 = torch.bfloat16, torch.float32
+# [kernel_backward]'s cases: the train shapes (zamba2-1.2b) in bf16 and
+# f32, then each case class training reaches or the kernel takes
+BWD_FLASH_CASES = [  # tag, dtype, B, H, Hkv, Sq, Sk, D, kwargs
+    ("train", _BF16, TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64,
+     dict(causal=True)),
+    ("train_f32", _F32, TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64,
+     dict(causal=True)),
+    ("gqa_32_over_8_d128", _BF16, 2, 32, 8, 1024, 1024, 128,
+     dict(causal=True)),
+    ("window_1000", _BF16, 2, 32, 8, 2048, 2048, 128,
+     dict(causal=True, window=1000)),
+    ("window_f32_d16", _F32, 2, 4, 2, 1000, 1000, 16,
+     dict(causal=True, window=100)),
+    ("noncausal_sq_ne_sk", _BF16, 2, 16, 16, 1000, 2048, 64,
+     dict(causal=False)),
+    ("noncausal_f32", _F32, 2, 16, 16, 300, 1000, 64, dict(causal=False)),
+    ("d96", _BF16, 2, 32, 32, 1024, 1024, 96, dict(causal=True)),
+    ("d96_f32", _F32, 2, 8, 8, 500, 500, 96, dict(causal=True)),
+    ("d16", _BF16, 4, 4, 4, 512, 512, 16, dict(causal=True)),
+    ("d16_f32", _F32, 4, 4, 4, 512, 512, 16, dict(causal=True)),
+    ("offsets", _BF16, 2, 32, 8, 300, 1000, 64,
+     dict(causal=True, q_offset=600, kv_len=900)),
+    ("offsets_f32", _F32, 2, 8, 8, 300, 1000, 8,
+     dict(causal=True, q_offset=600, kv_len=900)),
+]
+BWD_SSD_CASES = [  # tag, B, S, H, P, N, x dtype, b/c dtype, h0, final
+    ("train", TRAIN_BATCH, TRAIN_SEQ, 64, 64, 64, _F32, _BF16, False,
+     False),
+    ("train_f32", TRAIN_BATCH, TRAIN_SEQ, 64, 64, 64, _F32, _F32, False,
+     False),
+    ("n128_h0_final", 2, 2048, 48, 64, 128, _F32, _F32, True, True),
+    ("ragged_2039_h0", 2, 2039, 64, 64, 64, _F32, _F32, True, False),
+    ("ragged_final_bf16_bc", 2, 1000, 16, 64, 64, _F32, _BF16, False,
+     True),
+    ("bf16_x_bc", 2, 2048, 16, 64, 128, _BF16, _BF16, True, True),
+    ("n100_p80", 1, 300, 4, 80, 100, _F32, _F32, True, True),
+]
 
-    q = grad_of(rand(b, cfg.heads, s, cfg.head_dim))
-    k = grad_of(rand(b, cfg.kv_heads, s, cfg.head_dim))
-    v = grad_of(rand(b, cfg.kv_heads, s, cfg.head_dim))
-    h, p, n = cfg.d_model * cfg.expand // cfg.head_dim, cfg.head_dim, \
-        cfg.ssm_state
-    x = rand(b, s, h, p).requires_grad_()
-    la = (-torch.nn.functional.softplus(rand(b, s, h))).requires_grad_()
-    bb = grad_of(rand(b, s, n) * 0.3)
-    cc = grad_of(rand(b, s, n) * 0.3)
-    go = torch.randn_like(q)
-    gy = torch.randn_like(x)
 
-    def fa_fwd():
+def flash_bwd_bytes(q, k) -> float:
+    """Bytes B4's backward must move: q, k, v, the output and its
+    gradient read once, dq, dk, dv written once."""
+    nb = q.numel() * q.element_size()
+    return float(4 * nb + 4 * k.numel() * k.element_size())
+
+
+def scan_bwd_bytes(x, la, bb, cc, gy) -> float:
+    """Bytes B5's backward must move: x, la, b, c and dy read once, their
+    gradients written once."""
+    return float(sum(2 * t.numel() * t.element_size() for t in (x, la, bb, cc))
+                 + gy.numel() * gy.element_size())
+
+
+def sdpa_backward_ms(q, k, v, go) -> tuple[float, float]:
+    """(eager, replayed) ms of SDPA's forward + backward minus its forward
+    at these inputs (causal, the library's own kernels: a yardstick of
+    B4's backward; the port never calls it)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kw = dict(is_causal=True, enable_gqa=q.shape[1] != k.shape[1])
+
+    def fwd():
         with torch.no_grad():
-            flash_attention(q, k, v, causal=True)
+            torch.nn.functional.scaled_dot_product_attention(*leaves, **kw)
 
-    def fa_both():
-        torch.autograd.grad(flash_attention(q, k, v, causal=True),
-                            (q, k, v), go)
+    def both():
+        torch.autograd.grad(torch.nn.functional.scaled_dot_product_attention(
+            *leaves, **kw), leaves, go)
 
-    def sc_fwd():
-        with torch.no_grad():
-            ssd_scan(x, la, bb, cc)
+    return (cuda_ms(both) - cuda_ms(fwd), graph_ms(both) - graph_ms(fwd))
 
-    def sc_both():
-        torch.autograd.grad(ssd_scan(x, la, bb, cc)[0], (x, la, bb, cc), gy)
 
-    # the backward's least time: B4 recomputes P and makes dV, dP, dQ, dK,
-    # 10·D operations per visible pair in bf16 (its forward's 4·D, 2.5x),
-    # reading q, k, v, o, dO and writing dq, dk, dv; B5 two multiply-adds
-    # of gradient per multiply-add of its forward (no recomputation), f32
-    # on the CUDA cores, reading x, la, b, c, dy and writing their grads
-    from repro_torch.kernels.flash_attention import attention_ops
-    from repro_torch.kernels.ssd_scan import scan_ops
+def bwd_row_err(got: torch.Tensor, plain: torch.Tensor) -> tuple[float,
+                                                                   list]:
+    """Over the rows (the last dimension) of a gradient, the largest
+    max |got - plain| in a row over that row's rms of ``plain`` (floored
+    at ``BWD_ROW_FLOOR`` of the whole gradient's rms), and that row's
+    index."""
+    g, p = got.float(), plain.float()
+    rms = p.pow(2).mean(-1).sqrt()
+    floor = max(BWD_ROW_FLOOR * float(p.pow(2).mean().sqrt()),
+                torch.finfo(torch.float32).tiny)
+    rel = (g - p).abs().amax(-1) / rms.clamp_min(floor)
+    worst = int(rel.argmax())
+    return float(rel.max()), [int(i) for i in np.unravel_index(
+        worst, tuple(rel.shape))]
 
-    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-    bounds = {
-        "flash_attention": bound_ms(
-            nb(q, k, v, q, go, q, k, v),
-            2.5 * attention_ops(b, cfg.heads, s, cfg.head_dim, causal=True,
-                                q_offset=0, kv_len=s), PEAK_BF16_S),
-        "ssd_scan": bound_ms(
-            2 * nb(x, la, bb, cc) + nb(gy),
-            2.0 * scan_ops(b, s, h, p, n), PEAK_FP32_S),
-    }
-    out = {}
-    for name, fwd, both in (("flash_attention", fa_fwd, fa_both),
-                            ("ssd_scan", sc_fwd, sc_both)):
-        f_ms = cuda_ms(fwd, reps=5, warmup=1)
-        b_ms = cuda_ms(both, reps=3, warmup=1)
-        out[name] = dict(forward_ms=f_ms, forward_and_backward_ms=b_ms,
-                         backward_ms=b_ms - f_ms,
-                         backward_bound_ms=bounds[name][0],
-                         backward_bound_by=bounds[name][1])
+
+def bwd_errors(name: str, got, wants, tag: str) -> dict:
+    """Against every plain version: the worst of each gradient's max
+    |kernel - plain| over its largest |plain| (``scaled_err``), the worst
+    max |kernel - plain| (``max_abs_err``) and the worst row error
+    (``row_err``, ``bwd_row_err``: at gradient ``row_err_at[0]``, row
+    ``row_err_at[1]``); fails past ``BWD_TOL`` or ``BWD_ROW_TOL``."""
+    out = dict(scaled_err=0.0, max_abs_err=0.0, row_err=0.0, row_err_at=None)
+    for want in wants:
+        for i, (a, w) in enumerate(zip(got, want)):
+            if a.dtype != w.dtype or a.shape != w.shape:
+                fail(f"{name} {tag}: a gradient of {a.dtype} {a.shape}, "
+                     f"the plain version's {w.dtype} {w.shape}")
+            diff = float((a.float() - w.float()).abs().max())
+            err = diff / float(w.float().abs().max())
+            row, at = bwd_row_err(a, w)
+            tol, row_tol = BWD_TOL[name][a.dtype], BWD_ROW_TOL[name][a.dtype]
+            if not (err <= tol and row <= row_tol):
+                fail(f"{name} {tag}, gradient {i}: |kernel - plain| / max "
+                     f"|plain| = {err} (bound {tol}); row {at}: |kernel - "
+                     f"plain| / the row's rms = {row} (bound {row_tol})")
+            out["scaled_err"] = max(out["scaled_err"], err)
+            out["max_abs_err"] = max(out["max_abs_err"], diff)
+            if row >= out["row_err"]:
+                out.update(row_err=row, row_err_at=[i, at])
     return out
+
+
+def same_bits(fn, first) -> bool:
+    """Whether a second launch gives ``first``'s bits."""
+    return all(torch.equal(a, b) for a, b in zip(first, fn())
+               if a is not None)
+
+
+def phase_kernel_backward(smi: str) -> list:
+    """The two backward kernels against their plain versions on the
+    card, on the same inputs: B4's against ``flash_attention_bwd`` (the
+    closed form in torch ops) and autograd through
+    ``flash_attention_plain``, B5's against ``ssd_scan_bwd_plain`` (its
+    algorithm in torch ops) and autograd through ``ssd_scan_plain``
+    (``BWD_TOL``, and row by row ``BWD_ROW_TOL``); each case launched
+    twice, the bits equal.  The train
+    shapes (zamba2-1.2b: B 4, 32 heads, 2,048 tokens, D 64; 64 SSM heads
+    of 64 over a state of 64) in bf16 and f32, and a case list: for B4
+    GQA, a window, not causal with Sq != Sk, D 96, D 16, ``q_offset`` /
+    ``kv_len``; for B5 N 128, ragged S, ``h0``, a final-state gradient,
+    bf16 x, b and c.  Timed at the train shapes in bf16 (the training
+    path's inputs): ``ms`` eager, ``graph_ms`` replayed, the plain
+    versions, SDPA's backward for B4.  Returns their kernel records."""
+    # the modules (their packages export functions of the same names)
+    fam = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    scm = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    flash_rec, worst = None, 0.0
+    for i, (tag, dt, b, h, hkv, sq, sk, d, kw) in enumerate(
+            BWD_FLASH_CASES):
+        rand = cuda_rand(60 + i)
+        q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
+        k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
+        v = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
+        go = rand(b, h, sq, d, dtype=dt)
+        full = dict(causal=kw["causal"], scale=None,
+                    q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
+                    window=kw.get("window"))
+        form = fam.backward_form(q, k, v, go)
+
+        def kernel():
+            return fam._backward(q, k, v, go, **full)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(fam.flash_attention_plain(*leaves, **kw),
+                                   leaves, go)
+        errs = bwd_errors("flash_attention_bwd", got, (
+            fam.flash_attention_bwd(q, k, v, go, **kw), auto), tag)
+        del auto, leaves
+        rec = dict(case=tag, form=form, dtype=str(dt),
+                   shape=[b, h, hkv, sq, sk, d], **kw, **errs,
+                   tol=BWD_TOL["flash_attention_bwd"][dt],
+                   row_tol=BWD_ROW_TOL["flash_attention_bwd"][dt],
+                   deterministic=same_bits(kernel, got))
+        if not rec["deterministic"]:
+            fail(f"flash_attention_bwd {tag}: two launches differ")
+        if tag == "train":
+            b_ms, b_by = bound_ms(
+                flash_bwd_bytes(q, k), fam.attention_bwd_ops(
+                    b, h, sq, d, causal=True, q_offset=0, kv_len=sk),
+                PEAK_BF16_S)
+            lib_ms, lib_graph_ms = sdpa_backward_ms(q, k, v, go)
+            rec.update(ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
+                       plain_ms=cuda_ms(lambda: fam.flash_attention_bwd(
+                           q, k, v, go, **kw), reps=3, warmup=1),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       library_graph_ms=lib_graph_ms)
+            flash_rec = rec
+        worst = max(worst, errs["max_abs_err"])
+        line("kernel_backward", kernel="flash_attention_bwd", card=smi,
+             **rec)
+        del q, k, v, go, got
+        torch.cuda.empty_cache()
+
+    ssd_rec, ssd_worst = None, 0.0
+    for i, (tag, b, s, h, p, n, x_dt, bc_dt, with_h0,
+            with_final) in enumerate(BWD_SSD_CASES):
+        rand = cuda_rand(80 + i)
+        x = rand(b, s, h, p, dtype=x_dt)
+        la = -torch.nn.functional.softplus(rand(b, s, h))
+        bb = (rand(b, s, n) * 0.3).to(bc_dt)
+        cc = (rand(b, s, n) * 0.3).to(bc_dt)
+        h0 = rand(b, h, n, p) if with_h0 else None
+        gy = rand(b, s, h, p, dtype=x_dt)
+        gf = rand(b, h, n, p) if with_final else None
+
+        def kernel():
+            return scm._backward(x, la, bb, cc, h0, gy, gf)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        inputs = [t for t in (x, la, bb, cc, h0) if t is not None]
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = scm.ssd_scan_plain(*leaves[:4],
+                                  leaves[4] if with_h0 else None)
+        auto = torch.autograd.grad(outs[:2 if with_final else 1], leaves,
+                                   (gy, gf)[:2 if with_final else 1])
+        plain = scm.ssd_scan_bwd_plain(x, la, bb, cc, h0, gy, gf)
+        kept = [t for t in got if t is not None]
+        errs = bwd_errors("ssd_scan_bwd", kept, (
+            [t for t in plain if t is not None], auto), tag)
+        del auto, leaves, outs, plain
+        rec = dict(case=tag, shape=[b, s, h, p, n], x_dtype=str(x_dt),
+                   bc_dtype=str(bc_dt), h0=with_h0, grad_final=with_final,
+                   **errs, deterministic=same_bits(kernel, got))
+        if not rec["deterministic"]:
+            fail(f"ssd_scan_bwd {tag}: two launches differ")
+        if tag == "train":
+            b_ms, b_by = bound_ms(scan_bwd_bytes(x, la, bb, cc, gy),
+                                  scm.scan_bwd_ops(b, s, h, p, n),
+                                  PEAK_FP32_S)
+            rec.update(ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
+                       plain_ms=cuda_ms(lambda: scm.ssd_scan_bwd_plain(
+                           x, la, bb, cc, h0, gy, gf), reps=3, warmup=1),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            ssd_rec = rec
+        ssd_worst = max(ssd_worst, errs["max_abs_err"])
+        line("kernel_backward", kernel="ssd_scan_bwd", card=smi, **rec)
+        del x, la, bb, cc, h0, gy, gf, got
+        torch.cuda.empty_cache()
+
+    # no Pallas kernel has a VJP: each replaces the gradient that XLA
+    # derives from the JAX package's jnp function (and, in the port, the
+    # gradient in torch ops)
+    def record(name, source, replaces, rec, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0, "max_abs_err": err,
+                **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "graph_ms")}}
+
+    return [record("flash_attention_bwd", "src/repro_torch/kernels/"
+                   "flash_attention/csrc/flash_bwd.cu",
+                   "src/repro/models/attention.py:89", flash_rec, worst),
+            record("ssd_scan_bwd", "src/repro_torch/kernels/ssd_scan/csrc/"
+                   "ssd_scan_bwd.cu", "src/repro/models/ssm.py:141", ssd_rec,
+                   ssd_worst)]
 
 
 def phase_train(smi: str) -> dict:
@@ -3250,9 +3488,9 @@ def phase_train(smi: str) -> dict:
     and read just after); seconds a step, tokens/s and peak memory.  Then
     a ``torch.profiler`` breakdown of one more step, split by the step's
     ranges (``train_step.RANGES``) into the forward (kernels B4 and B5),
-    the backward (the gradient in torch ops and each Mamba2 layer's
-    recomputation) and the optimizer; B4's and B5's backward timed
-    alone.  (b) ``train_vs_plain``.  (d) One step of every
+    the backward (the backward kernels, the rest of the gradient in
+    torch ops and each Mamba2 layer's recomputation) and the optimizer.
+    (b) ``train_vs_plain``.  (d) One step of every
     architecture's reduced config on the card, finite.  Returns the
     main run's launches and its state (for ``[checkpoint]``)."""
     from repro_torch.configs.base import Shape
@@ -3325,8 +3563,7 @@ def phase_train(smi: str) -> dict:
          step_device_ms=prof["device_busy_ms"],
          step_wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
          top=prof["top"], forward_top=prof["ranges_top"][RANGES[0]],
-         optimizer_top=prof["ranges_top"][RANGES[-1]], profile_s=prof_s,
-         kernels_fwd_bwd=backward_ms(spec))
+         optimizer_top=prof["ranges_top"][RANGES[-1]], profile_s=prof_s)
     del res, step_fn, params
     torch.cuda.empty_cache()
 
@@ -3903,7 +4140,12 @@ LINT_BASELINE = ".repro-lint-baseline.json"
 SYNC_BATCH, SYNC_PROMPT, SYNC_GEN = 2, 256, 4
 SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
 SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
-                "tensor_core", "split_kv", "simt", "ssd_scan")
+                "tensor_core", "split_kv", "simt", "ssd_scan",
+                "flash_attention_bwd", "tensor_core_bwd", "simt_bwd",
+                "ssd_scan_bwd")
+# the backward kernels' wrappers: no host sync at all on the training path
+BWD_WRAPPERS = ("src/repro_torch/kernels/flash_attention/flash_attention.py",
+                "src/repro_torch/kernels/ssd_scan/ssd_scan.py")
 # repeated sync sites that the TS rules cannot see, each with the reason
 # (also in ROADMAP).  Never moe.py:193 and never a site of a predict path.
 KNOWN_MISSED: dict[str, str] = {}
@@ -4042,6 +4284,32 @@ def sync_paths(exact) -> list:
         if res["tokens"].shape != (SYNC_BATCH, SYNC_GEN):
             fail(f"lint_runtime: tokens of shape {res['tokens'].shape}")
 
+    def trained():
+        """zamba2-1.2b's loss and gradient at full width and 8 layers,
+        bf16, batch 2 x 256: B4 and B5 forward and backward."""
+        import dataclasses
+
+        from repro_torch.configs.base import Shape
+        from repro_torch.train.data import synthetic_batch
+
+        spec = get_arch("zamba2-1.2b")
+        cfg = serve.with_config(spec.config,
+                                layers=SYNC_LAYERS["zamba2-1.2b"])
+        sp = dataclasses.replace(spec, config=cfg)
+        batch = {k: v.cuda() for k, v in synthetic_batch(
+            sp.input_shapes(Shape("train", SYNC_PROMPT, SYNC_BATCH,
+                                  "train")), sp.vocab, seed=1,
+            step=0).items()}
+        model = sp.family.init(cfg, device="cuda", seed=0)
+        model.requires_grad_(True)
+        return lambda: loss_and_grads(sp, cfg, model, batch)
+
+    def finite(res):
+        loss, grads = res
+        if not (bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads)):
+            fail("lint_runtime: a non-finite loss or gradient")
+
     return [
         ("predict_exact_warm", True, ("sdcm_rates_ragged",),
          lambda: predict(), same),
@@ -4056,6 +4324,9 @@ def sync_paths(exact) -> list:
          served("llama3-8b"), tokens),
         ("zamba2-1.2b/decode", False, ("flash_attention", "ssd_scan"),
          served("zamba2-1.2b"), tokens),
+        ("zamba2-1.2b/train", False, ("flash_attention", "ssd_scan",
+                                      "flash_attention_bwd", "ssd_scan_bwd"),
+         trained, finite),
     ]
 
 
@@ -4081,6 +4352,10 @@ def phase_lint_runtime(smi: str, exact) -> dict:
         for k in needs:
             if launches[k] <= 0:
                 fail(f"lint_runtime {name} launched no {k}: {launches}")
+        in_wrappers = [s for s in sites if s.startswith(BWD_WRAPPERS)]
+        if name.endswith("/train") and in_wrappers:
+            fail(f"lint_runtime {name}: a kernel wrapper synced: "
+                 f"{in_wrappers}")
         repeated = {s: n for s, n in sites.items() if n > 1}
         known = [s for s in repeated if s in KNOWN_MISSED]
         missed = [s for s in repeated if s not in ts and s not in known]
@@ -4108,7 +4383,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the kernels record here as JSON")
-    ap.add_argument("--phase", choices=("dryrun_partition",), default=None,
+    ap.add_argument("--phase", choices=("dryrun_partition",
+                                        "kernel_backward"), default=None,
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4116,11 +4392,12 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     smi = phase_device()
-    if args.phase == "dryrun_partition":
+    if args.phase is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
-        launches, secs = timed(lambda: phase_dryrun_partition(smi))
-        line("phase_alone", phase=args.phase, seconds=secs,
-             launches=launches)
+        run = {"dryrun_partition": phase_dryrun_partition,
+               "kernel_backward": phase_kernel_backward}[args.phase]
+        out, secs = timed(lambda: run(smi))
+        line("phase_alone", phase=args.phase, seconds=secs, result=out)
         return 0
     probs = phase_hit_probs()
     phase_rates()
@@ -4167,6 +4444,7 @@ def main() -> int:
     by_path["seamless-m4t-medium"] = phase_seamless_serve()
     by_path["phi-3-vision-4.2b"] = phase_phi3v_serve()
     torch.backends.cudnn.allow_tf32 = False  # f32 gradients stay f32
+    bwd_kernels = phase_kernel_backward(smi)
     by_path["zamba2-1.2b/train"], train_state = phase_train(smi)
     t_phase = time.perf_counter()
     by_path["zamba2-1.2b/resume"] = phase_checkpoint(smi, train_state)
@@ -4213,8 +4491,17 @@ def main() -> int:
         rec["launches"] += (synced["mixtral-8x7b/decode"]["flash_attention"]
                             if form == "window" else
                             sum(n[form] for n in synced.values()))
+    # the backward kernels: the training path, the resumed steps and the
+    # sync debugger's training path
+    for rec in bwd_kernels:
+        rec["launches_by_path"] = {
+            path: by_path[path][rec["name"]]
+            for path in ("zamba2-1.2b/train", "zamba2-1.2b/resume")}
+        rec["launches_by_path"]["lint_runtime"] = sum(
+            n[rec["name"]] for n in synced.values())
+        rec["launches"] = sum(rec["launches_by_path"].values())
     kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
-               + [flash_kernel, ssd_kernel])
+               + [flash_kernel, ssd_kernel] + bwd_kernels)
     for rec in kernels:  # the worst error over every path's own inputs
         for errs in (binned_errs, streaming_errs):
             rec["max_abs_err"] = max(rec["max_abs_err"],

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a library with
 a plain C interface, cached under ``build/repro_torch/`` at the root of
 the checkout (listed in ``.gitignore``) by a hash of every file in the
-source's ``csrc/`` directory (the headers it includes too) and the
-flags, and loaded with ``ctypes``.  :func:`build_all` starts one
+source's ``csrc/`` directory (the headers it includes too), of the
+shared headers in ``kernels/csrc/`` and of the flags, and loaded with
+``ctypes``.  :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them.
 
 Threads and processes: one lock serializes :func:`load` and
@@ -28,6 +29,8 @@ from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
+#: Headers shared by several sources: on every source's include path.
+COMMON = _KERNELS / "csrc"
 
 #: Every CUDA source of the port, by library name.
 SOURCES: dict[str, Path] = {
@@ -36,6 +39,9 @@ SOURCES: dict[str, Path] = {
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
     "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "ssd_scan_bwd": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
+    "flash_attention_bwd": (_KERNELS / "flash_attention" / "csrc"
+                            / "flash_bwd.cu"),
 }
 
 NVCC_FLAGS = (
@@ -60,9 +66,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``name``'s library lands: keyed by the contents of every
-    file in its source's directory, and the flags."""
+    file in its source's directory and in :data:`COMMON`, and the
+    flags."""
     h = hashlib.sha1()
-    for path in sorted(SOURCES[name].parent.rglob("*")):
+    for path in [*sorted(SOURCES[name].parent.rglob("*")),
+                 *sorted(COMMON.rglob("*"))]:
         if path.is_file():
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -101,7 +109,8 @@ def _build_all(names: list) -> dict[str, dict]:
                 continue
             nvcc = nvcc_path()
             tmp = _staging_file(out)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(COMMON), "-o", str(tmp),
+                   str(SOURCES[name])]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,

@@ -33,11 +33,17 @@ dtype and layout and which a recording counts as the kernel's work
 (:func:`attention_ops`); nothing is launched or counted.  With grad
 enabled and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_FlashAttention`): its forward is the
-same launch (or, on the CPU, the plain version), its backward
-:func:`flash_attention_bwd`, the closed-form gradient of the plain
-version's function in torch ops (the JAX package trains through jnp
-autodiff; its Pallas kernel has no VJP), so a kernel output always
-carries its autograd history.  The
+same launch (or, on the CPU, the plain version), so a kernel output
+always carries its autograd history.  Its backward dispatches by device
+as the forward does (the JAX package trains through jnp autodiff; its
+Pallas kernel has no VJP): on the card the backward kernel
+(``csrc/flash_bwd.cu``, two deterministic passes that recompute P;
+counted in ``LAUNCHES["flash_attention_bwd"]`` and by the form
+:func:`backward_form` picks in :data:`LAUNCHES_BY_BWD_FORM`), on meta
+one op, ``repro_torch::flash_attention_bwd``
+(:func:`attention_bwd_ops`), with the kernel's f32 scratch allocated
+across it as on the card, on the CPU :func:`flash_attention_bwd`, the
+closed-form gradient in torch ops (the backward's plain version).  The
 kernel reads q, k and v through their strides (the last dimension must
 be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 ``transpose(1, 2)`` views; the output has q's layout and dtype.
@@ -72,10 +78,15 @@ import torch
 
 from repro_torch.kernels import META_OPS, build, count_launch
 
-#: Kernel launches; only the wrapper's launch adds to it.
-LAUNCHES = {"flash_attention": 0}
-#: The same launches by form (:func:`kernel_form`); they sum to LAUNCHES.
+#: Kernel launches; only the wrappers' launches add to it (the
+#: backward's under ``flash_attention_bwd``).
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+#: The forward's launches by form (:func:`kernel_form`); they sum to
+#: ``LAUNCHES["flash_attention"]``.
 LAUNCHES_BY_FORM = {"tensor_core": 0, "split_kv": 0, "simt": 0}
+#: The backward's launches by form (:func:`backward_form`); they sum to
+#: ``LAUNCHES["flash_attention_bwd"]``.
+LAUNCHES_BY_BWD_FORM = {"tensor_core_bwd": 0, "simt_bwd": 0}
 
 HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 #: Head dims of the tensor-core and split-KV forms (bf16 only).
@@ -234,6 +245,24 @@ def split_kv_plain(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     return (num / den.clamp_min(1e-30)).to(q.dtype)
 
 
+def _aligned(*ts) -> bool:
+    """Whether every tensor can be copied in 16-byte rows (the
+    tensor-core and split-KV forms' loads): a 16-byte aligned start and
+    (b, h, s) strides that are multiples of 8 elements."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+
+
+def backward_form(q, k, v, grad) -> str:
+    """The backward kernel's form for these arguments: ``"tensor_core"``
+    for bf16 at D in :data:`TC_HEAD_DIMS` with q, k, v and the output's
+    gradient aligned as the forward's tensor-core form needs, else
+    ``"simt"`` (the CUDA-core form)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
+        return "simt"
+    return "tensor_core" if _aligned(q, k, v, grad) else "simt"
+
+
 def kernel_form(q, k, v) -> str:
     """The kernel form that :func:`flash_attention` launches for these
     arguments (see the module docstring).  The output, allocated like q,
@@ -241,10 +270,7 @@ def kernel_form(q, k, v) -> str:
     _, h, sq, d = q.shape
     if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
         return "simt"
-    aligned = all(t.data_ptr() % 16 == 0
-                  and all(st % 8 == 0 for st in t.stride()[:3])
-                  for t in (q, k, v))
-    if not aligned:
+    if not _aligned(q, k, v):
         return "simt"
     return "split_kv" if sq * (h // k.shape[1]) <= SPLIT_MAX_ROWS \
         else "tensor_core"
@@ -288,6 +314,52 @@ def _meta_ops(args, kwargs) -> float:
 META_OPS["flash_attention"] = _meta_ops
 
 
+def attention_bwd_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
+                      q_offset: int, kv_len: int, window=None) -> float:
+    """The backward's operations, the yardstick of its bound: P
+    recomputed and dV, dP, dQ, dK, 10·D per visible pair (2.5 times
+    :func:`attention_ops`; the kernel's statistics stage and the second
+    pass's recomputation not counted)."""
+    return 2.5 * attention_ops(b, h, sq, d, causal=causal,
+                               q_offset=q_offset, kv_len=kv_len,
+                               window=window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _meta_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 grad: torch.Tensor, causal: bool, scale: float,
+                 q_offset: int, kv_len: int,
+                 window: int) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """One launch of the backward kernel on the meta device (``window``
+    0: none): ``(dq, dk, dv)``."""
+    raise RuntimeError("repro_torch::flash_attention_bwd runs on meta "
+                       "tensors only")
+
+
+@_meta_bwd_op.register_fake
+def _(q, k, v, grad, causal, scale, q_offset, kv_len, window):
+    return _grads_like(q, k, v)
+
+
+def _grads_like(*ts):
+    """The backward's outputs: contiguous tensors of the inputs' shapes
+    and dtypes, as the plain version's (in q's layout, a ``view`` in the
+    backward of a full-size pod partition's DTensor step fails)."""
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in ts)
+
+
+def _meta_bwd_ops(args, kwargs) -> float:
+    q, _, _, _, causal, _, q_offset, kv_len, window = args
+    b, h, sq, d = q.shape
+    return attention_bwd_ops(b, h, sq, d, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, window=window or None)
+
+
+META_OPS["flash_attention_bwd"] = _meta_bwd_ops
+
+
 # --- the CUDA kernel ---------------------------------------------------------
 
 
@@ -309,6 +381,18 @@ def _lib() -> ctypes.CDLL:
                            "differ from the wrapper's")
     lib.flash_attention_error_string.argtypes = [ci]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = (
+        [vp] * 9 + [ci] * 9 + [ctypes.c_float, ci, ci, ci, vp])
+    lib.flash_attention_bwd.restype = ci
+    lib.flash_attention_bwd_error_string.argtypes = [ci]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -433,10 +517,75 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_BWD_FORM_CODES = {"simt": 0, "tensor_core": 1}
+
+
+def _bwd_stats(b: int, h: int, sq: int, dev) -> torch.Tensor:
+    """The backward kernel's f32 scratch: each q row's log-sum-exp and
+    rowsum(dP P)."""
+    return torch.empty(2, b, h, sq, dtype=torch.float32, device=dev)
+
+
+def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window):
+    """``(dq, dk, dv)`` on the card (the backward kernel's launch) or on
+    meta (its op), contiguous, in q's, k's and v's dtypes."""
+    q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else float(scale)
+    grad = grad.to(q.dtype)
+    dev = q.device
+    if dev.type == "meta":
+        # the kernel's scratch too, live across its launch, so that a
+        # recording's peak holds what the card holds
+        stats = _bwd_stats(b, h, sq, dev)
+        grads = _meta_bwd_op(q, k, v, grad, bool(causal), scale, q_offset,
+                             kv_len, 0 if window is None else window)
+        del stats
+        return grads
+    if grad.stride(-1) != 1 or not _aligned(grad):
+        grad = grad.contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if max(b, h) > 65535 or max(sq, sk) > 64 * 65535:
+        raise ValueError("batch and heads must be <= 65535, Sq and Sk <= "
+                         "4194240")
+    form = backward_form(q, k, v, grad)
+    dq, dk, dv = _grads_like(q, k, v)
+    stats = _bwd_stats(b, h, sq, dev)
+    strides = (ctypes.c_int64 * 21)(*[
+        s for t in (q, k, v, grad, dq, dk, dv) for s in t.stride()[:3]
+    ])
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), b, h, sq, hkv, sk,
+            kv_len, q_offset, int(bool(causal)),
+            0 if window is None else window, scale, d, _DTYPES[q.dtype],
+            _BWD_FORM_CODES[form], stream,
+        )
+    if code:
+        msg = lib.flash_attention_bwd_error_string(code).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed ({form} "
+                           f"form): CUDA error {code} ({msg})")
+    count_launch(LAUNCHES, "flash_attention_bwd")
+    count_launch(LAUNCHES_BY_BWD_FORM, f"{form}_bwd")
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """B4 with a gradient: the forward launches the kernel (the plain
-    version on the CPU) and saves q, k, v; the backward is
-    :func:`flash_attention_bwd`, torch ops, which recompute P."""
+    version on the CPU) and saves q, k, v; the backward launches the
+    backward kernel on the card (one op on meta) and, on the CPU, is
+    :func:`flash_attention_bwd`, torch ops; each recomputes P."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, window):
@@ -448,7 +597,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, grad, **ctx.args)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd(q, k, v, grad, **ctx.args)
+        else:
+            dq, dk, dv = _backward(q, k, v, grad, **ctx.args)
         need = ctx.needs_input_grad
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, None, None, None, None, None)

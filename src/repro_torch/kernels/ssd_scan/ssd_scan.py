@@ -39,10 +39,16 @@ with the kernel's result shapes, which a recording counts as the
 kernel's work (:func:`scan_ops`); nothing is launched or counted.  With grad enabled
 and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_SSDScan`): its forward is the same
-launch (or, on the CPU, the plain version), its backward recomputes
-the plain version under autograd and differentiates it (the JAX
-package trains through jnp autodiff; its Pallas kernel has no VJP), so
-a kernel output always carries its autograd history.  A launch is two
+launch (or, on the CPU, the plain version), so a kernel output always
+carries its autograd history.  Its backward dispatches by device as the
+forward does (the JAX package trains through jnp autodiff; its Pallas
+kernel has no VJP): on the card the backward kernel
+(``csrc/ssd_scan_bwd.cu``, counted in ``LAUNCHES["ssd_scan_bwd"]``, whose
+algorithm :func:`ssd_scan_bwd_plain` spells out in torch ops); on meta one
+op, ``repro_torch::ssd_scan_bwd`` (:func:`scan_bwd_ops`), with the
+kernel's f32 scratch allocated across it as on the card; on the CPU
+autograd through :func:`ssd_scan_plain`, the plain version recomputed and
+differentiated.  A launch is two
 kernels: C B^T of every (batch, chunk), which does not depend on the
 head, into f32 scratch that the wrapper allocates; then the scan, which
 splits the state's P columns across blocks, 64 per block while N <= 64,
@@ -58,8 +64,9 @@ import torch
 
 from repro_torch.kernels import META_OPS, build, count_launch
 
-#: Kernel launches; only the wrapper's launch adds to it.
-LAUNCHES = {"ssd_scan": 0}
+#: Kernel launches; only the wrappers' launches add to it (the backward's
+#: under ``ssd_scan_bwd``).
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 #: Steps per chunk, in the kernel (csrc/ssd_scan.cu kChunk) and the plain
 #: version alike.
@@ -150,6 +157,78 @@ def scan_ops(bsz: int, s: int, h: int, p: int, n: int) -> float:
     return total * bsz
 
 
+def ssd_scan_bwd_plain(x, la, b, c, h0, dy, dfinal):
+    """The backward kernel's algorithm in torch ops, f32, chunk by chunk:
+    the gradients ``(dx, dla, db, dc, dh0)`` of :func:`ssd_scan_plain`'s
+    outputs for ``dy`` (y's gradient, None for zero) and ``dfinal`` (the
+    final state's, None for zero); dh0 is None when h0 is.  The states
+    entering every chunk first, then a reverse sweep with ``s`` the
+    in-chunk cumsum of la, ``H`` the state entering the chunk and ``G``
+    the gradient of the one leaving it (``csrc/ssd_scan_bwd.cu`` states
+    each term).  Returned in the inputs' dtypes."""
+    bsz, s, h, p, n = _check_args(x, la, b, c, h0)
+    pad = -s % CHUNK
+    dev = x.device
+
+    def padded(t, dims):
+        return torch.nn.functional.pad(t.float(), dims)
+
+    xf = padded(x, (0, 0, 0, 0, 0, pad))
+    dyf = (torch.zeros_like(xf) if dy is None
+           else padded(dy, (0, 0, 0, 0, 0, pad)))
+    laf = padded(la, (0, 0, 0, pad))
+    bf, cf = padded(b, (0, 0, 0, pad)), padded(c, (0, 0, 0, pad))
+    tril = torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=dev).tril()
+    chunks = [slice(c0, c0 + CHUNK) for c0 in range(0, s + pad, CHUNK)]
+    state = (torch.zeros(bsz, h, n, p, device=dev) if h0 is None
+             else h0.float())
+    states, cums = [], []
+    for sl in chunks:
+        sk = torch.cumsum(laf[:, sl], dim=1)              # [B,L,H]
+        states.append(state)
+        cums.append(sk)
+        w = (sk[:, -1:] - sk).exp()
+        state = sk[:, -1].exp()[:, :, None, None] * state + torch.einsum(
+            "bjn,bjh,bjhp->bhnp", bf[:, sl], w, xf[:, sl])
+    g = (torch.zeros(bsz, h, n, p, device=dev) if dfinal is None
+         else dfinal.float())
+    dx, dla = torch.empty_like(xf), torch.empty_like(laf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    for sl, sk, hk in reversed(list(zip(chunks, cums, states))):
+        xk, dyk, bk, ck = xf[:, sl], dyf[:, sl], bf[:, sl], cf[:, sl]
+        decay = (sk[:, :, None, :] - sk[:, None, :, :]).masked_fill(
+            ~tril[None, :, :, None], float("-inf")).exp()  # [B,i,j,H]
+        es, s_last = sk.exp(), sk[:, -1]
+        w = (s_last[:, None, :] - sk).exp()               # [B,L,H]
+        cb = ck @ bk.transpose(1, 2)                       # [B,i,j]
+        m = torch.einsum("bihp,bjhp->bijh", dyk, xk) * decay
+        a = cb[..., None] * m
+        hd = torch.einsum("bhnp,bihp->bihn", hk, dyk)     # H dy_i
+        gx = torch.einsum("bhnp,bjhp->bjhn", g, xk)       # G x_j
+        dx[:, sl] = (torch.einsum("bij,bijh,bihp->bjhp", cb, decay, dyk)
+                     + w[..., None] * torch.einsum("bjn,bhnp->bjhp", bk, g))
+        db[:, sl] = (torch.einsum("bijh,bin->bjn", m, ck)
+                     + torch.einsum("bjh,bjhn->bjn", w, gx))
+        dc[:, sl] = (torch.einsum("bijh,bjn->bin", m, bk)
+                     + torch.einsum("bih,bihn->bin", es, hd))
+        q = w * torch.einsum("bjn,bjhn->bjh", bk, gx)
+        ds = (a.sum(2) - a.sum(1) - q
+              + es * torch.einsum("bin,bihn->bih", ck, hd))
+        ds[:, -1] += s_last.exp() * (g * hk).sum((-2, -1)) + q.sum(1)
+        dla[:, sl] = ds.flip(1).cumsum(1).flip(1)
+        g = s_last.exp()[:, :, None, None] * g + torch.einsum(
+            "bih,bin,bihp->bhnp", es, ck, dyk)
+    return (dx[:, :s].to(x.dtype), dla[:, :s], db[:, :s].to(b.dtype),
+            dc[:, :s].to(c.dtype), None if h0 is None else g)
+
+
+def scan_bwd_ops(bsz: int, s: int, h: int, p: int, n: int) -> float:
+    """The backward's operations: two multiply-adds of gradient per
+    multiply-add of the forward (:func:`scan_ops`), the yardstick of its
+    bound; the kernel also recomputes the states entering the chunks."""
+    return 2.0 * scan_ops(bsz, s, h, p, n)
+
+
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
 def _meta_op(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor,
@@ -176,6 +255,33 @@ def _meta_ops(args, kwargs) -> float:
 META_OPS["ssd_scan"] = _meta_ops
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _meta_bwd_op(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, h0: torch.Tensor | None, dy: torch.Tensor,
+                 dfinal: torch.Tensor | None) -> list[torch.Tensor]:
+    """One launch of the backward kernel on the meta device: ``[dx, dla,
+    db, dc]``, and ``dh0`` when h0 is given."""
+    raise RuntimeError("repro_torch::ssd_scan_bwd runs on meta tensors only")
+
+
+@_meta_bwd_op.register_fake
+def _(x, la, b, c, h0, dy, dfinal):
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+             for t in (x, la, b, c)]
+    if h0 is not None:
+        grads.append(torch.empty_like(h0))
+    return grads
+
+
+def _meta_bwd_ops(args, kwargs) -> float:
+    x, _, b = args[:3]
+    bsz, s, h, p = x.shape
+    return scan_bwd_ops(bsz, s, h, p, b.shape[-1])
+
+
+META_OPS["ssd_scan_bwd"] = _meta_bwd_ops
+
+
 # --- the CUDA kernel ---------------------------------------------------------
 
 
@@ -188,6 +294,19 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_fwd.restype = ci
     lib.ssd_scan_error_string.argtypes = [ci]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [vp] * 17 + [ci] * 7 + [vp]
+    lib.ssd_scan_bwd.restype = ci
+    lib.ssd_scan_bwd_columns.argtypes = [ci]
+    lib.ssd_scan_bwd_columns.restype = ci
+    lib.ssd_scan_bwd_error_string.argtypes = [ci]
+    lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -241,11 +360,84 @@ def _forward(x, la, b, c, h0):
     return y, final
 
 
+def bwd_columns(n: int) -> int:
+    """The state columns a block of the backward kernel takes at state
+    size ``n`` (the library's ``ssd_scan_bwd_columns``, which sizes the
+    scratch on the card)."""
+    return 64 if n <= 64 else 32
+
+
+def _bwd_scratch(bsz, s, h, p, n, cols, dev):
+    """The backward kernel's f32 scratch: the state entering every chunk
+    ``[B, H, chunks, N, P]``, the db and dc partials of every block of
+    ``cols`` state columns and the ds partials."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    chunks = -(-s // CHUNK)
+    blocks = h * -(-p // cols)  # partials a row
+    return (torch.empty(bsz * h * chunks * n * p, **f32),
+            torch.empty(2, bsz * blocks * chunks * CHUNK * n, **f32),
+            torch.empty(bsz * blocks * chunks * CHUNK, **f32))
+
+
+def _backward(x, la, b, c, h0, dy, dfinal):
+    """``(dx, dla, db, dc, dh0)`` on the card (the backward kernel's
+    launch) or on meta (its op); dh0 is None when h0 is."""
+    bsz, s, h, p, n = _check_args(x, la, b, c, h0)
+    dev = x.device
+    dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+    if dev.type == "meta":
+        # the kernel's scratch too, live across its launch, so that a
+        # recording's peak holds what the card holds
+        scratch = _bwd_scratch(bsz, s, h, p, n, bwd_columns(n), dev)
+        grads = _meta_bwd_op(x, la, b, c, h0, dy, dfinal)
+        del scratch
+        return (*grads[:4], grads[4] if h0 is not None else None)
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.float().contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if n > MAX_N:
+        raise ValueError(f"the kernel takes N <= {MAX_N}, got {n}")
+    lib = _bwd_lib()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    dla = torch.empty(la.shape, **f32)
+    db = torch.empty(b.shape, dtype=b.dtype, device=dev)
+    dc = torch.empty(c.shape, dtype=c.dtype, device=dev)
+    dh0 = None if h0 is None else torch.empty(h0.shape, **f32)
+    states, part_bc, part_s = _bwd_scratch(
+        bsz, s, h, p, n, lib.ssd_scan_bwd_columns(n), dev)
+    strides = (ctypes.c_int64 * 13)(
+        *x.stride()[:3], *dy.stride()[:3], *la.stride(), *b.stride()[:2],
+        *c.stride()[:2])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ssd_scan_bwd(
+            *map(ptr, (x, la, b, c, h0, dy, dfinal, dx, dla, db, dc, dh0,
+                       states, part_bc[0], part_bc[1], part_s)),
+            ctypes.cast(strides, ctypes.c_void_p), bsz, s, h, n, p,
+            _DTYPES[x.dtype], _DTYPES[b.dtype], stream,
+        )
+    if code:
+        msg = lib.ssd_scan_bwd_error_string(code).decode()
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {code} "
+                           f"({msg})")
+    count_launch(LAUNCHES, "ssd_scan_bwd")
+    return dx, dla, db, dc, dh0
+
+
 class _SSDScan(torch.autograd.Function):
     """B5 with a gradient: the forward launches the kernel (the plain
-    version on the CPU) and saves its inputs; the backward runs
+    version on the CPU) and saves its inputs; the backward launches the
+    backward kernel on the card (one op on meta) and, on the CPU, runs
     :func:`ssd_scan_plain` on them again under autograd and returns the
-    gradients of its outputs (torch ops, no launch)."""
+    gradients of its outputs."""
 
     @staticmethod
     def forward(ctx, x, la, b, c, h0):
@@ -257,14 +449,24 @@ class _SSDScan(torch.autograd.Function):
     def backward(ctx, grad_y, grad_final):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(saved, need)]
-            outs = ssd_scan_plain(*inputs)
-            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_final))
-                     if g is not None]
-            wanted = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in pairs], wanted, [g for _, g in pairs],
-                allow_unused=True) if pairs else [None] * len(wanted))
-        return tuple(next(grads) if n else None for n in need)
+        if saved[0].device.type == "cpu":
+            return _autograd_backward(saved, need, grad_y, grad_final)
+        grads = _backward(*saved, grad_y, grad_final)
+        return tuple(g if n else None for g, n in zip(grads, need))
+
+
+def _autograd_backward(saved, need, grad_y, grad_final):
+    """The CPU's backward: :func:`ssd_scan_plain` on the saved inputs
+    again under autograd, and the gradients of its outputs for those
+    inputs that ``need`` them (None for the others)."""
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(saved, need)]
+        outs = ssd_scan_plain(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_final))
+                 if g is not None]
+        wanted = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(wanted))
+    return tuple(next(grads) if n else None for n in need)

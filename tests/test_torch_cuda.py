@@ -19,6 +19,7 @@ Every test needs a CUDA device and skips without one."""
 from __future__ import annotations
 
 import dataclasses
+import sys
 import threading
 
 import numpy as np
@@ -674,9 +675,9 @@ def test_ssd_scan_column_blocks_and_bf16_b_c(cuda_device, bc_dtype, b, s, h,
                                         (torch.bfloat16, "tensor_core")])
 def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
     """Under grad the kernel's output has B4's ``grad_fn``; its gradients
-    (the closed form) equal autograd through the plain version on the
-    same card, within 1e-4 of each one's largest value in f32 (bf16:
-    the inputs' rounding, 2e-2)."""
+    (one launch of the backward kernel, on the same form) equal autograd
+    through the plain version on the same card, within 1e-4 of each
+    one's largest value in f32 (bf16: the inputs' rounding, 2e-2)."""
     gen = torch.Generator(device=cuda_device).manual_seed(8)
 
     def rand(*shape):
@@ -685,13 +686,18 @@ def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
 
     q, k, v = rand(2, 8, 256, 64), rand(2, 4, 256, 64), rand(2, 4, 256, 64)
     assert fa.kernel_form(q, k, v) == form
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
+    bwd_form = fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"]
     out = fa.flash_attention(q, k, v, causal=True)
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
     g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
+    assert fa.backward_form(q, k, v, g) == form
     got = torch.autograd.grad(out, (q, k, v), g)
-    assert fa.LAUNCHES["flash_attention"] == before + 1  # backward: torch ops
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"] == bwd_form + 1
     want = torch.autograd.grad(
         fa.flash_attention_plain(q, k, v, causal=True), (q, k, v), g)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -702,9 +708,11 @@ def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
 
 def test_ssd_scan_gradient_on_the_card(cuda_device):
     """Under grad the kernel's outputs have B5's ``grad_fn``; the
-    gradients (the plain version recomputed and differentiated) equal
-    autograd through the plain version, at 1e-5 of each one's largest
-    value (the two forwards differ by the kernel's rounding only)."""
+    gradients (one launch of the backward kernel) equal autograd through
+    the plain version, at 1e-5 of each one's largest value (f32 sums in
+    two orders); the bf16 gradients of b and c round those sums, and
+    where a sum lies by a rounding point the two round it one bf16 step
+    (at most 2^-7 of its value) apart."""
     gen = torch.Generator(device=cuda_device).manual_seed(9)
 
     def rand(*shape):
@@ -714,17 +722,184 @@ def test_ssd_scan_gradient_on_the_card(cuda_device):
     la = (-torch.nn.functional.softplus(rand(2, 300, 4))).requires_grad_()
     bb = (rand(2, 300, 64) * 0.3).to(torch.bfloat16).requires_grad_()
     cc = (rand(2, 300, 64) * 0.3).to(torch.bfloat16).requires_grad_()
-    before = scan.LAUNCHES["ssd_scan"]
+    before = dict(scan.LAUNCHES)
     y, _ = scan.ssd_scan(x, la, bb, cc)
-    assert scan.LAUNCHES["ssd_scan"] == before + 1
+    assert scan.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
     assert type(y.grad_fn).__name__ == "_SSDScanBackward"
     g = rand(*y.shape)
     got = torch.autograd.grad(y, (x, la, bb, cc), g)
+    assert scan.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert scan.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
     want = torch.autograd.grad(scan.ssd_scan_plain(x, la, bb, cc)[0],
                                (x, la, bb, cc), g)
     for a, w in zip(got, want):
-        assert float((a.float() - w.float()).abs().max()) <= \
-            1e-5 * float(w.float().abs().max())
+        w = w.float()
+        step = 2.0 ** -7 * w.abs() if a.dtype == torch.bfloat16 else 0.0
+        assert bool(((a.float() - w).abs()
+                     <= 1e-5 * float(w.abs().max()) + step).all())
+
+
+# backward kernels, held to the plain versions: max |kernel - plain| over
+# the plain gradient's largest |value|.  f32: sums in other orders, and B5's
+# in-chunk cumsum by a warp scan; bf16 (B4's tensor-core form): P and dS
+# rounded to bf16 as the products' operands, and the outputs' rounding.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# ... and row by row (``row_err``): a gradient's rows differ in size (a late
+# kv row of a causal dk, dv sees few q rows), so a term lost from the small
+# rows hides under the largest value; each row is held to its own rms, at
+# chip_smoke.py's ``BWD_ROW_TOL`` (these cases read up to 0.030 in bf16 and
+# 9.9e-6 in f32 for B4, 0.013 and 2.1e-3 for B5: dla's suffix sums cancel)
+BWD_ROW_TOL = {"flash": {torch.float32: 5e-4, torch.bfloat16: 6e-2},
+               "ssd": {torch.float32: 2e-2, torch.bfloat16: 5e-2}}
+
+
+def row_err(got: torch.Tensor, plain: torch.Tensor) -> float:
+    """The largest max |got - plain| of a row (the last dimension) over
+    that row's rms of ``plain``, floored at 1e-3 of the whole gradient's
+    rms (a row that is zero up to rounding has no relative error)."""
+    g, p = got.float(), plain.float()
+    floor = max(1e-3 * float(p.pow(2).mean().sqrt()),
+                torch.finfo(torch.float32).tiny)
+    return float(((g - p).abs().amax(-1)
+                  / p.pow(2).mean(-1).sqrt().clamp_min(floor)).max())
+
+
+@pytest.mark.parametrize("dtype,b,h,hkv,sq,sk,d,kw", [
+    (torch.bfloat16, 2, 4, 4, 256, 256, 64, dict(causal=True)),
+    (torch.bfloat16, 2, 8, 2, 300, 300, 128, dict(causal=True)),   # GQA
+    (torch.bfloat16, 1, 4, 2, 300, 300, 64,
+     dict(causal=True, window=50)),                                 # window
+    (torch.bfloat16, 2, 4, 4, 200, 330, 64, dict(causal=False)),    # Sq != Sk
+    (torch.bfloat16, 2, 4, 4, 200, 200, 96, dict(causal=True)),     # D 96
+    (torch.bfloat16, 1, 4, 4, 200, 300, 64,
+     dict(causal=True, q_offset=40, kv_len=250)),                   # offsets
+    (torch.float32, 2, 4, 4, 256, 256, 64, dict(causal=True)),
+    (torch.float32, 2, 8, 2, 130, 130, 16, dict(causal=True)),
+    (torch.float32, 1, 4, 2, 300, 300, 8, dict(causal=True, window=37)),
+    (torch.float32, 2, 2, 2, 70, 150, 32, dict(causal=False)),
+    (torch.float32, 1, 4, 4, 150, 200, 96,
+     dict(causal=True, q_offset=30, kv_len=170, window=60)),
+    (torch.bfloat16, 2, 4, 4, 130, 130, 16, dict(causal=True)),    # bf16 D 16
+], ids=["tc", "tc-gqa-d128", "tc-window", "tc-noncausal", "tc-d96",
+        "tc-offsets", "simt-f32", "simt-f32-gqa-d16", "simt-f32-window-d8",
+        "simt-f32-noncausal-d32", "simt-f32-offsets-window-d96",
+        "simt-bf16-d16"])
+def test_flash_attention_backward_kernel_vs_plain(cuda_device, dtype, b, h,
+                                                  hkv, sq, sk, d, kw):
+    """B4's backward kernel, on the form ``backward_form`` picks, against
+    the closed form in torch ops and autograd through the plain version,
+    on the same inputs (``BWD_TOL``, and row by row ``BWD_ROW_TOL``)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + d)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(
+            dtype).transpose(1, 2).requires_grad_()
+
+    q, k, v = rand(b, sq, h, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+    out = fa.flash_attention(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
+    form = ("tensor_core" if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
+            else "simt")
+    assert fa.backward_form(q, k, v, g) == form
+    before = fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"]
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"] == before + 1
+    closed = fa.flash_attention_bwd(q, k, v, g, **kw)
+    auto = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw),
+                               (q, k, v), g)
+    for want in (closed, auto):
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+            assert row_err(a, w) <= BWD_ROW_TOL["flash"][dtype]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,with_h0,with_final,x_dt,bc_dt", [
+    (2, 2048, 8, 64, 64, True, True, torch.float32, torch.float32),
+    (2, 300, 4, 64, 128, True, True, torch.float32, torch.float32),  # N 128
+    (2, 131, 3, 48, 64, False, True, torch.float32, torch.float32),  # ragged
+    (1, 200, 2, 80, 100, True, False, torch.float32, torch.float32),
+    (2, 256, 4, 64, 64, False, False, torch.float32, torch.bfloat16),
+    (2, 300, 4, 64, 64, True, True, torch.bfloat16, torch.bfloat16),
+    (1, 37, 2, 8, 4, True, True, torch.float32, torch.float32),      # tiny
+], ids=["f32", "n128", "ragged-no-h0", "n100-no-final", "bf16-bc",
+        "bf16-x-bc", "tiny"])
+def test_ssd_scan_backward_kernel_vs_plain(cuda_device, b, s, h, p, n,
+                                           with_h0, with_final, x_dt, bc_dt):
+    """B5's backward kernel against its algorithm in torch ops
+    (``ssd_scan_bwd_plain``) and autograd through the plain scan: f32
+    gradients within ``BWD_TOL`` of the largest; bf16 ones (x, b, c in
+    bf16) also within one bf16 step (at most 2^-7 of the value)
+    elementwise; every row within ``BWD_ROW_TOL`` of its rms."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + n)
+
+    def rand(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
+
+    x = rand(b, s, h, p, dt=x_dt).requires_grad_()
+    la = (-torch.nn.functional.softplus(rand(b, s, h))).requires_grad_()
+    bb = (rand(b, s, n) * 0.3).to(bc_dt).requires_grad_()
+    cc = (rand(b, s, n) * 0.3).to(bc_dt).requires_grad_()
+    h0 = rand(b, h, n, p).requires_grad_() if with_h0 else None
+    inputs = [t for t in (x, la, bb, cc, h0) if t is not None]
+    y, final = scan.ssd_scan(x, la, bb, cc, h0)
+    gy = rand(*y.shape, dt=x_dt)
+    gf = rand(*final.shape) if with_final else None
+    outs, gouts = ((y, final), (gy, gf)) if with_final else ((y,), (gy,))
+    before = scan.LAUNCHES["ssd_scan_bwd"]
+    got = torch.autograd.grad(outs, inputs, gouts)
+    assert scan.LAUNCHES["ssd_scan_bwd"] == before + 1
+    plain = [t for t in scan.ssd_scan_bwd_plain(
+        x.detach(), la.detach(), bb.detach(), cc.detach(),
+        None if h0 is None else h0.detach(), gy, gf) if t is not None]
+    py, pf = scan.ssd_scan_plain(x, la, bb, cc, h0)
+    auto = torch.autograd.grad((py, pf)[:len(outs)], inputs, gouts)
+    for want in (plain, auto):
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            w = w.float()
+            step = 2.0 ** -7 * w.abs() if a.dtype == torch.bfloat16 else 0.0
+            assert bool(((a.float() - w).abs() <= BWD_TOL[torch.float32]
+                         * float(w.abs().max()) + step).all())
+            assert row_err(a, w) <= BWD_ROW_TOL["ssd"][a.dtype]
+
+
+def test_ssd_scan_bwd_columns_are_the_librarys(cuda_device):
+    """``bwd_columns``, which sizes the backward's scratch on meta, gives
+    the library's block width at every state size the kernel takes."""
+    mod = sys.modules[scan.ssd_scan.__module__]
+    lib = mod._bwd_lib()
+    sizes = range(1, mod.MAX_N + 1)
+    assert [mod.bwd_columns(n) for n in sizes] == \
+        [lib.ssd_scan_bwd_columns(n) for n in sizes]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_are_deterministic(cuda_device, dtype):
+    """Two launches of each backward kernel on the same inputs give the
+    same bits (fixed-order reductions, no float atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
+
+    q, k, v = (rand(2, 300, n, 64).transpose(1, 2) for n in (8, 2, 2))
+    g = rand(2, 8, 300, 64)
+    kw = dict(causal=True, scale=None, q_offset=0, kv_len=None, window=None)
+    mod = sys.modules[fa.flash_attention.__module__]
+    first = mod._backward(q, k, v, g, **kw)
+    assert all(torch.equal(a, c) for _ in range(2)
+               for a, c in zip(first, mod._backward(q, k, v, g, **kw)))
+    x, dy = rand(2, 300, 8, 64), rand(2, 300, 8, 64)
+    la = -torch.nn.functional.softplus(rand(2, 300, 8, dt=torch.float32))
+    bb, cc = rand(2, 300, 128) * 0.3, rand(2, 300, 128) * 0.3
+    h0 = rand(2, 8, 128, 64, dt=torch.float32)
+    smod = sys.modules[scan.ssd_scan.__module__]
+    first = smod._backward(x, la, bb, cc, h0, dy, h0)
+    assert all(torch.equal(a, c) for _ in range(2)
+               for a, c in zip(first, smod._backward(x, la, bb, cc, h0, dy,
+                                                     h0)))
 
 
 def test_reduced_training_step_on_the_card(cuda_device):

@@ -3,12 +3,13 @@ allocated):
 
 * the meta recording of a model step is the CPU recording of the model
   graph source op for op, except the kernels: on the CPU B4's and B5's
-  forwards run their plain versions, on meta each is one op
-  (``repro_torch::flash_attention`` / ``ssd_scan``) whose FLOPs are the
-  kernel's own count, checked here against closed forms, and whose
-  output has the kernel's layout.  The CPU side runs the plain forward
-  out of the recorder's sight, into a tensor of the kernel's layout, so
-  the rest of the step is the same program; the meta side also copies
+  forwards and backwards run their plain versions, on meta each is one
+  op (``repro_torch::flash_attention`` / ``ssd_scan`` and their
+  ``_bwd`` ops) whose FLOPs are the kernel's own count, checked here
+  against closed forms (a backward's: 2.5 and 2 times its forward's), and
+  whose outputs have the kernel's layout.  The CPU side runs the plain
+  versions out of the recorder's sight, into tensors of the kernels'
+  layouts, so the rest of the step is the same program; the meta side also copies
   RoPE's host frequencies to the device, which on the CPU is no op.
   MoE archs route by values, which meta has not (uniform counts):
   their dense FLOPs are compared instead;
@@ -50,7 +51,8 @@ DENSE = ("llama3-8b", "yi-34b", "deepseek-67b", "codeqwen1.5-7b",
          "zamba2-1.2b")
 MOE = ("mixtral-8x7b", "arctic-480b")
 STEPS = ("prefill", "decode", "train")
-KERNEL_OPS = ("flash_attention", "ssd_scan")
+KERNEL_OPS = ("flash_attention", "ssd_scan", "flash_attention_bwd",
+              "ssd_scan_bwd")
 REF_KEYS = {"arch", "shape", "mesh", "status", "kind", "lower_s",
             "compile_s", "memory", "bf16_legalization_overhead_bytes",
             "cost", "loop_aware_cost", "collectives", "param_count",
@@ -61,21 +63,30 @@ MEM_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 
 @pytest.fixture
 def plain_forwards_unseen(monkeypatch):
-    """B4's and B5's CPU forwards (their plain versions) run out of the
-    recorder's sight, into outputs of the kernels' layouts."""
-    def hidden(fn, layout):
-        def wrapped(*args):
-            if args[0].device.type != "cpu":
-                return fn(*args)
+    """B4's and B5's CPU forwards and backwards (their plain versions)
+    run out of the recorder's sight, into outputs of the kernels'
+    layouts."""
+    def hidden(fn, layout, first=lambda a: a[0]):
+        def wrapped(*args, **kw):
+            if first(args).device.type != "cpu":
+                return fn(*args, **kw)
             with _disable_current_modes():
-                return layout(args, fn(*args))
+                return layout(args, fn(*args, **kw))
         return wrapped
+
+    def contiguous(outs):   # the backward kernels' gradients
+        return tuple(None if o is None else o.contiguous() for o in outs)
 
     monkeypatch.setattr(FA, "_forward", hidden(
         FA._forward, lambda a, o: torch.empty_like(a[0]).copy_(o)))
     monkeypatch.setattr(SC, "_forward", hidden(
         SC._forward, lambda a, o: (torch.empty(
             a[0].shape, dtype=a[0].dtype).copy_(o[0]), o[1])))
+    monkeypatch.setattr(FA, "flash_attention_bwd", hidden(
+        FA.flash_attention_bwd, lambda a, o: contiguous(o)))
+    monkeypatch.setattr(SC, "_autograd_backward", hidden(
+        SC._autograd_backward, lambda a, o: contiguous(o),
+        first=lambda a: a[0][0]))
 
 
 def _sig(ev) -> tuple:
@@ -115,13 +126,15 @@ def _scan_ops(b, s, h, p, n) -> float:
 
 
 def _check_kernel_op(ev, args) -> None:
-    if ev.op == "flash_attention":
-        q, k, _, causal, _, q_offset, kv_len, window = args
-        assert ev.flops == _attention_ops(tuple(q.shape), causal, q_offset,
-                                          kv_len, window)
+    if ev.op.startswith("flash_attention"):
+        q, *_, causal, _, q_offset, kv_len, window = args
+        ops = _attention_ops(tuple(q.shape), causal, q_offset, kv_len,
+                             window)
+        assert ev.flops == (2.5 * ops if ev.op.endswith("_bwd") else ops)
     else:
         x, _, bb = args[:3]
-        assert ev.flops == _scan_ops(*x.shape, bb.shape[-1])
+        ops = _scan_ops(*x.shape, bb.shape[-1])
+        assert ev.flops == (2 * ops if ev.op.endswith("_bwd") else ops)
     assert ev.kind == "dot"
 
 
@@ -129,7 +142,8 @@ def _check_kernel_op(ev, args) -> None:
 def kernel_args(monkeypatch):
     """The arguments of every meta kernel op, in order."""
     seen = []
-    for mod, name in ((FA, "_meta_op"), (SC, "_meta_op")):
+    for mod, name in ((FA, "_meta_op"), (SC, "_meta_op"),
+                      (FA, "_meta_bwd_op"), (SC, "_meta_bwd_op")):
         op = getattr(mod, name)
 
         def wrapped(*args, _op=op):

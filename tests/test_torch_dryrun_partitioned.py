@@ -78,8 +78,8 @@ _CAUSE_DOT_DENSE = (
     "pspec_for's fallback; seamless: C10's kv_heads 'tp' resolves to ()), "
     "in the forward, the remat recompute and the backward: 96-97 % of the "
     "forward's FLOPs beyond the one-device step (partition x 8 / one "
-    "device: llama3 1.389, seamless 1.848); and C9's closed-form B4 "
-    "backward forms Q.K^T once more")
+    "device: llama3 1.389, seamless 1.848); B4's backward is one op of "
+    "10 D operations per visible pair, 2.5 times its forward (C9)")
 _CAUSE_TEMP = (
     "xla:cpu legalizes bf16 to f32 and keeps the f32 copies (C8); the "
     "port frees a storage at its last use, XLA's buffer assignment does "
@@ -96,10 +96,12 @@ _CAUSE_ICI = (
     "a reduce-scatter and an all-gather move together")
 RANGES = {
     ("dense", "train"): {
-        "dot": (1.087, 1.352, _CAUSE_DOT_DENSE),
-        "bytes": (0.901, 1.157, "ATen's unfused ops read and write every "
+        "dot": (1.046, 1.338, _CAUSE_DOT_DENSE),
+        "bytes": (0.782, 1.005, "ATen's unfused ops read and write every "
                   "intermediate; XLA fuses them but reads each stacked "
-                  "weight whole in every layer (C8)"),
+                  "weight whole in every layer (C8); B4's backward is one "
+                  "op that reads its operands and writes its gradients "
+                  "once"),
         "ici": (0.529, 0.600, _CAUSE_ICI),
         "temp": (0.674, 0.743, _CAUSE_TEMP),
     },
@@ -112,26 +114,27 @@ RANGES = {
         "temp": (0.139, 0.139, _CAUSE_TEMP),
     },
     ("moe", "train"): {
-        "dot": (0.836, 0.836, "the port routes the kept (token, choice) "
+        "dot": (0.798, 0.798, "the port routes the kept (token, choice) "
                 "pairs only, the reference's one-hot dispatch and combine "
                 "einsums touch every expert slot (C8), against the kv "
                 "projections repeated as in the dense class"),
-        "bytes": (1.041, 1.041, "as the dense class"),
+        "bytes": (0.946, 0.946, "as the dense class"),
         "ici": (0.629, 0.629, _CAUSE_ICI),
         "temp": (0.708, 0.708, _CAUSE_TEMP),
     },
     ("ssd", "train"): {
-        "dot": (1.335, 1.335, "B5 counts its chunk of 64 (the reference "
-                "scans in its config's chunk) and its backward recomputes "
-                "the plain scan (C9); the whole model is replicated over "
-                "the mesh in both (C10)"),
-        "bytes": (1.223, 1.223, "B5's backward is the plain scan's ops, "
-                  "each intermediate written and read"),
+        "dot": (1.156, 1.156, "B5 counts its chunk of 64 (the reference "
+                "scans in its config's chunk) and its backward as one op of "
+                "twice its forward's operations (C9); the whole model is "
+                "replicated over the mesh in both (C10)"),
+        "bytes": (0.551, 0.551, "B5's backward is one op that reads its "
+                  "operands and writes its gradients once; the reference's "
+                  "differentiated scan writes and reads its chunk "
+                  "intermediates"),
         "ici": (0.0, 0.0, "no collective in either: mamba2-780m's rules "
                 "replicate every operand (C10)"),
-        "temp": (1.369, 1.369, "B5's backward holds the plain scan's "
-                 "chunk intermediates; the reference's scan body is "
-                 "fused"),
+        "temp": (0.612, 0.612, "B5's backward is one op and holds no "
+                 "chunk intermediates; " + _CAUSE_TEMP),
     },
     ("ssd", "prefill"): {
         "dot": (1.570, 1.570, "B5 counts its chunk of 64 against the "

@@ -140,7 +140,8 @@ class YieldingDict(dict):
 
 
 COUNTERS = (sdcm.LAUNCHES, reuse_hist.LAUNCHES, ssd_scan.LAUNCHES,
-            flash_attention.LAUNCHES, flash_attention.LAUNCHES_BY_FORM)
+            flash_attention.LAUNCHES, flash_attention.LAUNCHES_BY_FORM,
+            flash_attention.LAUNCHES_BY_BWD_FORM)
 
 
 def test_launch_counts_from_many_threads_lose_nothing():
@@ -158,9 +159,11 @@ def test_launch_counts_from_many_threads_lose_nothing():
         run_threads(bump)
     finally:
         sys.setswitchinterval(old)
-    each = THREADS * bumps // len(names)
-    for got, want in zip(counts, COUNTERS):
-        assert got == dict.fromkeys(want, each)
+    # each thread's bump i goes to names[i % len(names)]
+    want = [THREADS * len(range(k, bumps, len(names)))
+            for k in range(len(names))]
+    assert [c[name] for c, name in names] == want
+    assert [list(c) for c in counts] == [list(c) for c in COUNTERS]
 
 
 KERNEL_MODULES = sorted((ROOT / "src" / "repro_torch" / "kernels")
