@@ -205,8 +205,11 @@ with a non-zero exit:
     equal bits; at the train shapes in bf16 and f32
     and, for B4, GQA, a window, not causal with Sq != Sk, D 96, D 16 and
     ``q_offset`` / ``kv_len``; for B5 N 128, ragged S, ``h0``, a
-    final-state gradient, bf16 x, b and c.  Timed at the train shapes
-    (eager, replayed, the plain versions; SDPA's backward beside B4's).
+    final-state gradient, bf16 x, b and c.  B4's tensor-core form reads
+    the forward's log-sum-exp (held to the plain version's, ``LSE_TOL``)
+    and output.  Timed at the train shapes (eager, replayed, each
+    launch's device ms, the plain versions; SDPA's backward beside B4's,
+    the 3xTF32 tensor-core bound beside B5's).
     ``python3 chip_smoke.py --phase kernel_backward`` runs it alone.
 18. Training (ROADMAP A-11b): ``repro_torch.launch.train.train`` on
     zamba2-1.2b at full width and depth (38 Mamba2 layers, the shared
@@ -317,6 +320,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP64_S = 34e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12  # tensor cores, dense
 # operations counted per evaluated binomial term: one log, one exp and
 # six arithmetic operations (each transcendental counted as one)
 OPS_PER_TERM = 8
@@ -3217,6 +3221,10 @@ BWD_TOL = {"flash_attention_bwd": {torch.float32: 1e-5,
 BWD_ROW_TOL = {"flash_attention_bwd": {torch.float32: 5e-4,
                                        torch.bfloat16: 6e-2},
                "ssd_scan_bwd": {torch.float32: 2e-2, torch.bfloat16: 5e-2}}
+# the forward's log-sum-exp (bf16 forms, under autograd) against the plain
+# version's, absolute: both sum exactly the same bf16 products in f32, in
+# other orders, and the kernel's exp2 is the SFU's (rows of ~8 here)
+LSE_TOL = 1e-4
 # a row's rms is floored at this share of the whole gradient's rms: a row
 # that is zero up to rounding (dq of a row that sees one column) has no
 # relative error to speak of
@@ -3249,6 +3257,9 @@ BWD_FLASH_CASES = [  # tag, dtype, B, H, Hkv, Sq, Sk, D, kwargs
     ("offsets_f32", _F32, 2, 8, 8, 300, 1000, 8,
      dict(causal=True, q_offset=600, kv_len=900)),
 ]
+# (la = -softplus(randn) takes e^-45 off a chunk of 64 steps, so what one
+# chunk carries to the next barely counts; "slow_decay" scales la by 0.01,
+# a chunk's decay ~0.6, so that the state and dH carried across chunks do)
 BWD_SSD_CASES = [  # tag, B, S, H, P, N, x dtype, b/c dtype, h0, final
     ("train", TRAIN_BATCH, TRAIN_SEQ, 64, 64, 64, _F32, _BF16, False,
      False),
@@ -3260,6 +3271,7 @@ BWD_SSD_CASES = [  # tag, B, S, H, P, N, x dtype, b/c dtype, h0, final
      True),
     ("bf16_x_bc", 2, 2048, 16, 64, 128, _BF16, _BF16, True, True),
     ("n100_p80", 1, 300, 4, 80, 100, _F32, _F32, True, True),
+    ("slow_decay", 2, 1000, 16, 64, 64, _F32, _BF16, True, True),
 ]
 
 
@@ -3293,6 +3305,39 @@ def sdpa_backward_ms(q, k, v, go) -> tuple[float, float]:
             *leaves, **kw), leaves, go)
 
     return (cuda_ms(both) - cuda_ms(fwd), graph_ms(both) - graph_ms(fwd))
+
+
+def kernel_short_name(name: str) -> str:
+    """A profiler kernel name without its return type, template and
+    function arguments: ``ns::kernel``."""
+    name = name.split("(")[0].split("<")[0]
+    return name.split(" ")[-1]
+
+
+def launch_split(fn, calls: int = 10) -> dict:
+    """Device ms a launch of each kernel that ``fn`` launches once a call,
+    by ``kernel_short_name``: the mean over the launches that
+    ``torch.profiler``'s raw events hold for ``calls`` calls after a
+    warm-up.  The mean, not the sum over ``calls``: late in a long run
+    the trace has been seen to keep only some of the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = total.get(kernel_short_name(e.name()), (0.0, 0))
+            total[kernel_short_name(e.name())] = (ms + e.duration_ns() / 1e6,
+                                                  n + 1)
+    if not total:
+        fail("the profiler saw no device time")
+    return {name: ms / n for name, (ms, n) in total.items()}
 
 
 def bwd_row_err(got: torch.Tensor, plain: torch.Tensor) -> tuple[float,
@@ -3356,9 +3401,15 @@ def phase_kernel_backward(smi: str) -> list:
     of 64 over a state of 64) in bf16 and f32, and a case list: for B4
     GQA, a window, not causal with Sq != Sk, D 96, D 16, ``q_offset`` /
     ``kv_len``; for B5 N 128, ragged S, ``h0``, a final-state gradient,
-    bf16 x, b and c.  Timed at the train shapes in bf16 (the training
-    path's inputs): ``ms`` eager, ``graph_ms`` replayed, the plain
-    versions, SDPA's backward for B4.  Returns their kernel records."""
+    bf16 x, b and c.  B4's tensor-core form reads the forward's
+    log-sum-exp and output (``_forward(..., for_grad=True)``, outside the
+    timed calls), whose log-sum-exp is held to the plain version's
+    (``LSE_TOL``).  Timed at the train shapes in bf16 (the training
+    path's inputs): ``ms`` eager, ``graph_ms`` replayed, ``split_ms`` the
+    device ms of each launch (``launch_split``), the plain versions,
+    SDPA's backward for B4, and for B5 ``bound_tc_ms`` beside
+    ``bound_ms``: its operations as 3xTF32 at the tensor cores' TF32
+    rate.  Returns their kernel records."""
     # the modules (their packages export functions of the same names)
     fam = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
@@ -3376,9 +3427,23 @@ def phase_kernel_backward(smi: str) -> list:
                     q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
                     window=kw.get("window"))
         form = fam.backward_form(q, k, v, go)
+        out = lse = out_lo = None
+        lse_err = None
+        if fam.keeps_lse(q, k, v):
+            # the forward under autograd: its output, log-sum-exp and
+            # rounding residual, which the tensor-core backward reads
+            out, lse, out_lo = fam._forward(
+                q, k, v, kw["causal"], None, full["q_offset"],
+                full["kv_len"], full["window"], for_grad=True)
+            lse_err = float((lse - fam.flash_attention_plain(
+                q, k, v, **kw, return_lse=True)[1]).abs().max())
+            if not lse_err <= LSE_TOL:
+                fail(f"flash_attention {tag}: the forward's log-sum-exp is "
+                     f"{lse_err} from the plain version's (bound {LSE_TOL})")
 
         def kernel():
-            return fam._backward(q, k, v, go, **full)
+            return fam._backward(q, k, v, go, **full, out=out, lse=lse,
+                                 out_lo=out_lo)
 
         got = kernel()
         torch.cuda.synchronize()
@@ -3390,6 +3455,7 @@ def phase_kernel_backward(smi: str) -> list:
         del auto, leaves
         rec = dict(case=tag, form=form, dtype=str(dt),
                    shape=[b, h, hkv, sq, sk, d], **kw, **errs,
+                   lse_err=lse_err,
                    tol=BWD_TOL["flash_attention_bwd"][dt],
                    row_tol=BWD_ROW_TOL["flash_attention_bwd"][dt],
                    deterministic=same_bits(kernel, got))
@@ -3402,6 +3468,7 @@ def phase_kernel_backward(smi: str) -> list:
                 PEAK_BF16_S)
             lib_ms, lib_graph_ms = sdpa_backward_ms(q, k, v, go)
             rec.update(ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
+                       split_ms=launch_split(kernel),
                        plain_ms=cuda_ms(lambda: fam.flash_attention_bwd(
                            q, k, v, go, **kw), reps=3, warmup=1),
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -3410,7 +3477,7 @@ def phase_kernel_backward(smi: str) -> list:
         worst = max(worst, errs["max_abs_err"])
         line("kernel_backward", kernel="flash_attention_bwd", card=smi,
              **rec)
-        del q, k, v, go, got
+        del q, k, v, go, got, out, lse, out_lo
         torch.cuda.empty_cache()
 
     ssd_rec, ssd_worst = None, 0.0
@@ -3419,6 +3486,8 @@ def phase_kernel_backward(smi: str) -> list:
         rand = cuda_rand(80 + i)
         x = rand(b, s, h, p, dtype=x_dt)
         la = -torch.nn.functional.softplus(rand(b, s, h))
+        if tag == "slow_decay":
+            la = la * 0.01
         bb = (rand(b, s, n) * 0.3).to(bc_dt)
         cc = (rand(b, s, n) * 0.3).to(bc_dt)
         h0 = rand(b, h, n, p) if with_h0 else None
@@ -3451,9 +3520,12 @@ def phase_kernel_backward(smi: str) -> list:
                                   scm.scan_bwd_ops(b, s, h, p, n),
                                   PEAK_FP32_S)
             rec.update(ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
+                       split_ms=launch_split(kernel),
                        plain_ms=cuda_ms(lambda: scm.ssd_scan_bwd_plain(
                            x, la, bb, cc, h0, gy, gf), reps=3, warmup=1),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by,
+                       bound_tc_ms=3 * scm.scan_bwd_ops(b, s, h, p, n)
+                       / PEAK_TF32_S * 1e3, library_ms=None)
             ssd_rec = rec
         ssd_worst = max(ssd_worst, errs["max_abs_err"])
         line("kernel_backward", kernel="ssd_scan_bwd", card=smi, **rec)

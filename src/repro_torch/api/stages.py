@@ -16,8 +16,9 @@ kernel on the cache model's device, and the exact-LRU ground truth
 (``ExactLRU``) simulates the mimicked traces on its own device.
 
 Workload registry names (``polybench/atx``, bare Table-4 aliases such
-as ``atx``, ``synthetic/stride``) are trace sources; ``model/`` names
-raise ``NotImplementedError`` (ROADMAP queue A).
+as ``atx``, ``synthetic/stride``) are trace sources, and so are
+``model/<arch>/{prefill,decode,train}`` names: a model step's ATen ops
+recorded on the host (``workloads/model_trace.py``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-// f32 register tiles over shared memory for the CUDA-core backward kernels
-// (flash_attention/csrc/flash_bwd.cu's CUDA-core form and
-// ssd_scan/csrc/ssd_scan_bwd.cu): each thread owns a 4 x 4 tile of a small
-// matrix product and reads its operands as float4.  kernels/build.py puts
-// this directory on every source's include path and hashes it with each
-// library.
+// f32 register tiles over shared memory for B4's CUDA-core backward form
+// (flash_attention/csrc/flash_bwd.cu): each thread owns a 4 x 4 tile of a
+// small matrix product and reads its operands as float4; and the bf16 / f32
+// converters, which B5's backward (ssd_scan/csrc/ssd_scan_bwd.cu) shares.
+// kernels/build.py puts this directory on every source's include path and
+// hashes it with each library.
 #pragma once
 
 #include <cuda_bf16.h>

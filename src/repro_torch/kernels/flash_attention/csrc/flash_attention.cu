@@ -285,17 +285,19 @@ using flash::Strides;
 
 template <int D>
 int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
-                bf16* o, const Strides (&st)[4], int batch, int heads,
-                int sq, int kv_heads, int group, int kv_len, int q_offset,
-                int causal, int window, float scale, int n_splits,
-                float* part_ml, float* part_acc, cudaStream_t s) {
+                bf16* o, float* lse, bf16* o_lo, const Strides (&st)[4],
+                int batch, int heads, int sq, int kv_heads, int group,
+                int kv_len, int q_offset, int causal, int window,
+                float scale, int n_splits, float* part_ml, float* part_acc,
+                cudaStream_t s) {
   if (form == 1) {
-    return flash_tc::launch<D>(q, k, v, o, st, batch, heads, sq, group,
-                               kv_len, q_offset, causal, window, scale, s);
+    return flash_tc::launch<D>(q, k, v, o, lse, o_lo, st, batch, heads, sq,
+                               group, kv_len, q_offset, causal, window, scale,
+                               s);
   }
-  return flash_split::launch<D>(q, k, v, o, st, batch, kv_heads, sq, group,
-                                kv_len, q_offset, causal, window, scale,
-                                n_splits, part_ml, part_acc, s);
+  return flash_split::launch<D>(q, k, v, o, lse, o_lo, st, batch, kv_heads,
+                                sq, group, kv_len, q_offset, causal, window,
+                                scale, n_splits, part_ml, part_acc, s);
 }
 
 }  // namespace
@@ -310,19 +312,23 @@ extern "C" {
 // (those from the first row's window edge to the last visible column), and
 // f32 scratch part_ml [batch, kv_heads, n_splits, rows, 2] and part_acc
 // [batch, kv_heads, n_splits, rows, head_dim], rows = heads / kv_heads * sq
-// <= flash_attention_split_max_rows().  Returns a cudaError_t code: 0 on
-// a successful launch.
+// <= flash_attention_split_max_rows().  lse and o_lo: both null, or (forms
+// 1 and 2, a training step's forward) f32 [batch, heads, sq] for each row's
+// ln sum_j e^{scale s_ij} and a bf16 tensor of o's shape and strides for
+// o's rounding residual, which the backward's tensor-core form reads.
+// Returns a cudaError_t code: 0 on a successful launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int batch, int heads, int sq,
                         int kv_heads, int kv_len, int q_offset, int causal,
                         int window, float scale, int head_dim, int dtype,
                         int form,
                         int n_splits, void* part_ml, void* part_acc,
-                        void* stream) {
+                        void* lse, void* o_lo, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 || window < 0 ||
       (window > 0 && (long long)q_offset + sq - window >= kv_len) ||
-      batch > 65535 || form < 0 || form > 2) {
+      batch > 65535 || form < 0 || form > 2 || (!lse != !o_lo) ||
+      (lse && form == 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const int group = heads / kv_heads;
@@ -337,10 +343,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                *vb = (const bf16*)v;
     bf16* ob = (bf16*)o;
 #define FLASH_BF16(D)                                                       \
-  return launch_bf16<D>(form, qb, kb, vb, ob, st, batch, heads, sq,         \
-                        kv_heads, group, kv_len, q_offset, causal, window,  \
-                        scale, n_splits, (float*)part_ml, (float*)part_acc, \
-                        s)
+  return launch_bf16<D>(form, qb, kb, vb, ob, (float*)lse, (bf16*)o_lo, st, \
+                        batch, heads, sq, kv_heads, group, kv_len, q_offset,\
+                        causal, window, scale, n_splits, (float*)part_ml,   \
+                        (float*)part_acc, s)
     if (head_dim == 64) FLASH_BF16(64);
     if (head_dim == 96) FLASH_BF16(96);
     if (head_dim == 128) FLASH_BF16(128);

@@ -1,8 +1,9 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a).  Built with nvcc
 // into a shared library of its own with a plain C interface and loaded with
 // ctypes (kernels/build.py, kernels/flash_attention/flash_attention.py);
-// the forward (flash_attention.cu, flash_tc.cuh, flash_split.cuh) is
-// unchanged, and this file shares only flash_common.cuh with it.
+// it shares only flash_common.cuh with the forward (flash_attention.cu,
+// flash_tc.cuh, flash_split.cuh), whose bf16 forms write the log-sum-exp
+// that the tensor-core form here reads.
 //
 // Replaces no Pallas kernel: the TPU's _flash_kernel has no VJP, and the
 // JAX package trains through XLA's autodiff of its jnp attention
@@ -19,38 +20,52 @@
 //   dQ = scale dS K,  dK = scale dS^T Q,
 // a kv head's dK and dV summed over the q heads that share it (GQA).
 //
-// Two deterministic passes, no float atomics; both recompute P from q and
-// k (the forward keeps no log-sum-exp):
-//   dQ pass     one block per (q tile of 64 rows, head, batch).  A first
-//               stage streams the visible KV tiles for each row's max, sum
-//               and rowsum(dP P) (online, like the forward's softmax) and
-//               writes them to f32 scratch [2, B, H, Sq]; the second
-//               streams them again for dS and dQ.
-//   dK/dV pass  one block per (kv head, KV tile of 64 columns, batch).  It
-//               loops over the q heads that share the kv head and, for
-//               each, over the q tiles that see the tile, in a fixed order.
+// Two deterministic passes, no float atomics (two launches give the same
+// bits); a kv head's dK and dV sum its q heads in a fixed order:
+//   dQ pass     one block per (q tile, head, batch), dQ of its rows.
+//   dK/dV pass  one block per (kv head, KV tile, batch).  It loops over the
+//               q heads that share the kv head and, for each, over the q
+//               rows that see the tile, in a fixed order.
 // Both passes skip tiles wholly masked (the causal stream stops at the
 // diagonal; a window starts at its band's edge).
 //
 // Two forms; the wrapper picks one (flash_attention.py::backward_form):
-//   tensor-core  bf16, D in {64, 96, 128}, 16-byte-aligned rows: mma.sync
-//                m16n8k16 with f32 accumulation, ldmatrix and cp.async as in
-//                the forward (flash_common.cuh).  P and dS are rounded to
-//                bf16 as the A operands of P^T dO, dS K and dS^T Q, as in
-//                FlashAttention-2; S, dP, the statistics and every sum stay
-//                f32.  Each warp owns 16 rows (dQ pass: q rows; dK/dV pass:
-//                kv rows, computing S^T = K Q^T and dP^T = V dO^T so that
-//                P^T and dS^T are already the A operands).  Single-buffered.
+//   tensor-core  bf16, D in {64, 96, 128}, 16-byte-aligned rows.  P comes
+//                from the forward's log-sum-exp (flash_tc.cuh and the
+//                split-KV merge write it under autograd), rowsum(dP P) as
+//                Delta_i = dO_i . (O_i + O_lo_i), the forward's output and
+//                its bf16 rounding residual (O to ~16 bits: from a bf16 O
+//                alone a row that sees few columns, whose dq cancels, loses
+//                its gradient), which the dQ pass computes in its prologue
+//                (f32 scratch [B, H, Sq] for the dK/dV pass).  Streamed
+//                tiles (K, V in the dQ pass; Q, dO, the log-sum-exp and
+//                Delta in the dK/dV pass) go through a ring of two
+//                shared-memory stages by cp.async, the next tile's copy
+//                overlapping this tile's products.  mma.sync m16n8k16 with
+//                f32 accumulation, ldmatrix; each warp owns 16 rows (Cfg).
+//                P and dS are rounded to bf16 as the A operands of P^T dO,
+//                dS K and dS^T Q, as in FlashAttention-2; S, dP, Delta and
+//                every sum stay f32.  dK/dV-pass warps own kv rows and
+//                compute S^T = K Q^T and dP^T = V dO^T, so that P^T and
+//                dS^T are already the A operands.  6 D operations a visible
+//                pair in the dQ pass, 8 D in the dK/dV pass.
 //   CUDA-core    everything else (f32, bf16 at D 8-32 or unaligned): f32 FMAs
 //                on register tiles of 4 x 4 over f32 shared memory
-//                (kernels/csrc/f32_tile.cuh, shared with B5's backward).  f32
-//                stays off the tensor cores: TF32 would miss the f32 gates.
+//                (kernels/csrc/f32_tile.cuh, shared with B5's backward).  No
+//                log-sum-exp from the forward: a first stage of the dQ pass
+//                streams the visible KV tiles for each row's max, sum and
+//                rowsum(dP P) (online) into f32 scratch [2, B, H, Sq], the
+//                second streams them again for dQ.  f32 stays off the tensor
+//                cores: TF32 would miss the f32 gates.
 //
 // What bounds it on the card: P recomputed and dV, dP, dQ, dK, 10 D
 // operations per visible pair (2.5x the forward's), at the bf16 tensor-core
 // rate for the train shape (zamba2-1.2b: Sq = Sk = 2048, D 64): operations.
-// This design does 18 D a pair (the statistics stage and the two passes'
-// recomputations), single-buffered: simple and right first.
+// The tensor-core form does 14 D a pair (P and dP in both passes), down from
+// 18 D with a statistics stage, at about the forward's tensor-core rate (its
+// mma.sync tiles of 16 rows a warp re-read each B operand from shared memory
+// for every warp; wgmma's 64-row warpgroup tiles, read once a warpgroup, are
+// the next step for the forward and this form alike).
 
 #include "f32_tile.cuh"
 #include "flash_common.cuh"
@@ -71,18 +86,19 @@ __device__ __forceinline__ bool visible(const Dims& d, int row, int col) {
          (d.window <= 0 || col > pos - d.window);
 }
 
-// The KV tiles [first, end) that rows [r0, r1] of a q tile see.
+// The KV tiles of `width` columns [first, end) that rows [r0, r1] of a q
+// tile see.
 __device__ __forceinline__ void kv_tiles(const Dims& d, int r0, int r1,
-                                         int& first, int& end) {
+                                         int width, int& first, int& end) {
   const int vis = d.causal ? min(d.kv_len, d.q_offset + r1 + 1) : d.kv_len;
-  end = (vis + kBlock - 1) / kBlock;
-  first = d.window > 0 ? max(0, d.q_offset + r0 - d.window + 1) / kBlock : 0;
+  end = (vis + width - 1) / width;
+  first = d.window > 0 ? max(0, d.q_offset + r0 - d.window + 1) / width : 0;
 }
 
-// The q rows [lo, hi) that see some column of the KV tile at j0.
-__device__ __forceinline__ void q_rows(const Dims& d, int j0, int& lo,
-                                       int& hi) {
-  const int jmax = min(j0 + kBlock, d.kv_len) - 1;
+// The q rows [lo, hi) that see some column of the `width` kv rows at j0.
+__device__ __forceinline__ void q_rows(const Dims& d, int j0, int width,
+                                       int& lo, int& hi) {
+  const int jmax = min(j0 + width, d.kv_len) - 1;
   if (j0 >= d.kv_len) {
     lo = hi = 0;
     return;
@@ -179,7 +195,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(qs, qp, sq_.s, q0, dm.sq);
   load_tile<T, D>(dos, op, so_.s, q0, dm.sq);
   int first, end;
-  flash_bwd::kv_tiles(dm, q0, min(q0 + kBlock, dm.sq) - 1, first, end);
+  flash_bwd::kv_tiles(dm, q0, min(q0 + kBlock, dm.sq) - 1, kBlock, first,
+                      end);
 
   const int r0 = 4 * (t / 16), c0 = 4 * (t % 16);  // the thread's S tile
   const int row = t / 4, part = t % 4;             // its statistics row
@@ -309,7 +326,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(ks, k + b * sk_.b + hk * sk_.h, sk_.s, j0, dm.sk);
   load_tile<T, D>(vs, v + b * sv_.b + hk * sv_.h, sv_.s, j0, dm.sk);
   int lo, hi;
-  flash_bwd::q_rows(dm, j0, lo, hi);
+  flash_bwd::q_rows(dm, j0, kBlock, lo, hi);
 
   const int r0 = 4 * (t / 16), c0 = 4 * (t % 16);  // the thread's S tile
   float dka[kT][4][4], dva[kT][4][4];
@@ -409,29 +426,48 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash_bwd_simt
 
-// --- tensor-core form ----------------------------------------------------------
+// --- tensor-core form -------------------------------------------------------
 
 namespace flash_bwd_tc {
 
 using namespace flash;
 using flash_bwd::Dims;
-using flash_bwd::kBlock;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
+// Tiles a block works on (tools/bwd_variants.sh times the alternatives).
+// A warp may own MT m-tiles of 16 rows, each B fragment read from shared
+// memory then feeding MT mma; at D 64 two m-tiles a warp measured slower
+// than one (their 233-255 registers leave 8 warps an SM), so both passes
+// take one.  At D 96 and 128 the dK/dV pass streams 32 q rows a step, so
+// that S^T and dP^T fit beside the two D-wide accumulators.
 template <int D>
-struct Layout {
-  static constexpr int kStride = D + 8;  // bf16 per padded shared row
-  static constexpr int kTile = kBlock * kStride;
-  // q rows a step of the dK/dV pass: 32 at D > 64 keeps S^T and dP^T at 16
-  // registers each beside the two D-wide accumulators
+struct Cfg {
+  static constexpr int kStride = D + 8;             // bf16 a padded row
+  // dQ pass: m-tiles a warp, q rows a block, kv rows a streamed tile
+  static constexpr int kMTq = 1;
+  static constexpr int kRowsQ = 16 * kMTq * kWarps;
+  static constexpr int kBN = 64 / kMTq;
+  // dK/dV pass: m-tiles a warp, kv rows a block, q rows a streamed step
+  static constexpr int kMTk = 1;
+  static constexpr int kRowsK = 16 * kMTk * kWarps;
   static constexpr int kQ2 = D > 64 ? 32 : 64;
-  static constexpr size_t kDqBytes = 4 * (size_t)kTile * sizeof(bf16);
+  static constexpr size_t kDqBytes =
+      (2 * (size_t)kRowsQ + 4 * (size_t)kBN) * kStride * sizeof(bf16) +
+      kRowsQ * sizeof(float);
   static constexpr size_t kDkvBytes =
-      (2 * (size_t)kTile + 2 * (size_t)kQ2 * kStride) * sizeof(bf16) +
-      2 * kQ2 * sizeof(float);
+      (2 * (size_t)kRowsK + 4 * (size_t)kQ2) * kStride * sizeof(bf16) +
+      4 * kQ2 * sizeof(float);
 };
+
+// 4-byte global -> shared copy (zeros with ok = false), for the per-row
+// log-sum-exp and Delta, whose rows start at any float.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 
 // Rows [row0, row0 + n) of a [rows, D] bf16 matrix into a padded shared
 // tile by cp.async; rows at or past `rows` are zeros.
@@ -444,75 +480,129 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
     const int r = e / kChunks, c = e % kChunks;
     const bool ok = row0 + r < rows;
     const bf16* s = ok ? src + (row0 + r) * stride + c * 8 : src;
-    cp_async16(smem_u32(dst + r * Layout<D>::kStride + c * 8), s, ok);
+    cp_async16(smem_u32(dst + r * Cfg<D>::kStride + c * 8), s, ok);
   }
 }
 
-// A fragments of the warp's 16 rows (from `row`) of a padded tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&af)[D / 16][4],
+// A fragments of the warp's MT m-tiles (from `row`) of a padded tile.
+template <int D, int MT>
+__device__ __forceinline__ void load_a(uint32_t (&af)[MT][D / 16][4],
                                        const bf16* tile, int row, int lane) {
   const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int r = row + mr + (mi & 1) * 8;
-    ldmatrix_x4(af[kk], smem_u32(tile + r * Layout<D>::kStride + kk * 16 +
-                                 (mi >> 1) * 8));
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int r = row + 16 * m + mr + (mi & 1) * 8;
+      ldmatrix_x4(af[m][kk], smem_u32(tile + r * Cfg<D>::kStride + kk * 16 +
+                                      (mi >> 1) * 8));
+    }
   }
 }
 
-// s[16 x 8 NT] = A B^T: A the warp's fragments, B the first 8 NT rows of a
-// padded tile (the forward's Q K^T).
-template <int D, int NT>
-__device__ __forceinline__ void abt(float (&s)[NT][4],
-                                    const uint32_t (&af)[D / 16][4],
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&s)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      s[m][i][0] = s[m][i][1] = s[m][i][2] = s[m][i][3] = 0.0f;
+    }
+  }
+}
+
+// s[MT][NT] = A B^T: A the warp's fragments, B the first 8 NT rows of a
+// padded tile; each B fragment feeds every m-tile.
+template <int D, int MT, int NT>
+__device__ __forceinline__ void abt(float (&s)[MT][NT][4],
+                                    const uint32_t (&af)[MT][D / 16][4],
                                     const bf16* bt, int lane) {
   const int mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+  zero(s);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int n2 = 0; n2 < NT / 2; ++n2) {
       uint32_t bfr[4];
       const int r = n2 * 16 + mr + (mi >> 1) * 8;
-      ldmatrix_x4(bfr, smem_u32(bt + r * Layout<D>::kStride + kk * 16 +
+      ldmatrix_x4(bfr, smem_u32(bt + r * Cfg<D>::kStride + kk * 16 +
                                 (mi & 1) * 8));
-      mma_bf16(s[2 * n2], af[kk], bfr[0], bfr[1]);
-      mma_bf16(s[2 * n2 + 1], af[kk], bfr[2], bfr[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(s[m][2 * n2], af[m][kk], bfr[0], bfr[1]);
+        mma_bf16(s[m][2 * n2 + 1], af[m][kk], bfr[2], bfr[3]);
+      }
     }
   }
 }
 
-// acc[16 x D] += P B: P [16 x 8 NT] in the accumulator layout, rounded to
-// bf16 as the A operand; B the first 8 NT rows of a padded tile (the
-// forward's P V).
-template <int D, int NT>
-__device__ __forceinline__ void pb(float (&acc)[D / 8][4],
-                                   const float (&p)[NT][4], const bf16* bt,
-                                   int lane) {
+// The same with A's fragments read from its shared tile (rows from `row`)
+// a k-step at a time: the dK/dV pass keeps its registers for dK and dV.
+template <int D, int MT, int NT>
+__device__ __forceinline__ void abt_smem(float (&s)[MT][NT][4],
+                                         const bf16* at, int row,
+                                         const bf16* bt, int lane) {
+  const int mi = lane >> 3, mr = lane & 7;
+  zero(s);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = row + 16 * m + mr + (mi & 1) * 8;
+      ldmatrix_x4(af[m], smem_u32(at + r * Cfg<D>::kStride + kk * 16 +
+                                  (mi >> 1) * 8));
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      uint32_t bfr[4];
+      const int r = n2 * 16 + mr + (mi >> 1) * 8;
+      ldmatrix_x4(bfr, smem_u32(bt + r * Cfg<D>::kStride + kk * 16 +
+                                (mi & 1) * 8));
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(s[m][2 * n2], af[m], bfr[0], bfr[1]);
+        mma_bf16(s[m][2 * n2 + 1], af[m], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// acc[MT][16 x D] += P B: P [16 x 8 NT] a m-tile in the accumulator layout,
+// rounded to bf16 as the A operand; B the first 8 NT rows of a padded tile
+// (ldmatrix.trans), each fragment feeding every m-tile.
+template <int D, int MT, int NT>
+__device__ __forceinline__ void pb(float (&acc)[MT][D / 8][4],
+                                   const float (&p)[MT][NT][4],
+                                   const bf16* bt, int lane) {
   const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]),
-    };
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      a[m][0] = pack_bf16(p[m][2 * kk][0], p[m][2 * kk][1]);
+      a[m][1] = pack_bf16(p[m][2 * kk][2], p[m][2 * kk][3]);
+      a[m][2] = pack_bf16(p[m][2 * kk + 1][0], p[m][2 * kk + 1][1]);
+      a[m][3] = pack_bf16(p[m][2 * kk + 1][2], p[m][2 * kk + 1][3]);
+    }
 #pragma unroll
     for (int d2 = 0; d2 < D / 16; ++d2) {
       uint32_t bfr[4];
       const int r = kk * 16 + mr + (mi & 1) * 8;
-      ldmatrix_x4_trans(bfr, smem_u32(bt + r * Layout<D>::kStride + d2 * 16 +
+      ldmatrix_x4_trans(bfr, smem_u32(bt + r * Cfg<D>::kStride + d2 * 16 +
                                       (mi >> 1) * 8));
-      mma_bf16(acc[2 * d2], a, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][2 * d2], a[m], bfr[0], bfr[1]);
+        mma_bf16(acc[m][2 * d2 + 1], a[m], bfr[2], bfr[3]);
+      }
     }
   }
 }
 
-// The warp's 16 rows of a 16 x D accumulator, times `mul`, as bf16.
+// The warp's 16 rows (from `row`) of a 16 x D accumulator, times `mul`, as
+// bf16.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, int64_t stride,
                                            int row, int rows,
@@ -532,259 +622,313 @@ __device__ __forceinline__ void store_rows(bf16* out, int64_t stride,
   }
 }
 
+// dQ pass: one block per (head, batch, tile of kRows q rows), long rows
+// first.  Prologue: Delta_i = dO_i . (O_i + O_lo_i) (f32, from the dO tile
+// and the forward's O and its rounding residual) to shared memory and to
+// the [B, H, Sq] scratch the dK/dV pass reads; the forward's log-sum-exp
+// per row into registers (log2 units).  Then the
+// visible KV tiles stream through a ring of two stages (cp.async; tile t + 1
+// lands while tile t's products run): S = Q K^T, dP = dO V^T, dS = P (dP -
+// Delta) with P = 2^(scale log2(e) s - lse2), dQ += dS K.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          bf16* __restrict__ dq, float* __restrict__ lse2,
-          float* __restrict__ dsum, Strides sq_, Strides sk_, Strides sv_,
-          Strides so_, Strides sdq_, Dims dm, float scale_log2,
-          float scale) {
-  constexpr int kStride = Layout<D>::kStride, kTile = Layout<D>::kTile;
+          const bf16* __restrict__ o, const bf16* __restrict__ o_lo,
+          const float* __restrict__ lse, bf16* __restrict__ dq,
+          float* __restrict__ dsum, Strides sq_,
+          Strides sk_, Strides sv_, Strides so_, Strides sO_, Strides sdq_,
+          Dims dm, float scale_log2, float scale) {
+  using C = Cfg<D>;
+  constexpr int MT = C::kMTq, kRows = C::kRowsQ, kBN = C::kBN, NT = kBN / 8;
+  constexpr int kStride = C::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile;
-  bf16* ks = dos + kTile;
-  bf16* vs = ks + kTile;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kStride]
+  bf16* dos = qs + kRows * kStride;               // [kRows][kStride]
+  bf16* ks = dos + kRows * kStride;               // [2][kBN][kStride]
+  bf16* vs = ks + 2 * kBN * kStride;              // [2][kBN][kStride]
+  float* dsum_s = reinterpret_cast<float*>(vs + 2 * kBN * kStride);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlock;  // long rows first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // long rows first
   const int hk = h / dm.group;
   const bf16* kp = k + b * sk_.b + hk * sk_.h;
   const bf16* vp = v + b * sv_.b + hk * sv_.h;
-  load_rows<D>(qs, q + b * sq_.b + h * sq_.h, sq_.s, q0, dm.sq, kBlock);
-  load_rows<D>(dos, dout + b * so_.b + h * so_.h, so_.s, q0, dm.sq, kBlock);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int g = lane >> 2, tq = lane & 3;
-  const int row_lo = q0 + warp * 16;  // the warp's first row
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, qs, warp * 16, lane);
-  load_a<D>(df, dos, warp * 16, lane);
-  int first, end;
-  flash_bwd::kv_tiles(dm, q0, min(q0 + kBlock, dm.sq) - 1, first, end);
-
-  // stage 1: each row's max and sum of 2^x (x = scale log2(e) s) and of
-  // 2^x dP, online; rows g (e = 0, 1) and g + 8 (e = 2, 3)
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
-  float a_run[2] = {0.0f, 0.0f};
-  for (int tile = first; tile < end; ++tile) {
-    const int j0 = tile * kBlock;
-    __syncthreads();  // the last tile's readers are done
-    load_rows<D>(ks, kp, sk_.s, j0, dm.kv_len, kBlock);
-    load_rows<D>(vs, vp, sv_.s, j0, dm.kv_len, kBlock);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    abt<D, 8>(s, qf, ks, lane);
-    abt<D, 8>(dp, df, vs, lane);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = flash_bwd::visible(dm, row_lo + g + (e >> 1) * 8,
-                                           j0 + i * 8 + 2 * tq + (e & 1));
-        s[i][e] = ok ? s[i][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
-      }
-    }
-    float alpha[2], rs[2] = {0.0f, 0.0f}, ra[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      alpha[j] = fast_exp2(m_run[j] - mx[j]);
-      m_run[j] = mx[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[i][e] - mx[e >> 1]);
-        rs[e >> 1] += p;
-        ra[e >> 1] = fmaf(p, dp[i][e], ra[e >> 1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      l_run[j] = fmaf(l_run[j], alpha[j], rs[j]);
-      a_run[j] = fmaf(a_run[j], alpha[j], ra[j]);
-    }
-  }
-  float lse_r[2], dsum_r[2];
   const int64_t row_stats = ((int64_t)b * gridDim.x + h) * dm.sq;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l_run[j] += __shfl_xor_sync(0xffffffffu, l_run[j], 1);
-    a_run[j] += __shfl_xor_sync(0xffffffffu, a_run[j], 1);
-    l_run[j] += __shfl_xor_sync(0xffffffffu, l_run[j], 2);
-    a_run[j] += __shfl_xor_sync(0xffffffffu, a_run[j], 2);
-    const float l = fmaxf(l_run[j], 1e-30f);
-    lse_r[j] = m_run[j] + log2f(l);
-    dsum_r[j] = a_run[j] / l;
-    const int r = row_lo + g + 8 * j;
-    if (tq == 0 && r < dm.sq) {
-      lse2[row_stats + r] = lse_r[j];
-      dsum[row_stats + r] = dsum_r[j];
-    }
-  }
-
-  // stage 2: dS = P (dP - rowsum(dP P)), dQ += dS K
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  }
-  for (int tile = first; tile < end; ++tile) {
-    const int j0 = tile * kBlock;
-    __syncthreads();
-    load_rows<D>(ks, kp, sk_.s, j0, dm.kv_len, kBlock);
-    load_rows<D>(vs, vp, sv_.s, j0, dm.kv_len, kBlock);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    abt<D, 8>(s, qf, ks, lane);
-    abt<D, 8>(dp, df, vs, lane);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = flash_bwd::visible(dm, row_lo + g + (e >> 1) * 8,
-                                           j0 + i * 8 + 2 * tq + (e & 1));
-        const float p =
-            ok ? fast_exp2(s[i][e] * scale_log2 - lse_r[e >> 1]) : 0.0f;
-        s[i][e] = ok ? p * (dp[i][e] - dsum_r[e >> 1]) : 0.0f;
-      }
-    }
-    pb<D, 8>(acc, s, ks, lane);
-  }
-  store_rows<D>(dq + b * sdq_.b + h * sdq_.h, sdq_.s, row_lo, dm.sq, acc,
-                scale, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse2, const float* __restrict__ dsum,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq_,
-            Strides sk_, Strides sv_, Strides so_, Strides sdk_,
-            Strides sdv_, Dims dm, int heads, float scale_log2,
-            float scale) {
-  constexpr int kTile = Layout<D>::kTile, kQ2 = Layout<D>::kQ2;
-  constexpr int NT = kQ2 / 8;  // n-tiles of S^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile;
-  bf16* qs = vs + kTile;                        // [kQ2][kStride]
-  bf16* dos = qs + kQ2 * Layout<D>::kStride;    // [kQ2][kStride]
-  float* lse_s = reinterpret_cast<float*>(dos + kQ2 * Layout<D>::kStride);
-  float* dsum_s = lse_s + kQ2;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int hk = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kBlock;
-  load_rows<D>(ks, k + b * sk_.b + hk * sk_.h, sk_.s, j0, dm.sk, kBlock);
-  load_rows<D>(vs, v + b * sv_.b + hk * sv_.h, sv_.s, j0, dm.sk, kBlock);
+  load_rows<D>(qs, q + b * sq_.b + h * sq_.h, sq_.s, q0, dm.sq, kRows);
+  load_rows<D>(dos, dout + b * so_.b + h * so_.h, so_.s, q0, dm.sq, kRows);
   cp_async_commit();
-  int lo, hi;
-  flash_bwd::q_rows(dm, j0, lo, hi);
-  const int g = lane >> 2, tq = lane & 3;
-  const int col_lo = j0 + warp * 16;  // the warp's first kv row
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.0f;
+  int first, end;
+  flash_bwd::kv_tiles(dm, q0, min(q0 + kRows, dm.sq) - 1, kBN, first, end);
+  if (first < end) {
+    load_rows<D>(ks, kp, sk_.s, first * kBN, dm.kv_len, kBN);
+    load_rows<D>(vs, vp, sv_.s, first * kBN, dm.kv_len, kBN);
   }
-  for (int gq = 0; gq < dm.group; ++gq) {
-    const int h = hk * dm.group + gq;
-    const bf16* qp = q + b * sq_.b + h * sq_.h;
-    const bf16* op = dout + b * so_.b + h * so_.h;
-    const int64_t row_stats = ((int64_t)b * heads + h) * dm.sq;
-    for (int i0 = lo / kQ2 * kQ2; i0 < hi; i0 += kQ2) {
-      __syncthreads();  // the last step's readers are done
-      load_rows<D>(qs, qp, sq_.s, i0, dm.sq, kQ2);
-      load_rows<D>(dos, op, so_.s, i0, dm.sq, kQ2);
-      cp_async_commit();
-      for (int r = threadIdx.x; r < kQ2; r += kThreads) {
-        const bool ok = i0 + r < dm.sq;
-        lse_s[r] = ok ? lse2[row_stats + i0 + r] : INFINITY;
-        dsum_s[r] = ok ? dsum[row_stats + i0 + r] : 0.0f;
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+  {
+    constexpr int kTPR = kThreads / kRows;  // threads a row: 1 or 2
+    constexpr int kPer = D / kTPR;
+    const int r = threadIdx.x / kTPR, part = threadIdx.x % kTPR;
+    const int row = q0 + r;
+    float acc = 0.0f;
+    if (row < dm.sq) {
+      const int64_t at = b * sO_.b + h * sO_.h + row * sO_.s + part * kPer;
+      const bf16* drow = dos + r * kStride + part * kPer;
+#pragma unroll
+      for (int c = 0; c < kPer; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
+        const uint4 lv = *reinterpret_cast<const uint4*>(o_lo + at + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lv);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 of = __bfloat1622float2(o2[u]);
+          const float2 lf = __bfloat1622float2(l2[u]);
+          const float2 df = __bfloat1622float2(d2[u]);
+          acc = fmaf(of.x + lf.x, df.x, acc);
+          acc = fmaf(of.y + lf.y, df.y, acc);
+        }
       }
-      cp_async_wait<0>();
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: kv rows g, g + 8 of the warp's 16,
-      // q columns 8 i + 2 tq + (e & 1)
-      float st[NT][4], dpt[NT][4];
-      {
-        uint32_t af[D / 16][4];
-        load_a<D>(af, ks, warp * 16, lane);
-        abt<D, NT>(st, af, qs, lane);
-        load_a<D>(af, vs, warp * 16, lane);
-        abt<D, NT>(dpt, af, dos, lane);
-      }
+    }
+    if (kTPR == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      dsum_s[r] = acc;
+      if (row < dm.sq) dsum[row_stats + row] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = warp * 16 * MT;  // the warp's first row in the tile
+  const int row_lo = q0 + wrow;
+  float lse_r[MT][2], dsum_r[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int rr = wrow + 16 * m + g + 8 * j;
+      // a row past Sq: zero Q and dO rows and Delta 0 make dS 0
+      lse_r[m][j] = q0 + rr < dm.sq ? lse[row_stats + q0 + rr] * kLog2e : 0.0f;
+      dsum_r[m][j] = dsum_s[rr];
+    }
+  }
+  uint32_t qf[MT][D / 16][4], df[MT][D / 16][4];
+  load_a<D, MT>(qf, qs, wrow, lane);
+  load_a<D, MT>(df, dos, wrow, lane);
+  float acc[MT][D / 8][4];
+  zero(acc);
+  for (int tile = first; tile < end; ++tile) {
+    const int st = (tile - first) & 1;
+    if (tile + 1 < end) {
+      load_rows<D>(ks + (st ^ 1) * kBN * kStride, kp, sk_.s, (tile + 1) * kBN,
+                   dm.kv_len, kBN);
+      load_rows<D>(vs + (st ^ 1) * kBN * kStride, vp, sv_.s, (tile + 1) * kBN,
+                   dm.kv_len, kBN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile
+    __syncthreads();
+    const bf16* kt = ks + st * kBN * kStride;
+    const bf16* vt = vs + st * kBN * kStride;
+    float s[MT][NT][4], dp[MT][NT][4];
+    abt<D, MT, NT>(s, qf, kt, lane);
+    abt<D, MT, NT>(dp, df, vt, lane);
+    const int j0 = tile * kBN;
+    // some (row, column) of the warp's rows x this tile is masked
+    const bool mask =
+        j0 + kBN > dm.kv_len ||
+        (dm.causal && j0 + kBN - 1 > dm.q_offset + row_lo) ||
+        (dm.window > 0 && j0 <= dm.q_offset + row_lo + 16 * MT - 1 - dm.window);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = i * 8 + 2 * tq + (e & 1);
-          const bool ok =
-              flash_bwd::visible(dm, i0 + c, col_lo + g + (e >> 1) * 8);
+          const bool ok = !mask || flash_bwd::visible(
+                                       dm, row_lo + 16 * m + g + (e >> 1) * 8,
+                                       j0 + i * 8 + 2 * tq + (e & 1));
           const float p =
-              ok ? fast_exp2(st[i][e] * scale_log2 - lse_s[c]) : 0.0f;
-          st[i][e] = p;
-          dpt[i][e] = ok ? p * (dpt[i][e] - dsum_s[c]) : 0.0f;
+              ok ? fast_exp2(s[m][i][e] * scale_log2 - lse_r[m][e >> 1]) : 0.0f;
+          s[m][i][e] = p * (dp[m][i][e] - dsum_r[m][e >> 1]);
         }
       }
-      pb<D, NT>(dva, st, dos, lane);
-      pb<D, NT>(dka, dpt, qs, lane);
     }
+    pb<D, MT, NT>(acc, s, kt, lane);
+    __syncthreads();  // every warp is done with this stage: it is refilled next
+  }
+  cp_async_wait<0>();
+  bf16* dqp = dq + b * sdq_.b + h * sdq_.h;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    store_rows<D>(dqp, sdq_.s, row_lo + 16 * m, dm.sq, acc[m], scale, lane);
+  }
+}
+
+// dK/dV pass: one block per (kv head, batch, tile of kRows kv rows).  K and
+// V stay in shared memory; the q rows that see the tile, of every q head of
+// the kv head in order, stream in steps of kQ2 through a ring of two stages
+// (Q, dO, the log-sum-exp and Delta by cp.async; step s + 1 lands while
+// step s's products run).  Each warp computes S^T = K Q^T and dP^T = V dO^T
+// for its kv rows, so that P^T and dS^T are already the A operands of dV +=
+// P^T dO and dK += dS^T Q; dK and dV stay in registers across the steps.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dsum,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq_,
+            Strides sk_, Strides sv_, Strides so_, Strides sdk_,
+            Strides sdv_, Dims dm, int heads, float scale_log2,
+            float scale) {
+  using C = Cfg<D>;
+  constexpr int MT = C::kMTk, kRows = C::kRowsK, kQ2 = C::kQ2, NT = kQ2 / 8;
+  constexpr int kStride = C::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kStride]
+  bf16* vs = ks + kRows * kStride;                // [kRows][kStride]
+  bf16* qs = vs + kRows * kStride;                // [2][kQ2][kStride]
+  bf16* dos = qs + 2 * kQ2 * kStride;             // [2][kQ2][kStride]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kQ2 * kStride);  // [2][kQ2]
+  float* dsum_s = lse_s + 2 * kQ2;                                   // [2][kQ2]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hk = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kRows;
+  load_rows<D>(ks, k + b * sk_.b + hk * sk_.h, sk_.s, j0, dm.sk, kRows);
+  load_rows<D>(vs, v + b * sv_.b + hk * sv_.h, sv_.s, j0, dm.sk, kRows);
+  cp_async_commit();
+  int lo, hi;
+  flash_bwd::q_rows(dm, j0, kRows, lo, hi);
+  const int lo0 = lo / kQ2 * kQ2;
+  const int per_head = hi > lo ? (hi - lo0 + kQ2 - 1) / kQ2 : 0;
+  const int steps = per_head * dm.group;
+
+  // step s: q head hk * group + s / per_head, rows from lo0 + (s % per_head)
+  // kQ2, into stage s % 2
+  auto issue = [&](int s) {
+    const int h = hk * dm.group + s / per_head;
+    const int i0 = lo0 + (s % per_head) * kQ2, st = s & 1;
+    load_rows<D>(qs + st * kQ2 * kStride, q + b * sq_.b + h * sq_.h, sq_.s,
+                 i0, dm.sq, kQ2);
+    load_rows<D>(dos + st * kQ2 * kStride, dout + b * so_.b + h * so_.h,
+                 so_.s, i0, dm.sq, kQ2);
+    if (threadIdx.x < 2 * kQ2) {
+      // rows past Sq: log-sum-exp and Delta 0 with zero Q and dO rows add 0
+      const int r = threadIdx.x % kQ2, which = threadIdx.x / kQ2;
+      const bool ok = i0 + r < dm.sq;
+      const float* src = (which ? dsum : lse) +
+                         (ok ? ((int64_t)b * heads + h) * dm.sq + i0 + r : 0);
+      cp_async4(smem_u32((which ? dsum_s : lse_s) + st * kQ2 + r), src, ok);
+    }
+  };
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = warp * 16 * MT;  // the warp's first kv row in the tile
+  const int col_lo = j0 + wrow;
+  float dka[MT][D / 8][4], dva[MT][D / 8][4];
+  zero(dka);
+  zero(dva);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step (and K, V)
+    __syncthreads();
+    const int st = s & 1, i0 = lo0 + (s % per_head) * kQ2;
+    const bf16* qt = qs + st * kQ2 * kStride;
+    const bf16* dt = dos + st * kQ2 * kStride;
+    const float* ls = lse_s + st * kQ2;
+    const float* dsv = dsum_s + st * kQ2;
+    // S^T: kv rows g, g + 8 of each m-tile, q columns 8 i + 2 tq + (e & 1)
+    float sT[MT][NT][4], dpT[MT][NT][4];
+    abt_smem<D, MT, NT>(sT, ks, wrow, qt, lane);
+    const bool mask =
+        col_lo + 16 * MT > dm.kv_len ||
+        (dm.causal && col_lo + 16 * MT - 1 > dm.q_offset + i0) ||
+        (dm.window > 0 && col_lo <= dm.q_offset + i0 + kQ2 - 1 - dm.window);
+    float nl[NT][2];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      nl[i][0] = ls[8 * i + 2 * tq] * kLog2e;
+      nl[i][1] = ls[8 * i + 2 * tq + 1] * kLog2e;
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok =
+              !mask || flash_bwd::visible(dm, i0 + i * 8 + 2 * tq + (e & 1),
+                                          col_lo + 16 * m + g + (e >> 1) * 8);
+          sT[m][i][e] =
+              ok ? fast_exp2(sT[m][i][e] * scale_log2 - nl[i][e & 1]) : 0.0f;
+        }
+      }
+    }
+    abt_smem<D, MT, NT>(dpT, vs, wrow, dt, lane);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dpT[m][i][e] =
+              sT[m][i][e] * (dpT[m][i][e] - dsv[8 * i + 2 * tq + (e & 1)]);
+        }
+      }
+    }
+    pb<D, MT, NT>(dva, sT, dt, lane);
+    pb<D, MT, NT>(dka, dpT, qt, lane);
+    __syncthreads();  // every warp is done with this stage: it is refilled next
   }
   cp_async_wait<0>();  // K and V, when no q row sees the tile
-  store_rows<D>(dk + b * sdk_.b + hk * sdk_.h, sdk_.s, col_lo, dm.sk, dka,
-                scale, lane);
-  store_rows<D>(dv + b * sdv_.b + hk * sdv_.h, sdv_.s, col_lo, dm.sk, dva,
-                1.0f, lane);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    store_rows<D>(dk + b * sdk_.b + hk * sdk_.h, sdk_.s, col_lo + 16 * m,
+                  dm.sk, dka[m], scale, lane);
+    store_rows<D>(dv + b * sdv_.b + hk * sdv_.h, sdv_.s, col_lo + 16 * m,
+                  dm.sk, dva[m], 1.0f, lane);
+  }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq, void* dk, void* dv, float* stats,
-           const Strides (&st)[7], int batch, int heads, int kv_heads,
-           const Dims& dm, float scale, cudaStream_t stream) {
+           const void* o, const void* o_lo, const float* lse, void* dq,
+           void* dk, void* dv,
+           float* dsum, const Strides (&st)[8], int batch, int heads,
+           int kv_heads, const Dims& dm, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
   // once per template instance, not per launch
   static const cudaError_t a1 = cudaFuncSetAttribute(
       dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Layout<D>::kDqBytes);
+      (int)C::kDqBytes);
   if (a1 != cudaSuccess) return (int)a1;
   static const cudaError_t a2 = cudaFuncSetAttribute(
       dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Layout<D>::kDkvBytes);
+      (int)C::kDkvBytes);
   if (a2 != cudaSuccess) return (int)a2;
-  const int n_qt = (dm.sq + kBlock - 1) / kBlock;
-  const int n_kt = (dm.sk + kBlock - 1) / kBlock;
-  if (n_qt > 65535 || n_kt > 65535) return (int)cudaErrorInvalidValue;
-  float* lse2 = stats;
-  float* dsum = stats + (int64_t)batch * heads * dm.sq;
+  const int n_qt = (dm.sq + C::kRowsQ - 1) / C::kRowsQ;
+  const int n_kt = (dm.sk + C::kRowsK - 1) / C::kRowsK;
   const float scale_log2 = scale * kLog2e;
-  dq_kernel<D><<<dim3(heads, batch, n_qt), kThreads, Layout<D>::kDqBytes,
-                 stream>>>(
+  dq_kernel<D><<<dim3(heads, batch, n_qt), kThreads, C::kDqBytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (bf16*)dq, lse2, dsum, st[0], st[1], st[2], st[3], st[4], dm,
-      scale_log2, scale);
+      (const bf16*)o, (const bf16*)o_lo, lse, (bf16*)dq, dsum, st[0], st[1],
+      st[2], st[3],
+      st[4], st[5], dm, scale_log2, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<D><<<dim3(kv_heads, batch, n_kt), kThreads,
-                   Layout<D>::kDkvBytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      lse2, dsum, (bf16*)dk, (bf16*)dv, st[0], st[1], st[2], st[3], st[5],
-      st[6], dm, heads, scale_log2, scale);
+  dkdv_kernel<D><<<dim3(kv_heads, batch, n_kt), kThreads, C::kDkvBytes,
+                   stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      dsum, (bf16*)dk, (bf16*)dv, st[0], st[1], st[2], st[3], st[6], st[7],
+      dm, heads, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -794,19 +938,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients alike).
 // form: 0 = CUDA-core, 1 = tensor-core (bf16, head_dim 64, 96 or 128, every
-// row 16-byte aligned).  strides: 21 int64 values, (b, h, s) in elements for
-// q, k, v, dout, dq, dk, dv (the last dimension contiguous).  stats: f32
-// scratch of 2 * batch * heads * sq values (the rows' log-sum-exp and
-// rowsum(dP P)).  window: 0 = none.  The same visibility as
-// flash_attention_fwd, which the wrapper has checked (every row sees a
-// column).  Launches the dQ pass, then the dK/dV pass.  Returns a
-// cudaError_t code: 0 on successful launches.
+// row 16-byte aligned, o's too).  strides: 24 int64 values, (b, h, s) in
+// elements for q, k, v, dout, o, dq, dk, dv (the last dimension
+// contiguous).  Tensor-core form: o and o_lo (the forward's output and its
+// bf16 rounding residual, o's strides) and lse (its f32 [batch, heads, sq]
+// log-sum-exp) given; stats f32 scratch of batch * heads * sq values (each
+// row's Delta = dO . (O + O_lo)).  CUDA-core form: o, o_lo and lse unused;
+// stats 2 * batch * heads * sq values (each row's log-sum-exp and
+// rowsum(dP P), from its statistics stage).  window: 0 =
+// none.  The same visibility as flash_attention_fwd, which the wrapper has
+// checked (every row sees a column).  Launches the dQ pass, then the dK/dV
+// pass.  Returns a cudaError_t code: 0 on successful launches.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const void* dout, void* dq, void* dk, void* dv,
-                        void* stats, const int64_t* strides, int batch,
-                        int heads, int sq, int kv_heads, int sk, int kv_len,
-                        int q_offset, int causal, int window, float scale,
-                        int head_dim, int dtype, int form, void* stream) {
+                        const void* dout, const void* o, const void* o_lo,
+                        const void* lse, void* dq, void* dk, void* dv,
+                        void* stats,
+                        const int64_t* strides, int batch, int heads, int sq,
+                        int kv_heads, int sk, int kv_len, int q_offset,
+                        int causal, int window, float scale, int head_dim,
+                        int dtype, int form, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || kv_len <= 0 || kv_len > sk || q_offset < 0 ||
       window < 0 || batch > 65535 || heads > 65535 ||
@@ -815,31 +965,29 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   using flash::Strides;
-  const Strides st[7] = {
-      {strides[0], strides[1], strides[2]},
-      {strides[3], strides[4], strides[5]},
-      {strides[6], strides[7], strides[8]},
-      {strides[9], strides[10], strides[11]},
-      {strides[12], strides[13], strides[14]},
-      {strides[15], strides[16], strides[17]},
-      {strides[18], strides[19], strides[20]}};
+  Strides st[8];
+  for (int i = 0; i < 8; ++i) {
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
   const flash_bwd::Dims dm{sq, sk, heads / kv_heads, kv_len, q_offset,
                            causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   float* f = (float*)stats;
   if (form == 1) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (dtype != 1 || !o || !o_lo || !lse) return (int)cudaErrorInvalidValue;
 #define BWD_TC(D)                                                          \
-  return flash_bwd_tc::launch<D>(q, k, v, dout, dq, dk, dv, f, st, batch,  \
-                                 heads, kv_heads, dm, scale, s)
+  return flash_bwd_tc::launch<D>(q, k, v, dout, o, o_lo, (const float*)lse, \
+                                 dq, dk, dv, f, st, batch, heads, kv_heads, \
+                                 dm, scale, s)
     if (head_dim == 64) BWD_TC(64);
     if (head_dim == 96) BWD_TC(96);
     if (head_dim == 128) BWD_TC(128);
 #undef BWD_TC
     return (int)cudaErrorInvalidValue;
   }
+  const Strides ss[7] = {st[0], st[1], st[2], st[3], st[5], st[6], st[7]};
 #define BWD_SIMT(T, D)                                                     \
-  return flash_bwd_simt::launch<T, D>(q, k, v, dout, dq, dk, dv, f, st,    \
+  return flash_bwd_simt::launch<T, D>(q, k, v, dout, dq, dk, dv, f, ss,    \
                                       batch, heads, kv_heads, dm, scale, s)
 #define BWD_DIMS(T)                              \
   switch (head_dim) {                            \

@@ -24,7 +24,9 @@
 //   merge_kernel  one warp per (row, kv head, batch) combines the splits
 //                 in a fixed order (deterministic): M = max m_s,
 //                 out = sum_s acc_s 2^(m_s - M) / max(sum_s l_s 2^(m_s - M),
-//                 1e-30).
+//                 1e-30); for a training step's backward also the row's
+//                 ln 2 (M + log2 max(L, 1e-30)) to f32 [B, H, Sq] and the
+//                 bf16 rounding residual of out to o_lo (flash_tc.cuh).
 #pragma once
 
 #include "flash_common.cuh"
@@ -185,7 +187,8 @@ template <int D>
 __global__ void __launch_bounds__(32)
 merge_kernel(const float* __restrict__ part_ml,
              const float* __restrict__ part_acc, bf16* __restrict__ o,
-             Strides so_, int sq, int group, int n_splits) {
+             float* __restrict__ lse, bf16* __restrict__ o_lo, Strides so_,
+             int sq, int group, int n_splits) {
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x, rows = gridDim.x;
   const size_t base = (size_t)(b * gridDim.y + hk) * n_splits;
@@ -219,17 +222,27 @@ merge_kernel(const float* __restrict__ part_ml,
     for (int u = 0; u < D / 32; ++u) a[u] = fmaf(acc[lane + 32 * u], w, a[u]);
   }
   const int gi = r / sq, i = r % sq;
-  bf16* orow = o + b * so_.b + (hk * group + gi) * so_.h + i * so_.s;
+  const int64_t at = b * so_.b + (hk * group + gi) * so_.h + i * so_.s;
   const float inv = 1.0f / fmaxf(l, 1e-30f);
+  if (lse && lane == 0) {
+    lse[((int64_t)b * gridDim.y * group + hk * group + gi) * sq + i] =
+        (m + log2f(fmaxf(l, 1e-30f))) * kLn2;
+  }
 #pragma unroll
   for (int u = 0; u < D / 32; ++u) {
-    orow[lane + 32 * u] = __float2bfloat16(a[u] * inv);
+    const float x = a[u] * inv;
+    const bf16 hi = __float2bfloat16(x);
+    o[at + lane + 32 * u] = hi;
+    if (o_lo) {
+      o_lo[at + lane + 32 * u] = __float2bfloat16(x - __bfloat162float(hi));
+    }
   }
 }
 
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-           const Strides (&st)[4], int batch, int kv_heads, int sq,
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+           bf16* o_lo, const Strides (&st)[4], int batch, int kv_heads,
+           int sq,
            int group, int kv_len, int q_offset, int causal, int window,
            float scale, int n_splits, float* part_ml, float* part_acc,
            cudaStream_t stream) {
@@ -253,7 +266,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<D><<<dim3(group * sq, kv_heads, batch), 32, 0, stream>>>(
-      part_ml, part_acc, o, st[3], sq, group, n_splits);
+      part_ml, part_acc, o, lse, o_lo, st[3], sq, group, n_splits);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,13 @@
 //              two shuffles; exp2 of scores prescaled by scale * log2(e);
 //   O += P V   P converted to bf16 in registers as the A operand (as SDPA
 //              does), V by ldmatrix.trans; O in f32 registers.
+// The forward of a training step (kTrain: its backward, flash_bwd.cu, reads
+// what it keeps) also writes each row's log-sum-exp ln sum_j e^{scale s_ij}
+// to f32 [B, H, Sq], and carries O to ~16 bits: P enters P V as a bf16 high
+// part and a bf16 low part (two products), and O's bf16 rounding residual
+// goes to o_lo beside O, so that the backward's Delta = dO . (O + O_lo)
+// equals rowsum(dP P) to f32 accuracy (with a bf16 O a row that sees few
+// columns loses it).  The serving path (kTrain false) does neither.
 // Masks are applied only where a tile crosses kv_len or, for the warp's
 // rows, the causal diagonal or the window's lower edge.  With a window the
 // tile loop starts at the tile holding the block's first row's edge, so a
@@ -61,11 +68,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq,
+                float* __restrict__ lse, bf16* __restrict__ o_lo,
+                Strides sq_, Strides sk_,
+                Strides sv_, Strides so_, int sq,
                 int group, int kv_len, int q_offset, int causal, int window,
                 float scale_log2) {
   constexpr int kStride = Layout<D>::kStride;
@@ -83,7 +92,6 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qp = q + b * sq_.b + h * sq_.h;
   const bf16* kp = k + b * sk_.b + hk * sk_.h;
   const bf16* vp = v + b * sv_.b + hk * sv_.h;
-  bf16* op = o + b * so_.b + h * so_.h;
 
   const int last_row = min(q0 + kBlockQ, sq) - 1;
   const int visible = causal ? min(kv_len, q_offset + last_row + 1) : kv_len;
@@ -221,18 +229,26 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // O += P V: P's accumulator layout is the A fragment's
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+      uint32_t a[4], a_lo[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* pu = s[2 * kk + (u >> 1)] + 2 * (u & 1);
+        if (kTrain) {
+          split_bf16(pu[0], pu[1], a[u], a_lo[u]);
+        } else {
+          a[u] = pack_bf16(pu[0], pu[1]);
+        }
+      }
 #pragma unroll
       for (int d2 = 0; d2 < kD16; ++d2) {
         uint32_t bfr[4];
         const int r = kk * 16 + mr + (mi & 1) * 8;
         ldmatrix_x4_trans(bfr, smem_u32(vt + r * kStride + d2 * 16 +
                                         (mi >> 1) * 8));
+        if (kTrain) {
+          mma_bf16(acc[2 * d2], a_lo, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * d2 + 1], a_lo, bfr[2], bfr[3]);
+        }
         mma_bf16(acc[2 * d2], a, bfr[0], bfr[1]);
         mma_bf16(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
       }
@@ -250,32 +266,49 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < 2; ++j) {
     const int row = row_lo + g + 8 * j;
     if (row >= sq) continue;
-    bf16* orow = op + row * so_.s + 2 * tq;
+    if (kTrain && tq == 0) {
+      lse[((int64_t)b * gridDim.x + h) * sq + row] =
+          (m_run[j] + log2f(l_run[j])) * kLn2;
+    }
+    const int64_t at = b * so_.b + h * so_.h + row * so_.s + 2 * tq;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) = __floats2bfloat162_rn(
-          acc[i][2 * j] / l_run[j], acc[i][2 * j + 1] / l_run[j]);
+      uint32_t hi, lo;
+      split_bf16(acc[i][2 * j] / l_run[j], acc[i][2 * j + 1] / l_run[j], hi,
+                 lo);
+      *reinterpret_cast<uint32_t*>(o + at + i * 8) = hi;
+      if (kTrain) *reinterpret_cast<uint32_t*>(o_lo + at + i * 8) = lo;
     }
   }
 }
 
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-           const Strides (&st)[4], int batch, int heads, int sq, int group,
-           int kv_len, int q_offset, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+           bf16* o_lo, const Strides (&st)[4], int batch, int heads, int sq,
+           int group, int kv_len, int q_offset, int causal, int window,
+           float scale, cudaStream_t stream) {
   constexpr size_t kSmem = Layout<D>::kBytes;
   // once per template instance, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (attr != cudaSuccess) return (int)attr;
+  static const cudaError_t attr_t = cudaFuncSetAttribute(
+      flash_tc_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (attr_t != cudaSuccess) return (int)attr_t;
   const int n_qt = (sq + kBlockQ - 1) / kBlockQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(heads, batch, n_qt);
-  flash_tc_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, o, st[0], st[1], st[2], st[3], sq, group, kv_len, q_offset,
-      causal, window, scale * kLog2e);
+  if (lse) {
+    flash_tc_kernel<D, true><<<grid, kThreads, kSmem, stream>>>(
+        q, k, v, o, lse, o_lo, st[0], st[1], st[2], st[3], sq, group, kv_len,
+        q_offset, causal, window, scale * kLog2e);
+  } else {
+    flash_tc_kernel<D, false><<<grid, kThreads, kSmem, stream>>>(
+        q, k, v, o, lse, o_lo, st[0], st[1], st[2], st[3], sq, group, kv_len,
+        q_offset, causal, window, scale * kLog2e);
+  }
   return (int)cudaGetLastError();
 }
 

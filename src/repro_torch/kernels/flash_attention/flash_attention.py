@@ -34,16 +34,23 @@ dtype and layout and which a recording counts as the kernel's work
 enabled and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_FlashAttention`): its forward is the
 same launch (or, on the CPU, the plain version), so a kernel output
-always carries its autograd history.  Its backward dispatches by device
-as the forward does (the JAX package trains through jnp autodiff; its
-Pallas kernel has no VJP): on the card the backward kernel
-(``csrc/flash_bwd.cu``, two deterministic passes that recompute P;
-counted in ``LAUNCHES["flash_attention_bwd"]`` and by the form
+always carries its autograd history.  Where the backward will take its
+tensor-core form (:func:`keeps_lse`: bf16 forms on the card or on meta),
+that forward also writes each row's log-sum-exp (f32 ``[B, H, Sq]``) and
+the output's bf16 rounding residual (its P·V then takes P in two bf16
+parts, so that output + residual holds ~16 bits) and saves both with the
+output.  Its backward dispatches by device as the
+forward does (the JAX package trains through jnp autodiff; its Pallas
+kernel has no VJP): on the card the backward kernel
+(``csrc/flash_bwd.cu``, two deterministic passes that recompute P, from
+the forward's log-sum-exp and ``Delta = rowsum(dO (O + O_lo))`` in the
+tensor-core form; counted in ``LAUNCHES["flash_attention_bwd"]`` and by the form
 :func:`backward_form` picks in :data:`LAUNCHES_BY_BWD_FORM`), on meta
 one op, ``repro_torch::flash_attention_bwd``
 (:func:`attention_bwd_ops`), with the kernel's f32 scratch allocated
 across it as on the card, on the CPU :func:`flash_attention_bwd`, the
-closed-form gradient in torch ops (the backward's plain version).  The
+closed-form gradient in torch ops (the backward's plain version, which
+also has the log-sum-exp-and-Delta form the kernel computes).  The
 kernel reads q, k and v through their strides (the last dimension must
 be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 ``transpose(1, 2)`` views; the output has q's layout and dtype.
@@ -159,11 +166,14 @@ def _visible_mask(rows, cols, *, causal: bool, q_offset: int, kv_len: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, scale=None,
-                          q_offset: int = 0, kv_len=None,
-                          window=None) -> torch.Tensor:
+                          q_offset: int = 0, kv_len=None, window=None,
+                          return_lse: bool = False):
     """Dense masked softmax attention in f32 with the kernel's mask,
     ``-1e30`` for masked scores and ``acc / max(l, 1e-30)``; q rows in
-    blocks of at most :data:`PLAIN_BLOCK_ELEMENTS` scores."""
+    blocks of at most :data:`PLAIN_BLOCK_ELEMENTS` scores.  With
+    ``return_lse`` also each row's log-sum-exp ``m + ln max(l, 1e-30)``
+    over its visible scores ``scale q k^T`` (f32 ``[B, H, Sq]``, the
+    kernel's under autograd): ``(out, lse)``."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -173,18 +183,21 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale=None,
     cols = torch.arange(sk, device=q.device)
     step = max(1, PLAIN_BLOCK_ELEMENTS // (b * h * sk))
     out = torch.empty(b, h, sq, d, device=q.device)
+    lse = torch.empty(b, h, sq, device=q.device) if return_lse else None
     for r0 in range(0, sq, step):
         rows = torch.arange(r0, min(r0 + step, sq), device=q.device)
         s = (q[:, :, r0:r0 + step].float() * scale) @ kf.transpose(-1, -2)
         mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window)
         s = torch.where(mask, s, NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        out[:, :, r0:r0 + step] = ((p @ vf)
-                                   / p.sum(dim=-1, keepdim=True)
-                                   .clamp_min(1e-30))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[:, :, r0:r0 + step] = (p @ vf) / den
+        if return_lse:
+            lse[:, :, r0:r0 + step] = (m + den.log())[..., 0]
         del s, p
-    return out.to(q.dtype)
+    return (out.to(q.dtype), lse) if return_lse else out.to(q.dtype)
 
 
 def split_range(sq: int, causal: bool, q_offset: int, kv_len: int,
@@ -263,6 +276,16 @@ def backward_form(q, k, v, grad) -> str:
     return "tensor_core" if _aligned(q, k, v, grad) else "simt"
 
 
+def keeps_lse(q, k, v) -> bool:
+    """Whether a forward under autograd writes and saves each row's
+    log-sum-exp and its output's rounding residual (and its output) for
+    the backward: on the card or on meta, where the backward takes its
+    tensor-core form (the forward's form is then ``"tensor_core"`` or
+    ``"split_kv"``, both of which write them)."""
+    return q.device.type in ("cuda", "meta") and \
+        kernel_form(q, k, v) != "simt"
+
+
 def kernel_form(q, k, v) -> str:
     """The kernel form that :func:`flash_attention` launches for these
     arguments (see the module docstring).  The output, allocated like q,
@@ -291,21 +314,29 @@ def attention_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: float, q_offset: int, kv_len: int,
-             window: int) -> torch.Tensor:
-    """One launch of the kernel on the meta device (``window`` 0: none);
-    it has no implementation on a device with values."""
+             for_grad: bool, causal: bool, scale: float, q_offset: int,
+             kv_len: int, window: int) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """One launch of the kernel on the meta device (``window`` 0: none):
+    the output and, ``for_grad``, each row's log-sum-exp and the output's
+    rounding residual (else empty tensors); it has no implementation on a
+    device with values."""
     raise RuntimeError("repro_torch::flash_attention runs on meta tensors "
                        "only")
 
 
 @_meta_op.register_fake
-def _(q, k, v, causal, scale, q_offset, kv_len, window):
-    return torch.empty_like(q)   # the kernel's output: q's layout
+def _(q, k, v, for_grad, causal, scale, q_offset, kv_len, window):
+    b, h, sq, _ = q.shape
+    lse = torch.empty((b, h, sq) if for_grad else (0,), dtype=torch.float32,
+                      device=q.device)
+    out_lo = (torch.empty_like(q) if for_grad
+              else torch.empty(0, dtype=q.dtype, device=q.device))
+    return torch.empty_like(q), lse, out_lo   # the output: q's layout
 
 
 def _meta_ops(args, kwargs) -> float:
-    q, _, _, causal, _, q_offset, kv_len, window = args
+    q, _, _, _, causal, _, q_offset, kv_len, window = args
     b, h, sq, d = q.shape
     return attention_ops(b, h, sq, d, causal=causal, q_offset=q_offset,
                          kv_len=kv_len, window=window or None)
@@ -318,8 +349,8 @@ def attention_bwd_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
                       q_offset: int, kv_len: int, window=None) -> float:
     """The backward's operations, the yardstick of its bound: P
     recomputed and dV, dP, dQ, dK, 10·D per visible pair (2.5 times
-    :func:`attention_ops`; the kernel's statistics stage and the second
-    pass's recomputation not counted)."""
+    :func:`attention_ops`; the second pass's recomputation of S and dP,
+    and the CUDA-core form's statistics stage, not counted)."""
     return 2.5 * attention_ops(b, h, sq, d, causal=causal,
                                q_offset=q_offset, kv_len=kv_len,
                                window=window)
@@ -327,18 +358,22 @@ def attention_bwd_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def _meta_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 grad: torch.Tensor, causal: bool, scale: float,
+                 grad: torch.Tensor, out: torch.Tensor | None,
+                 out_lo: torch.Tensor | None, lse: torch.Tensor | None,
+                 causal: bool, scale: float,
                  q_offset: int, kv_len: int,
                  window: int) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """One launch of the backward kernel on the meta device (``window``
-    0: none): ``(dq, dk, dv)``."""
+    0: none; ``out``, ``out_lo`` and ``lse`` the forward's, read by the
+    tensor-core form, else None): ``(dq, dk, dv)``."""
     raise RuntimeError("repro_torch::flash_attention_bwd runs on meta "
                        "tensors only")
 
 
 @_meta_bwd_op.register_fake
-def _(q, k, v, grad, causal, scale, q_offset, kv_len, window):
+def _(q, k, v, grad, out, out_lo, lse, causal, scale, q_offset, kv_len,
+      window):
     return _grads_like(q, k, v)
 
 
@@ -351,7 +386,7 @@ def _grads_like(*ts):
 
 
 def _meta_bwd_ops(args, kwargs) -> float:
-    q, _, _, _, causal, _, q_offset, kv_len, window = args
+    q, *_, causal, _, q_offset, kv_len, window = args
     b, h, sq, d = q.shape
     return attention_bwd_ops(b, h, sq, d, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window or None)
@@ -369,7 +404,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float,
-        ci, ci, ci, ci, vp, vp, vp,
+        ci, ci, ci, ci, vp, vp, vp, vp, vp,
     ]
     lib.flash_attention_fwd.restype = ci
     for fn in (lib.flash_attention_split_columns,
@@ -389,7 +424,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
-        [vp] * 9 + [ci] * 9 + [ctypes.c_float, ci, ci, ci, vp])
+        [vp] * 12 + [ci] * 9 + [ctypes.c_float, ci, ci, ci, vp])
     lib.flash_attention_bwd.restype = ci
     lib.flash_attention_bwd_error_string.argtypes = [ci]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -411,18 +446,29 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     return _forward(q, k, v, causal, scale, q_offset, kv_len, window)
 
 
-def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
-    """The plain version on the CPU, the kernel's launch on the card."""
+def _forward(q, k, v, causal, scale, q_offset, kv_len, window,
+             for_grad=False):
+    """The plain version on the CPU, the kernel's launch on the card;
+    ``for_grad``: ``(out, lse, out_lo)``, each row's log-sum-exp and the
+    output's rounding residual in q's dtype beside the output (the
+    kernel's bf16 forms write them; :func:`keeps_lse`)."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     dev = q.device
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len,
+              window=window)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     q_offset=q_offset, kv_len=kv_len,
-                                     window=window)
+        if not for_grad:
+            return flash_attention_plain(q, k, v, **kw)
+        out, lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                         **kw, return_lse=True)
+        hi = out.to(q.dtype)
+        return hi, lse, (out - hi.float()).to(q.dtype)
     if dev.type == "meta":
         scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-        return _meta_op(q, k, v, bool(causal), scale, q_offset, kv_len,
-                        0 if window is None else window)
+        out, lse, out_lo = _meta_op(q, k, v, bool(for_grad), bool(causal),
+                                    scale, q_offset, kv_len,
+                                    0 if window is None else window)
+        return (out, lse, out_lo) if for_grad else out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b, h, sq, d = q.shape
@@ -439,6 +485,12 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
     scale = d ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)  # q's layout; its last dim stays contiguous
     form = kernel_form(q, k, v)
+    lse = out_lo = None
+    if for_grad:
+        if form == "simt":
+            raise ValueError("the CUDA-core form writes no log-sum-exp")
+        lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+        out_lo = torch.empty_like(out)   # out's strides
     n_splits, part_ml, part_acc = 0, None, None
     if form == "split_kv":
         rows = sq * (h // hkv)
@@ -459,7 +511,9 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
             scale, d, _DTYPES[q.dtype],
             _FORM_CODES[form], n_splits,
             None if part_ml is None else part_ml.data_ptr(),
-            None if part_acc is None else part_acc.data_ptr(), stream,
+            None if part_acc is None else part_acc.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr(), stream,
         )
     if code:
         msg = _lib().flash_attention_error_string(code).decode()
@@ -467,22 +521,29 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window):
                            f"CUDA error {code} ({msg})")
     count_launch(LAUNCHES, "flash_attention")
     count_launch(LAUNCHES_BY_FORM, form)
-    return out
+    return (out, lse, out_lo) if for_grad else out
 
 
 # --- the gradient --------------------------------------------------------------
 
 
 def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
-                        q_offset: int = 0, kv_len=None, window=None):
+                        q_offset: int = 0, kv_len=None, window=None,
+                        out=None, lse=None):
     """``(dq, dk, dv)`` of :func:`flash_attention_plain`'s function for
     the output gradient ``grad`` ``[B, H, Sq, D]``, in closed form and
     f32, q rows in the plain version's blocks: with ``P`` the row softmax
     of ``S = scale q k^T`` (masked), ``dV = P^T dO``, ``dP = dO V^T``,
     ``dS = P (dP - rowsum(P dP))``, ``dQ = scale dS K``, ``dK = scale dS^T
-    Q``; a kv head's gradients sum over the q heads that share it.
+    Q``; a kv head's gradients sum over the q heads that share it.  Given
+    the forward's output ``out`` and log-sum-exp ``lse``, the form the
+    tensor-core kernel computes: ``P = exp(S - lse)`` on the visible
+    columns and ``rowsum(P dP)`` as ``Delta = rowsum(dO out)`` in f32 (the
+    kernel's ``out`` is the bf16 output plus its rounding residual).
     Returned in the inputs' dtypes."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
+    if (out is None) != (lse is None):
+        raise ValueError("give both out and lse, or neither")
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -500,14 +561,23 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
         s = qs @ kf.transpose(-1, -2)
         mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window)
-        s = torch.where(mask, s, NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        del s
         g = grad[:, :, r0:r0 + step].float()
+        if lse is None:
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        else:
+            p = torch.where(mask, torch.exp(
+                s - lse[:, :, r0:r0 + step, None].float()), 0.0)
+        del s
         dv += p.transpose(-1, -2) @ g
         dp = g @ vf.transpose(-1, -2)
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        if lse is None:
+            delta = (dp * p).sum(dim=-1, keepdim=True)
+        else:
+            delta = (g * out[:, :, r0:r0 + step].float()).sum(
+                dim=-1, keepdim=True)
+        ds = p * (dp - delta)
         del p, dp
         dq[:, :, r0:r0 + step] = (ds @ kf) * scale
         dk += ds.transpose(-1, -2) @ qs
@@ -520,27 +590,41 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
 _BWD_FORM_CODES = {"simt": 0, "tensor_core": 1}
 
 
-def _bwd_stats(b: int, h: int, sq: int, dev) -> torch.Tensor:
-    """The backward kernel's f32 scratch: each q row's log-sum-exp and
-    rowsum(dP P)."""
-    return torch.empty(2, b, h, sq, dtype=torch.float32, device=dev)
+def _bwd_stats(b: int, h: int, sq: int, dev, form: str) -> torch.Tensor:
+    """The backward kernel's f32 scratch: each q row's Delta = dO . O
+    (tensor-core form), or its log-sum-exp and rowsum(dP P) (CUDA-core
+    form, from its statistics stage)."""
+    rows = (b, h, sq) if form == "tensor_core" else (2, b, h, sq)
+    return torch.empty(rows, dtype=torch.float32, device=dev)
 
 
-def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window):
+def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window,
+              out=None, lse=None, out_lo=None):
     """``(dq, dk, dv)`` on the card (the backward kernel's launch) or on
-    meta (its op), contiguous, in q's, k's and v's dtypes."""
+    meta (its op), contiguous, in q's, k's and v's dtypes.  The
+    tensor-core form reads the forward's output ``out``, log-sum-exp
+    ``lse`` and rounding residual ``out_lo`` (``_forward(...,
+    for_grad=True)``); the CUDA-core form none of them."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     grad = grad.to(q.dtype)
     dev = q.device
+    # the forward's choice (an unaligned grad is copied below)
+    form = "tensor_core" if keeps_lse(q, k, v) else "simt"
+    if form == "simt":
+        out = lse = out_lo = None
+    elif out is None or lse is None or out_lo is None:
+        raise ValueError("the tensor-core backward reads the forward's "
+                         "output, log-sum-exp and rounding residual")
     if dev.type == "meta":
         # the kernel's scratch too, live across its launch, so that a
         # recording's peak holds what the card holds
-        stats = _bwd_stats(b, h, sq, dev)
-        grads = _meta_bwd_op(q, k, v, grad, bool(causal), scale, q_offset,
-                             kv_len, 0 if window is None else window)
+        stats = _bwd_stats(b, h, sq, dev, form)
+        grads = _meta_bwd_op(q, k, v, grad, out, out_lo, lse, bool(causal),
+                             scale, q_offset, kv_len,
+                             0 if window is None else window)
         del stats
         return grads
     if grad.stride(-1) != 1 or not _aligned(grad):
@@ -555,18 +639,30 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window):
     if max(b, h) > 65535 or max(sq, sk) > 64 * 65535:
         raise ValueError("batch and heads must be <= 65535, Sq and Sk <= "
                          "4194240")
-    form = backward_form(q, k, v, grad)
+    if form == "tensor_core":
+        if any(tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
+               for t in (out, out_lo)) or tuple(lse.shape) != (b, h, sq) \
+                or lse.dtype != torch.float32:
+            raise ValueError("out and out_lo must be q's shape and dtype, "
+                             "lse f32 [B, H, Sq]")
+        if out_lo.stride() != out.stride() or not _aligned(out, out_lo):
+            out, out_lo = out.contiguous(), out_lo.contiguous()
+        lse = lse.contiguous()
     dq, dk, dv = _grads_like(q, k, v)
-    stats = _bwd_stats(b, h, sq, dev)
-    strides = (ctypes.c_int64 * 21)(*[
-        s for t in (q, k, v, grad, dq, dk, dv) for s in t.stride()[:3]
+    stats = _bwd_stats(b, h, sq, dev, form)
+    strides = (ctypes.c_int64 * 24)(*[
+        s for t in (q, k, v, grad, q if out is None else out, dq, dk, dv)
+        for s in t.stride()[:3]
     ])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            *map(ptr, (q, k, v, grad, out, out_lo, lse, dq, dk, dv, stats)),
             ctypes.cast(strides, ctypes.c_void_p), b, h, sq, hkv, sk,
             kv_len, q_offset, int(bool(causal)),
             0 if window is None else window, scale, d, _DTYPES[q.dtype],
@@ -583,24 +679,33 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window):
 
 class _FlashAttention(torch.autograd.Function):
     """B4 with a gradient: the forward launches the kernel (the plain
-    version on the CPU) and saves q, k, v; the backward launches the
-    backward kernel on the card (one op on meta) and, on the CPU, is
-    :func:`flash_attention_bwd`, torch ops; each recomputes P."""
+    version on the CPU) and saves q, k, v, and, where the backward takes
+    its tensor-core form (:func:`keeps_lse`), the output, each row's
+    log-sum-exp and the output's rounding residual; the backward launches the backward kernel on the card
+    (one op on meta) and, on the CPU, is :func:`flash_attention_bwd`,
+    torch ops; each recomputes P."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, window):
-        ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, scale=scale, q_offset=q_offset,
                         kv_len=kv_len, window=window)
-        return _forward(q, k, v, causal, scale, q_offset, kv_len, window)
+        if not keeps_lse(q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return _forward(q, k, v, causal, scale, q_offset, kv_len, window)
+        out, lse, out_lo = _forward(q, k, v, causal, scale, q_offset, kv_len,
+                                    window, for_grad=True)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *kept = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd(q, k, v, grad, **ctx.args)
         else:
-            dq, dk, dv = _backward(q, k, v, grad, **ctx.args)
+            out, lse, out_lo = kept if kept else (None, None, None)
+            dq, dk, dv = _backward(q, k, v, grad, **ctx.args, out=out,
+                                   lse=lse, out_lo=out_lo)
         need = ctx.needs_input_grad
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, None, None, None, None, None)

@@ -158,68 +158,77 @@ def scan_ops(bsz: int, s: int, h: int, p: int, n: int) -> float:
 
 
 def ssd_scan_bwd_plain(x, la, b, c, h0, dy, dfinal):
-    """The backward kernel's algorithm in torch ops, f32, chunk by chunk:
+    """The backward kernel's algorithm in torch ops, f32, phase by phase:
     the gradients ``(dx, dla, db, dc, dh0)`` of :func:`ssd_scan_plain`'s
     outputs for ``dy`` (y's gradient, None for zero) and ``dfinal`` (the
-    final state's, None for zero); dh0 is None when h0 is.  The states
-    entering every chunk first, then a reverse sweep with ``s`` the
-    in-chunk cumsum of la, ``H`` the state entering the chunk and ``G``
-    the gradient of the one leaving it (``csrc/ssd_scan_bwd.cu`` states
-    each term).  Returned in the inputs' dtypes."""
+    final state's, None for zero); dh0 is None when h0 is.  With ``s`` the
+    in-chunk cumsum of la, ``a = e^{s_last}`` and ``w = e^{s_last - s}``:
+    (1) every chunk's increments ``U = sum_j w_j b_j x_j^T`` and ``V =
+    sum_i e^{s_i} c_i dy_i^T``; (2) the forward pass over chunks for the
+    states entering them (``H_{c+1} = a_c H_c + U_c`` from h0) and the
+    reverse pass for the gradients of the states leaving them
+    (``G_{c-1} = a_c G_c + V_c`` from dfinal; dh0 is the last); (3) every
+    chunk's gradients from its H and G alone (``csrc/ssd_scan_bwd.cu``
+    states each term).  Returned in the inputs' dtypes."""
     bsz, s, h, p, n = _check_args(x, la, b, c, h0)
     pad = -s % CHUNK
     dev = x.device
+    chunks = (s + pad) // CHUNK
 
-    def padded(t, dims):
-        return torch.nn.functional.pad(t.float(), dims)
+    def chunked(t, dims):   # padded with zeros, [B, chunks, L, ...]
+        return torch.nn.functional.pad(t.float(), dims).unflatten(
+            1, (chunks, CHUNK))
 
-    xf = padded(x, (0, 0, 0, 0, 0, pad))
-    dyf = (torch.zeros_like(xf) if dy is None
-           else padded(dy, (0, 0, 0, 0, 0, pad)))
-    laf = padded(la, (0, 0, 0, pad))
-    bf, cf = padded(b, (0, 0, 0, pad)), padded(c, (0, 0, 0, pad))
-    tril = torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=dev).tril()
-    chunks = [slice(c0, c0 + CHUNK) for c0 in range(0, s + pad, CHUNK)]
+    xk = chunked(x, (0, 0, 0, 0, 0, pad))                # [B,C,L,H,P]
+    dyk = (torch.zeros_like(xk) if dy is None
+           else chunked(dy, (0, 0, 0, 0, 0, pad)))
+    sk = torch.cumsum(chunked(la, (0, 0, 0, pad)), dim=2)  # [B,C,L,H]
+    bk, ck = chunked(b, (0, 0, 0, pad)), chunked(c, (0, 0, 0, pad))
+    s_last = sk[:, :, -1]                                 # [B,C,H]
+    es = sk.exp()
+    w = (s_last[:, :, None] - sk).exp()
+    decay = s_last.exp()[..., None, None]                 # [B,C,H,1,1]
+    # (1) the chunk increments
+    u = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bk, w, xk)
+    v = torch.einsum("bcin,bcih,bcihp->bchnp", ck, es, dyk)
+    # (2) the two passes over chunks
+    hs, gs = torch.empty_like(u), torch.empty_like(v)
     state = (torch.zeros(bsz, h, n, p, device=dev) if h0 is None
              else h0.float())
-    states, cums = [], []
-    for sl in chunks:
-        sk = torch.cumsum(laf[:, sl], dim=1)              # [B,L,H]
-        states.append(state)
-        cums.append(sk)
-        w = (sk[:, -1:] - sk).exp()
-        state = sk[:, -1].exp()[:, :, None, None] * state + torch.einsum(
-            "bjn,bjh,bjhp->bhnp", bf[:, sl], w, xf[:, sl])
+    for ci in range(chunks):
+        hs[:, ci] = state
+        state = decay[:, ci] * state + u[:, ci]
     g = (torch.zeros(bsz, h, n, p, device=dev) if dfinal is None
          else dfinal.float())
-    dx, dla = torch.empty_like(xf), torch.empty_like(laf)
-    db, dc = torch.empty_like(bf), torch.empty_like(cf)
-    for sl, sk, hk in reversed(list(zip(chunks, cums, states))):
-        xk, dyk, bk, ck = xf[:, sl], dyf[:, sl], bf[:, sl], cf[:, sl]
-        decay = (sk[:, :, None, :] - sk[:, None, :, :]).masked_fill(
-            ~tril[None, :, :, None], float("-inf")).exp()  # [B,i,j,H]
-        es, s_last = sk.exp(), sk[:, -1]
-        w = (s_last[:, None, :] - sk).exp()               # [B,L,H]
-        cb = ck @ bk.transpose(1, 2)                       # [B,i,j]
-        m = torch.einsum("bihp,bjhp->bijh", dyk, xk) * decay
-        a = cb[..., None] * m
-        hd = torch.einsum("bhnp,bihp->bihn", hk, dyk)     # H dy_i
-        gx = torch.einsum("bhnp,bjhp->bjhn", g, xk)       # G x_j
-        dx[:, sl] = (torch.einsum("bij,bijh,bihp->bjhp", cb, decay, dyk)
-                     + w[..., None] * torch.einsum("bjn,bhnp->bjhp", bk, g))
-        db[:, sl] = (torch.einsum("bijh,bin->bjn", m, ck)
-                     + torch.einsum("bjh,bjhn->bjn", w, gx))
-        dc[:, sl] = (torch.einsum("bijh,bjn->bin", m, bk)
-                     + torch.einsum("bih,bihn->bin", es, hd))
-        q = w * torch.einsum("bjn,bjhn->bjh", bk, gx)
-        ds = (a.sum(2) - a.sum(1) - q
-              + es * torch.einsum("bin,bihn->bih", ck, hd))
-        ds[:, -1] += s_last.exp() * (g * hk).sum((-2, -1)) + q.sum(1)
-        dla[:, sl] = ds.flip(1).cumsum(1).flip(1)
-        g = s_last.exp()[:, :, None, None] * g + torch.einsum(
-            "bih,bin,bihp->bhnp", es, ck, dyk)
-    return (dx[:, :s].to(x.dtype), dla[:, :s], db[:, :s].to(b.dtype),
-            dc[:, :s].to(c.dtype), None if h0 is None else g)
+    for ci in reversed(range(chunks)):
+        gs[:, ci] = g
+        g = decay[:, ci] * g + v[:, ci]
+    # (3) the chunk gradients, every chunk at once
+    tril = torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=dev).tril()
+    dec = (sk[:, :, :, None] - sk[:, :, None]).masked_fill(
+        ~tril[:, :, None], float("-inf")).exp()           # [B,C,i,j,H]
+    cb = ck @ bk.transpose(-1, -2)                        # [B,C,i,j]
+    m = torch.einsum("bcihp,bcjhp->bcijh", dyk, xk) * dec
+    a = cb[..., None] * m
+    hd = torch.einsum("bchnp,bcihp->bcihn", hs, dyk)     # H dy_i
+    gx = torch.einsum("bchnp,bcjhp->bcjhn", gs, xk)      # G x_j
+    dx = (torch.einsum("bcij,bcijh,bcihp->bcjhp", cb, dec, dyk)
+          + w[..., None] * torch.einsum("bcjn,bchnp->bcjhp", bk, gs))
+    db = (torch.einsum("bcijh,bcin->bcjn", m, ck)
+          + torch.einsum("bcjh,bcjhn->bcjn", w, gx))
+    dc = (torch.einsum("bcijh,bcjn->bcin", m, bk)
+          + torch.einsum("bcih,bcihn->bcin", es, hd))
+    q = w * torch.einsum("bcjn,bcjhn->bcjh", bk, gx)
+    ds = (a.sum(3) - a.sum(2) - q
+          + es * torch.einsum("bcin,bcihn->bcih", ck, hd))
+    ds[:, :, -1] += decay[..., 0, 0] * (gs * hs).sum((-2, -1)) + q.sum(2)
+    dla = ds.flip(2).cumsum(2).flip(2)
+
+    def unchunked(t):
+        return t.flatten(1, 2)[:, :s]
+
+    return (unchunked(dx).to(x.dtype), unchunked(dla), unchunked(db).to(
+        b.dtype), unchunked(dc).to(c.dtype), None if h0 is None else g)
 
 
 def scan_bwd_ops(bsz: int, s: int, h: int, p: int, n: int) -> float:
@@ -301,7 +310,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [vp] * 17 + [ci] * 7 + [vp]
+    lib.ssd_scan_bwd.argtypes = [vp] * 19 + [ci] * 7 + [vp]
     lib.ssd_scan_bwd.restype = ci
     lib.ssd_scan_bwd_columns.argtypes = [ci]
     lib.ssd_scan_bwd_columns.restype = ci
@@ -363,18 +372,21 @@ def _forward(x, la, b, c, h0):
 def bwd_columns(n: int) -> int:
     """The state columns a block of the backward kernel takes at state
     size ``n`` (the library's ``ssd_scan_bwd_columns``, which sizes the
-    scratch on the card)."""
-    return 64 if n <= 64 else 32
+    scratch on the card): 64 at every ``n``."""
+    return 64
 
 
 def _bwd_scratch(bsz, s, h, p, n, cols, dev):
-    """The backward kernel's f32 scratch: the state entering every chunk
-    ``[B, H, chunks, N, P]``, the db and dc partials of every block of
-    ``cols`` state columns and the ds partials."""
+    """The backward kernel's f32 scratch: every chunk's increments ``[2,
+    B, H, chunks, N, P4]`` (P rounded up to 4; rewritten in place as the
+    states entering the chunks and the gradients of those leaving them),
+    each chunk's ``s_last`` ``[B, H, chunks]``, the db and dc partials of
+    every block of ``cols`` state columns and the ds partials."""
     f32 = dict(dtype=torch.float32, device=dev)
     chunks = -(-s // CHUNK)
     blocks = h * -(-p // cols)  # partials a row
-    return (torch.empty(bsz * h * chunks * n * p, **f32),
+    return (torch.empty(2, bsz * h * chunks * n * (-(-p // 4) * 4), **f32),
+            torch.empty(bsz * h * chunks, **f32),
             torch.empty(2, bsz * blocks * chunks * CHUNK * n, **f32),
             torch.empty(bsz * blocks * chunks * CHUNK, **f32))
 
@@ -407,7 +419,7 @@ def _backward(x, la, b, c, h0, dy, dfinal):
     db = torch.empty(b.shape, dtype=b.dtype, device=dev)
     dc = torch.empty(c.shape, dtype=c.dtype, device=dev)
     dh0 = None if h0 is None else torch.empty(h0.shape, **f32)
-    states, part_bc, part_s = _bwd_scratch(
+    incr, slast, part_bc, part_s = _bwd_scratch(
         bsz, s, h, p, n, lib.ssd_scan_bwd_columns(n), dev)
     strides = (ctypes.c_int64 * 13)(
         *x.stride()[:3], *dy.stride()[:3], *la.stride(), *b.stride()[:2],
@@ -420,7 +432,8 @@ def _backward(x, la, b, c, h0, dy, dfinal):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.ssd_scan_bwd(
             *map(ptr, (x, la, b, c, h0, dy, dfinal, dx, dla, db, dc, dh0,
-                       states, part_bc[0], part_bc[1], part_s)),
+                       incr[0], incr[1], slast, part_bc[0], part_bc[1],
+                       part_s)),
             ctypes.cast(strides, ctypes.c_void_p), bsz, s, h, n, p,
             _DTYPES[x.dtype], _DTYPES[b.dtype], stream,
         )

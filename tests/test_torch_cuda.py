@@ -706,6 +706,42 @@ def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
             tol * float(w.float().abs().max())
 
 
+@pytest.mark.parametrize("sq,kw", [
+    (300, dict(causal=True)),                                  # tensor-core
+    (1, dict(causal=True, q_offset=299, kv_len=300)),          # split-KV
+    (200, dict(causal=True, q_offset=40, kv_len=250, window=70)),
+], ids=["tensor-core", "split-kv", "offsets-window"])
+def test_flash_attention_forward_lse_on_the_card(cuda_device, sq, kw):
+    """Under autograd the bf16 forms also write each row's log-sum-exp,
+    within 1e-4 of the plain version's, and the output's rounding residual:
+    output + residual is within 2^-15 of the largest value of the plain
+    version in f32 (P in two bf16 parts: ~16 bits), and the output, like
+    the serving launch's, within one bf16 step (2^-8) of it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = rand(2, sq, 8, 64), rand(2, 300, 2, 64), rand(2, 300, 2, 64)
+    mod = sys.modules[fa.flash_attention.__module__]
+    assert mod.keeps_lse(q, k, v)
+    args = (kw["causal"], None, kw.get("q_offset", 0), kw.get("kv_len"),
+            kw.get("window"))
+    out, lse, out_lo = mod._forward(q, k, v, *args, for_grad=True)
+    serve = mod._forward(q, k, v, *args)
+    o32, want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         **kw, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert float((lse - want).abs().max()) <= 1e-4
+    assert out_lo.dtype == out.dtype and out_lo.stride() == out.stride()
+    err = (out.float() + out_lo.float() - o32).abs().max()
+    assert float(err) <= 2.0 ** -15 * float(o32.abs().max())
+    for o in (out, serve):
+        err = (o.float() - o32).abs().max()
+        assert float(err) <= 2.0 ** -8 * float(o32.abs().max())
+
+
 def test_ssd_scan_gradient_on_the_card(cuda_device):
     """Under grad the kernel's outputs have B5's ``grad_fn``; the
     gradients (one launch of the backward kernel) equal autograd through
@@ -780,10 +816,12 @@ def row_err(got: torch.Tensor, plain: torch.Tensor) -> float:
     (torch.float32, 1, 4, 4, 150, 200, 96,
      dict(causal=True, q_offset=30, kv_len=170, window=60)),
     (torch.bfloat16, 2, 4, 4, 130, 130, 16, dict(causal=True)),    # bf16 D 16
+    (torch.bfloat16, 2, 8, 2, 1, 300, 64,
+     dict(causal=True, q_offset=299, kv_len=300)),  # split-KV forward
 ], ids=["tc", "tc-gqa-d128", "tc-window", "tc-noncausal", "tc-d96",
         "tc-offsets", "simt-f32", "simt-f32-gqa-d16", "simt-f32-window-d8",
         "simt-f32-noncausal-d32", "simt-f32-offsets-window-d96",
-        "simt-bf16-d16"])
+        "simt-bf16-d16", "tc-after-split-kv"])
 def test_flash_attention_backward_kernel_vs_plain(cuda_device, dtype, b, h,
                                                   hkv, sq, sk, d, kw):
     """B4's backward kernel, on the form ``backward_form`` picks, against
@@ -815,30 +853,36 @@ def test_flash_attention_backward_kernel_vs_plain(cuda_device, dtype, b, h,
             assert row_err(a, w) <= BWD_ROW_TOL["flash"][dtype]
 
 
-@pytest.mark.parametrize("b,s,h,p,n,with_h0,with_final,x_dt,bc_dt", [
-    (2, 2048, 8, 64, 64, True, True, torch.float32, torch.float32),
-    (2, 300, 4, 64, 128, True, True, torch.float32, torch.float32),  # N 128
-    (2, 131, 3, 48, 64, False, True, torch.float32, torch.float32),  # ragged
-    (1, 200, 2, 80, 100, True, False, torch.float32, torch.float32),
-    (2, 256, 4, 64, 64, False, False, torch.float32, torch.bfloat16),
-    (2, 300, 4, 64, 64, True, True, torch.bfloat16, torch.bfloat16),
-    (1, 37, 2, 8, 4, True, True, torch.float32, torch.float32),      # tiny
+@pytest.mark.parametrize("b,s,h,p,n,with_h0,with_final,x_dt,bc_dt,decay", [
+    (2, 2048, 8, 64, 64, True, True, torch.float32, torch.float32, 1.0),
+    (2, 300, 4, 64, 128, True, True, torch.float32, torch.float32, 1.0),
+    (2, 131, 3, 48, 64, False, True, torch.float32, torch.float32, 1.0),
+    (1, 200, 2, 80, 100, True, False, torch.float32, torch.float32, 1.0),
+    (2, 256, 4, 64, 64, False, False, torch.float32, torch.bfloat16, 1.0),
+    (2, 300, 4, 64, 64, True, True, torch.bfloat16, torch.bfloat16, 1.0),
+    (1, 37, 2, 8, 4, True, True, torch.float32, torch.float32, 1.0),
+    (2, 700, 4, 64, 64, True, True, torch.float32, torch.float32, 0.01),
+    (1, 150, 3, 6, 5, True, True, torch.float32, torch.bfloat16, 0.01),
 ], ids=["f32", "n128", "ragged-no-h0", "n100-no-final", "bf16-bc",
-        "bf16-x-bc", "tiny"])
+        "bf16-x-bc", "tiny", "slow-decay", "odd-widths"])
 def test_ssd_scan_backward_kernel_vs_plain(cuda_device, b, s, h, p, n,
-                                           with_h0, with_final, x_dt, bc_dt):
+                                           with_h0, with_final, x_dt, bc_dt,
+                                           decay):
     """B5's backward kernel against its algorithm in torch ops
     (``ssd_scan_bwd_plain``) and autograd through the plain scan: f32
     gradients within ``BWD_TOL`` of the largest; bf16 ones (x, b, c in
     bf16) also within one bf16 step (at most 2^-7 of the value)
-    elementwise; every row within ``BWD_ROW_TOL`` of its rms."""
+    elementwise; every row within ``BWD_ROW_TOL`` of its rms.  ``decay``
+    scales la: at 0.01 a chunk of 64 steps keeps ~0.6 of its state, so
+    that what the passes carry from chunk to chunk counts."""
     gen = torch.Generator(device=cuda_device).manual_seed(s + n)
 
     def rand(*shape, dt=torch.float32):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
 
     x = rand(b, s, h, p, dt=x_dt).requires_grad_()
-    la = (-torch.nn.functional.softplus(rand(b, s, h))).requires_grad_()
+    la = (-decay * torch.nn.functional.softplus(rand(b, s, h))
+          ).requires_grad_()
     bb = (rand(b, s, n) * 0.3).to(bc_dt).requires_grad_()
     cc = (rand(b, s, n) * 0.3).to(bc_dt).requires_grad_()
     h0 = rand(b, h, n, p).requires_grad_() if with_h0 else None
@@ -888,6 +932,9 @@ def test_backward_kernels_are_deterministic(cuda_device, dtype):
     g = rand(2, 8, 300, 64)
     kw = dict(causal=True, scale=None, q_offset=0, kv_len=None, window=None)
     mod = sys.modules[fa.flash_attention.__module__]
+    if mod.keeps_lse(q, k, v):   # the tensor-core form reads the forward's
+        out, lse, out_lo = mod._forward(q, k, v, *kw.values(), for_grad=True)
+        kw.update(out=out, lse=lse, out_lo=out_lo)
     first = mod._backward(q, k, v, g, **kw)
     assert all(torch.equal(a, c) for _ in range(2)
                for a, c in zip(first, mod._backward(q, k, v, g, **kw)))
