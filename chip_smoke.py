@@ -64,21 +64,26 @@ with a non-zero exit:
     a ragged Sq = 1000; the split-KV form at a decode step against the
     serving cache (kv_len 2048, and 2000, not a multiple of the split)
     and at a GQA decode step (32 over 8, head dim 128: llama3-8b's, whose
-    prefill shape is a row too); the CUDA-core form in f32 at the prefill
-    shape; and with mixtral's sliding window of 4,096 the tensor-core
-    form at its prefill (B 2, S 6,144), the split-KV form at a decode step
-    past the window (splits below the band skipped) and the CUDA-core form
-    in f32 with the band's edge mid-tile (W 1,000); at phi-3-vision's head
-    dim 96 the tensor-core form at its prefill, the split-KV form at a
-    decode step and the CUDA-core form in f32; and without causality, at
+    prefill shape is a row too); the tensor-core f32 form (3xTF32) at the
+    prefill shape; and with mixtral's sliding window of 4,096 the
+    tensor-core form at its prefill (B 2, S 6,144), the split-KV form at a
+    decode step past the window (splits below the band skipped) and the
+    tensor-core f32 form with the band's edge mid-tile (W 1,000); at
+    phi-3-vision's head dim 96 the tensor-core form at its prefill, the
+    split-KV form at a decode step and the tensor-core f32 form; the
+    CUDA-core form in f32 at D 16 and in bf16 at D 32 at the prefill shape,
+    and at an f32 decode step; and without causality, at
     seamless-m4t-medium's shapes, the tensor-core form at its encoder and
     its cross-attention prefill and the split-KV form at a cross-attention
     decode step (one row over the 2,048-frame source).  Each bf16 row is also held to
-    ``FLASH_SCALED_TOL_BF16`` of the plain version's largest output.
+    ``FLASH_SCALED_TOL_BF16`` of the plain version's largest output; the
+    f32 rows on the tensor-core f32 form also give ``bound_tc_ms`` (their
+    operations as 3xTF32 at the TF32 rate) beside ``bound_ms``.
     ``ms`` and SDPA's ``library_ms`` time the calls issued one by one,
     as every kernel's ``ms`` does; ``graph_ms`` and
     ``library_graph_ms`` time the same calls replayed from a CUDA graph,
-    which leaves the host's cost per call out.
+    which leaves the host's cost per call out.  ``python3 chip_smoke.py
+    --phase flash`` runs it alone.
 11. The SSD scan (kernel B5) against its plain version at the
     zamba2-1.2b and mamba2-780m prefill shapes, with an initial and a
     final state, with f32 and with bf16 b and c (the served models'
@@ -95,7 +100,9 @@ with a non-zero exit:
     scale; in bf16 also, ungated, with one kernel at a time and with
     SDPA in B4's place); and at full width and two groups in f32, the prefill of a
     whole prompt against a prefix plus decode steps (2e-4 of the logits'
-    scale).
+    scale).  Each f32 check reports its launches by form (prefills on
+    B4's tensor-core f32 form, decode steps on its CUDA-core form) and
+    counts on that form's path in the kernels line.
 9a. After 9: the reuse stage of one cold exact and one streaming
     predict under ``torch.profiler`` (device-idle share; the streaming
     path's host ms per window, split into offline pass, live-set update
@@ -195,7 +202,8 @@ with a non-zero exit:
     f32) and, at 8 layers in f32, the decode consistency (1,024 patches and
     300 tokens split at 290).
 17b. ``[kernel_backward]`` (ROADMAP B8): the backward kernels of B4
-    (``flash_bwd.cu``: tensor-core and CUDA-core forms) and B5
+    (``flash_bwd.cu``: tensor-core, tensor-core f32 and CUDA-core forms,
+    each case checked to run on its form) and B5
     (``ssd_scan_bwd.cu``) against their plain versions on the card: B4's
     against ``flash_attention_bwd`` and autograd through
     ``flash_attention_plain``, B5's against ``ssd_scan_bwd_plain`` and
@@ -204,12 +212,18 @@ with a non-zero exit:
     the row's rms within ``BWD_ROW_TOL``, every case launched twice with
     equal bits; at the train shapes in bf16 and f32
     and, for B4, GQA, a window, not causal with Sq != Sk, D 96, D 16 and
-    ``q_offset`` / ``kv_len``; for B5 N 128, ragged S, ``h0``, a
-    final-state gradient, bf16 x, b and c.  B4's tensor-core form reads
-    the forward's log-sum-exp (held to the plain version's, ``LSE_TOL``)
-    and output.  Timed at the train shapes (eager, replayed, each
-    launch's device ms, the plain versions; SDPA's backward beside B4's,
-    the 3xTF32 tensor-core bound beside B5's).
+    ``q_offset`` / ``kv_len`` (in f32 on both the tensor-core f32 form and
+    the CUDA-core form), and in f32 at D 64 and D 128 with GQA with q and
+    k scaled so that |scale q k^T| reaches 20 (``BWD_FLASH_SHARP``: held
+    to the plain versions in f64, the same tolerances, their distance from
+    the plain version in f32 reported beside); for B5 N 128, ragged S,
+    ``h0``, a final-state gradient, bf16 x, b and c.  B4's tensor-core
+    forms read the forward's
+    log-sum-exp (held to the plain version's, ``LSE_TOL``) and output.
+    Timed at the train shapes (eager, replayed, each launch's device ms,
+    the plain versions; SDPA's backward beside B4's, the 3xTF32
+    tensor-core bound beside B5's and B4's f32), B4 in bf16, in f32 and,
+    for its CUDA-core form, at D 16 in f32.
     ``python3 chip_smoke.py --phase kernel_backward`` runs it alone.
 18. Training (ROADMAP A-11b): ``repro_torch.launch.train.train`` on
     zamba2-1.2b at full width and depth (38 Mamba2 layers, the shared
@@ -225,7 +239,8 @@ with a non-zero exit:
     kernel path against the plain path on the same weights and batch (in
     bf16 at full depth the loss within 1e-2 and the gradient norm within
     ``SERVE_REL_TOL``; in f32 at 6 layers the loss within 1e-4 and every
-    gradient leaf within 1e-4 of its largest value); one step of each
+    gradient leaf within 1e-4 of its largest value, B4 forward and
+    backward on its tensor-core f32 forms); one step of each
     architecture's reduced config (arctic-480b with Adafactor and bf16
     accumulators); and the 10 ``model/<slug>/train`` cells recorded and
     predicted as in 9d, one SDCM launch each.  More validation-xxl
@@ -962,6 +977,31 @@ def read_counts() -> dict:
                 rd_windows=dict(distance.WINDOWS),
                 rd_window_seconds=dict(distance.WINDOW_SECONDS),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+#: B4's and B5's counters as the f32 checks report them
+ATTENTION_COUNTS = ("flash_attention", "tensor_core", "split_kv",
+                    "tensor_core_f32", "simt", "flash_attention_bwd",
+                    "tensor_core_bwd", "tensor_core_f32_bwd", "simt_bwd",
+                    "ssd_scan", "ssd_scan_bwd")
+#: B4's and B5's launches on the check paths, by path: the f32 checks
+#: (``<arch>/f32_vs_plain``, ``<arch>/f32_consistency``,
+#: ``zamba2-1.2b/train_f32``; the main path of B4's tensor-core f32 forms)
+#: and the reduced configs' training steps (``reduced/train``; B4's
+#: CUDA-core forms, forward and backward), which ``main`` adds to B4's
+#: launches by path.
+CHECK_PATHS: dict = {}
+
+
+def check_path(path: str, launches: dict, needs: tuple) -> dict:
+    """Keep a check path's B4/B5 launches under ``path``; fails unless
+    each form in ``needs`` launched in it."""
+    kept = {k: launches[k] for k in ATTENTION_COUNTS}
+    for form in needs:
+        if not kept[form]:
+            fail(f"{path}: the {form} form never launched: {kept}")
+    CHECK_PATHS[path] = kept
+    return kept
 
 
 def drive(tag: str, needs: tuple, **session_kw):
@@ -2421,8 +2461,11 @@ def phase_flash() -> dict:
     """B4 against its plain version and SDPA, one row per case, each on
     the kernel form the wrapper picks for it (checked); returns the
     kernels record at the zamba2-1.2b serving prefill shape (bf16, its
-    cache of 2080) with one entry per form under ``forms``, and a
-    ``window`` entry at mixtral's windowed prefill."""
+    cache of 2080) with one entry per form under ``forms`` (the first
+    case of each form), and a ``window`` entry at mixtral's windowed
+    prefill.  The f32 rows on the tensor-core f32 form also give
+    ``bound_tc_ms``: their operations as 3xTF32 at the tensor cores'
+    TF32 rate, beside ``bound_ms`` at the CUDA cores' f32 rate."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -2447,8 +2490,8 @@ def phase_flash() -> dict:
          bf16, s - 1, s, None),
         ("llama3_prefill", "tensor_core", b, 32, 8, s, cache, 128, bf16, 0,
          s, None),
-        ("zamba2_prefill_f32", "simt", b, 32, 32, s, cache, 64, f32, 0, s,
-         None),
+        ("zamba2_prefill_f32", "tensor_core_f32", b, 32, 32, s, cache, 64,
+         f32, 0, s, None),
         ("gqa_32_over_8_d128", "tensor_core", 2, 32, 8, s, s, 128, bf16, 0,
          s, None),
         ("ragged_1000", "tensor_core", 2, 32, 32, 1000, 1000, 64, bf16, 0,
@@ -2459,15 +2502,22 @@ def phase_flash() -> dict:
          bf16, 0, ms, w),
         ("mixtral_decode_window", "split_kv", mb, 32, 8, 1, ms + 32, 128,
          bf16, ms + MIXTRAL_GEN, ms + MIXTRAL_GEN + 1, w),
-        ("window_f32_mid_tile", "simt", 2, 32, 8, s, s, 128, f32, 0, s,
-         1000),
+        ("window_f32_mid_tile", "tensor_core_f32", 2, 32, 8, s, s, 128, f32,
+         0, s, 1000),
         # phi-3-vision-4.2b's head dim 96: its prefill (patches and text)
         # and a decode step against its cache, and the f32 form
         ("phi3_prefill_d96", "tensor_core", b, 32, 32, pv, PHI3V_CACHE, 96,
          bf16, 0, pv, None),
         ("phi3_decode_d96", "split_kv", b, 32, 32, 1, PHI3V_CACHE, 96, bf16,
          pv - 1, pv, None),
-        ("simt_f32_d96", "simt", 2, 32, 32, 1024, 1024, 96, f32, 0, 1024,
+        ("simt_f32_d96", "tensor_core_f32", 2, 32, 32, 1024, 1024, 96, f32,
+         0, 1024, None),
+        # what stays on the CUDA-core form: f32 and bf16 at D <= 32 (the
+        # prefill shape at D 16 and 32), and an f32 decode step
+        ("simt_f32_d16", "simt", b, 32, 32, s, cache, 16, f32, 0, s, None),
+        ("simt_bf16_d32", "simt", b, 32, 32, s, cache, 32, bf16, 0, s,
+         None),
+        ("simt_f32_decode", "simt", b, 32, 32, 1, cache, 64, f32, s - 1, s,
          None),
     ]
     # seamless-m4t-medium's calls without causality: its bidirectional
@@ -2482,7 +2532,7 @@ def phase_flash() -> dict:
     ]
     cases = ([(True, *c) for c in causal_cases]
              + [(False, *c) for c in bidirectional])
-    records, worst, forms = {}, 0.0, {}
+    records, worst, forms, form_worst = {}, 0.0, {}, {}
     for i, (causal, tag, form, b, h, hkv, sq, sk, d, dt, off, kvl,
             win) in enumerate(cases):
         rand = cuda_rand(10 + i)
@@ -2505,11 +2555,15 @@ def phase_flash() -> dict:
             fail(f"flash_attention {tag}: max |kernel - plain| / max |plain| "
                  f"= {scaled} > {FLASH_SCALED_TOL_BF16}")
         worst = max(worst, err)
+        form_worst[form] = max(form_worst.get(form, 0.0), err)
         lib = sdpa_library(q, k, v, causal, off, kvl, win)
         lib_err = float((lib.float() - want.float()).abs().max())
         nbytes, ops = flash_work(q, k, causal, off, kvl, win)
         b_ms, b_by = bound_ms(nbytes, ops,
                               PEAK_BF16_S if dt == bf16 else PEAK_FP32_S)
+        # f32 on the tensor cores: 3 TF32 products a multiply-add
+        tc_ms = (bound_ms(nbytes, 3 * ops, PEAK_TF32_S)[0]
+                 if form == "tensor_core_f32" else None)
         rec = dict(form=form, shape=[b, h, hkv, sq, sk, d], dtype=str(dt),
                    causal=causal, q_offset=off, kv_len=kvl, window=win,
                    max_abs_err=err,
@@ -2524,16 +2578,19 @@ def phase_flash() -> dict:
                    library_graph_ms=graph_ms(lambda: sdpa_library(
                        q, k, v, causal, off, kvl, win)),
                    library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes, operations=ops)
+                   bound_tc_ms=tc_ms, bytes=nbytes, operations=ops)
         line("flash", case=tag, **rec)
         records[tag] = rec
         forms.setdefault("window" if win else form, dict(case=tag, **{
             key: rec[key] for key in ("ms", "graph_ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms",
-                                      "library_graph_ms", "max_abs_err",
-                                      "scaled_err")}))
+                                      "bound_ms", "bound_by", "bound_tc_ms",
+                                      "library_ms", "library_graph_ms",
+                                      "max_abs_err", "scaled_err")}))
         del q, k, v, got, want, lib
         torch.cuda.empty_cache()
+    for name, rec in forms.items():   # each form's worst over its cases
+        if name != "window":
+            rec["max_abs_err"] = form_worst[name]
     path = records["zamba2_prefill"]
     return {
         "name": "flash_attention",
@@ -2726,7 +2783,9 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
                            f32: bool = True) -> dict:
     """Teacher-forced logits through the kernels and through the plain
     versions on the card: in the model's dtype, then (``f32``) with the
-    same weights in f32.  With MoE layers the expert choice is teacher
+    same weights in f32, each kernel pass with its launches by form (the
+    f32 one also kept in ``CHECK_PATHS``; its prefill on B4's tensor-core
+    f32 form).  With MoE layers the expert choice is teacher
     forced too (``moe_routing``: the kernel path takes the plain path's
     choices), since a choice that flips on a rounding difference moves a
     token's whole MLP; the kernel path's own routing is reported beside
@@ -2754,7 +2813,9 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
         routes = []
         with plain_kernels(), moe_routing(record=routes):
             want = teacher_forced(spec, cfg_dt, model, res)
+        reset_counts()
         got, routing = forced(routes, flash="kernel", scan="kernel")
+        launches = read_counts()["launches"]
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             fail(f"{tag} {dt}: non-finite logits")
         diff = float((got - want).abs().max())
@@ -2764,7 +2825,14 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
                  f"path's by {diff} (scale {scale}, > {tol} relative)")
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
         rec = dict(steps=got.shape[0], max_abs_diff=diff, logit_scale=scale,
-                   rel=diff / scale, tol=tol, argmax_agreement=agree)
+                   rel=diff / scale, tol=tol, argmax_agreement=agree,
+                   launches={k: launches[k] for k in ATTENTION_COUNTS})
+        if dt == torch.float32:
+            # f32 prefill rows on the tensor-core f32 form (B4 where the
+            # model has attention)
+            check_path(f"{spec.arch_id}/f32_vs_plain", launches,
+                     () if spec.family_name == "ssm" else
+                     ("tensor_core_f32",))
         if routes:
             free = teacher_forced(spec, cfg_dt, model, res)
             rec["free_routing"] = dict(
@@ -2915,8 +2983,9 @@ def profile_serve(spec, model, res, steps: int = 4) -> dict:
 def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
     """At full width and ``layers`` depth in f32: prefill of the whole
     prompt against the prefix plus one decode step per remaining token,
-    through the kernels (gated) and through the plain versions (for
-    comparison).  An encoder-decoder's two stacks are each cut to
+    through the kernels (gated; launches by form, kept in
+    ``CHECK_PATHS``) and through the plain versions (for comparison).  An
+    encoder-decoder's two stacks are each cut to
     ``layers`` and its source is ``total`` frames; a VLM's patches come
     first, and its decode steps run at ``num_patches + t``."""
     from repro_torch.launch import serve
@@ -2950,15 +3019,21 @@ def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
                                               - CONSISTENCY_TOL
                                               * want.abs()).max()))
 
+    reset_counts()
     kernels = run()
+    launches = read_counts()["launches"]
     with plain_kernels():
         plain = run()
     if not kernels["rel"] <= CONSISTENCY_TOL:
         fail(f"{spec.arch_id} f32 depth {layers}: prefix + decode differs "
              f"from the whole prefill: {kernels} (plain versions: {plain})")
+    # both prefills on B4's tensor-core f32 form, the decode steps (at most
+    # 16 rows a kv head) on its CUDA-core form
+    kept = check_path(f"{spec.arch_id}/f32_consistency", launches,
+                    ("tensor_core_f32", "simt"))
     return dict(**serve.depth(cfg), dtype="float32", prompt=total,
                 split=split, prefix_len=start, tol=CONSISTENCY_TOL,
-                kernels=kernels, plain=plain)
+                kernels=kernels, plain=plain, launches=kept)
 
 
 def phase_zamba2_serve() -> dict:
@@ -2968,7 +3043,8 @@ def phase_zamba2_serve() -> dict:
     spec, model, res, rec = serve_path(
         "zamba2-1.2b", ZAMBA_GEN,
         {"flash_attention": 6 * ZAMBA_GEN, "tensor_core": 6,
-         "split_kv": 6 * (ZAMBA_GEN - 1), "simt": 0, "ssd_scan": 38})
+         "split_kv": 6 * (ZAMBA_GEN - 1), "tensor_core_f32": 0, "simt": 0,
+         "ssd_scan": 38})
     line("zamba2_serve", **rec)
     line("zamba2_profile", **profile_serve(spec, model, res))
     line("zamba2_serve_vs_plain", **kernel_vs_plain_logits(
@@ -2986,7 +3062,7 @@ def phase_mamba2_serve() -> None:
     spec, model, res, rec = serve_path(
         "mamba2-780m", MAMBA_GEN,
         {"ssd_scan": 48, "flash_attention": 0, "tensor_core": 0,
-         "split_kv": 0, "simt": 0})
+         "split_kv": 0, "tensor_core_f32": 0, "simt": 0})
     line("mamba2_serve", **rec)
     line("mamba2_profile", **profile_serve(spec, model, res))
     line("mamba2_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3004,7 +3080,8 @@ def phase_llama3_serve() -> dict:
     spec, model, res, rec = serve_path(
         "llama3-8b", LLAMA_GEN,
         {"flash_attention": layers * LLAMA_GEN, "tensor_core": layers,
-         "split_kv": layers * (LLAMA_GEN - 1), "simt": 0, "ssd_scan": 0})
+         "split_kv": layers * (LLAMA_GEN - 1), "tensor_core_f32": 0,
+         "simt": 0, "ssd_scan": 0})
     line("llama3_serve", **rec)
     line("llama3_profile", **profile_serve(spec, model, res))
     line("llama3_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3027,7 +3104,8 @@ def phase_mixtral_serve() -> dict:
     spec, model, res, rec = serve_path(
         "mixtral-8x7b", MIXTRAL_GEN,
         {"flash_attention": layers * MIXTRAL_GEN, "tensor_core": layers,
-         "split_kv": layers * (MIXTRAL_GEN - 1), "simt": 0, "ssd_scan": 0},
+         "split_kv": layers * (MIXTRAL_GEN - 1), "tensor_core_f32": 0,
+         "simt": 0, "ssd_scan": 0},
         batch=MIXTRAL_BATCH, prompt_len=MIXTRAL_PROMPT, layers=layers)
     if spec.config.window != MIXTRAL_WINDOW:
         fail(f"mixtral's window is {spec.config.window}")
@@ -3056,8 +3134,8 @@ def phase_seamless_serve() -> dict:
         "seamless-m4t-medium", SEAMLESS_GEN,
         {"flash_attention": 3 * layers + 2 * layers * (SEAMLESS_GEN - 1),
          "tensor_core": 3 * layers,
-         "split_kv": 2 * layers * (SEAMLESS_GEN - 1), "simt": 0,
-         "ssd_scan": 0})
+         "split_kv": 2 * layers * (SEAMLESS_GEN - 1), "tensor_core_f32": 0,
+         "simt": 0, "ssd_scan": 0})
     line("seamless_serve", **rec)
     line("seamless_profile", **profile_serve(spec, model, res))
     line("seamless_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3079,7 +3157,8 @@ def phase_phi3v_serve() -> dict:
     spec, model, res, rec = serve_path(
         "phi-3-vision-4.2b", PHI3V_GEN,
         {"flash_attention": layers * PHI3V_GEN, "tensor_core": layers,
-         "split_kv": layers * (PHI3V_GEN - 1), "simt": 0, "ssd_scan": 0},
+         "split_kv": layers * (PHI3V_GEN - 1), "tensor_core_f32": 0,
+         "simt": 0, "ssd_scan": 0},
         prompt_len=PHI3V_PROMPT)
     if spec.config.num_patches != PHI3V_PATCHES:
         fail(f"phi-3-vision has {spec.config.num_patches} patches")
@@ -3115,9 +3194,11 @@ def train_launches(cfg, steps: int) -> dict:
     D 64, 2,048 rows)."""
     sites = cfg.num_groups
     return {"flash_attention": steps * sites, "tensor_core": steps * sites,
-            "split_kv": 0, "simt": 0, "ssd_scan": steps * 2 * cfg.layers,
+            "split_kv": 0, "tensor_core_f32": 0, "simt": 0,
+            "ssd_scan": steps * 2 * cfg.layers,
             "flash_attention_bwd": steps * sites,
-            "tensor_core_bwd": steps * sites, "simt_bwd": 0,
+            "tensor_core_bwd": steps * sites, "tensor_core_f32_bwd": 0,
+            "simt_bwd": 0,
             "ssd_scan_bwd": steps * cfg.layers}
 
 
@@ -3133,8 +3214,10 @@ def train_vs_plain(spec, smi: str) -> dict:
     plain versions on the card: at full depth in bf16 the loss (1e-2
     relative) and the gradient norm (``SERVE_REL_TOL``); at 6 layers in
     f32 the loss (``SERVE_REL_TOL_F32``) and every gradient leaf (1e-4 of
-    its largest |g|).  A kernel output without autograd history would
-    leave the gradients upstream of attention and the scan wrong."""
+    its largest |g|), B4 forward and backward on its tensor-core f32
+    forms (launches kept in ``CHECK_PATHS``).  A kernel output without
+    autograd history would leave the gradients upstream of attention and
+    the scan wrong."""
     import dataclasses
 
     from repro_torch.configs.base import Shape
@@ -3154,8 +3237,10 @@ def train_vs_plain(spec, smi: str) -> dict:
             sp.vocab, seed=1, step=0).items()}
         model = sp.family.init(cfg, device="cuda", seed=2)
         model.requires_grad_(True)
+        reset_counts()
         (loss_k, grads_k), kernel_s = timed(
             lambda: loss_and_grads(sp, cfg, model, batch))
+        launches = read_counts()["launches"]
         with plain_kernels():
             (loss_p, grads_p), plain_s = timed(
                 lambda: loss_and_grads(sp, cfg, model, batch))
@@ -3167,8 +3252,12 @@ def train_vs_plain(spec, smi: str) -> dict:
                    loss_rel=rel_loss, grad_norm_kernel=norm_k,
                    grad_norm_plain=norm_p,
                    grad_norm_rel=abs(norm_k - norm_p) / norm_p,
-                   kernel_path_s=kernel_s, plain_path_s=plain_s)
+                   kernel_path_s=kernel_s, plain_path_s=plain_s,
+                   launches={k: launches[k] for k in ATTENTION_COUNTS})
         if dt == torch.float32:
+            # B4 forward and backward on the tensor-core f32 forms
+            check_path(f"{TRAIN_ARCH}/train_f32", launches,
+                     ("tensor_core_f32", "tensor_core_f32_bwd"))
             leaves_k = leaf_tensors(model, grads_k)
             leaves_p = leaf_tensors(model, grads_p)
             worst, worst_leaf = 0.0, None
@@ -3256,7 +3345,42 @@ BWD_FLASH_CASES = [  # tag, dtype, B, H, Hkv, Sq, Sk, D, kwargs
      dict(causal=True, q_offset=600, kv_len=900)),
     ("offsets_f32", _F32, 2, 8, 8, 300, 1000, 8,
      dict(causal=True, q_offset=600, kv_len=900)),
+    # the tensor-core f32 form's case classes beside train_f32,
+    # noncausal_f32 and d96_f32 (GQA and a window at D 128, offsets), and
+    # an f32 chunk of 16 rows a kv head at D 64, which keeps the CUDA-core
+    # form both ways
+    ("window_gqa_f32_d128", _F32, 2, 32, 8, 2048, 2048, 128,
+     dict(causal=True, window=1000)),
+    ("offsets_f32_d64", _F32, 2, 8, 2, 300, 1000, 64,
+     dict(causal=True, q_offset=600, kv_len=900)),
+    ("few_rows_f32_d64", _F32, 2, 8, 2, 4, 300, 64,
+     dict(causal=True, q_offset=290, kv_len=294)),
+    # f32 with q and k scaled so that the largest |scale q k^T| is 20
+    # (BWD_FLASH_SHARP)
+    ("sharp_f32_d64", _F32, 2, 8, 8, 1024, 1024, 64, dict(causal=True)),
+    ("sharp_gqa_f32_d128", _F32, 2, 16, 4, 1024, 1024, 128,
+     dict(causal=True)),
 ]
+# the cases whose softmax is sharp: |scale q k^T| up to this.  A row that
+# sees one column far above the rest has a dq that is a difference of
+# nearly equal terms, and the plain version in f32 is itself ~1e-3 of the
+# row floor from its f64 evaluation there (the tensor-core f32 form ~1e-4):
+# these cases are held to the plain versions in f64, at the same
+# tolerances, and report their distance from the plain version in f32
+# beside it (ungated).
+BWD_FLASH_SHARP = {"sharp_f32_d64": 20.0, "sharp_gqa_f32_d128": 20.0}
+# the cases timed, one a backward form, and each case's form where the
+# form is the point
+BWD_FLASH_TIMED = ("train", "train_f32", "d16_f32")
+BWD_FLASH_FORMS = {"train": "tensor_core", "train_f32": "tensor_core_f32",
+                   "noncausal_f32": "tensor_core_f32",
+                   "d96_f32": "tensor_core_f32", "d16_f32": "simt",
+                   "window_f32_d16": "simt", "offsets_f32": "simt",
+                   "window_gqa_f32_d128": "tensor_core_f32",
+                   "offsets_f32_d64": "tensor_core_f32",
+                   "few_rows_f32_d64": "simt",
+                   "sharp_f32_d64": "tensor_core_f32",
+                   "sharp_gqa_f32_d128": "tensor_core_f32"}
 # (la = -softplus(randn) takes e^-45 off a chunk of 64 steps, so what one
 # chunk carries to the next barely counts; "slow_decay" scales la by 0.01,
 # a chunk's decay ~0.6, so that the state and dH carried across chunks do)
@@ -3314,30 +3438,46 @@ def kernel_short_name(name: str) -> str:
     return name.split(" ")[-1]
 
 
+#: traces ``launch_split`` takes before it fails when none holds a device
+#: event (one of a whole run's traces once held none; the cause is not
+#: known)
+SPLIT_TRACES = 3
+#: the traces ``launch_split`` took again, by kernel set (printed by
+#: ``[kernel_backward]``)
+SPLIT_RETRIES: dict = {}
+
+
 def launch_split(fn, calls: int = 10) -> dict:
     """Device ms a launch of each kernel that ``fn`` launches once a call,
     by ``kernel_short_name``: the mean over the launches that
     ``torch.profiler``'s raw events hold for ``calls`` calls after a
     warm-up.  The mean, not the sum over ``calls``: late in a long run
-    the trace has been seen to keep only some of the launches."""
+    the trace has been seen to keep only some of the launches, and once
+    none, so a trace without device events is taken again (counted in
+    ``SPLIT_RETRIES``), up to ``SPLIT_TRACES`` traces, before the run
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            ms, n = total.get(kernel_short_name(e.name()), (0.0, 0))
-            total[kernel_short_name(e.name())] = (ms + e.duration_ns() / 1e6,
-                                                  n + 1)
-    if not total:
-        fail("the profiler saw no device time")
-    return {name: ms / n for name, (ms, n) in total.items()}
+    for attempt in range(SPLIT_TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                name = kernel_short_name(e.name())
+                ms, n = total.get(name, (0.0, 0))
+                total[name] = (ms + e.duration_ns() / 1e6, n + 1)
+        if total:
+            if attempt:
+                key = ",".join(sorted(total))
+                SPLIT_RETRIES[key] = SPLIT_RETRIES.get(key, 0) + attempt
+            return {name: ms / n for name, (ms, n) in total.items()}
+    fail("the profiler saw no device time")
 
 
 def bwd_row_err(got: torch.Tensor, plain: torch.Tensor) -> tuple[float,
@@ -3401,21 +3541,23 @@ def phase_kernel_backward(smi: str) -> list:
     of 64 over a state of 64) in bf16 and f32, and a case list: for B4
     GQA, a window, not causal with Sq != Sk, D 96, D 16, ``q_offset`` /
     ``kv_len``; for B5 N 128, ragged S, ``h0``, a final-state gradient,
-    bf16 x, b and c.  B4's tensor-core form reads the forward's
+    bf16 x, b and c.  B4's tensor-core forms read the forward's
     log-sum-exp and output (``_forward(..., for_grad=True)``, outside the
     timed calls), whose log-sum-exp is held to the plain version's
-    (``LSE_TOL``).  Timed at the train shapes in bf16 (the training
-    path's inputs): ``ms`` eager, ``graph_ms`` replayed, ``split_ms`` the
-    device ms of each launch (``launch_split``), the plain versions,
-    SDPA's backward for B4, and for B5 ``bound_tc_ms`` beside
-    ``bound_ms``: its operations as 3xTF32 at the tensor cores' TF32
-    rate.  Returns their kernel records."""
+    (``LSE_TOL``); each case in ``BWD_FLASH_FORMS`` must run on its form.
+    Timed at the train shapes in bf16 (the training path's inputs), B4
+    also at ``BWD_FLASH_TIMED``'s f32 cases, one a backward form (under
+    its record's ``forms``): ``ms`` eager, ``graph_ms`` replayed,
+    ``split_ms`` the device ms of each launch (``launch_split``), the
+    plain versions, SDPA's backward for B4, and for B5 and B4 in f32
+    ``bound_tc_ms`` beside ``bound_ms``: the operations as 3xTF32 at the
+    tensor cores' TF32 rate.  Returns their kernel records."""
     # the modules (their packages export functions of the same names)
     fam = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
     scm = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
 
-    flash_rec, worst = None, 0.0
+    flash_rec, worst, forms, form_worst = None, 0.0, {}, {}
     for i, (tag, dt, b, h, hkv, sq, sk, d, kw) in enumerate(
             BWD_FLASH_CASES):
         rand = cuda_rand(60 + i)
@@ -3423,10 +3565,20 @@ def phase_kernel_backward(smi: str) -> list:
         k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
         v = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
         go = rand(b, h, sq, d, dtype=dt)
+        if tag in BWD_FLASH_SHARP:
+            c = (BWD_FLASH_SHARP[tag] / d ** -0.5 / float(
+                (q @ k.repeat_interleave(h // hkv, dim=1).transpose(-1, -2))
+                .abs().max())) ** 0.5
+            q, k = q * c, k * c
+        if tag in BWD_FLASH_FORMS and \
+                fam.backward_form(q, k, v) != BWD_FLASH_FORMS[tag]:
+            fail(f"flash_attention_bwd {tag}: runs on the "
+                 f"{fam.backward_form(q, k, v)} form, expected "
+                 f"{BWD_FLASH_FORMS[tag]}")
         full = dict(causal=kw["causal"], scale=None,
                     q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
                     window=kw.get("window"))
-        form = fam.backward_form(q, k, v, go)
+        form = fam.backward_form(q, k, v)
         out = lse = out_lo = None
         lse_err = None
         if fam.keeps_lse(q, k, v):
@@ -3447,12 +3599,25 @@ def phase_kernel_backward(smi: str) -> list:
 
         got = kernel()
         torch.cuda.synchronize()
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sharp = tag in BWD_FLASH_SHARP
+        # the plain versions, in f64 where the softmax is sharp
+        ins = [t.double() if sharp else t for t in (q, k, v, go)]
+        leaves = [t.detach().requires_grad_() for t in ins[:3]]
         auto = torch.autograd.grad(fam.flash_attention_plain(*leaves, **kw),
-                                   leaves, go)
-        errs = bwd_errors("flash_attention_bwd", got, (
-            fam.flash_attention_bwd(q, k, v, go, **kw), auto), tag)
-        del auto, leaves
+                                   leaves, ins[3])
+        wants = [[w.to(dt) for w in want] for want in (
+            fam.flash_attention_bwd(*ins, **kw), auto)]
+        errs = bwd_errors("flash_attention_bwd", got, wants, tag)
+        if sharp:
+            plain32 = fam.flash_attention_bwd(q, k, v, go, **kw)
+            errs.update(
+                s_max=BWD_FLASH_SHARP[tag], oracle="plain_f64",
+                row_err_vs_plain_f32=max(bwd_row_err(a, w)[0]
+                                         for a, w in zip(got, plain32)),
+                plain_f32_row_err=max(bwd_row_err(a, w)[0]
+                                      for a, w in zip(plain32, wants[0])))
+            del plain32
+        del auto, leaves, ins, wants
         rec = dict(case=tag, form=form, dtype=str(dt),
                    shape=[b, h, hkv, sq, sk, d], **kw, **errs,
                    lse_err=lse_err,
@@ -3461,20 +3626,34 @@ def phase_kernel_backward(smi: str) -> list:
                    deterministic=same_bits(kernel, got))
         if not rec["deterministic"]:
             fail(f"flash_attention_bwd {tag}: two launches differ")
-        if tag == "train":
-            b_ms, b_by = bound_ms(
-                flash_bwd_bytes(q, k), fam.attention_bwd_ops(
-                    b, h, sq, d, causal=True, q_offset=0, kv_len=sk),
-                PEAK_BF16_S)
+        if tag in BWD_FLASH_TIMED:
+            # the least time at the inputs' type: bf16 on the tensor cores,
+            # f32 on the CUDA cores; and f32 as 3xTF32 on the tensor cores
+            ops = fam.attention_bwd_ops(
+                b, h, sq, d, causal=kw["causal"], q_offset=full["q_offset"],
+                kv_len=full["kv_len"] or sk, window=full["window"])
+            b_ms, b_by = bound_ms(flash_bwd_bytes(q, k), ops,
+                                  PEAK_BF16_S if dt == _BF16 else PEAK_FP32_S)
             lib_ms, lib_graph_ms = sdpa_backward_ms(q, k, v, go)
             rec.update(ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
                        split_ms=launch_split(kernel),
                        plain_ms=cuda_ms(lambda: fam.flash_attention_bwd(
                            q, k, v, go, **kw), reps=3, warmup=1),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                       library_graph_ms=lib_graph_ms)
-            flash_rec = rec
+                       bound_ms=b_ms, bound_by=b_by,
+                       bound_tc_ms=(bound_ms(flash_bwd_bytes(q, k), 3 * ops,
+                                             PEAK_TF32_S)[0]
+                                    if dt == _F32 else None),
+                       library_ms=lib_ms, library_graph_ms=lib_graph_ms)
+            forms[f"{form}_bwd"] = dict(case=tag, **{
+                key: rec[key] for key in (
+                    "ms", "graph_ms", "split_ms", "plain_ms", "bound_ms",
+                    "bound_by", "bound_tc_ms", "library_ms",
+                    "library_graph_ms", "max_abs_err", "scaled_err",
+                    "row_err")})
+            if tag == "train":
+                flash_rec = rec
         worst = max(worst, errs["max_abs_err"])
+        form_worst[form] = max(form_worst.get(form, 0.0), errs["max_abs_err"])
         line("kernel_backward", kernel="flash_attention_bwd", card=smi,
              **rec)
         del q, k, v, go, got, out, lse, out_lo
@@ -3532,6 +3711,8 @@ def phase_kernel_backward(smi: str) -> list:
         del x, la, bb, cc, h0, gy, gf, got
         torch.cuda.empty_cache()
 
+    line("launch_split", card=smi, traces_retaken=dict(SPLIT_RETRIES))
+
     # no Pallas kernel has a VJP: each replaces the gradient that XLA
     # derives from the JAX package's jnp function (and, in the port, the
     # gradient in torch ops)
@@ -3542,9 +3723,13 @@ def phase_kernel_backward(smi: str) -> list:
                                        "bound_by", "library_ms",
                                        "graph_ms")}}
 
-    return [record("flash_attention_bwd", "src/repro_torch/kernels/"
-                   "flash_attention/csrc/flash_bwd.cu",
-                   "src/repro/models/attention.py:89", flash_rec, worst),
+    flash_bwd = record("flash_attention_bwd", "src/repro_torch/kernels/"
+                       "flash_attention/csrc/flash_bwd.cu",
+                       "src/repro/models/attention.py:89", flash_rec, worst)
+    for name, rec in forms.items():   # each form's worst over its cases
+        rec["max_abs_err"] = form_worst[name.removesuffix("_bwd")]
+    flash_bwd["forms"] = forms
+    return [flash_bwd,
             record("ssd_scan_bwd", "src/repro_torch/kernels/ssd_scan/csrc/"
                    "ssd_scan_bwd.cu", "src/repro/models/ssm.py:141", ssd_rec,
                    ssd_worst)]
@@ -3641,20 +3826,28 @@ def phase_train(smi: str) -> dict:
 
     train_vs_plain(spec, smi)
 
-    # (d) every architecture's reduced config, one step on the card
+    # (d) every architecture's reduced config, one step on the card (B4 at
+    # head dims 8 and 16: its CUDA-core forms, forward and backward)
     from repro_torch.configs import list_archs
 
-    for arch in list_archs():
-        r, secs = timed(lambda: train_cli.train(
-            arch, reduced=True, steps=1, batch=4, seq=64, seed=0,
-            device="cuda", log=lambda *a: None))
-        h = r["history"][0]
-        if not all(np.isfinite(v) for v in h.values()):
-            fail(f"{arch} reduced training step: {h}")
-        line("train_reduced", card=smi, arch=arch, optimizer=r["optimizer"],
-             accum_dtype=str(train_cli.train_spec(
-                 arch, reduced=True).accum_dtype),
-             seconds=secs, **h)
+    def reduced_steps():
+        for arch in list_archs():
+            r, secs = timed(lambda: train_cli.train(
+                arch, reduced=True, steps=1, batch=4, seq=64, seed=0,
+                device="cuda", log=lambda *a: None))
+            h = r["history"][0]
+            if not all(np.isfinite(v) for v in h.values()):
+                fail(f"{arch} reduced training step: {h}")
+            line("train_reduced", card=smi, arch=arch,
+                 optimizer=r["optimizer"], accum_dtype=str(
+                     train_cli.train_spec(arch, reduced=True).accum_dtype),
+                 seconds=secs, **h)
+
+    reset_counts()
+    reduced_steps()
+    reduced = read_counts()["launches"]
+    line("train_reduced_launches", card=smi, **check_path(
+        "reduced/train", reduced, ("simt", "simt_bwd")))
     torch.cuda.empty_cache()
     return {k: launches[k] for k in want}, state
 
@@ -4212,9 +4405,9 @@ LINT_BASELINE = ".repro-lint-baseline.json"
 SYNC_BATCH, SYNC_PROMPT, SYNC_GEN = 2, 256, 4
 SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
 SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
-                "tensor_core", "split_kv", "simt", "ssd_scan",
-                "flash_attention_bwd", "tensor_core_bwd", "simt_bwd",
-                "ssd_scan_bwd")
+                "tensor_core", "split_kv", "tensor_core_f32", "simt",
+                "ssd_scan", "flash_attention_bwd", "tensor_core_bwd",
+                "tensor_core_f32_bwd", "simt_bwd", "ssd_scan_bwd")
 # the backward kernels' wrappers: no host sync at all on the training path
 BWD_WRAPPERS = ("src/repro_torch/kernels/flash_attention/flash_attention.py",
                 "src/repro_torch/kernels/ssd_scan/ssd_scan.py")
@@ -4451,11 +4644,24 @@ def phase_lint_runtime(smi: str, exact) -> dict:
     return by_path
 
 
+def form_record(parent: dict, form: str, source: str) -> dict:
+    """A kernels-line entry for one form of a kernel record (its
+    ``forms`` entry, which holds the form's timed case)."""
+    rec = parent["forms"][form]
+    return {"name": f"{parent['name']}/{form}", "route": "cuda",
+            "source": source, "replaces": parent["replaces"],
+            "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+            "case": rec["case"],
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "bound_tc_ms", "library_ms", "graph_ms",
+                                   "library_graph_ms")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the kernels record here as JSON")
-    ap.add_argument("--phase", choices=("dryrun_partition",
+    ap.add_argument("--phase", choices=("dryrun_partition", "flash",
                                         "kernel_backward"), default=None,
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
@@ -4467,6 +4673,7 @@ def main() -> int:
     if args.phase is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         run = {"dryrun_partition": phase_dryrun_partition,
+               "flash": lambda smi: phase_flash(),
                "kernel_backward": phase_kernel_backward}[args.phase]
         out, secs = timed(lambda: run(smi))
         line("phase_alone", phase=args.phase, seconds=secs, result=out)
@@ -4538,16 +4745,20 @@ def main() -> int:
         "pod/zamba2-1.2b/prefill_32k":
             by_path["pod/zamba2-1.2b/prefill_32k"]["ssd_scan"]}
     ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
-    # B4 over every serve path, the training path and the resumed steps;
-    # the window form is mixtral's launches
+    # B4 over every serve path, the training path, the resumed steps and
+    # the check paths (the f32 checks: the tensor-core f32 forms' path; the
+    # reduced configs' steps); the window form is mixtral's launches, bf16
+    # and f32
+    by_path.update(CHECK_PATHS)
     flash_kernel["launches"] = sum(n["flash_attention"]
                                    for n in by_path.values())
     flash_kernel["launches_by_path"] = {
         arch: n["flash_attention"] for arch, n in by_path.items()}
     for form, rec in flash_kernel["forms"].items():
-        rec["launches"] = (by_path["mixtral-8x7b"]["flash_attention"]
-                           if form == "window" else
-                           sum(n[form] for n in by_path.values()))
+        rec["launches"] = (
+            by_path["mixtral-8x7b"]["flash_attention"]
+            + by_path["mixtral-8x7b/f32_consistency"]["flash_attention"]
+            if form == "window" else sum(n[form] for n in by_path.values()))
     phase_more_workloads(t_start)
     phase_lint(smi)
     synced = phase_lint_runtime(smi, exact)
@@ -4563,17 +4774,33 @@ def main() -> int:
         rec["launches"] += (synced["mixtral-8x7b/decode"]["flash_attention"]
                             if form == "window" else
                             sum(n[form] for n in synced.values()))
-    # the backward kernels: the training path, the resumed steps and the
-    # sync debugger's training path
+    # the backward kernels: the training path, the resumed steps, the f32
+    # training check, the reduced configs' steps and the sync debugger's
+    # training path
+    bwd_paths = ("zamba2-1.2b/train", "zamba2-1.2b/resume",
+                 "zamba2-1.2b/train_f32", "reduced/train")
     for rec in bwd_kernels:
-        rec["launches_by_path"] = {
-            path: by_path[path][rec["name"]]
-            for path in ("zamba2-1.2b/train", "zamba2-1.2b/resume")}
+        rec["launches_by_path"] = {path: by_path[path][rec["name"]]
+                                   for path in bwd_paths}
         rec["launches_by_path"]["lint_runtime"] = sum(
             n[rec["name"]] for n in synced.values())
         rec["launches"] = sum(rec["launches_by_path"].values())
+        for form, frec in rec.get("forms", {}).items():
+            frec["launches"] = sum(by_path[path][form] for path in bwd_paths
+                                   ) + sum(n[form] for n in synced.values())
+    # the tensor-core f32 forms also as entries of their own; each must
+    # have launched on its path
+    flash_bwd = next(r for r in bwd_kernels
+                     if r["name"] == "flash_attention_bwd")
+    f32_kernels = [
+        form_record(flash_kernel, "tensor_core_f32", "src/repro_torch/"
+                    "kernels/flash_attention/csrc/flash_tc_f32.cuh"),
+        form_record(flash_bwd, "tensor_core_f32_bwd", flash_bwd["source"])]
+    for rec in f32_kernels:
+        if not rec["launches"]:
+            fail(f"{rec['name']} never launched on its path")
     kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
-               + [flash_kernel, ssd_kernel] + bwd_kernels)
+               + [flash_kernel, ssd_kernel] + bwd_kernels + f32_kernels)
     for rec in kernels:  # the worst error over every path's own inputs
         for errs in (binned_errs, streaming_errs):
             rec["max_abs_err"] = max(rec["max_abs_err"],

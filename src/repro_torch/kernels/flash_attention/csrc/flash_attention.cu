@@ -2,8 +2,8 @@
 // (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded with ctypes (kernels/build.py,
 // kernels/flash_attention/flash_attention.py); this file includes the
-// other two forms (flash_tc.cuh, flash_split.cuh) and is the one
-// translation unit.
+// other three forms (flash_tc.cuh, flash_split.cuh, flash_tc_f32.cuh) and
+// is the one translation unit.
 //
 // Replaces, on the TPU side of the repository:
 //   * src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel —
@@ -39,20 +39,25 @@
 // bf16 tensor-core rate.  A decode step (Sq = 1) reads the whole KV cache
 // for one row per head: bytes.  f32 FMAs on the CUDA cores run the prefill
 // at ~68x that bound, and a 64-row q tile is 63/64 padding at decode, so
-// the wrapper picks one of three forms:
+// the wrapper picks one of four forms:
 //   tensor-core (flash_tc.cuh)   bf16, D in {64, 96, 128}, more than kMaxRows q
 //       rows per kv head: mma.sync bf16 tiles, cp.async double buffering,
 //       S / softmax / O in registers (FlashAttention-2's shape);
 //   split-KV (flash_split.cuh)   bf16, D in {64, 96, 128}, at most kMaxRows
 //       rows per kv head (decode): the cache cut across blocks, each kv
 //       head's rows together, partials merged by a second kernel;
-//   CUDA-core (below)            f32, and bf16 at D in {8, 16, 32}.  f32
-//       stays off the tensor cores: TF32 keeps ~10 mantissa bits and would
-//       break the f32 gates (2e-5 on the kernel, 1e-4 and 2e-4 on the
-//       served logits).
+//   tensor-core f32 (flash_tc_f32.cuh)   f32, D in {64, 96, 128}, more than
+//       kMaxRows rows per kv head: the tensor-core form's shape with 3xTF32
+//       products (each f32 operand in a TF32 high and low part, three mma a
+//       product, f32 sums), which meets the f32 gates (2e-5 on the kernel,
+//       1e-4 and 2e-4 on the served logits) where TF32 alone would not; the
+//       f32 bound is 3x the operations at the TF32 rate (495 TFLOP/s);
+//   CUDA-core (below)            f32 at D in {8, 16, 32} or at most kMaxRows
+//       rows per kv head (decode), and bf16 at D in {8, 16, 32}.
 // The tensor-core and split-KV forms read rows with 16-byte copies, so the
 // wrapper sends them only 16-byte-aligned tensors whose (b, h, s) strides
-// are multiples of 8 elements; anything else goes to the CUDA-core form.
+// are multiples of 16 bytes (8 bf16, 4 f32 elements); anything else goes to
+// the CUDA-core form.
 //
 // CUDA-core form: one block of 256 threads per (q tile of 64 rows, head,
 // batch).  Q (pre-scaled, f32) and each K/V tile (converted to f32 on load)
@@ -77,6 +82,7 @@
 #include "flash_common.cuh"
 #include "flash_split.cuh"
 #include "flash_tc.cuh"
+#include "flash_tc_f32.cuh"
 
 namespace flash_simt {
 
@@ -305,7 +311,8 @@ int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  form: 0 = CUDA-core, 1 = tensor-core,
-// 2 = split-KV (forms 1 and 2: bf16, head_dim 64, 96 or 128).  strides: 12
+// 2 = split-KV (forms 1 and 2: bf16, head_dim 64, 96 or 128), 3 =
+// tensor-core f32 (f32, head_dim 64, 96 or 128).  strides: 12
 // int64 values, (b, h, s) for q, k, v, o in elements.  window: 0 = none,
 // else W >= 1 (the last row must see a column: q_offset + sq - W < kv_len).
 // Split-KV only: n_splits splits of flash_attention_split_columns() columns
@@ -315,7 +322,8 @@ extern "C" {
 // <= flash_attention_split_max_rows().  lse and o_lo: both null, or (forms
 // 1 and 2, a training step's forward) f32 [batch, heads, sq] for each row's
 // ln sum_j e^{scale s_ij} and a bf16 tensor of o's shape and strides for
-// o's rounding residual, which the backward's tensor-core form reads.
+// o's rounding residual, which the backward's tensor-core form reads.  Form
+// 3: o_lo null, lse null or (under autograd) the log-sum-exp alone.
 // Returns a cudaError_t code: 0 on a successful launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int batch, int heads, int sq,
@@ -327,8 +335,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 || window < 0 ||
       (window > 0 && (long long)q_offset + sq - window >= kv_len) ||
-      batch > 65535 || form < 0 || form > 2 || (!lse != !o_lo) ||
-      (lse && form == 0)) {
+      batch > 65535 || form < 0 || form > 3 ||
+      (form == 0 && (lse || o_lo)) ||
+      ((form == 1 || form == 2) && !lse != !o_lo) || (form == 3 && o_lo)) {
     return (int)cudaErrorInvalidValue;
   }
   const int group = heads / kv_heads;
@@ -337,6 +346,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                          {strides[3], strides[4], strides[5]},
                          {strides[6], strides[7], strides[8]},
                          {strides[9], strides[10], strides[11]}};
+  if (form == 3) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define FLASH_F32(D)                                                        \
+  return flash_tc_f32::launch<D>((const float*)q, (const float*)k,          \
+                                 (const float*)v, (float*)o, (float*)lse,   \
+                                 st, batch, heads, sq, group, kv_len,       \
+                                 q_offset, causal, window, scale, s)
+    if (head_dim == 64) FLASH_F32(64);
+    if (head_dim == 96) FLASH_F32(96);
+    if (head_dim == 128) FLASH_F32(128);
+#undef FLASH_F32
+    return (int)cudaErrorInvalidValue;
+  }
   if (form != 0) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,

@@ -1,9 +1,10 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a).  Built with nvcc
 // into a shared library of its own with a plain C interface and loaded with
 // ctypes (kernels/build.py, kernels/flash_attention/flash_attention.py);
-// it shares only flash_common.cuh with the forward (flash_attention.cu,
-// flash_tc.cuh, flash_split.cuh), whose bf16 forms write the log-sum-exp
-// that the tensor-core form here reads.
+// it shares flash_common.cuh and the f32 forms' 3xTF32 tiles
+// (flash_tf32.cuh) with the forward (flash_attention.cu, flash_tc.cuh,
+// flash_split.cuh, flash_tc_f32.cuh), whose tensor-core forms write the
+// log-sum-exp that the tensor-core forms here read.
 //
 // Replaces no Pallas kernel: the TPU's _flash_kernel has no VJP, and the
 // JAX package trains through XLA's autodiff of its jnp attention
@@ -29,7 +30,7 @@
 // Both passes skip tiles wholly masked (the causal stream stops at the
 // diagonal; a window starts at its band's edge).
 //
-// Two forms; the wrapper picks one (flash_attention.py::backward_form):
+// Three forms; the wrapper picks one (flash_attention.py::backward_form):
 //   tensor-core  bf16, D in {64, 96, 128}, 16-byte-aligned rows.  P comes
 //                from the forward's log-sum-exp (flash_tc.cuh and the
 //                split-KV merge write it under autograd), rowsum(dP P) as
@@ -49,18 +50,40 @@
 //                compute S^T = K Q^T and dP^T = V dO^T, so that P^T and
 //                dS^T are already the A operands.  6 D operations a visible
 //                pair in the dQ pass, 8 D in the dK/dV pass.
-//   CUDA-core    everything else (f32, bf16 at D 8-32 or unaligned): f32 FMAs
+//   tensor-core f32  f32, D in {64, 96, 128}, 16-byte-aligned rows, more
+//                than 16 q rows per kv head (the forward's tensor-core f32
+//                form, flash_tc_f32.cuh, wrote the log-sum-exp m + ln l in
+//                natural units).  The same two passes and ring with 3xTF32
+//                products (kernels/csrc/tf32x3.cuh: each f32 operand in a
+//                TF32 high and low part, three mma a product, f32 sums), at
+//                the f32 gates; P, dS, S and dP stay f32, and P and dS are
+//                split in registers as A operands (the k-step's columns
+//                taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so that the C
+//                fragment is the A fragment).  No rounding residual: Delta0
+//                = dO . O in f32 in the dQ pass's prologue, corrected to the
+//                products' own rowsum(dP P) and to the softmax normalised by
+//                its own row sum (both summed in f64) by one TF32 product P
+//                K (see dq_kernel).  6 D operations a pair (3xTF32) and 2 D
+//                (one TF32 product) in the dQ pass, 8 D in the dK/dV pass.
+//                The tiles and products are flash_tf32.cuh's, shared with the
+//                forward; each tile's products are summed in fresh registers
+//                and then added in f32, since the tensor core rounds its own
+//                sums toward zero (a 768-mma chain into dK or dQ drifted
+//                2.7e-5 of the gradient's largest value at the train shape).
+//   CUDA-core    everything else (f32 at D 8-32, unaligned or at most 16 q
+//                rows per kv head; bf16 at D 8-32 or unaligned): f32 FMAs
 //                on register tiles of 4 x 4 over f32 shared memory
 //                (kernels/csrc/f32_tile.cuh, shared with B5's backward).  No
 //                log-sum-exp from the forward: a first stage of the dQ pass
 //                streams the visible KV tiles for each row's max, sum and
 //                rowsum(dP P) (online) into f32 scratch [2, B, H, Sq], the
-//                second streams them again for dQ.  f32 stays off the tensor
-//                cores: TF32 would miss the f32 gates.
+//                second streams them again for dQ (18 D a pair).
 //
 // What bounds it on the card: P recomputed and dV, dP, dQ, dK, 10 D
 // operations per visible pair (2.5x the forward's), at the bf16 tensor-core
 // rate for the train shape (zamba2-1.2b: Sq = Sk = 2048, D 64): operations.
+// In f32 the bound is the CUDA cores' f32 rate, or 3x the operations at
+// the TF32 rate for 3xTF32 products.
 // The tensor-core form does 14 D a pair (P and dP in both passes), down from
 // 18 D with a statistics stage, at about the forward's tensor-core rate (its
 // mma.sync tiles of 16 rows a warp re-read each B operand from shared memory
@@ -69,6 +92,7 @@
 
 #include "f32_tile.cuh"
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace flash_bwd {
 
@@ -934,18 +958,405 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash_bwd_tc
 
+// --- tensor-core f32 form (3xTF32) -----------------------------------------
+
+namespace flash_bwd_tf32 {
+
+using namespace flash;
+using flash_bwd::Dims;
+using flash_bwd_tc::cp_async4;
+using flash_tf32::abt;
+using flash_tf32::kThreads;
+using flash_tf32::load_rows;
+using flash_tf32::pb;
+using flash_tf32::zero;
+
+// q rows (dQ pass) or kv rows (dK/dV pass) a block: 16 a warp
+constexpr int kRows = kThreads / 2;
+
+// kBN is a streamed tile's rows (kv rows in the dQ pass, q rows in the
+// dK/dV pass), cut at D 96 and 128 so that two blocks fit an SM and the two
+// D-wide f32 accumulators stay in registers beside S and dP.  The dQ pass
+// keeps each row's Delta0 and log-sum-exp, and each thread's f64 sums, in
+// shared memory: held in registers across the KV stream they spill at D 64
+// (ptxas -v, sm_90a).  Its D 128 instance spills 12 bytes (255 registers)
+// either way: kBN 16 is the least tile that abt takes.
+template <int D>
+struct Cfg {
+  static constexpr int kStride = flash_tf32::kRowFloats<D>;
+  static constexpr int kBN = D == 64 ? 64 : D == 96 ? 32 : 16;
+  static constexpr size_t kDqBytes =
+      ((2 * kRows + 4 * kBN) * (size_t)kStride + 2 * kRows) * sizeof(float) +
+      4 * kThreads * sizeof(double);
+  static constexpr size_t kDkvBytes =
+      ((2 * kRows + 4 * kBN) * (size_t)kStride + 4 * kBN) * sizeof(float);
+};
+
+// The warp's 16 rows (from `row`) of a 16 x D accumulator, times `mul`.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, int64_t stride,
+                                           int row, int rows,
+                                           const float (&acc)[D / 32][4][4],
+                                           float mul, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = row + g + 8 * j;
+    if (r >= rows) continue;
+    float* o = out + r * stride + 2 * tq;
+#pragma unroll
+    for (int x = 0; x < D / 32; ++x) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float2*>(o + (4 * x + i) * 8) = make_float2(
+            acc[x][i][2 * j] * mul, acc[x][i][2 * j + 1] * mul);
+      }
+    }
+  }
+}
+
+// dQ pass: one block per (head, batch, tile of kRows q rows), long rows
+// first.  Prologue: Delta0_i = dO_i . O_i (f32, the dO tile and the
+// forward's O).  Then the visible KV tiles stream through a ring of two
+// stages (cp.async; tile t + 1 lands while tile t's products run): S = Q K^T
+// and dP = dO V^T, P = e^(scale s - lse) from the forward's log-sum-exp, dS0
+// = P (dP - Delta0), dQ0 += dS0 K; beside them, in f64, L_i = sum_j P_ij
+// and Delta1_i = sum_j P_ij dP_ij (the products' own sums), and B += hi(P)
+// hi(K), one TF32 product.  The result is
+//   dQ = scale (dQ0 + (Delta0 - Delta1 / L) B) / L,
+// which is scale dS K with the softmax normalised by its own row sum: dS =
+// (P / L) (dP - Delta1 / L).  Both sums matter where a row's softmax is
+// sharp (|S| ~ 20), since dQ is then a difference of nearly equal terms:
+// the log-sum-exp, an f32 of ~20, is good to ~1e-6, so L is 1 + ~1e-6, and
+// P taken as normalised leaves dq ~1e-6 |Delta| |K| away (4.8e-3 of the row
+// floor of the f32 row gate, BWD_ROW_TOL 5e-4, on the card); Delta1 or L
+// rounded to f32 leaves a few 1e-8 of |Delta| |K|, the plain f32 version's
+// own error there (1.2e-3 against its f64 evaluation).  Delta0 differs
+// from Delta1 / L by ~1e-6 of |dO| |O|; B's TF32 error enters only times
+// that difference.  Delta1 goes to the [B, H, Sq] scratch for the dK/dV
+// pass (unnormalised, as the P that pass recomputes).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ o, const float* __restrict__ lse,
+          float* __restrict__ dq, float* __restrict__ dsum, Strides sq_,
+          Strides sk_, Strides sv_, Strides so_, Strides sO_, Strides sdq_,
+          Dims dm, float scale) {
+  using C = Cfg<D>;
+  constexpr int kBN = C::kBN, NT = kBN / 8, kStride = C::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kRows][kStride]
+  float* dos = qs + kRows * kStride;                // [kRows][kStride]
+  float* ks = dos + kRows * kStride;                // [2][kBN][kStride]
+  float* vs = ks + 2 * kBN * kStride;               // [2][kBN][kStride]
+  float* d0_s = vs + 2 * kBN * kStride;             // [kRows]
+  float* lse_s = d0_s + kRows;                      // [kRows]
+  // [kThreads][4]: the thread's Delta1 and L of its rows g and g + 8
+  double* sums = reinterpret_cast<double*>(lse_s + kRows) + 4 * threadIdx.x;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // long rows first
+  // the K and V heads and the rows' statistics, taken again where they are
+  // used from kernel arguments and block indices, so that no register holds
+  // them across the KV stream
+  const int hk = h / dm.group;
+  const auto kp = [&] { return k + b * sk_.b + hk * sk_.h; };
+  const auto vp = [&] { return v + b * sv_.b + hk * sv_.h; };
+  const auto row_stats = [&] { return ((int64_t)b * gridDim.x + h) * dm.sq; };
+  load_rows<D>(qs, q + b * sq_.b + h * sq_.h, sq_.s, q0, dm.sq, kRows);
+  load_rows<D>(dos, dout + b * so_.b + h * so_.h, so_.s, q0, dm.sq, kRows);
+  cp_async_commit();
+  int first, end;
+  flash_bwd::kv_tiles(dm, q0, min(q0 + kRows, dm.sq) - 1, kBN, first, end);
+  if (first < end) {
+    load_rows<D>(ks, kp(), sk_.s, first * kBN, dm.kv_len, kBN);
+    load_rows<D>(vs, vp(), sv_.s, first * kBN, dm.kv_len, kBN);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+  {
+    // two threads a row, D / 2 columns each
+    const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+    const int row = q0 + r;
+    float acc = 0.0f;
+    if (row < dm.sq) {
+      const float* orow =
+          o + b * sO_.b + h * sO_.h + row * sO_.s + part * (D / 2);
+      const float* drow = dos + r * kStride + part * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 4) {
+        const float4 ov = *reinterpret_cast<const float4*>(orow + c);
+        const float4 dv = *reinterpret_cast<const float4*>(drow + c);
+        acc = fmaf(ov.x, dv.x, acc);
+        acc = fmaf(ov.y, dv.y, acc);
+        acc = fmaf(ov.z, dv.z, acc);
+        acc = fmaf(ov.w, dv.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    // a row past Sq: zero Q and dO rows and Delta0 0 make dS0 0
+    if (part == 0) d0_s[r] = acc;
+    else lse_s[r] = row < dm.sq ? lse[row_stats() + row] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) sums[u] = 0.0;
+  __syncthreads();
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = warp * 16;  // the warp's first row in the tile
+  const int row_lo = q0 + wrow;
+  float acc[D / 32][4][4], bcc[D / 32][4][4];
+  zero<D>(acc);
+  zero<D>(bcc);
+  for (int tile = first; tile < end; ++tile) {
+    const int st = (tile - first) & 1;
+    if (tile + 1 < end) {
+      load_rows<D>(ks + (st ^ 1) * kBN * kStride, kp(), sk_.s, (tile + 1) * kBN,
+                   dm.kv_len, kBN);
+      load_rows<D>(vs + (st ^ 1) * kBN * kStride, vp(), sv_.s, (tile + 1) * kBN,
+                   dm.kv_len, kBN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile
+    __syncthreads();
+    const float* kt = ks + st * kBN * kStride;
+    const float* vt = vs + st * kBN * kStride;
+    float s[NT][4], dp[NT][4];
+    abt<D, NT>(s, qs, wrow, kt, lane);
+    abt<D, NT>(dp, dos, wrow, vt, lane);
+    const int j0 = tile * kBN;
+    // some (row, column) of the warp's rows x this tile is masked
+    const bool mask =
+        j0 + kBN > dm.kv_len ||
+        (dm.causal && j0 + kBN - 1 > dm.q_offset + row_lo) ||
+        (dm.window > 0 && j0 <= dm.q_offset + row_lo + 15 - dm.window);
+    const float lse_r[2] = {lse_s[wrow + g], lse_s[wrow + g + 8]};
+    const float d0_r[2] = {d0_s[wrow + g], d0_s[wrow + g + 8]};
+    double d1_t[2] = {0.0, 0.0}, l_t[2] = {0.0, 0.0};  // this tile's
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = !mask || flash_bwd::visible(
+                                     dm, row_lo + g + (e >> 1) * 8,
+                                     j0 + i * 8 + 2 * tq + (e & 1));
+        const float p =
+            ok ? fast_exp2((s[i][e] * scale - lse_r[e >> 1]) * kLog2e) : 0.0f;
+        d1_t[e >> 1] = fma((double)p, (double)dp[i][e], d1_t[e >> 1]);
+        l_t[e >> 1] += (double)p;
+        s[i][e] = p;
+        dp[i][e] = p * (dp[i][e] - d0_r[e >> 1]);
+      }
+    }
+    sums[0] += d1_t[0];
+    sums[1] += d1_t[1];
+    sums[2] += l_t[0];
+    sums[3] += l_t[1];
+    pb<D, NT, true>(acc, dp, bcc, s, kt, lane);
+    __syncthreads();  // every warp is done with this stage: it is refilled next
+  }
+  cp_async_wait<0>();
+  double d1_r[2] = {sums[0], sums[1]}, l_r[2] = {sums[2], sums[3]};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    d1_r[j] += __shfl_xor_sync(0xffffffffu, d1_r[j], 1);
+    d1_r[j] += __shfl_xor_sync(0xffffffffu, d1_r[j], 2);
+    l_r[j] += __shfl_xor_sync(0xffffffffu, l_r[j], 1);
+    l_r[j] += __shfl_xor_sync(0xffffffffu, l_r[j], 2);
+  }
+  // 1 / L and Delta0 - Delta1 / L = (Delta0 L - Delta1) / L, the difference
+  // in f64 and the rest in f32 (each good to a few 1e-8 of itself; an f64
+  // division is a call, which spills).  A row past Sq may see no column: it
+  // is not stored.
+  float c_r[2], r_r[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    r_r[j] = __fdividef(1.0f, (float)l_r[j]);
+    c_r[j] = (float)fma((double)d0_s[wrow + g + 8 * j], l_r[j], -d1_r[j]) *
+             r_r[j];
+  }
+#pragma unroll
+  for (int x = 0; x < D / 32; ++x) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[x][i][e] = fmaf(c_r[e >> 1], bcc[x][i][e], acc[x][i][e]) *
+                       r_r[e >> 1];
+      }
+    }
+  }
+  store_rows<D>(dq + b * sdq_.b + h * sdq_.h, sdq_.s, row_lo, dm.sq, acc,
+                scale, lane);
+  if (tq == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row_lo + g + 8 * j;
+      if (row < dm.sq) dsum[row_stats() + row] = (float)d1_r[j];
+    }
+  }
+}
+
+// dK/dV pass: one block per (kv head, batch, tile of kRows kv rows).  K and
+// V stay in shared memory; the q rows that see the tile, of every q head of
+// the kv head in order, stream in steps of kBN through a ring of two stages
+// (Q, dO, the log-sum-exp and Delta1 by cp.async; step s + 1 lands while
+// step s's products run).  Each warp computes S^T = K Q^T and dP^T = V dO^T
+// for its kv rows, so that P^T and dS^T are already the A operands of dV +=
+// P^T dO and dK += dS^T Q; dK and dV stay in registers across the steps.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dsum,
+            float* __restrict__ dk, float* __restrict__ dv, Strides sq_,
+            Strides sk_, Strides sv_, Strides so_, Strides sdk_,
+            Strides sdv_, Dims dm, int heads, float scale) {
+  using C = Cfg<D>;
+  constexpr int kQ2 = C::kBN, NT = kQ2 / 8, kStride = C::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [kRows][kStride]
+  float* vs = ks + kRows * kStride;                 // [kRows][kStride]
+  float* qs = vs + kRows * kStride;                 // [2][kQ2][kStride]
+  float* dos = qs + 2 * kQ2 * kStride;              // [2][kQ2][kStride]
+  float* lse_s = dos + 2 * kQ2 * kStride;           // [2][kQ2]
+  float* dsum_s = lse_s + 2 * kQ2;                  // [2][kQ2]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hk = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kRows;
+  load_rows<D>(ks, k + b * sk_.b + hk * sk_.h, sk_.s, j0, dm.sk, kRows);
+  load_rows<D>(vs, v + b * sv_.b + hk * sv_.h, sv_.s, j0, dm.sk, kRows);
+  cp_async_commit();
+  int lo, hi;
+  flash_bwd::q_rows(dm, j0, kRows, lo, hi);
+  const int lo0 = lo / kQ2 * kQ2;
+  const int per_head = hi > lo ? (hi - lo0 + kQ2 - 1) / kQ2 : 0;
+  const int steps = per_head * dm.group;
+
+  // step s: q head hk * group + s / per_head, rows from lo0 + (s % per_head)
+  // kQ2, into stage s % 2
+  auto issue = [&](int s) {
+    const int h = hk * dm.group + s / per_head;
+    const int i0 = lo0 + (s % per_head) * kQ2, st = s & 1;
+    load_rows<D>(qs + st * kQ2 * kStride, q + b * sq_.b + h * sq_.h, sq_.s,
+                 i0, dm.sq, kQ2);
+    load_rows<D>(dos + st * kQ2 * kStride, dout + b * so_.b + h * so_.h,
+                 so_.s, i0, dm.sq, kQ2);
+    if (threadIdx.x < 2 * kQ2) {
+      // rows past Sq: log-sum-exp and Delta 0 with zero Q and dO rows add 0
+      const int r = threadIdx.x % kQ2, which = threadIdx.x / kQ2;
+      const bool ok = i0 + r < dm.sq;
+      const float* src = (which ? dsum : lse) +
+                         (ok ? ((int64_t)b * heads + h) * dm.sq + i0 + r : 0);
+      cp_async4(smem_u32((which ? dsum_s : lse_s) + st * kQ2 + r), src, ok);
+    }
+  };
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = warp * 16;  // the warp's first kv row in the tile
+  const int col_lo = j0 + wrow;
+  float dka[D / 32][4][4], dva[D / 32][4][4];
+  zero<D>(dka);
+  zero<D>(dva);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step (and K, V)
+    __syncthreads();
+    const int st = s & 1, i0 = lo0 + (s % per_head) * kQ2;
+    const float* qt = qs + st * kQ2 * kStride;
+    const float* dt = dos + st * kQ2 * kStride;
+    const float* ls = lse_s + st * kQ2;
+    const float* dsv = dsum_s + st * kQ2;
+    // S^T: kv rows g, g + 8, q columns 8 i + 2 tq + (e & 1)
+    float sT[NT][4], dpT[NT][4];
+    abt<D, NT>(sT, ks, wrow, qt, lane);
+    const bool mask =
+        col_lo + 16 > dm.kv_len ||
+        (dm.causal && col_lo + 15 > dm.q_offset + i0) ||
+        (dm.window > 0 && col_lo <= dm.q_offset + i0 + kQ2 - 1 - dm.window);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * i + 2 * tq + (e & 1);
+        const bool ok =
+            !mask || flash_bwd::visible(dm, i0 + c, col_lo + g + (e >> 1) * 8);
+        sT[i][e] =
+            ok ? fast_exp2((sT[i][e] * scale - ls[c]) * kLog2e) : 0.0f;
+      }
+    }
+    abt<D, NT>(dpT, vs, wrow, dt, lane);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dpT[i][e] = sT[i][e] * (dpT[i][e] - dsv[8 * i + 2 * tq + (e & 1)]);
+      }
+    }
+    pb<D, NT, false>(dva, sT, dva, sT, dt, lane);
+    pb<D, NT, false>(dka, dpT, dka, dpT, qt, lane);
+    __syncthreads();  // every warp is done with this stage: it is refilled next
+  }
+  cp_async_wait<0>();  // K and V, when no q row sees the tile
+  store_rows<D>(dk + b * sdk_.b + hk * sdk_.h, sdk_.s, col_lo, dm.sk, dka,
+                scale, lane);
+  store_rows<D>(dv + b * sdv_.b + hk * sdv_.h, sdv_.s, col_lo, dm.sk, dva,
+                1.0f, lane);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* o, const float* lse, void* dq, void* dk, void* dv,
+           float* dsum, const Strides (&st)[8], int batch, int heads,
+           int kv_heads, const Dims& dm, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  // once per template instance, not per launch
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kDqBytes);
+  if (a1 != cudaSuccess) return (int)a1;
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kDkvBytes);
+  if (a2 != cudaSuccess) return (int)a2;
+  const int n_qt = (dm.sq + kRows - 1) / kRows;
+  const int n_kt = (dm.sk + kRows - 1) / kRows;
+  dq_kernel<D><<<dim3(heads, batch, n_qt), kThreads, C::kDqBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)o, lse, (float*)dq, dsum, st[0], st[1], st[2], st[3],
+      st[4], st[5], dm, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkdv_kernel<D><<<dim3(kv_heads, batch, n_kt), kThreads, C::kDkvBytes,
+                   stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, dsum, (float*)dk, (float*)dv, st[0], st[1], st[2], st[3], st[6],
+      st[7], dm, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_bwd_tf32
+
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients alike).
 // form: 0 = CUDA-core, 1 = tensor-core (bf16, head_dim 64, 96 or 128, every
-// row 16-byte aligned, o's too).  strides: 24 int64 values, (b, h, s) in
-// elements for q, k, v, dout, o, dq, dk, dv (the last dimension
-// contiguous).  Tensor-core form: o and o_lo (the forward's output and its
-// bf16 rounding residual, o's strides) and lse (its f32 [batch, heads, sq]
-// log-sum-exp) given; stats f32 scratch of batch * heads * sq values (each
-// row's Delta = dO . (O + O_lo)).  CUDA-core form: o, o_lo and lse unused;
-// stats 2 * batch * heads * sq values (each row's log-sum-exp and
-// rowsum(dP P), from its statistics stage).  window: 0 =
+// row 16-byte aligned, o's too), 2 = tensor-core f32 (f32, the same head
+// dims and alignment; o and lse given, o_lo null, stats batch * heads * sq
+// values: each row's Delta = rowsum(dP P)).  strides: 24 int64 values,
+// (b, h, s) in elements for q, k, v, dout, o, dq, dk, dv (the last
+// dimension contiguous).  Tensor-core form: o and o_lo (the forward's
+// output and its bf16 rounding residual, o's strides) and lse (its f32
+// [batch, heads, sq] log-sum-exp) given; stats f32 scratch of batch *
+// heads * sq values (each row's Delta = dO . (O + O_lo)).  CUDA-core form:
+// o, o_lo and lse unused; stats 2 * batch * heads * sq values (each row's
+// log-sum-exp and rowsum(dP P), from its statistics stage).  window: 0 =
 // none.  The same visibility as flash_attention_fwd, which the wrapper has
 // checked (every row sees a column).  Launches the dQ pass, then the dK/dV
 // pass.  Returns a cudaError_t code: 0 on successful launches.
@@ -961,7 +1372,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       heads % kv_heads != 0 || kv_len <= 0 || kv_len > sk || q_offset < 0 ||
       window < 0 || batch > 65535 || heads > 65535 ||
       (sq + 63) / 64 > 65535 || (sk + 63) / 64 > 65535 || form < 0 ||
-      form > 1) {
+      form > 2) {
     return (int)cudaErrorInvalidValue;
   }
   using flash::Strides;
@@ -973,6 +1384,18 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                            causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   float* f = (float*)stats;
+  if (form == 2) {
+    if (dtype != 0 || !o || o_lo || !lse) return (int)cudaErrorInvalidValue;
+#define BWD_F32(D)                                                          \
+  return flash_bwd_tf32::launch<D>(q, k, v, dout, o, (const float*)lse, dq,  \
+                                   dk, dv, f, st, batch, heads, kv_heads,   \
+                                   dm, scale, s)
+    if (head_dim == 64) BWD_F32(64);
+    if (head_dim == 96) BWD_F32(96);
+    if (head_dim == 128) BWD_F32(128);
+#undef BWD_F32
+    return (int)cudaErrorInvalidValue;
+  }
   if (form == 1) {
     if (dtype != 1 || !o || !o_lo || !lse) return (int)cudaErrorInvalidValue;
 #define BWD_TC(D)                                                          \

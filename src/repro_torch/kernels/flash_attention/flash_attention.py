@@ -34,18 +34,21 @@ dtype and layout and which a recording counts as the kernel's work
 enabled and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_FlashAttention`): its forward is the
 same launch (or, on the CPU, the plain version), so a kernel output
-always carries its autograd history.  Where the backward will take its
-tensor-core form (:func:`keeps_lse`: bf16 forms on the card or on meta),
-that forward also writes each row's log-sum-exp (f32 ``[B, H, Sq]``) and
-the output's bf16 rounding residual (its P·V then takes P in two bf16
-parts, so that output + residual holds ~16 bits) and saves both with the
-output.  Its backward dispatches by device as the
+always carries its autograd history.  Where the backward will take a
+tensor-core form (:func:`keeps_lse`: every form but the CUDA-core one, on
+the card or on meta), that forward also writes each row's log-sum-exp (f32
+``[B, H, Sq]``) and saves it with the output; the bf16 forms also write
+the output's bf16 rounding residual (their P·V then takes P in two bf16
+parts, so that output + residual holds ~16 bits), f32 has none.  Its
+backward dispatches by device as the
 forward does (the JAX package trains through jnp autodiff; its Pallas
 kernel has no VJP): on the card the backward kernel
-(``csrc/flash_bwd.cu``, two deterministic passes that recompute P, from
-the forward's log-sum-exp and ``Delta = rowsum(dO (O + O_lo))`` in the
-tensor-core form; counted in ``LAUNCHES["flash_attention_bwd"]`` and by the form
-:func:`backward_form` picks in :data:`LAUNCHES_BY_BWD_FORM`), on meta
+(``csrc/flash_bwd.cu``, two deterministic passes that recompute P from
+the forward's log-sum-exp in the tensor-core forms, with ``Delta =
+rowsum(dO (O + O_lo))`` in bf16 and, in f32 (3xTF32 products),
+``dO . O`` corrected to the products' own ``rowsum(dP P)``; counted in
+``LAUNCHES["flash_attention_bwd"]`` and by the form :func:`backward_form`
+picks in :data:`LAUNCHES_BY_BWD_FORM`), on meta
 one op, ``repro_torch::flash_attention_bwd``
 (:func:`attention_bwd_ops`), with the kernel's f32 scratch allocated
 across it as on the card, on the CPU :func:`flash_attention_bwd`, the
@@ -55,7 +58,7 @@ kernel reads q, k and v through their strides (the last dimension must
 be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 ``transpose(1, 2)`` views; the output has q's layout and dtype.
 
-The kernel has three forms; :func:`kernel_form` picks one per call and
+The kernel has four forms; :func:`kernel_form` picks one per call and
 each launch also counts in :data:`LAUNCHES_BY_FORM`:
 
 * ``"split_kv"`` — bf16, D in :data:`TC_HEAD_DIMS` (64, 96, 128), at most
@@ -69,11 +72,17 @@ each launch also counts in :data:`LAUNCHES_BY_FORM`:
 * ``"tensor_core"`` — bf16, D in :data:`TC_HEAD_DIMS`, more rows
   (prefill, an encoder, cross-attention over a source): ``mma.sync`` bf16 tiles with f32 accumulation; P is rounded
   to bf16 before P·V, as SDPA does.
-* ``"simt"`` — everything else: f32 (TF32 would break the f32 gates),
-  bf16 at D in {8, 16, 32}, and bf16 tensors that are not 16-byte
-  aligned or whose (b, h, s) strides are not multiples of 8 elements
-  (the other forms copy rows in 16-byte pieces): f32 FMAs on the CUDA
-  cores.
+* ``"tensor_core_f32"`` — f32, D in :data:`TC_HEAD_DIMS`, more than
+  :data:`SPLIT_MAX_ROWS` q rows per kv head (``csrc/flash_tc_f32.cuh``):
+  the tensor-core form's shape with 3xTF32 products (each f32 operand
+  split into a TF32 high part and the rest, three ``mma.sync`` a
+  product, f32 sums), which meets the f32 gates where TF32 alone would
+  not.
+* ``"simt"`` — everything else: f32 and bf16 at D in {8, 16, 32}, f32
+  decode steps (at most :data:`SPLIT_MAX_ROWS` rows per kv head), and
+  tensors that are not 16-byte aligned or whose (b, h, s) strides are
+  not multiples of 16 bytes (8 bf16 or 4 f32 elements; the other forms
+  copy rows in 16-byte pieces): f32 FMAs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -90,20 +99,24 @@ from repro_torch.kernels import META_OPS, build, count_launch
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 #: The forward's launches by form (:func:`kernel_form`); they sum to
 #: ``LAUNCHES["flash_attention"]``.
-LAUNCHES_BY_FORM = {"tensor_core": 0, "split_kv": 0, "simt": 0}
+LAUNCHES_BY_FORM = {"tensor_core": 0, "split_kv": 0, "tensor_core_f32": 0,
+                    "simt": 0}
 #: The backward's launches by form (:func:`backward_form`); they sum to
 #: ``LAUNCHES["flash_attention_bwd"]``.
-LAUNCHES_BY_BWD_FORM = {"tensor_core_bwd": 0, "simt_bwd": 0}
+LAUNCHES_BY_BWD_FORM = {"tensor_core_bwd": 0, "tensor_core_f32_bwd": 0,
+                        "simt_bwd": 0}
 
 HEAD_DIMS = (8, 16, 32, 64, 96, 128)
-#: Head dims of the tensor-core and split-KV forms (bf16 only).
+#: Head dims of the tensor-core forms (bf16 and f32) and the split-KV
+#: form (bf16).
 TC_HEAD_DIMS = (64, 96, 128)
 #: q rows per kv head up to which bf16 goes to the split-KV form
-#: (csrc/flash_split.cuh kMaxRows).
+#: (csrc/flash_split.cuh kMaxRows) and f32 to the CUDA-core form.
 SPLIT_MAX_ROWS = 16
 #: KV columns per split (csrc/flash_split.cuh kSplit).
 SPLIT_COLUMNS = 128
-_FORM_CODES = {"simt": 0, "tensor_core": 1, "split_kv": 2}
+_FORM_CODES = {"simt": 0, "tensor_core": 1, "split_kv": 2,
+               "tensor_core_f32": 3}
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -165,28 +178,38 @@ def _visible_mask(rows, cols, *, causal: bool, q_offset: int, kv_len: int,
     return ok
 
 
+def _acc_dtype(q) -> torch.dtype:
+    """The plain versions' arithmetic: f64 for f64 inputs (the oracle of
+    the card's f32 cases whose softmax is sharp enough that f32's own
+    rounding reaches the gates), else f32."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(q, k, v, *, causal: bool, scale=None,
                           q_offset: int = 0, kv_len=None, window=None,
                           return_lse: bool = False):
-    """Dense masked softmax attention in f32 with the kernel's mask,
-    ``-1e30`` for masked scores and ``acc / max(l, 1e-30)``; q rows in
-    blocks of at most :data:`PLAIN_BLOCK_ELEMENTS` scores.  With
-    ``return_lse`` also each row's log-sum-exp ``m + ln max(l, 1e-30)``
-    over its visible scores ``scale q k^T`` (f32 ``[B, H, Sq]``, the
-    kernel's under autograd): ``(out, lse)``."""
+    """Dense masked softmax attention in f32 (f64 for f64 inputs) with the
+    kernel's mask, ``-1e30`` for masked scores and ``acc / max(l,
+    1e-30)``; q rows in blocks of at most :data:`PLAIN_BLOCK_ELEMENTS`
+    scores.  With ``return_lse`` also each row's log-sum-exp ``m + ln
+    max(l, 1e-30)`` over its visible scores ``scale q k^T`` (``[B, H,
+    Sq]`` in the arithmetic's dtype; the kernel writes it in f32 under
+    autograd): ``(out, lse)``."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
-    kf = k.float().repeat_interleave(h // hkv, dim=1)
-    vf = v.float().repeat_interleave(h // hkv, dim=1)
+    acc = _acc_dtype(q)
+    kf = k.to(acc).repeat_interleave(h // hkv, dim=1)
+    vf = v.to(acc).repeat_interleave(h // hkv, dim=1)
     cols = torch.arange(sk, device=q.device)
     step = max(1, PLAIN_BLOCK_ELEMENTS // (b * h * sk))
-    out = torch.empty(b, h, sq, d, device=q.device)
-    lse = torch.empty(b, h, sq, device=q.device) if return_lse else None
+    out = torch.empty(b, h, sq, d, dtype=acc, device=q.device)
+    lse = torch.empty(b, h, sq, dtype=acc, device=q.device) \
+        if return_lse else None
     for r0 in range(0, sq, step):
         rows = torch.arange(r0, min(r0 + step, sq), device=q.device)
-        s = (q[:, :, r0:r0 + step].float() * scale) @ kf.transpose(-1, -2)
+        s = (q[:, :, r0:r0 + step].to(acc) * scale) @ kf.transpose(-1, -2)
         mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window)
         s = torch.where(mask, s, NEG_INF)
@@ -261,27 +284,30 @@ def split_kv_plain(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
 def _aligned(*ts) -> bool:
     """Whether every tensor can be copied in 16-byte rows (the
     tensor-core and split-KV forms' loads): a 16-byte aligned start and
-    (b, h, s) strides that are multiples of 8 elements."""
+    (b, h, s) strides that are multiples of 16 bytes (8 bf16 or 4 f32
+    elements)."""
     return all(t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3]) for t in ts)
 
 
-def backward_form(q, k, v, grad) -> str:
-    """The backward kernel's form for these arguments: ``"tensor_core"``
-    for bf16 at D in :data:`TC_HEAD_DIMS` with q, k, v and the output's
-    gradient aligned as the forward's tensor-core form needs, else
-    ``"simt"`` (the CUDA-core form)."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
-        return "simt"
-    return "tensor_core" if _aligned(q, k, v, grad) else "simt"
+def backward_form(q, k, v) -> str:
+    """The backward kernel's form after a forward of
+    :func:`kernel_form`'s form on q, k, v (the output's gradient is
+    copied when it is not aligned, so it does not choose):
+    ``"tensor_core"`` after a bf16 tensor-core or split-KV forward,
+    ``"tensor_core_f32"`` after an f32 tensor-core one, else ``"simt"``
+    (the CUDA-core form)."""
+    form = kernel_form(q, k, v)
+    return "tensor_core" if form == "split_kv" else form
 
 
 def keeps_lse(q, k, v) -> bool:
     """Whether a forward under autograd writes and saves each row's
-    log-sum-exp and its output's rounding residual (and its output) for
-    the backward: on the card or on meta, where the backward takes its
-    tensor-core form (the forward's form is then ``"tensor_core"`` or
-    ``"split_kv"``, both of which write them)."""
+    log-sum-exp (bf16: and its output's rounding residual) and its
+    output for the backward: on the card or on meta, where the backward
+    takes a tensor-core form (the forward's form is then not
+    ``"simt"``, and each of the others writes them)."""
     return q.device.type in ("cuda", "meta") and \
         kernel_form(q, k, v) != "simt"
 
@@ -291,12 +317,13 @@ def kernel_form(q, k, v) -> str:
     arguments (see the module docstring).  The output, allocated like q,
     is aligned as q is."""
     _, h, sq, d = q.shape
-    if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
+    if q.dtype not in _DTYPES or d not in TC_HEAD_DIMS \
+            or not _aligned(q, k, v):
         return "simt"
-    if not _aligned(q, k, v):
-        return "simt"
-    return "split_kv" if sq * (h // k.shape[1]) <= SPLIT_MAX_ROWS \
-        else "tensor_core"
+    few = sq * (h // k.shape[1]) <= SPLIT_MAX_ROWS
+    if q.dtype == torch.float32:
+        return "simt" if few else "tensor_core_f32"
+    return "split_kv" if few else "tensor_core"
 
 
 def attention_ops(b: int, h: int, sq: int, d: int, *, causal: bool,
@@ -318,9 +345,9 @@ def _meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              kv_len: int, window: int) -> tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """One launch of the kernel on the meta device (``window`` 0: none):
-    the output and, ``for_grad``, each row's log-sum-exp and the output's
-    rounding residual (else empty tensors); it has no implementation on a
-    device with values."""
+    the output and, ``for_grad``, each row's log-sum-exp and, in bf16, the
+    output's rounding residual (else empty tensors); it has no
+    implementation on a device with values."""
     raise RuntimeError("repro_torch::flash_attention runs on meta tensors "
                        "only")
 
@@ -330,7 +357,7 @@ def _(q, k, v, for_grad, causal, scale, q_offset, kv_len, window):
     b, h, sq, _ = q.shape
     lse = torch.empty((b, h, sq) if for_grad else (0,), dtype=torch.float32,
                       device=q.device)
-    out_lo = (torch.empty_like(q) if for_grad
+    out_lo = (torch.empty_like(q) if for_grad and q.dtype != torch.float32
               else torch.empty(0, dtype=q.dtype, device=q.device))
     return torch.empty_like(q), lse, out_lo   # the output: q's layout
 
@@ -451,7 +478,9 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window,
     """The plain version on the CPU, the kernel's launch on the card;
     ``for_grad``: ``(out, lse, out_lo)``, each row's log-sum-exp and the
     output's rounding residual in q's dtype beside the output (the
-    kernel's bf16 forms write them; :func:`keeps_lse`)."""
+    kernel's tensor-core and split-KV forms write them; :func:`keeps_lse`).
+    The f32 form on the card and on meta writes no residual (``out_lo``
+    None); the CPU's f32 residual is zeros."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     dev = q.device
     kw = dict(causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len,
@@ -468,7 +497,9 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window,
         out, lse, out_lo = _meta_op(q, k, v, bool(for_grad), bool(causal),
                                     scale, q_offset, kv_len,
                                     0 if window is None else window)
-        return (out, lse, out_lo) if for_grad else out
+        if not for_grad:
+            return out
+        return out, lse, None if q.dtype == torch.float32 else out_lo
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b, h, sq, d = q.shape
@@ -490,7 +521,8 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window,
         if form == "simt":
             raise ValueError("the CUDA-core form writes no log-sum-exp")
         lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
-        out_lo = torch.empty_like(out)   # out's strides
+        if form != "tensor_core_f32":
+            out_lo = torch.empty_like(out)   # out's strides
     n_splits, part_ml, part_acc = 0, None, None
     if form == "split_kv":
         rows = sq * (h // hkv)
@@ -539,8 +571,8 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
     the forward's output ``out`` and log-sum-exp ``lse``, the form the
     tensor-core kernel computes: ``P = exp(S - lse)`` on the visible
     columns and ``rowsum(P dP)`` as ``Delta = rowsum(dO out)`` in f32 (the
-    kernel's ``out`` is the bf16 output plus its rounding residual).
-    Returned in the inputs' dtypes."""
+    kernel's ``out`` is the bf16 output plus its rounding residual).  In
+    f64 for f64 inputs.  Returned in the inputs' dtypes."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     if (out is None) != (lse is None):
         raise ValueError("give both out and lse, or neither")
@@ -548,34 +580,35 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
     hkv, sk = k.shape[1], k.shape[2]
     rep = h // hkv
     scale = d ** -0.5 if scale is None else float(scale)
-    kf = k.float().repeat_interleave(rep, dim=1)
-    vf = v.float().repeat_interleave(rep, dim=1)
-    dq = torch.empty(b, h, sq, d, device=q.device)
-    dk = torch.zeros(b, h, sk, d, device=q.device)
-    dv = torch.zeros(b, h, sk, d, device=q.device)
+    acc = _acc_dtype(q)
+    kf = k.to(acc).repeat_interleave(rep, dim=1)
+    vf = v.to(acc).repeat_interleave(rep, dim=1)
+    dq = torch.empty(b, h, sq, d, dtype=acc, device=q.device)
+    dk = torch.zeros(b, h, sk, d, dtype=acc, device=q.device)
+    dv = torch.zeros(b, h, sk, d, dtype=acc, device=q.device)
     cols = torch.arange(sk, device=q.device)
     step = max(1, PLAIN_BLOCK_ELEMENTS // (b * h * sk))
     for r0 in range(0, sq, step):
         rows = torch.arange(r0, min(r0 + step, sq), device=q.device)
-        qs = q[:, :, r0:r0 + step].float() * scale
+        qs = q[:, :, r0:r0 + step].to(acc) * scale
         s = qs @ kf.transpose(-1, -2)
         mask = _visible_mask(rows, cols, causal=causal, q_offset=q_offset,
                              kv_len=kv_len, window=window)
-        g = grad[:, :, r0:r0 + step].float()
+        g = grad[:, :, r0:r0 + step].to(acc)
         if lse is None:
             s = torch.where(mask, s, NEG_INF)
             p = torch.exp(s - s.amax(dim=-1, keepdim=True))
             p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         else:
             p = torch.where(mask, torch.exp(
-                s - lse[:, :, r0:r0 + step, None].float()), 0.0)
+                s - lse[:, :, r0:r0 + step, None].to(acc)), 0.0)
         del s
         dv += p.transpose(-1, -2) @ g
         dp = g @ vf.transpose(-1, -2)
         if lse is None:
             delta = (dp * p).sum(dim=-1, keepdim=True)
         else:
-            delta = (g * out[:, :, r0:r0 + step].float()).sum(
+            delta = (g * out[:, :, r0:r0 + step].to(acc)).sum(
                 dim=-1, keepdim=True)
         ds = p * (dp - delta)
         del p, dp
@@ -587,14 +620,15 @@ def flash_attention_bwd(q, k, v, grad, *, causal: bool, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-_BWD_FORM_CODES = {"simt": 0, "tensor_core": 1}
+_BWD_FORM_CODES = {"simt": 0, "tensor_core": 1, "tensor_core_f32": 2}
 
 
 def _bwd_stats(b: int, h: int, sq: int, dev, form: str) -> torch.Tensor:
-    """The backward kernel's f32 scratch: each q row's Delta = dO . O
-    (tensor-core form), or its log-sum-exp and rowsum(dP P) (CUDA-core
-    form, from its statistics stage)."""
-    rows = (b, h, sq) if form == "tensor_core" else (2, b, h, sq)
+    """The backward kernel's f32 scratch: each q row's Delta (tensor-core
+    forms: dO . (O + O_lo) in bf16, rowsum(dP P) in f32), or its
+    log-sum-exp and rowsum(dP P) (CUDA-core form, from its statistics
+    stage)."""
+    rows = (2, b, h, sq) if form == "simt" else (b, h, sq)
     return torch.empty(rows, dtype=torch.float32, device=dev)
 
 
@@ -602,9 +636,10 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window,
               out=None, lse=None, out_lo=None):
     """``(dq, dk, dv)`` on the card (the backward kernel's launch) or on
     meta (its op), contiguous, in q's, k's and v's dtypes.  The
-    tensor-core form reads the forward's output ``out``, log-sum-exp
-    ``lse`` and rounding residual ``out_lo`` (``_forward(...,
-    for_grad=True)``); the CUDA-core form none of them."""
+    tensor-core forms read the forward's output ``out`` and log-sum-exp
+    ``lse``, the bf16 one also its rounding residual ``out_lo``
+    (``_forward(..., for_grad=True)``); the CUDA-core form none of
+    them."""
     q_offset, kv_len, window = _check_args(q, k, v, q_offset, kv_len, window)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -612,9 +647,14 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window,
     grad = grad.to(q.dtype)
     dev = q.device
     # the forward's choice (an unaligned grad is copied below)
-    form = "tensor_core" if keeps_lse(q, k, v) else "simt"
+    form = backward_form(q, k, v)
     if form == "simt":
         out = lse = out_lo = None
+    elif form == "tensor_core_f32":
+        out_lo = None
+        if out is None or lse is None:
+            raise ValueError("the tensor-core f32 backward reads the "
+                             "forward's output and log-sum-exp")
     elif out is None or lse is None or out_lo is None:
         raise ValueError("the tensor-core backward reads the forward's "
                          "output, log-sum-exp and rounding residual")
@@ -639,13 +679,17 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window,
     if max(b, h) > 65535 or max(sq, sk) > 64 * 65535:
         raise ValueError("batch and heads must be <= 65535, Sq and Sk <= "
                          "4194240")
-    if form == "tensor_core":
+    if form != "simt":
+        kept = (out,) if out_lo is None else (out, out_lo)
         if any(tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
-               for t in (out, out_lo)) or tuple(lse.shape) != (b, h, sq) \
+               for t in kept) or tuple(lse.shape) != (b, h, sq) \
                 or lse.dtype != torch.float32:
             raise ValueError("out and out_lo must be q's shape and dtype, "
                              "lse f32 [B, H, Sq]")
-        if out_lo.stride() != out.stride() or not _aligned(out, out_lo):
+        if out_lo is None:
+            if not _aligned(out):
+                out = out.contiguous()
+        elif out_lo.stride() != out.stride() or not _aligned(out, out_lo):
             out, out_lo = out.contiguous(), out_lo.contiguous()
         lse = lse.contiguous()
     dq, dk, dv = _grads_like(q, k, v)
@@ -680,8 +724,9 @@ def _backward(q, k, v, grad, causal, scale, q_offset, kv_len, window,
 class _FlashAttention(torch.autograd.Function):
     """B4 with a gradient: the forward launches the kernel (the plain
     version on the CPU) and saves q, k, v, and, where the backward takes
-    its tensor-core form (:func:`keeps_lse`), the output, each row's
-    log-sum-exp and the output's rounding residual; the backward launches the backward kernel on the card
+    a tensor-core form (:func:`keeps_lse`), the output, each row's
+    log-sum-exp and (bf16) the output's rounding residual; the backward
+    launches the backward kernel on the card
     (one op on meta) and, on the CPU, is :func:`flash_attention_bwd`,
     torch ops; each recomputes P."""
 

@@ -53,9 +53,9 @@
 // tile), at f32 accuracy: C B^T with bf16 b and c as bf16 m16n8k16 with f32
 // sums (exact products); every product with an f32 operand as 3xTF32 (m16n8k8:
 // each operand split into a TF32 high part and the rest, hi*hi + hi*lo +
-// lo*hi), an operand that holds bf16 values taken whole (its low part is
-// zero).  Single TF32 (10 mantissa bits) would miss the f32
-// gates.
+// lo*hi; kernels/csrc/tf32x3.cuh, shared with B4's f32 forms), an operand
+// that holds bf16 values taken whole (its low part is zero).  Single TF32
+// (10 mantissa bits) would miss the f32 gates.
 //
 // What bounds it on the card: the backward's multiply-adds, about twice the
 // forward's on the same inputs; at f32 on the CUDA cores (67 TFLOP/s) that
@@ -76,11 +76,14 @@
 #include <stdint.h>
 
 #include "f32_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace ssd_bwd {
 
 using f32_tile::from_f32;
 using f32_tile::to_f32;
+using tf32x3::mma_tf32;
+using tf32x3::split_tf32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -100,26 +103,6 @@ struct Strides {
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
 // --- tensor-core tiles ----------------------------------------------------
-
-// x = hi + lo: hi is x cut to TF32 (its low 13 mantissa bits cleared: one
-// integer AND, where cvt.rna.tf32 is a slow conversion), lo = x - hi exact
-// in f32, which the tensor core reads as TF32 (its low bits dropped): hi +
-// lo carries x to ~21 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c[16x8] += a[16x8] b[8x8], TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

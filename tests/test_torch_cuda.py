@@ -513,11 +513,16 @@ def test_flash_attention_forms_vs_plain(cuda_device, d, b, h, hkv, sq, sk,
     (torch.bfloat16, 128, 2, 32, 8, 1, 700, 600, 601, 200, "split_kv"),
     # 16 rows per kv head, each row its own edge
     (torch.bfloat16, 64, 1, 16, 4, 4, 1100, 1000, 1004, 130, "split_kv"),
-    # the CUDA-core form in f32, edge mid-tile, and at the reduced D 16
-    (torch.float32, 64, 1, 4, 2, 200, 200, 0, 200, 77, "simt"),
+    # the tensor-core f32 form, edge mid-tile (32-column tiles at D 128)
+    (torch.float32, 64, 1, 4, 2, 200, 200, 0, 200, 77, "tensor_core_f32"),
+    (torch.float32, 128, 2, 8, 2, 300, 300, 0, 300, 100, "tensor_core_f32"),
+    # the CUDA-core form in f32: at the reduced D 16, and a chunk of 4
+    # rows at D 64 (8 rows per kv head)
     (torch.float32, 16, 2, 4, 2, 9, 40, 20, 29, 16, "simt"),
+    (torch.float32, 64, 1, 4, 2, 4, 300, 250, 254, 77, "simt"),
 ], ids=["tc-prefill", "tc-chunk", "split-decode", "split-16-rows",
-        "simt-prefill", "simt-reduced"])
+        "tc-f32-prefill", "tc-f32-prefill-d128", "simt-reduced",
+        "simt-f32-chunk"])
 def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
                                                hkv, sq, sk, q_offset, kv_len,
                                                window, form):
@@ -563,14 +568,20 @@ def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
     (torch.bfloat16, 96, 2, 8, 8, 200, 256, True, 0, 200, "tensor_core"),
     (torch.bfloat16, 96, 2, 32, 32, 1, 2080, True, 2047, 2048, "split_kv"),
     (torch.bfloat16, 96, 1, 16, 4, 4, 300, True, 126, 130, "split_kv"),
-    # the CUDA-core form at D 96 (three columns a thread), f32 and bf16
-    (torch.float32, 96, 2, 4, 4, 130, 130, True, 0, 130, "simt"),
-    (torch.float32, 96, 1, 4, 2, 70, 150, False, 0, 140, "simt"),
+    # f32 at D 96: the tensor-core f32 form (twelve 8-wide n-tiles of
+    # P V), causal and cross; a decode step stays on the CUDA-core form
+    # (three columns a thread)
+    (torch.float32, 96, 2, 4, 4, 130, 130, True, 0, 130, "tensor_core_f32"),
+    (torch.float32, 96, 1, 4, 2, 70, 150, False, 0, 140, "tensor_core_f32"),
     (torch.float32, 96, 2, 4, 4, 1, 300, True, 200, 201, "simt"),
-    (torch.float32, 64, 1, 4, 4, 100, 37, False, 0, 37, "simt"),
+    (torch.float32, 64, 1, 4, 4, 100, 37, False, 0, 37, "tensor_core_f32"),
+    # the CUDA-core form at D 32 without causality, f32 and bf16
+    (torch.float32, 32, 2, 4, 4, 100, 37, False, 0, 37, "simt"),
+    (torch.bfloat16, 32, 2, 4, 4, 100, 37, False, 0, 37, "simt"),
 ], ids=["tc-encoder", "tc-cross", "tc-cross-d96", "split-cross",
         "split-cross-d96", "tc-d96", "split-d96", "split-d96-gqa",
-        "simt-d96", "simt-d96-cross", "simt-d96-decode", "simt-cross"])
+        "tc-f32-d96", "tc-f32-d96-cross", "simt-d96-decode", "tc-f32-cross",
+        "simt-f32-cross-d32", "simt-bf16-cross-d32"])
 def test_flash_attention_non_causal_and_d96_forms_vs_plain(
         cuda_device, dtype, d, b, h, hkv, sq, sk, causal, q_offset, kv_len,
         form):
@@ -671,9 +682,12 @@ def test_ssd_scan_column_blocks_and_bf16_b_c(cuda_device, bc_dtype, b, s, h,
         assert float((got - want).abs().max()) / scale <= 5e-6
 
 
-@pytest.mark.parametrize("dtype,form", [(torch.float32, "simt"),
-                                        (torch.bfloat16, "tensor_core")])
-def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
+@pytest.mark.parametrize("dtype,form,d", [
+    (torch.float32, "tensor_core_f32", 64),
+    (torch.bfloat16, "tensor_core", 64),
+    (torch.float32, "simt", 16),
+])
+def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form, d):
     """Under grad the kernel's output has B4's ``grad_fn``; its gradients
     (one launch of the backward kernel, on the same form) equal autograd
     through the plain version on the same card, within 1e-4 of each
@@ -684,7 +698,7 @@ def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(
             dtype).requires_grad_()
 
-    q, k, v = rand(2, 8, 256, 64), rand(2, 4, 256, 64), rand(2, 4, 256, 64)
+    q, k, v = rand(2, 8, 256, d), rand(2, 4, 256, d), rand(2, 4, 256, d)
     assert fa.kernel_form(q, k, v) == form
     before = dict(fa.LAUNCHES)
     bwd_form = fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"]
@@ -692,7 +706,7 @@ def test_flash_attention_gradient_on_the_card(cuda_device, dtype, form):
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
     g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
-    assert fa.backward_form(q, k, v, g) == form
+    assert fa.backward_form(q, k, v) == form
     got = torch.autograd.grad(out, (q, k, v), g)
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert fa.LAUNCHES["flash_attention_bwd"] == \
@@ -740,6 +754,62 @@ def test_flash_attention_forward_lse_on_the_card(cuda_device, sq, kw):
     for o in (out, serve):
         err = (o.float() - o32).abs().max()
         assert float(err) <= 2.0 ** -8 * float(o32.abs().max())
+
+
+@pytest.mark.parametrize("sq,d,kw", [
+    (300, 64, dict(causal=True)),
+    (200, 128, dict(causal=True, q_offset=40, kv_len=250, window=70)),
+    (130, 96, dict(causal=False)),
+], ids=["d64", "d128-offsets-window", "d96-noncausal"])
+def test_flash_attention_f32_forward_lse_on_the_card(cuda_device, sq, d, kw):
+    """Under autograd the tensor-core f32 form also writes each row's
+    log-sum-exp, within 1e-4 of the plain version's, and no rounding
+    residual; its output has the serving launch's bits and is within
+    2e-5 of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)\
+            .transpose(1, 2)
+
+    q, k, v = rand(2, sq, 8, d), rand(2, 300, 2, d), rand(2, 300, 2, d)
+    mod = sys.modules[fa.flash_attention.__module__]
+    assert mod.kernel_form(q, k, v) == "tensor_core_f32"
+    assert mod.keeps_lse(q, k, v)
+    args = (kw["causal"], None, kw.get("q_offset", 0), kw.get("kv_len"),
+            kw.get("window"))
+    out, lse, out_lo = mod._forward(q, k, v, *args, for_grad=True)
+    serve = mod._forward(q, k, v, *args)
+    o32, want = fa.flash_attention_plain(q, k, v, **kw, return_lse=True)
+    assert out_lo is None and torch.equal(out, serve)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert float((lse - want).abs().max()) <= 1e-4
+    assert float((out - o32).abs().max()) <= 2e-5
+
+
+def test_flash_attention_f32_unaligned_rows_take_the_cuda_core_form(
+        cuda_device):
+    """An f32 view whose rows are 8 bytes off a 16-byte boundary runs on
+    the CUDA-core form, forward and backward, against the plain
+    versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    base = torch.randn(2, 200, 4 * 64 + 2, generator=gen, device=cuda_device)
+    q = base[:, :, :4 * 64].unflatten(-1, (4, 64)).transpose(1, 2)
+    k, v = (torch.randn(2, 200, 4, 64, generator=gen, device=cuda_device)
+            .transpose(1, 2) for _ in range(2))
+    assert fa.kernel_form(q, k, v) == "simt"
+    assert fa.kernel_form(q.contiguous(), k, v) == "tensor_core_f32"
+    before = dict(fa.LAUNCHES_BY_FORM), dict(fa.LAUNCHES_BY_BWD_FORM)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device)
+    got = torch.autograd.grad(out, leaves, g)
+    assert fa.LAUNCHES_BY_FORM["simt"] == before[0]["simt"] + 1
+    assert fa.LAUNCHES_BY_BWD_FORM["simt_bwd"] == before[1]["simt_bwd"] + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert float((out - want).abs().max()) <= 2e-5
+    for a, w in zip(got, fa.flash_attention_bwd(q, k, v, g, causal=True)):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_ssd_scan_gradient_on_the_card(cuda_device):
@@ -818,34 +888,61 @@ def row_err(got: torch.Tensor, plain: torch.Tensor) -> float:
     (torch.bfloat16, 2, 4, 4, 130, 130, 16, dict(causal=True)),    # bf16 D 16
     (torch.bfloat16, 2, 8, 2, 1, 300, 64,
      dict(causal=True, q_offset=299, kv_len=300)),  # split-KV forward
+    (torch.float32, 2, 8, 2, 300, 300, 128, dict(causal=True)),     # GQA
+    (torch.float32, 1, 4, 2, 300, 300, 64,
+     dict(causal=True, window=50)),                                 # window
+    (torch.float32, 2, 4, 4, 200, 330, 64, dict(causal=False)),     # Sq != Sk
+    (torch.float32, 2, 8, 2, 4, 300, 64,
+     dict(causal=True, q_offset=290, kv_len=294)),   # 16 rows: CUDA-core
+    (torch.float32, 2, 4, 4, 256, 256, 64, dict(causal=True, s_max=20.0)),
+    (torch.float32, 1, 8, 2, 300, 300, 128,
+     dict(causal=True, s_max=20.0)),                 # sharp softmax
 ], ids=["tc", "tc-gqa-d128", "tc-window", "tc-noncausal", "tc-d96",
-        "tc-offsets", "simt-f32", "simt-f32-gqa-d16", "simt-f32-window-d8",
-        "simt-f32-noncausal-d32", "simt-f32-offsets-window-d96",
-        "simt-bf16-d16", "tc-after-split-kv"])
+        "tc-offsets", "tc-f32", "simt-f32-gqa-d16", "simt-f32-window-d8",
+        "simt-f32-noncausal-d32", "tc-f32-offsets-window-d96",
+        "simt-bf16-d16", "tc-after-split-kv", "tc-f32-gqa-d128",
+        "tc-f32-window", "tc-f32-noncausal", "simt-f32-16-rows",
+        "tc-f32-sharp", "tc-f32-sharp-gqa-d128"])
 def test_flash_attention_backward_kernel_vs_plain(cuda_device, dtype, b, h,
                                                   hkv, sq, sk, d, kw):
     """B4's backward kernel, on the form ``backward_form`` picks, against
     the closed form in torch ops and autograd through the plain version,
-    on the same inputs (``BWD_TOL``, and row by row ``BWD_ROW_TOL``)."""
+    on the same inputs (``BWD_TOL``, and row by row ``BWD_ROW_TOL``).
+    With ``s_max``, q and k are scaled so that |scale q k^T| reaches it,
+    and the plain versions run in f64: such a row's dq is a difference of
+    nearly equal terms, and the plain version in f32 is itself ~1e-3 of
+    the row floor from its f64 evaluation."""
+    kw = dict(kw)
+    s_max = kw.pop("s_max", None)
     gen = torch.Generator(device=cuda_device).manual_seed(sq + d)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(
-            dtype).transpose(1, 2).requires_grad_()
+            dtype).transpose(1, 2)
 
     q, k, v = rand(b, sq, h, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+    if s_max is not None:
+        c = (s_max / d ** -0.5 / float((q @ k.repeat_interleave(
+            h // hkv, dim=1).transpose(-1, -2)).abs().max())) ** 0.5
+        q, k = q * c, k * c
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
     out = fa.flash_attention(q, k, v, **kw)
     g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
-    form = ("tensor_core" if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
-            else "simt")
-    assert fa.backward_form(q, k, v, g) == form
+    rows = sq * h // hkv
+    form = ("simt" if d not in fa.TC_HEAD_DIMS
+            else "tensor_core" if dtype == torch.bfloat16
+            else "tensor_core_f32" if rows > fa.SPLIT_MAX_ROWS else "simt")
+    assert fa.backward_form(q, k, v) == form
     before = fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"]
     got = torch.autograd.grad(out, (q, k, v), g)
     assert fa.LAUNCHES_BY_BWD_FORM[f"{form}_bwd"] == before + 1
+    if s_max is not None:
+        q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+        g = g.double()
     closed = fa.flash_attention_bwd(q, k, v, g, **kw)
     auto = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw),
                                (q, k, v), g)
-    for want in (closed, auto):
+    for want in ([w.to(dtype) for w in closed], [w.to(dtype) for w in auto]):
         for a, w in zip(got, want):
             assert a.dtype == w.dtype and a.shape == w.shape
             err = float((a.float() - w.float()).abs().max())

@@ -237,20 +237,41 @@ def test_split_kv_model_matches_the_reference_cache_masks():
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("dtype,h,hkv,sq,d,form", [
+DISPATCH_CASES = [   # dtype, h, hkv, sq, d, form
     (torch.bfloat16, 32, 32, 1, 64, "split_kv"),      # zamba2 decode step
     (torch.bfloat16, 32, 8, 4, 128, "split_kv"),      # 16 rows per kv head
     (torch.bfloat16, 32, 8, 5, 128, "tensor_core"),   # 20 rows
     (torch.bfloat16, 32, 32, 17, 64, "tensor_core"),  # 17 rows
     (torch.bfloat16, 4, 4, 2048, 64, "tensor_core"),  # prefill
-    (torch.float32, 4, 4, 2048, 64, "simt"),          # f32 stays off TF32
-    (torch.float32, 4, 4, 1, 64, "simt"),
+    (torch.float32, 4, 4, 2048, 64, "tensor_core_f32"),  # 3xTF32
+    (torch.float32, 4, 4, 1, 64, "simt"),             # an f32 decode step
     (torch.bfloat16, 4, 4, 64, 32, "simt"),           # D 32
     (torch.bfloat16, 4, 4, 1, 8, "simt"),             # D 8
     (torch.bfloat16, 32, 32, 1, 96, "split_kv"),      # phi-3 decode step
     (torch.bfloat16, 32, 32, 2048, 96, "tensor_core"),  # phi-3 prefill
-    (torch.float32, 32, 32, 2048, 96, "simt"),
-])
+    (torch.float32, 32, 32, 2048, 96, "tensor_core_f32"),
+    # what stays on the CUDA-core form in f32: D 8-32, and at most 16 rows
+    # per kv head (decode steps, short chunks)
+    (torch.float32, 4, 4, 2048, 16, "simt"),
+    (torch.float32, 4, 4, 2048, 32, "simt"),
+    (torch.float32, 32, 8, 4, 128, "simt"),           # 16 rows per kv head
+    (torch.float32, 32, 8, 5, 128, "tensor_core_f32"),  # 20 rows
+    (torch.float32, 32, 32, 17, 64, "tensor_core_f32"),  # 17 rows
+    (torch.float32, 32, 8, 2048, 128, "tensor_core_f32"),  # llama3 GQA
+]
+
+
+# the first twelve keep the ids they had when f32 always took the
+# CUDA-core form ("simt" in dtype5's and dtype11's now names their old form)
+@pytest.mark.parametrize("dtype,h,hkv,sq,d,form", DISPATCH_CASES, ids=[
+    "dtype0-32-32-1-64-split_kv", "dtype1-32-8-4-128-split_kv",
+    "dtype2-32-8-5-128-tensor_core", "dtype3-32-32-17-64-tensor_core",
+    "dtype4-4-4-2048-64-tensor_core", "dtype5-4-4-2048-64-simt",
+    "dtype6-4-4-1-64-simt", "dtype7-4-4-64-32-simt", "dtype8-4-4-1-8-simt",
+    "dtype9-32-32-1-96-split_kv", "dtype10-32-32-2048-96-tensor_core",
+    "dtype11-32-32-2048-96-simt",
+    "f32-d16-prefill", "f32-d32-prefill", "f32-16-rows", "f32-20-rows",
+    "f32-17-rows", "f32-gqa-d128"])
 def test_kernel_form_dispatch(dtype, h, hkv, sq, d, form):
     q = torch.zeros(1, sq, h, d, dtype=dtype).transpose(1, 2)
     k = torch.zeros(1, 40, hkv, d, dtype=dtype).transpose(1, 2)
@@ -266,13 +287,54 @@ def test_kernel_form_sends_unaligned_rows_to_the_cuda_core_form():
     assert fa.kernel_form(q.contiguous(), k, k) == "split_kv"
 
 
+@pytest.mark.parametrize("pad,sq", [(2, 64), (1, 64), (2, 1)],
+                         ids=["8-bytes-off", "4-bytes-off", "decode"])
+def test_kernel_form_sends_unaligned_f32_rows_to_the_cuda_core_form(pad, sq):
+    """f32 rows are copied in 16-byte pieces (4 elements) by the
+    tensor-core f32 form: a row stride that is no multiple of 4 takes
+    the CUDA-core form, forward and backward, and so does an aligned
+    decode step."""
+    base = torch.zeros(2, sq, 4 * 64 + pad)
+    q = base[:, :, :4 * 64].unflatten(-1, (4, 64)).transpose(1, 2)
+    assert any(st % 4 for st in q.stride()[:3]) and q.stride(-1) == 1
+    k = torch.zeros(2, 300, 4, 64).transpose(1, 2)
+    assert fa.kernel_form(q, k, k) == fa.backward_form(q, k, k) == "simt"
+    want = "simt" if sq * 4 // 4 <= fa.SPLIT_MAX_ROWS else "tensor_core_f32"
+    assert fa.kernel_form(q.contiguous(), k, k) == want
+    assert fa.backward_form(q.contiguous(), k, k) == want
+
+
 def test_forms_count_nothing_on_the_cpu():
     q, k, v = decode_case(1, 2, 2, 1, 64, 64, seed=3)
     before = dict(fa.LAUNCHES_BY_FORM)
     fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True,
                        q_offset=10, kv_len=11)
+    fa.flash_attention(q, k, v, causal=True, q_offset=10, kv_len=11)
     assert fa.LAUNCHES_BY_FORM == before
-    assert set(before) == {"tensor_core", "split_kv", "simt"}
+    assert set(before) == {"tensor_core", "split_kv", "tensor_core_f32",
+                           "simt"}
+
+
+@pytest.mark.parametrize("dtype,sq,d,form", [
+    (torch.bfloat16, 40, 64, "tensor_core"),
+    (torch.bfloat16, 1, 64, "tensor_core"),       # after a split-KV forward
+    (torch.float32, 40, 64, "tensor_core_f32"),
+    (torch.float32, 40, 128, "tensor_core_f32"),
+    (torch.float32, 4, 64, "simt"),               # 8 rows per kv head
+    (torch.float32, 40, 16, "simt"),
+    (torch.bfloat16, 40, 16, "simt"),
+])
+def test_backward_form_follows_the_forward(dtype, sq, d, form):
+    """The backward's form after each forward form: bf16 tensor-core and
+    split-KV forwards write the log-sum-exp the tensor-core backward
+    reads, the f32 tensor-core forward the one its f32 backward reads;
+    every other call keeps the CUDA-core form both ways (on meta, where
+    ``keeps_lse`` is decided as on the card)."""
+    q = torch.empty(2, 4, sq, d, dtype=dtype, device="meta")
+    k = torch.empty(2, 2, 90, d, dtype=dtype, device="meta")
+    assert fa.backward_form(q, k, k) == form
+    module = importlib.import_module(fa.flash_attention.__module__)
+    assert module.keeps_lse(q, k, k) == (form != "simt")
 
 
 # --- the sliding window ------------------------------------------------------

@@ -417,7 +417,8 @@ def recorded_peak(fn, leaves, cotangents) -> int:
 
 
 @pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention",
-                                    "flash_attention_tc"])
+                                    "flash_attention_tc",
+                                    "flash_attention_tc_f32"])
 def test_meta_backward_holds_the_kernels_scratch(kernel, monkeypatch):
     """A recording of a meta backward peaks with the backward kernel's f32
     scratch live beside its gradients, as the card holds them during the
@@ -426,12 +427,12 @@ def test_meta_backward_holds_the_kernels_scratch(kernel, monkeypatch):
     the chunks and the gradients of those leaving them, each chunk's
     decay, and the db/dc and ds partials of every block of 64 state
     columns; B4: each q row's two statistics in the CUDA-core form, its
-    Delta alone in the tensor-core form, which reads the log-sum-exp
-    that the forward saved)."""
+    Delta alone in the tensor-core forms, bf16 and f32, which read the
+    log-sum-exp that the forward saved)."""
     def meta(*shape):
         return torch.empty(*shape, device="meta", requires_grad=True)
 
-    name = kernel.removesuffix("_tc")
+    name = "ssd_scan" if kernel == "ssd_scan" else "flash_attention"
     mod = importlib.import_module(f"repro_torch.kernels.{name}.{name}")
     if kernel == "ssd_scan":
         bsz, s, h, p, n = 2, 130, 3, 8, 16
@@ -445,14 +446,15 @@ def test_meta_backward_holds_the_kernels_scratch(kernel, monkeypatch):
                  torch.empty(bsz, h, n, p, device="meta")))
         fn, name = scan.ssd_scan, "_bwd_scratch"
     else:
-        d = 64 if kernel.endswith("_tc") else 16
+        tc = kernel != "flash_attention"
+        d = 64 if tc else 16
         dt = torch.bfloat16 if kernel.endswith("_tc") else torch.float32
 
         def meta(*shape):   # noqa: F811 -- B4's inputs in its dtype
             return torch.empty(*shape, device="meta", dtype=dt,
                                requires_grad=True)
 
-        scratch = 4 * (1 if kernel.endswith("_tc") else 2) * 2 * 4 * 40
+        scratch = 4 * (1 if tc else 2) * 2 * 4 * 40
         args = ((meta(2, 4, 40, d), meta(2, 2, 90, d), meta(2, 2, 90, d)),
                 (torch.empty(2, 4, 40, d, device="meta", dtype=dt),))
         fn, name = (lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
@@ -491,3 +493,37 @@ def test_meta_forward_keeps_the_lse_for_the_tensor_core_backward():
                 assert t.shape == q.shape and t.dtype == q.dtype
         else:
             assert lse is None and saved_out is None and out_lo is None
+
+
+@pytest.mark.parametrize("d,kept", [(64, True), (128, True), (16, False)],
+                         ids=["d64", "d128", "d16"])
+def test_meta_forward_keeps_the_lse_for_the_tensor_core_f32_backward(d,
+                                                                    kept):
+    """On meta, an f32 forward at D 64 or 128 (more than 16 rows per kv
+    head) under grad is one op whose results are the output and each
+    row's f32 log-sum-exp, and no rounding residual (an empty tensor);
+    the backward op reads the output and the log-sum-exp, its residual
+    None.  At D 16 (the CUDA-core form) none is kept."""
+    def meta(*shape):
+        return torch.empty(*shape, d, device="meta", requires_grad=True)
+
+    q, k, v = meta(2, 4, 40), meta(2, 2, 90), meta(2, 2, 90)
+    assert FAM.keeps_lse(q, k, v) == kept
+    assert FAM.backward_form(q, k, v) == ("tensor_core_f32" if kept
+                                          else "simt")
+    with OpLog() as log:
+        out = fa.flash_attention(q, k, v, causal=True)
+    [(func, args)] = [(f, a) for f, a in log.ops
+                      if f.namespace == "repro_torch"]
+    assert args[3] is kept     # for_grad
+    ops = backward_ops(lambda q, k, v: fa.flash_attention(q, k, v,
+                                                          causal=True),
+                       (q, k, v), (torch.empty_like(out),))
+    [(name, bargs)] = ops
+    saved_out, out_lo, lse = bargs[4:7]
+    assert name == "flash_attention_bwd" and out_lo is None
+    if kept:
+        assert lse.shape == (2, 4, 40) and lse.dtype == torch.float32
+        assert saved_out.shape == q.shape and saved_out.dtype == q.dtype
+    else:
+        assert lse is None and saved_out is None
