@@ -10,8 +10,11 @@ with a non-zero exit:
    of the port from this checkout's sources (one nvcc per source, in
    parallel) and prints the build time and register use.
 2. SDCM kernel vs its plain PyTorch version, per-reference form
-   (``sdcm_hit_probs``): ~4M seeded distances at every Table-5 level
-   geometry, gpu-sm's, A = 1, A = 64 and fully associative.
+   (``sdcm_hit_probs``, the binomial's terms summed from its mode): ~4M
+   seeded distances at every Table-5 level geometry, gpu-sm's, A = 1,
+   A = 64 and fully associative, and a stream on which a sum started at
+   k = 0 or at A - 1 would underflow, at five geometries.  ``python3
+   chip_smoke.py --phase hit_probs`` runs it alone.
 3. The same, grid forms: 4096 mixed-shape rows through the per-group
    form (``sdcm_rates``, one launch per row-shape group) and the ragged
    form (``sdcm_rates_ragged``, every row in one launch), the two forms
@@ -65,14 +68,18 @@ with a non-zero exit:
     serving cache (kv_len 2048, and 2000, not a multiple of the split)
     and at a GQA decode step (32 over 8, head dim 128: llama3-8b's, whose
     prefill shape is a row too); the tensor-core f32 form (3xTF32) at the
-    prefill shape; and with mixtral's sliding window of 4,096 the
+    prefill shape; the f32 split-KV form at f32 decode steps (zamba2's,
+    at kv_len 2,000, llama3's GQA at D 128, mixtral's past its window,
+    phi-3's at D 96, and seamless's cross-attention step, not causal);
+    and with mixtral's sliding window of 4,096 the
     tensor-core form at its prefill (B 2, S 6,144), the split-KV form at a
     decode step past the window (splits below the band skipped) and the
     tensor-core f32 form with the band's edge mid-tile (W 1,000); at
     phi-3-vision's head dim 96 the tensor-core form at its prefill, the
     split-KV form at a decode step and the tensor-core f32 form; the
     CUDA-core form in f32 at D 16 and in bf16 at D 32 at the prefill shape,
-    and at an f32 decode step; and without causality, at
+    and at an f32 decode step whose rows are not 16-byte aligned; and
+    without causality, at
     seamless-m4t-medium's shapes, the tensor-core form at its encoder and
     its cross-attention prefill and the split-KV form at a cross-attention
     decode step (one row over the 2,048-frame source).  Each bf16 row is also held to
@@ -101,8 +108,9 @@ with a non-zero exit:
     SDPA in B4's place); and at full width and two groups in f32, the prefill of a
     whole prompt against a prefix plus decode steps (2e-4 of the logits'
     scale).  Each f32 check reports its launches by form (prefills on
-    B4's tensor-core f32 form, decode steps on its CUDA-core form) and
-    counts on that form's path in the kernels line.
+    B4's tensor-core f32 form, decode steps on its f32 split-KV form, and
+    none on its CUDA-core form) and counts on that form's path in the
+    kernels line.
 9a. After 9: the reuse stage of one cold exact and one streaming
     predict under ``torch.profiler`` (device-idle share; the streaming
     path's host ms per window, split into offline pass, live-set update
@@ -130,10 +138,12 @@ with a non-zero exit:
     configs/s, one ``sdcm_rates_ragged`` launch per ``sweep_grid`` call,
     64 configs bit for bit against ``batched_hit_rates``, every
     ``t_pred_s`` within 1e-12 of the host ECM model; on the 1,024-config
-    space ``inner="pallas"`` (``sdcm_hit_probs``, B1's per-reference form,
-    its launches counted, and timed at the sweep's own calls) within 1e-6
-    of ``inner="vmap"``, and the warm per-config ``Session.predict`` loop
-    timed beside the sweep.  The autotuner (``run_explore``) on the 10k
+    space ``inner="pallas"`` (B1's per-reference form: one
+    ``sdcm_hit_probs_ragged`` launch per ``sweep_grid`` call, counted, and
+    timed at the sweep's own calls beside the one-geometry launches it
+    replaces) within 1e-6 of ``inner="vmap"``, and the warm per-config
+    ``Session.predict`` loop timed beside the sweep (``--phase sweep``
+    runs the sweep alone).  The autotuner (``run_explore``) on the 10k
     space: random over the whole space (the oracle), hillclimb and ga at
     1,024 configs, each best against the oracle's, then again warm from
     the store (cached, nothing rebuilt).
@@ -487,6 +497,11 @@ def phase_device():
     return smi
 
 
+#: where a sum of P(h|D)'s terms started at k = 0 or at A - 1 underflows
+UNDERFLOW_GEOMS = ((63, 64), (64, 1 << 26), (16, 1 << 26), (1, 512),
+                   (8, 16))
+
+
 def phase_hit_probs(n: int = 1 << 22, seed: int = 0):
     from repro_torch.kernels.sdcm import sdcm_hit_probs, sdcm_hit_probs_plain
 
@@ -513,6 +528,22 @@ def phase_hit_probs(n: int = 1 << 22, seed: int = 0):
         b_ms, b_by = bound_ms(8.0 * n, terms * OPS_PER_TERM)
         rec = dict(assoc=assoc, blocks=blocks, n=n, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        line("hit_probs", **rec)
+        rows.append(rec)
+    # where a sum started at k = 0 ((1 - p)^D < 1e-308) or at A - 1 (p^(A-1)
+    # < 1e-308) would underflow
+    low = torch.from_numpy(np.concatenate([
+        np.arange(60, 400), [710, 720, 1000, 5000, 45_000, 1 << 20, 1 << 26],
+        rng.integers(0, 1 << 26, 1 << 16)]).astype(np.float32)).cuda()
+    for assoc, blocks in UNDERFLOW_GEOMS:
+        err = float((sdcm_hit_probs(low, assoc, blocks)
+                     - sdcm_hit_probs_plain(low, assoc, blocks)).abs().max())
+        if not np.isfinite(err) or err > PHIT_TOL:
+            fail(f"sdcm_hit_probs on the underflow stream, assoc={assoc} "
+                 f"blocks={blocks}: max |kernel - plain| = {err} > "
+                 f"{PHIT_TOL}")
+        rec = dict(input="underflow", assoc=assoc, blocks=blocks,
+                   n=low.numel(), max_abs_err=err)
         line("hit_probs", **rec)
         rows.append(rec)
     return rows
@@ -981,25 +1012,34 @@ def read_counts() -> dict:
 
 #: B4's and B5's counters as the f32 checks report them
 ATTENTION_COUNTS = ("flash_attention", "tensor_core", "split_kv",
-                    "tensor_core_f32", "simt", "flash_attention_bwd",
+                    "tensor_core_f32", "split_kv_f32", "simt",
+                    "flash_attention_bwd",
                     "tensor_core_bwd", "tensor_core_f32_bwd", "simt_bwd",
                     "ssd_scan", "ssd_scan_bwd")
 #: B4's and B5's launches on the check paths, by path: the f32 checks
 #: (``<arch>/f32_vs_plain``, ``<arch>/f32_consistency``,
-#: ``zamba2-1.2b/train_f32``; the main path of B4's tensor-core f32 forms)
-#: and the reduced configs' training steps (``reduced/train``; B4's
-#: CUDA-core forms, forward and backward), which ``main`` adds to B4's
-#: launches by path.
+#: ``zamba2-1.2b/train_f32``; the main path of B4's tensor-core f32 and
+#: f32 split-KV forms) and the reduced configs' training steps
+#: (``reduced/train``; B4's CUDA-core forms, forward and backward), which
+#: ``main`` adds to B4's launches by path.
 CHECK_PATHS: dict = {}
+#: The forms an f32 check at D 64-128 never launches: its prefills run on
+#: the tensor-core f32 form, its decode steps on the f32 split-KV form.
+F32_CHECK_ABSENT = ("simt", "simt_bwd")
 
 
-def check_path(path: str, launches: dict, needs: tuple) -> dict:
+def check_path(path: str, launches: dict, needs: tuple,
+               absent: tuple = ()) -> dict:
     """Keep a check path's B4/B5 launches under ``path``; fails unless
-    each form in ``needs`` launched in it."""
+    each form in ``needs`` launched in it and none in ``absent`` did."""
     kept = {k: launches[k] for k in ATTENTION_COUNTS}
     for form in needs:
         if not kept[form]:
             fail(f"{path}: the {form} form never launched: {kept}")
+    for form in absent:
+        if kept[form]:
+            fail(f"{path}: the {form} form launched {kept[form]} times: "
+                 f"{kept}")
     CHECK_PATHS[path] = kept
     return kept
 
@@ -1480,8 +1520,13 @@ def phase_store(gt: dict) -> None:
 
 
 def sweep_hit_probs_calls(ev, configs) -> list:
-    """(distances float32, assoc, blocks) of every ``sdcm_hit_probs``
-    launch an ``inner="pallas"`` sweep of ``configs`` makes."""
+    """One ``(d, meta, size, geometries)`` per ``sdcm_hit_probs_ragged``
+    launch that an ``inner="pallas"`` sweep of ``configs`` makes (one a
+    ``sweep_grid`` call): its float32 distances and records on the card,
+    and the (distances, assoc, blocks) of each record, which the
+    one-geometry form takes one launch each."""
+    from repro_torch.api.batched import hit_probs_plan
+
     calls = []
     groups: dict = {}
     for cfg in configs:
@@ -1489,14 +1534,13 @@ def sweep_hit_probs_calls(ev, configs) -> list:
                           []).append(cfg)
     for (line_size, cores, strategy), cfgs in groups.items():
         prd, crd = ev._pack(line_size, cores, strategy)
-        geom = ev._geometry(cfgs, line_size, cores)
-        for lv in range(geom.assoc.shape[1]):
-            prof = prd if lv < ev.shared_idx else crd
-            d32 = prof.d[:prof.n].to(torch.float32)
-            pairs = sorted({(int(a), int(b)) for a, b in
-                            zip(geom.assoc[:, lv], geom.blocks[:, lv])
-                            if a < b})
-            calls += [(d32, a, b) for a, b in pairs]
+        plan = hit_probs_plan(prd, crd, ev._geometry(cfgs, line_size, cores),
+                              ev.shared_idx)
+        d = torch.cat([prd.d[:prd.n], crd.d[:crd.n]]).to(torch.float32)
+        geoms = [(d[int(off):int(off) + int(n)], int(a), int(b))
+                 for off, n, a, b, _, _ in plan.meta.tolist()]
+        calls.append((d, torch.from_numpy(plan.meta).cuda(), plan.size,
+                      geoms))
     return calls
 
 
@@ -1506,15 +1550,20 @@ def phase_sweep() -> dict:
     per ``sweep_grid`` call; a sample of configs bit for bit against
     ``batched_hit_rates`` on the applied targets; every ``t_pred_s``
     within ``ECM_RTOL`` of the host ECM model; ``inner="pallas"`` (B1's
-    per-reference form) on the 1,024-config space within ``RATE_TOL`` of
-    ``inner="vmap"``, its launches counted; the warm per-config
-    ``Session.predict`` loop on that space, timed beside the sweep.
-    Returns the kernels-line record of ``sdcm_hit_probs``."""
+    per-reference form, one ragged launch per ``sweep_grid`` call) on the
+    1,024-config space within ``RATE_TOL`` of ``inner="vmap"``, its
+    launches counted; the warm per-config ``Session.predict`` loop on
+    that space, timed beside the sweep.  Returns the kernels-line record
+    of B1's per-reference form (``sdcm_hit_probs``)."""
     from repro_torch.api import PredictionRequest, Session
     from repro_torch.api.batched import batched_hit_rates
     from repro_torch.core.incore import ECMRuntimeModel
     from repro_torch.explore import FusedSweepEvaluator, SearchSpace
-    from repro_torch.kernels.sdcm import sdcm_hit_probs, sdcm_hit_probs_plain
+    from repro_torch.kernels.sdcm import (
+        sdcm_hit_probs,
+        sdcm_hit_probs_ragged,
+        sdcm_hit_probs_ragged_plain,
+    )
 
     w = registry_workload()
     sess = Session(cache_model="batched", device="cuda")
@@ -1572,10 +1621,13 @@ def phase_sweep() -> dict:
     pres, pallas_s = timed(lambda: pa.evaluate(cfgs))
     launches = read_counts()["launches"]
     calls = sweep_hit_probs_calls(pa, cfgs)
-    if (launches["sdcm_hit_probs"] != len(calls)
-            or sum(launches.values()) != len(calls)):
-        fail(f"pallas sweep: {launches}, expected {len(calls)} "
-             "sdcm_hit_probs launches and nothing else")
+    small_groups = {(c.line_size, c.cores, c.strategy) for c in cfgs}
+    if (launches["sdcm_hit_probs_ragged"] != len(small_groups)
+            or sum(launches.values()) != len(small_groups)
+            or len(calls) != len(small_groups)):
+        fail(f"pallas sweep: {launches}, expected one sdcm_hit_probs_ragged "
+             f"launch for each of {len(small_groups)} sweep_grid calls and "
+             "nothing else")
     diff = float(np.max(np.abs(pres.rates - vres.rates)))
     if not diff <= RATE_TOL:
         fail(f"pallas sweep vs vmap sweep: {diff} > {RATE_TOL}")
@@ -1599,42 +1651,62 @@ def phase_sweep() -> dict:
     line("sweep_1k", configs=len(cfgs), vmap_s=vmap_s, pallas_s=pallas_s,
          predict_loop_s=loop_s, vmap_configs_per_s=len(cfgs) / vmap_s,
          loop_configs_per_s=len(cfgs) / loop_s, speedup=loop_s / vmap_s,
-         sdcm_hit_probs_launches=launches["sdcm_hit_probs"],
+         sdcm_hit_probs_ragged_launches=launches["sdcm_hit_probs_ragged"],
+         sweep_grid_calls=len(small_groups),
          pallas_vs_vmap_max_abs=diff, loop_vs_sweep_max_rel=rel)
 
-    # B1's per-reference form at the pallas sweep's own calls
+    # B1's per-reference form at the pallas sweep's own calls: each ragged
+    # launch against its plain version, and element for element against
+    # the one-geometry launches it replaces (one a record)
     err = 0.0
-    for d, a, b in calls:
-        err = max(err, float((sdcm_hit_probs(d, a, b)
-                              - sdcm_hit_probs_plain(d, a, b)).abs().max()))
+    for d, meta, size, geoms in calls:
+        got = sdcm_hit_probs_ragged(d, meta, size)
+        err = max(err, float((got - sdcm_hit_probs_ragged_plain(
+            d, meta, size)).abs().max()))
+        if not torch.equal(got, torch.cat([sdcm_hit_probs(g, a, b)
+                                           for g, a, b in geoms])):
+            fail("sdcm_hit_probs_ragged differs from the one-geometry "
+                 "launches on the same records")
     if not err <= PHIT_TOL:
-        fail(f"sdcm_hit_probs at the sweep's shapes: {err} > {PHIT_TOL}")
+        fail(f"sdcm_hit_probs_ragged at the sweep's calls: {err} > "
+             f"{PHIT_TOL}")
 
-    def every(fn):
-        return lambda: [fn(d, a, b) for d, a, b in calls]
+    def ragged(fn):
+        return lambda: [fn(d, meta, size) for d, meta, size, _ in calls]
 
-    n_elems = sum(int(d.numel()) for d, _, _ in calls)
-    terms = sum(phit_terms(d.cpu().numpy(), np.full(d.numel(), a),
-                           np.full(d.numel(), b)) for d, a, b in calls)
+    def per_geometry():
+        return [sdcm_hit_probs(g, a, b) for *_, geoms in calls
+                for g, a, b in geoms]
+
+    geoms = [g for *_, gs in calls for g in gs]
+    n_elems = sum(int(g.numel()) for g, _, _ in geoms)
+    terms = sum(phit_terms(g.cpu().numpy(), np.full(g.numel(), a),
+                           np.full(g.numel(), b)) for g, a, b in geoms)
     b_ms, b_by = bound_ms(8.0 * n_elems, terms * OPS_PER_TERM)
     k = len(calls)
-    rec = dict(ms=cuda_ms(every(sdcm_hit_probs)) / k,
-               graph_ms=graph_ms(every(sdcm_hit_probs)) / k,
-               plain_ms=cuda_ms(every(sdcm_hit_probs_plain), reps=3,
+    rec = dict(ms=cuda_ms(ragged(sdcm_hit_probs_ragged)) / k,
+               graph_ms=graph_ms(ragged(sdcm_hit_probs_ragged)) / k,
+               plain_ms=cuda_ms(ragged(sdcm_hit_probs_ragged_plain), reps=3,
                                 warmup=1) / k,
-               bound_ms=b_ms / k, bound_by=b_by, max_abs_err=err)
-    line("sweep_hit_probs", launches_per_sweep=k,
-         distances_per_launch=n_elems / k, terms=terms, **rec)
+               bound_ms=b_ms / k, bound_by=b_by, max_abs_err=err,
+               # the same records as one-geometry launches
+               per_geometry_ms=cuda_ms(per_geometry) / k,
+               per_geometry_graph_ms=graph_ms(per_geometry) / k)
+    line("sweep_hit_probs", launches_per_sweep_call=1,
+         records_per_call=len(geoms) / k,
+         distances_per_record=n_elems / len(geoms), terms=terms, **rec)
     return {
         "name": "sdcm_hit_probs",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sdcm/csrc/sdcm.cu",
         "replaces": "src/repro/kernels/sdcm/sdcm.py:32",
-        "launches": launches["sdcm_hit_probs"],
+        "launches": launches["sdcm_hit_probs_ragged"],
+        "launches_by_entry": {key: launches[key] for key in (
+            "sdcm_hit_probs_ragged", "sdcm_hit_probs")},
         **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")},
+                                     "bound_ms", "bound_by", "graph_ms",
+                                     "per_geometry_ms")},
         "library_ms": None,
-        "graph_ms": rec["graph_ms"],
     }
 
 
@@ -2512,13 +2584,28 @@ def phase_flash() -> dict:
          pv - 1, pv, None),
         ("simt_f32_d96", "tensor_core_f32", 2, 32, 32, 1024, 1024, 96, f32,
          0, 1024, None),
+        # f32 decode steps on the f32 split-KV form: zamba2's, at kv_len
+        # 2000 (not a multiple of its
+        # 64-column split), llama3's GQA at D 128, mixtral's past its
+        # window, phi-3's at D 96
+        ("zamba2_decode_f32", "split_kv_f32", b, 32, 32, 1, cache, 64, f32,
+         s - 1, s, None),
+        ("zamba2_decode_kv2000_f32", "split_kv_f32", b, 32, 32, 1, cache, 64,
+         f32, s - 49, s - 48, None),
+        ("llama3_decode_f32", "split_kv_f32", b, 32, 8, 1, cache, 128, f32,
+         s - 1, s, None),
+        ("mixtral_decode_window_f32", "split_kv_f32", mb, 32, 8, 1, ms + 32,
+         128, f32, ms + MIXTRAL_GEN, ms + MIXTRAL_GEN + 1, w),
+        ("phi3_decode_d96_f32", "split_kv_f32", b, 32, 32, 1, PHI3V_CACHE,
+         96, f32, pv - 1, pv, None),
         # what stays on the CUDA-core form: f32 and bf16 at D <= 32 (the
-        # prefill shape at D 16 and 32), and an f32 decode step
+        # prefill shape at D 16 and 32), and rows that are not 16-byte
+        # aligned (zamba2's f32 decode step, q 4 bytes off)
         ("simt_f32_d16", "simt", b, 32, 32, s, cache, 16, f32, 0, s, None),
         ("simt_bf16_d32", "simt", b, 32, 32, s, cache, 32, bf16, 0, s,
          None),
-        ("simt_f32_decode", "simt", b, 32, 32, 1, cache, 64, f32, s - 1, s,
-         None),
+        ("simt_f32_decode_unaligned", "simt", b, 32, 32, 1, cache, 64, f32,
+         s - 1, s, None),
     ]
     # seamless-m4t-medium's calls without causality: its bidirectional
     # encoder, cross-attention in prefill (target rows over the source)
@@ -2529,6 +2616,8 @@ def phase_flash() -> dict:
         ("cross_prefill", "tensor_core", b, 16, 16, s, s, 64, bf16, 0, s,
          None),
         ("cross_decode", "split_kv", b, 16, 16, 1, s, 64, bf16, 0, s, None),
+        ("cross_decode_f32", "split_kv_f32", b, 16, 16, 1, s, 64, f32, 0, s,
+         None),
     ]
     cases = ([(True, *c) for c in causal_cases]
              + [(False, *c) for c in bidirectional])
@@ -2537,6 +2626,9 @@ def phase_flash() -> dict:
             win) in enumerate(cases):
         rand = cuda_rand(10 + i)
         q = rand(b, sq, h, d, dtype=dt).transpose(1, 2)
+        if tag.endswith("_unaligned"):   # q starts 4 bytes off 16
+            q = rand(b * sq * h * d + 1, dtype=dt)[1:].view(
+                b, sq, h, d).transpose(1, 2)
         k = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
         v = rand(b, sk, hkv, d, dtype=dt).transpose(1, 2)
         if kernel_form(q, k, v) != form:
@@ -2556,7 +2648,13 @@ def phase_flash() -> dict:
                  f"= {scaled} > {FLASH_SCALED_TOL_BF16}")
         worst = max(worst, err)
         form_worst[form] = max(form_worst.get(form, 0.0), err)
-        lib = sdpa_library(q, k, v, causal, off, kvl, win)
+        if form in ("split_kv", "split_kv_f32") and not torch.equal(
+                got, flash_attention(q, k, v, **kw)):
+            fail(f"flash_attention {tag}: two launches differ")
+        # SDPA faults on a q that starts off 16 bytes: its yardstick reads
+        # a copy in a fresh (aligned) allocation
+        q_lib = q.clone() if tag.endswith("_unaligned") else q
+        lib = sdpa_library(q_lib, k, v, causal, off, kvl, win)
         lib_err = float((lib.float() - want.float()).abs().max())
         nbytes, ops = flash_work(q, k, causal, off, kvl, win)
         b_ms, b_by = bound_ms(nbytes, ops,
@@ -2573,10 +2671,10 @@ def phase_flash() -> dict:
                    plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                                   **kw),
                                     reps=3, warmup=1),
-                   library_ms=cuda_ms(lambda: sdpa_library(q, k, v, causal,
-                                                           off, kvl, win)),
+                   library_ms=cuda_ms(lambda: sdpa_library(
+                       q_lib, k, v, causal, off, kvl, win)),
                    library_graph_ms=graph_ms(lambda: sdpa_library(
-                       q, k, v, causal, off, kvl, win)),
+                       q_lib, k, v, causal, off, kvl, win)),
                    library_max_abs_diff=lib_err, bound_ms=b_ms, bound_by=b_by,
                    bound_tc_ms=tc_ms, bytes=nbytes, operations=ops)
         line("flash", case=tag, **rec)
@@ -2586,7 +2684,7 @@ def phase_flash() -> dict:
                                       "bound_ms", "bound_by", "bound_tc_ms",
                                       "library_ms", "library_graph_ms",
                                       "max_abs_err", "scaled_err")}))
-        del q, k, v, got, want, lib
+        del q, k, v, q_lib, got, want, lib
         torch.cuda.empty_cache()
     for name, rec in forms.items():   # each form's worst over its cases
         if name != "window":
@@ -2828,11 +2926,11 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
                    rel=diff / scale, tol=tol, argmax_agreement=agree,
                    launches={k: launches[k] for k in ATTENTION_COUNTS})
         if dt == torch.float32:
-            # f32 prefill rows on the tensor-core f32 form (B4 where the
-            # model has attention)
+            # f32 prefill rows on the tensor-core f32 form, decode steps on
+            # the f32 split-KV form (B4 where the model has attention)
             check_path(f"{spec.arch_id}/f32_vs_plain", launches,
-                     () if spec.family_name == "ssm" else
-                     ("tensor_core_f32",))
+                       () if spec.family_name == "ssm" else
+                       ("tensor_core_f32", "split_kv_f32"), F32_CHECK_ABSENT)
         if routes:
             free = teacher_forced(spec, cfg_dt, model, res)
             rec["free_routing"] = dict(
@@ -3020,20 +3118,21 @@ def decode_consistency(spec, layers: int, total: int, split: int) -> dict:
                                               * want.abs()).max()))
 
     reset_counts()
-    kernels = run()
+    kernels, kernel_s = timed(run)
     launches = read_counts()["launches"]
     with plain_kernels():
-        plain = run()
+        plain, plain_s = timed(run)
     if not kernels["rel"] <= CONSISTENCY_TOL:
         fail(f"{spec.arch_id} f32 depth {layers}: prefix + decode differs "
              f"from the whole prefill: {kernels} (plain versions: {plain})")
     # both prefills on B4's tensor-core f32 form, the decode steps (at most
-    # 16 rows a kv head) on its CUDA-core form
+    # 16 rows a kv head) on its f32 split-KV form
     kept = check_path(f"{spec.arch_id}/f32_consistency", launches,
-                    ("tensor_core_f32", "simt"))
+                      ("tensor_core_f32", "split_kv_f32"), F32_CHECK_ABSENT)
     return dict(**serve.depth(cfg), dtype="float32", prompt=total,
                 split=split, prefix_len=start, tol=CONSISTENCY_TOL,
-                kernels=kernels, plain=plain, launches=kept)
+                kernels=kernels, plain=plain, kernel_s=kernel_s,
+                plain_s=plain_s, launches=kept)
 
 
 def phase_zamba2_serve() -> dict:
@@ -3043,7 +3142,8 @@ def phase_zamba2_serve() -> dict:
     spec, model, res, rec = serve_path(
         "zamba2-1.2b", ZAMBA_GEN,
         {"flash_attention": 6 * ZAMBA_GEN, "tensor_core": 6,
-         "split_kv": 6 * (ZAMBA_GEN - 1), "tensor_core_f32": 0, "simt": 0,
+         "split_kv": 6 * (ZAMBA_GEN - 1), "tensor_core_f32": 0,
+         "split_kv_f32": 0, "simt": 0,
          "ssd_scan": 38})
     line("zamba2_serve", **rec)
     line("zamba2_profile", **profile_serve(spec, model, res))
@@ -3062,7 +3162,8 @@ def phase_mamba2_serve() -> None:
     spec, model, res, rec = serve_path(
         "mamba2-780m", MAMBA_GEN,
         {"ssd_scan": 48, "flash_attention": 0, "tensor_core": 0,
-         "split_kv": 0, "tensor_core_f32": 0, "simt": 0})
+         "split_kv": 0, "tensor_core_f32": 0, "split_kv_f32": 0,
+         "simt": 0})
     line("mamba2_serve", **rec)
     line("mamba2_profile", **profile_serve(spec, model, res))
     line("mamba2_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3081,7 +3182,7 @@ def phase_llama3_serve() -> dict:
         "llama3-8b", LLAMA_GEN,
         {"flash_attention": layers * LLAMA_GEN, "tensor_core": layers,
          "split_kv": layers * (LLAMA_GEN - 1), "tensor_core_f32": 0,
-         "simt": 0, "ssd_scan": 0})
+         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0})
     line("llama3_serve", **rec)
     line("llama3_profile", **profile_serve(spec, model, res))
     line("llama3_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3105,7 +3206,7 @@ def phase_mixtral_serve() -> dict:
         "mixtral-8x7b", MIXTRAL_GEN,
         {"flash_attention": layers * MIXTRAL_GEN, "tensor_core": layers,
          "split_kv": layers * (MIXTRAL_GEN - 1), "tensor_core_f32": 0,
-         "simt": 0, "ssd_scan": 0},
+         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0},
         batch=MIXTRAL_BATCH, prompt_len=MIXTRAL_PROMPT, layers=layers)
     if spec.config.window != MIXTRAL_WINDOW:
         fail(f"mixtral's window is {spec.config.window}")
@@ -3135,7 +3236,7 @@ def phase_seamless_serve() -> dict:
         {"flash_attention": 3 * layers + 2 * layers * (SEAMLESS_GEN - 1),
          "tensor_core": 3 * layers,
          "split_kv": 2 * layers * (SEAMLESS_GEN - 1), "tensor_core_f32": 0,
-         "simt": 0, "ssd_scan": 0})
+         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0})
     line("seamless_serve", **rec)
     line("seamless_profile", **profile_serve(spec, model, res))
     line("seamless_serve_vs_plain", **kernel_vs_plain_logits(
@@ -3158,7 +3259,7 @@ def phase_phi3v_serve() -> dict:
         "phi-3-vision-4.2b", PHI3V_GEN,
         {"flash_attention": layers * PHI3V_GEN, "tensor_core": layers,
          "split_kv": layers * (PHI3V_GEN - 1), "tensor_core_f32": 0,
-         "simt": 0, "ssd_scan": 0},
+         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0},
         prompt_len=PHI3V_PROMPT)
     if spec.config.num_patches != PHI3V_PATCHES:
         fail(f"phi-3-vision has {spec.config.num_patches} patches")
@@ -3194,7 +3295,8 @@ def train_launches(cfg, steps: int) -> dict:
     D 64, 2,048 rows)."""
     sites = cfg.num_groups
     return {"flash_attention": steps * sites, "tensor_core": steps * sites,
-            "split_kv": 0, "tensor_core_f32": 0, "simt": 0,
+            "split_kv": 0, "tensor_core_f32": 0, "split_kv_f32": 0,
+            "simt": 0,
             "ssd_scan": steps * 2 * cfg.layers,
             "flash_attention_bwd": steps * sites,
             "tensor_core_bwd": steps * sites, "tensor_core_f32_bwd": 0,
@@ -3257,7 +3359,8 @@ def train_vs_plain(spec, smi: str) -> dict:
         if dt == torch.float32:
             # B4 forward and backward on the tensor-core f32 forms
             check_path(f"{TRAIN_ARCH}/train_f32", launches,
-                     ("tensor_core_f32", "tensor_core_f32_bwd"))
+                       ("tensor_core_f32", "tensor_core_f32_bwd"),
+                       F32_CHECK_ABSENT)
             leaves_k = leaf_tensors(model, grads_k)
             leaves_p = leaf_tensors(model, grads_p)
             worst, worst_leaf = 0.0, None
@@ -4405,7 +4508,8 @@ LINT_BASELINE = ".repro-lint-baseline.json"
 SYNC_BATCH, SYNC_PROMPT, SYNC_GEN = 2, 256, 4
 SYNC_LAYERS = {"mixtral-8x7b": 2, "llama3-8b": 2, "zamba2-1.2b": 8}
 SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
-                "tensor_core", "split_kv", "tensor_core_f32", "simt",
+                "tensor_core", "split_kv", "tensor_core_f32", "split_kv_f32",
+                "simt",
                 "ssd_scan", "flash_attention_bwd", "tensor_core_bwd",
                 "tensor_core_f32_bwd", "simt_bwd", "ssd_scan_bwd")
 # the backward kernels' wrappers: no host sync at all on the training path
@@ -4662,7 +4766,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the kernels record here as JSON")
     ap.add_argument("--phase", choices=("dryrun_partition", "flash",
-                                        "kernel_backward"), default=None,
+                                        "hit_probs", "kernel_backward",
+                                        "sweep"), default=None,
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4674,7 +4779,9 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         run = {"dryrun_partition": phase_dryrun_partition,
                "flash": lambda smi: phase_flash(),
-               "kernel_backward": phase_kernel_backward}[args.phase]
+               "hit_probs": lambda smi: phase_hit_probs(),
+               "kernel_backward": phase_kernel_backward,
+               "sweep": lambda smi: phase_sweep()}[args.phase]
         out, secs = timed(lambda: run(smi))
         line("phase_alone", phase=args.phase, seconds=secs, result=out)
         return 0
@@ -4788,13 +4895,15 @@ def main() -> int:
         for form, frec in rec.get("forms", {}).items():
             frec["launches"] = sum(by_path[path][form] for path in bwd_paths
                                    ) + sum(n[form] for n in synced.values())
-    # the tensor-core f32 forms also as entries of their own; each must
-    # have launched on its path
+    # the tensor-core f32 forms and the f32 split-KV form also as entries
+    # of their own; each must have launched on its path
     flash_bwd = next(r for r in bwd_kernels
                      if r["name"] == "flash_attention_bwd")
     f32_kernels = [
         form_record(flash_kernel, "tensor_core_f32", "src/repro_torch/"
                     "kernels/flash_attention/csrc/flash_tc_f32.cuh"),
+        form_record(flash_kernel, "split_kv_f32", "src/repro_torch/"
+                    "kernels/flash_attention/csrc/flash_split.cuh"),
         form_record(flash_bwd, "tensor_core_f32_bwd", flash_bwd["source"])]
     for rec in f32_kernels:
         if not rec["launches"]:

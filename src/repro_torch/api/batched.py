@@ -31,8 +31,9 @@ import torch
 from repro_torch.kernels.sdcm import (
     A_BUCKETS,
     META_COLUMNS,
+    PROB_META_COLUMNS,
     a_max_bucket,
-    sdcm_hit_probs,
+    sdcm_hit_probs_ragged,
     sdcm_rates_ragged,
 )
 from repro_torch.kernels.sdcm import pow2 as _pow2
@@ -373,41 +374,94 @@ def _ragged_rates(prd: DeviceProfile, crd: DeviceProfile,
     return sdcm_rates_ragged(d, p, meta_t).view(c, n_levels)
 
 
+@dataclasses.dataclass(frozen=True)
+class HitProbsPlan:
+    """The records of one ``sweep_grid(inner="pallas")`` call: each
+    profile's (0 PRD, 1 CRD) distinct set-associative (assoc, blocks)
+    ``sa`` and fully associative ``fa``, one ``sdcm_hit_probs_ragged``
+    record per entry of ``sa`` (``meta``, float64 [R, 6], each profile's
+    outputs back to back, ``size`` of them in all), and ``which`` [C, L]:
+    each (config, level)'s geometry among the profiles' ``sa + fa`` in
+    order."""
+
+    sa: tuple[list, list]
+    fa: tuple[list, list]
+    meta: np.ndarray
+    size: int
+    which: np.ndarray
+
+
+def hit_probs_plan(prd: DeviceProfile, crd: DeviceProfile,
+                   geom: SweepGeometry, shared_idx: int) -> HitProbsPlan:
+    """:class:`HitProbsPlan` of a sweep of ``geom`` on ``prd``/``crd``:
+    levels below ``shared_idx`` read the PRD, the rest the CRD; levels on
+    one profile share a geometry's record."""
+    c, n_levels = geom.assoc.shape
+    on = np.where(np.arange(n_levels) < shared_idx, 0, 1)
+    pairs = np.stack([geom.assoc, geom.blocks], axis=-1).astype(np.int64)
+    keys: tuple[dict, dict] = ({}, {})
+    for lv in range(n_levels):
+        for a, b in np.unique(pairs[:, lv], axis=0).tolist():
+            keys[on[lv]].setdefault((a, b), len(keys[on[lv]]))
+    sa = tuple([k for k in ks if k[0] < k[1]] for ks in keys)
+    fa = tuple([k for k in ks if k[0] >= k[1]] for ks in keys)
+    meta, size = [], 0
+    for offset, prof, geoms in zip((0, prd.n), (prd, crd), sa):
+        for a, b in geoms:
+            meta.append((offset, prof.n, a, b, a_max_bucket(a, b), size))
+            size += prof.n
+    index = ({k: i for i, k in enumerate(sa[0] + fa[0])},
+             {k: len(sa[0]) + len(fa[0]) + i
+              for i, k in enumerate(sa[1] + fa[1])})
+    which = np.empty((c, n_levels), dtype=np.int64)
+    for lv in range(n_levels):
+        which[:, lv] = [index[on[lv]][(a, b)] for a, b in pairs[:, lv]]
+    return HitProbsPlan(sa, fa, np.asarray(meta, dtype=np.float64).reshape(
+        -1, len(PROB_META_COLUMNS)), size, which)
+
+
 def _hit_probs_rates(prd: DeviceProfile, crd: DeviceProfile,
                      geom: SweepGeometry, shared_idx: int
                      ) -> tuple[torch.Tensor, int, int]:
     """[C, L] rates through B1's per-reference form, as the reference's
-    Pallas inner evaluator computes them: per level, one
-    ``sdcm_hit_probs`` launch per distinct set-associative (assoc,
-    blocks) on the profile's distances in float32, folded as
-    ``kernels/sdcm/ops.py::sdcm_hit_rate`` folds (the dot product with
-    the weights over ``max(sum(w), 1e-30)``); a fully associative
-    geometry takes the exact LRU rule ``[0 <= D < B]`` without a launch.
+    Pallas inner evaluator computes them: P(h|D) of every distinct
+    set-associative (profile, assoc, blocks) over the profile's distances
+    in float32, all in ONE ``sdcm_hit_probs_ragged`` launch
+    (:func:`hit_probs_plan`), then folded as
+    ``kernels/sdcm/ops.py::sdcm_hit_rate`` folds (the dot product with the
+    weights over ``max(sum(w), 1e-30)``), one matrix-vector product a
+    profile; a fully associative geometry takes the exact LRU rule ``[0
+    <= D < B]`` without a launch, a profile's together in one mask.
     Returns (rates, launches, new launch shapes)."""
-    c, n_levels = geom.assoc.shape
-    dev = prd.d.device
-    vals: list[torch.Tensor] = []
-    which = np.empty((c, n_levels), dtype=np.int64)
+    plan = hit_probs_plan(prd, crd, geom, shared_idx)
+    meta_t, fa_b0, fa_b1, which_t = _to_device(
+        [plan.meta, *(np.array([b for _, b in fa], dtype=np.float64)
+                      for fa in plan.fa), plan.which.astype(np.float64)],
+        prd.d.device)
+    d32 = torch.cat([prd.d[:prd.n], crd.d[:crd.n]]).to(torch.float32)
     launches = shapes = 0
-    for lv in range(n_levels):
-        prof = prd if lv < shared_idx else crd
-        d32 = prof.d[:prof.n].to(torch.float32)
+    if len(plan.meta):
+        shapes += _record_signature(("hit_probs_ragged", len(plan.sa[0]),
+                                     len(plan.sa[1]), prd.m, crd.m))
+        phit = sdcm_hit_probs_ragged(d32, meta_t, plan.size)
+        launches += 1
+    vals, at, offset = [], 0, 0
+    for pi, prof in enumerate((prd, crd)):
         w = prof.p[:prof.n]
         w_sum = w.sum().clamp_min(1e-30)
-        geoms, inverse = np.unique(
-            np.stack([geom.assoc[:, lv], geom.blocks[:, lv]], axis=1),
-            axis=0, return_inverse=True)
-        which[:, lv] = len(vals) + inverse.ravel()
-        for a, b in geoms.astype(np.int64).tolist():
-            if a >= b:
-                phit = ((d32 >= 0) & (d32 < b)).to(torch.float32)
-            else:
-                shapes += _record_signature(("hit_probs", a, b, prof.m))
-                phit = sdcm_hit_probs(d32, a, b)
-                launches += 1
-            vals.append((phit.to(torch.float64) * w).sum() / w_sum)
-    which_t = torch.from_numpy(which).to(dev)  # repro-lint: disable=TS103 -- one copy per sweep_grid call
-    return torch.stack(vals)[which_t], launches, shapes
+        n_sa = len(plan.sa[pi])
+        if n_sa:
+            block = phit[at:at + n_sa * prof.n].view(n_sa, prof.n)
+            at += n_sa * prof.n
+            vals.append(torch.mv(block.to(torch.float64), w) / w_sum)
+        if plan.fa[pi]:
+            dp = d32[offset:offset + prof.n]
+            fa_b = (fa_b0, fa_b1)[pi]
+            # compared in float32, as the reference's jnp.where compares
+            hit = (dp >= 0) & (dp[None, :] < fa_b[:, None].float())
+            vals.append(torch.mv(hit.to(torch.float64), w) / w_sum)
+        offset += prof.n
+    return torch.cat(vals)[which_t.long()], launches, shapes
 
 
 def sweep_grid(prd: DeviceProfile, crd: DeviceProfile,
@@ -427,9 +481,13 @@ def sweep_grid(prd: DeviceProfile, crd: DeviceProfile,
     runs every (config, level) row in one ``sdcm_rates_ragged`` launch,
     bit-identical to ``batched_hit_rates`` on the same rows;
     ``inner="pallas"`` runs B1's per-reference form
-    (:func:`_hit_probs_rates`), which agrees with it to ~1e-7.  Each
-    per-level A_MAX-bucket group records its launch signature, so
-    ``compiles`` counts new launch shapes and a repeat sweep adds none.
+    (:func:`_hit_probs_rates`), every distinct set-associative (profile,
+    assoc, blocks) in one ``sdcm_hit_probs_ragged`` launch, which agrees
+    with it to ~1e-7.  Either way ``dispatches`` is the call's one launch
+    (0 when nothing is set-associative).  Each per-level A_MAX-bucket
+    group (vmap) or each record count (pallas) records its launch
+    signature, so ``compiles`` counts new launch shapes and a repeat sweep
+    adds none.
     """
     if inner not in ("vmap", "pallas"):
         raise ValueError(f"unknown sweep inner evaluator: {inner!r}")

@@ -2,8 +2,8 @@
 // (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded with ctypes (kernels/build.py,
 // kernels/flash_attention/flash_attention.py); this file includes the
-// other three forms (flash_tc.cuh, flash_split.cuh, flash_tc_f32.cuh) and
-// is the one translation unit.
+// other forms (flash_tc.cuh, flash_split.cuh in bf16 and f32,
+// flash_tc_f32.cuh) and is the one translation unit.
 //
 // Replaces, on the TPU side of the repository:
 //   * src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel —
@@ -39,21 +39,23 @@
 // bf16 tensor-core rate.  A decode step (Sq = 1) reads the whole KV cache
 // for one row per head: bytes.  f32 FMAs on the CUDA cores run the prefill
 // at ~68x that bound, and a 64-row q tile is 63/64 padding at decode, so
-// the wrapper picks one of four forms:
+// the wrapper picks one of five forms:
 //   tensor-core (flash_tc.cuh)   bf16, D in {64, 96, 128}, more than kMaxRows q
 //       rows per kv head: mma.sync bf16 tiles, cp.async double buffering,
 //       S / softmax / O in registers (FlashAttention-2's shape);
 //   split-KV (flash_split.cuh)   bf16, D in {64, 96, 128}, at most kMaxRows
 //       rows per kv head (decode): the cache cut across blocks, each kv
 //       head's rows together, partials merged by a second kernel;
+//   split-KV f32 (flash_split.cuh)   the same for f32 decode steps, in
+//       splits of 64 columns (the CUDA-core form ran them at 9x their bytes
+//       bound);
 //   tensor-core f32 (flash_tc_f32.cuh)   f32, D in {64, 96, 128}, more than
 //       kMaxRows rows per kv head: the tensor-core form's shape with 3xTF32
 //       products (each f32 operand in a TF32 high and low part, three mma a
 //       product, f32 sums), which meets the f32 gates (2e-5 on the kernel,
 //       1e-4 and 2e-4 on the served logits) where TF32 alone would not; the
 //       f32 bound is 3x the operations at the TF32 rate (495 TFLOP/s);
-//   CUDA-core (below)            f32 at D in {8, 16, 32} or at most kMaxRows
-//       rows per kv head (decode), and bf16 at D in {8, 16, 32}.
+//   CUDA-core (below)            f32 and bf16 at D in {8, 16, 32}.
 // The tensor-core and split-KV forms read rows with 16-byte copies, so the
 // wrapper sends them only 16-byte-aligned tensors whose (b, h, s) strides
 // are multiples of 16 bytes (8 bf16, 4 f32 elements); anything else goes to
@@ -301,9 +303,10 @@ int launch_bf16(int form, const bf16* q, const bf16* k, const bf16* v,
                                group, kv_len, q_offset, causal, window, scale,
                                s);
   }
-  return flash_split::launch<D>(q, k, v, o, lse, o_lo, st, batch, kv_heads,
-                                sq, group, kv_len, q_offset, causal, window,
-                                scale, n_splits, part_ml, part_acc, s);
+  return flash_split::launch<bf16, D>(q, k, v, o, lse, o_lo, st, batch,
+                                      kv_heads, sq, group, kv_len, q_offset,
+                                      causal, window, scale, n_splits,
+                                      part_ml, part_acc, s);
 }
 
 }  // namespace
@@ -312,19 +315,20 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  form: 0 = CUDA-core, 1 = tensor-core,
 // 2 = split-KV (forms 1 and 2: bf16, head_dim 64, 96 or 128), 3 =
-// tensor-core f32 (f32, head_dim 64, 96 or 128).  strides: 12
-// int64 values, (b, h, s) for q, k, v, o in elements.  window: 0 = none,
-// else W >= 1 (the last row must see a column: q_offset + sq - W < kv_len).
-// Split-KV only: n_splits splits of flash_attention_split_columns() columns
-// (those from the first row's window edge to the last visible column), and
-// f32 scratch part_ml [batch, kv_heads, n_splits, rows, 2] and part_acc
-// [batch, kv_heads, n_splits, rows, head_dim], rows = heads / kv_heads * sq
-// <= flash_attention_split_max_rows().  lse and o_lo: both null, or (forms
-// 1 and 2, a training step's forward) f32 [batch, heads, sq] for each row's
+// tensor-core f32, 4 = split-KV f32 (forms 3 and 4: f32, head_dim 64, 96 or
+// 128).  strides: 12 int64 values, (b, h, s) for q, k, v, o in elements.
+// window: 0 = none, else W >= 1 (the last row must see a column: q_offset +
+// sq - W < kv_len).  Split-KV only (forms 2 and 4): n_splits splits of
+// flash_attention_split_columns(dtype) columns (those from the first row's
+// window edge to the last visible column), and f32 scratch part_ml [batch,
+// kv_heads, n_splits, rows, 2] and part_acc [batch, kv_heads, n_splits,
+// rows, head_dim], rows = heads / kv_heads * sq <=
+// flash_attention_split_max_rows().  lse and o_lo: both null, or (forms 1
+// and 2, a training step's forward) f32 [batch, heads, sq] for each row's
 // ln sum_j e^{scale s_ij} and a bf16 tensor of o's shape and strides for
 // o's rounding residual, which the backward's tensor-core form reads.  Form
-// 3: o_lo null, lse null or (under autograd) the log-sum-exp alone.
-// Returns a cudaError_t code: 0 on a successful launch.
+// 3: o_lo null, lse null or (under autograd) the log-sum-exp alone.  Forms 0
+// and 4: both null.  Returns a cudaError_t code: 0 on a successful launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int batch, int heads, int sq,
                         int kv_heads, int kv_len, int q_offset, int causal,
@@ -335,8 +339,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (batch <= 0 || heads <= 0 || sq <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || kv_len <= 0 || q_offset < 0 || window < 0 ||
       (window > 0 && (long long)q_offset + sq - window >= kv_len) ||
-      batch > 65535 || form < 0 || form > 3 ||
-      (form == 0 && (lse || o_lo)) ||
+      batch > 65535 || form < 0 || form > 4 ||
+      ((form == 0 || form == 4) && (lse || o_lo)) ||
       ((form == 1 || form == 2) && !lse != !o_lo) || (form == 3 && o_lo)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -357,6 +361,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     if (head_dim == 96) FLASH_F32(96);
     if (head_dim == 128) FLASH_F32(128);
 #undef FLASH_F32
+    return (int)cudaErrorInvalidValue;
+  }
+  if (form == 4) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define FLASH_SPLIT_F32(D)                                                  \
+  return flash_split::launch<float, D>(                                     \
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, nullptr, \
+      nullptr, st, batch, kv_heads, sq, group, kv_len, q_offset, causal,    \
+      window, scale, n_splits, (float*)part_ml, (float*)part_acc, s)
+    if (head_dim == 64) FLASH_SPLIT_F32(64);
+    if (head_dim == 96) FLASH_SPLIT_F32(96);
+    if (head_dim == 128) FLASH_SPLIT_F32(128);
+#undef FLASH_SPLIT_F32
     return (int)cudaErrorInvalidValue;
   }
   if (form != 0) {
@@ -398,7 +415,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-int flash_attention_split_columns(void) { return flash_split::kSplit; }
+// Columns a split of the split-KV form in dtype (0 = float32, 1 =
+// bfloat16); -1 for another dtype.
+int flash_attention_split_columns(int dtype) {
+  return dtype == 0   ? flash_split::Split<float>::kColumns
+         : dtype == 1 ? flash_split::Split<bf16>::kColumns
+                      : -1;
+}
 
 int flash_attention_split_max_rows(void) { return flash_split::kMaxRows; }
 

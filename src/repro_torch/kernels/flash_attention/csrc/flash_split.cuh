@@ -1,21 +1,31 @@
-// Split-KV decode form: bf16, D = 64, 96 or 128, at most kMaxRows q rows per
-// kv head (rows = group * Sq).  At D = 96 a block takes 65,536 bytes of
-// shared memory (past the 48 KB default: the opt-in in launch) and the
-// merge's lanes own D / 32 = 3 columns each.  Cross-attention decode (not
-// causal) visits every split up to kv_len.
+// Split-KV decode form: at most kMaxRows q rows per kv head (rows = group *
+// Sq), D = 64, 96 or 128, in two element types from one template:
+//   bf16 ("split_kv")       splits of 128 columns; 47, 65.5 or 84 KB of
+//       shared memory a block at D 64, 96 or 128;
+//   f32 ("split_kv_f32")    splits of 64 columns, so that K and V in
+//       f32 fit beside q and the scores: 42, 60.4 or 78.8 KB a block, two
+//       blocks an SM at D 128 (128-column f32 splits would take ~148 KB and
+//       leave one).  At most 16 rows do at most ~8 flops a byte, below the
+//       f32 ridge: f32 FMAs on the CUDA cores, as in bf16.
+// Past 48 KB the opt-in in launch.  The merge's lanes own D / 32 columns
+// each (3 at D = 96).  Cross-attention decode (not causal) visits every split
+// up to kv_len.
 //
 // At decode the work is the bytes of the KV cache, and a grid over q tiles
-// has one block per head walking the whole cache in sequence.  Here the
-// grid is (KV split of kSplit columns, kv head, batch): one block handles
-// all group x Sq rows of its kv head, so each K/V row is read once per
-// group, and the cache is cut across many blocks.  With a window the grid
-// covers only the splits from the one holding the first row's window edge
-// (first_split) to the last visible column: block x handles split
-// first_split + x, and the scratch and the merge index splits from 0 there.
+// has one block per head walking the whole cache in sequence, 63 of a 64-row
+// tile's rows padding.  Here the grid is (KV split, kv head, batch): one
+// block handles all group x Sq rows of its kv head, so each K/V row is read
+// once per group, and the cache is cut across many blocks.  With a window
+// the grid covers only the splits from the one holding the first row's
+// window edge (first_split) to the last visible column: block x handles
+// split first_split + x, and the scratch and the merge index splits from 0
+// there.
 //   split_kernel  the split's K and V rows arrive in shared memory by
-//                 coalesced cp.async; each of the 128 threads owns one
-//                 column and scores its K row against every q row (f32, q
-//                 prescaled by scale * log2(e) in shared memory).
+//                 coalesced 16-byte cp.async (8 bf16 or 4 f32 elements); the
+//                 128 threads take the split's columns, kThreads / kSplit of
+//                 them a column (1 in bf16; 2 in f32, each scoring every
+//                 second row), and score the column's K row against the rows
+//                 (f32, q prescaled by scale * log2(e) in shared memory).
 //                 One warp per row then takes the split's max m and sum l
 //                 of exp2(s - m); the block writes (m, l, acc = sum_j p_j
 //                 v_j) in f32 to scratch.
@@ -24,9 +34,11 @@
 //   merge_kernel  one warp per (row, kv head, batch) combines the splits
 //                 in a fixed order (deterministic): M = max m_s,
 //                 out = sum_s acc_s 2^(m_s - M) / max(sum_s l_s 2^(m_s - M),
-//                 1e-30); for a training step's backward also the row's
-//                 ln 2 (M + log2 max(L, 1e-30)) to f32 [B, H, Sq] and the
-//                 bf16 rounding residual of out to o_lo (flash_tc.cuh).
+//                 1e-30); in bf16, for a training step's backward, also the
+//                 row's ln 2 (M + log2 max(L, 1e-30)) to f32 [B, H, Sq] and
+//                 the bf16 rounding residual of out to o_lo (flash_tc.cuh).
+//                 The f32 form writes the output alone: its backward is the
+//                 CUDA-core form, which reads no log-sum-exp.
 #pragma once
 
 #include "flash_common.cuh"
@@ -36,99 +48,131 @@ namespace flash_split {
 using namespace flash;
 
 constexpr int kThreads = 128;
-constexpr int kSplit = kThreads;  // columns per split, one per thread
 constexpr int kMaxRows = 16;
 
-template <int D>
+// Columns a split: one a thread in bf16, half as many in f32.
+template <typename T>
+struct Split;
+template <>
+struct Split<bf16> {
+  static constexpr int kColumns = 128;
+};
+template <>
+struct Split<float> {
+  static constexpr int kColumns = 64;
+};
+
+template <typename T, int D>
 struct Layout {
-  static constexpr int kKStride = D + 8;  // padded K rows: conflict-free
+  static constexpr int kSplit = Split<T>::kColumns;
+  static constexpr int kPiece = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  static constexpr int kKStride = D + kPiece;  // padded K rows: conflict-free
   static constexpr size_t kBytes =
       (size_t)kMaxRows * D * sizeof(float)            // q rows, scaled
       + (size_t)kMaxRows * kSplit * sizeof(float)     // scores, then p
-      + (size_t)kSplit * kKStride * sizeof(bf16)      // K rows
-      + (size_t)kSplit * D * sizeof(bf16);            // V rows
+      + (size_t)kSplit * kKStride * sizeof(T)         // K rows
+      + (size_t)kSplit * D * sizeof(T);               // V rows
 };
 
-template <int D>
+// One 16-byte piece of a K row in shared memory as f32.
+__device__ __forceinline__ void piece_f32(const bf16* p, float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 x = __bfloat1622float2(v2[u]);
+    f[2 * u] = x.x;
+    f[2 * u + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void piece_f32(const float* p, float (&f)[4]) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  f[0] = raw.x;
+  f[1] = raw.y;
+  f[2] = raw.z;
+  f[3] = raw.w;
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, Strides sq_, Strides sk_,
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, Strides sq_, Strides sk_,
              Strides sv_, int sq, int group, int kv_len, int q_offset,
              int causal, int window, int first_split, float scale_log2,
              float* __restrict__ part_ml, float* __restrict__ part_acc) {
-  constexpr int kKStride = Layout<D>::kKStride;
+  using L = Layout<T, D>;
+  constexpr int kSplit = L::kSplit, kPiece = L::kPiece;
+  constexpr int kKStride = L::kKStride;
+  constexpr int kRowStep = kThreads / kSplit;   // threads a column
+  constexpr int kRowsT = kMaxRows / kRowStep;   // rows a thread scores
+  static_assert(kThreads % kSplit == 0 && kSplit % 32 == 0, "tiling");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);    // [rows][D]
   float* ps = qs + kMaxRows * D;                      // [rows][kSplit]
-  bf16* ks = reinterpret_cast<bf16*>(ps + kMaxRows * kSplit);  // [kSplit][..]
-  bf16* vs = ks + kSplit * kKStride;                  // [kSplit][D]
+  T* ks = reinterpret_cast<T*>(ps + kMaxRows * kSplit);  // [kSplit][..]
+  T* vs = ks + kSplit * kKStride;                     // [kSplit][D]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int rows = group * sq;
   const int j0 = (first_split + split) * kSplit;
-  const bf16* kp = k + b * sk_.b + hk * sk_.h;
-  const bf16* vp = v + b * sv_.b + hk * sv_.h;
+  const T* kp = k + b * sk_.b + hk * sk_.h;
+  const T* vp = v + b * sv_.b + hk * sv_.h;
 
   // the split's K and V rows by cp.async, neighbouring threads on
   // neighbouring 16-byte pieces of a row; rows past kv_len are zeros
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = D / kPiece;
   for (int e = tid; e < kSplit * kChunks; e += kThreads) {
     const int r = e / kChunks, c = e % kChunks;
     const bool ok = j0 + r < kv_len;
-    cp_async16(smem_u32(ks + r * kKStride + c * 8),
-               ok ? kp + (j0 + r) * sk_.s + c * 8 : kp, ok);
-    cp_async16(smem_u32(vs + r * D + c * 8),
-               ok ? vp + (j0 + r) * sv_.s + c * 8 : vp, ok);
+    cp_async16(smem_u32(ks + r * kKStride + c * kPiece),
+               ok ? kp + (j0 + r) * sk_.s + c * kPiece : kp, ok);
+    cp_async16(smem_u32(vs + r * D + c * kPiece),
+               ok ? vp + (j0 + r) * sv_.s + c * kPiece : vp, ok);
   }
   cp_async_commit();
   for (int e = tid; e < rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const int gi = r / sq, i = r % sq;
-    qs[e] = __bfloat162float(q[b * sq_.b + (hk * group + gi) * sq_.h +
-                               i * sq_.s + d]) * scale_log2;
+    qs[e] = to_f32(q[b * sq_.b + (hk * group + gi) * sq_.h + i * sq_.s + d]) *
+            scale_log2;
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  // this thread's column, scored against every row
-  const int j = j0 + tid;
+  // this thread's column, scored against rows r0, r0 + kRowStep, ...
+  const int col = tid % kSplit, r0 = tid / kSplit;
+  const int j = j0 + col;
   const bool in_range = j < kv_len;
-  float sc[kMaxRows];
+  float sc[kRowsT];
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) sc[r] = 0.0f;
+  for (int i = 0; i < kRowsT; ++i) sc[i] = 0.0f;
   if (in_range) {
-    const uint4* krow = reinterpret_cast<const uint4*>(ks + tid * kKStride);
+    const T* krow = ks + col * kKStride;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      const uint4 kraw = krow[c];
-      const __nv_bfloat162* kv2 =
-          reinterpret_cast<const __nv_bfloat162*>(&kraw);
-      float kf[8];
+    for (int c = 0; c < kChunks; ++c) {
+      float kf[kPiece];
+      piece_f32(krow + c * kPiece, kf);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 f = __bfloat1622float2(kv2[u]);
-        kf[2 * u] = f.x;
-        kf[2 * u + 1] = f.y;
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
+      for (int i = 0; i < kRowsT; ++i) {
+        const int r = r0 + kRowStep * i;
         if (r < rows) {
-          const float* qr = qs + r * D + c * 8;
+          const float* qr = qs + r * D + c * kPiece;
 #pragma unroll
-          for (int u = 0; u < 8; ++u) sc[r] = fmaf(qr[u], kf[u], sc[r]);
+          for (int u = 0; u < kPiece; ++u) sc[i] = fmaf(qr[u], kf[u], sc[i]);
         }
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
+  for (int i = 0; i < kRowsT; ++i) {
+    const int r = r0 + kRowStep * i;
     if (r < rows) {
       const int pos = q_offset + r % sq;
       const bool ok = in_range && (!causal || j <= pos) &&
                       (window <= 0 || j > pos - window);
-      ps[r * kSplit + tid] = ok ? sc[r] : -INFINITY;
+      ps[r * kSplit + col] = ok ? sc[i] : -INFINITY;
     }
   }
   __syncthreads();
@@ -177,17 +221,17 @@ split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float a = 0.0f;
 #pragma unroll 8
     for (int c = 0; c < kSplit; ++c) {
-      a = fmaf(pr[c], __bfloat162float(vs[c * D + d]), a);
+      a = fmaf(pr[c], to_f32(vs[c * D + d]), a);
     }
     out[e] = a;
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32)
 merge_kernel(const float* __restrict__ part_ml,
-             const float* __restrict__ part_acc, bf16* __restrict__ o,
-             float* __restrict__ lse, bf16* __restrict__ o_lo, Strides so_,
+             const float* __restrict__ part_acc, T* __restrict__ o,
+             float* __restrict__ lse, T* __restrict__ o_lo, Strides so_,
              int sq, int group, int n_splits) {
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x, rows = gridDim.x;
@@ -231,24 +275,24 @@ merge_kernel(const float* __restrict__ part_ml,
 #pragma unroll
   for (int u = 0; u < D / 32; ++u) {
     const float x = a[u] * inv;
-    const bf16 hi = __float2bfloat16(x);
+    const T hi = from_f32<T>(x);
     o[at + lane + 32 * u] = hi;
-    if (o_lo) {
-      o_lo[at + lane + 32 * u] = __float2bfloat16(x - __bfloat162float(hi));
-    }
+    if (o_lo) o_lo[at + lane + 32 * u] = from_f32<T>(x - to_f32(hi));
   }
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-           bf16* o_lo, const Strides (&st)[4], int batch, int kv_heads,
-           int sq,
+// lse and o_lo: both null, or (bf16 under autograd) both set; the caller
+// checks.
+template <typename T, int D>
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, T* o_lo,
+           const Strides (&st)[4], int batch, int kv_heads, int sq,
            int group, int kv_len, int q_offset, int causal, int window,
            float scale, int n_splits, float* part_ml, float* part_acc,
            cudaStream_t stream) {
-  constexpr size_t kSmem = Layout<D>::kBytes;
+  constexpr size_t kSmem = Layout<T, D>::kBytes;
+  constexpr int kSplit = Layout<T, D>::kSplit;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (attr != cudaSuccess) return (int)attr;
   // the splits holding a visible column; the wrapper sized the scratch
@@ -259,13 +303,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
       n_splits != (end + kSplit - 1) / kSplit - first_split) {
     return (int)cudaErrorInvalidValue;
   }
-  split_kernel<D><<<dim3(n_splits, kv_heads, batch), kThreads, kSmem,
-                    stream>>>(q, k, v, st[0], st[1], st[2], sq, group,
-                              kv_len, q_offset, causal, window, first_split,
-                              scale * kLog2e, part_ml, part_acc);
+  split_kernel<T, D><<<dim3(n_splits, kv_heads, batch), kThreads, kSmem,
+                       stream>>>(q, k, v, st[0], st[1], st[2], sq, group,
+                                 kv_len, q_offset, causal, window,
+                                 first_split, scale * kLog2e, part_ml,
+                                 part_acc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<D><<<dim3(group * sq, kv_heads, batch), 32, 0, stream>>>(
+  merge_kernel<T, D><<<dim3(group * sq, kv_heads, batch), 32, 0, stream>>>(
       part_ml, part_acc, o, lse, o_lo, st[3], sq, group, n_splits);
   return (int)cudaGetLastError();
 }

@@ -35,8 +35,9 @@ enabled and an input that requires grad, the call goes through an
 ``autograd.Function`` (:class:`_FlashAttention`): its forward is the
 same launch (or, on the CPU, the plain version), so a kernel output
 always carries its autograd history.  Where the backward will take a
-tensor-core form (:func:`keeps_lse`: every form but the CUDA-core one, on
-the card or on meta), that forward also writes each row's log-sum-exp (f32
+tensor-core form (:func:`keeps_lse`: every form but the CUDA-core and the
+f32 split-KV ones, on the card or on meta), that forward also writes each
+row's log-sum-exp (f32
 ``[B, H, Sq]``) and saves it with the output; the bf16 forms also write
 the output's bf16 rounding residual (their P·V then takes P in two bf16
 parts, so that output + residual holds ~16 bits), f32 has none.  Its
@@ -58,7 +59,7 @@ kernel reads q, k and v through their strides (the last dimension must
 be contiguous), so the model's ``[B, S, H, D]`` tensors go in as
 ``transpose(1, 2)`` views; the output has q's layout and dtype.
 
-The kernel has four forms; :func:`kernel_form` picks one per call and
+The kernel has five forms; :func:`kernel_form` picks one per call and
 each launch also counts in :data:`LAUNCHES_BY_FORM`:
 
 * ``"split_kv"`` — bf16, D in :data:`TC_HEAD_DIMS` (64, 96, 128), at most
@@ -69,6 +70,9 @@ each launch also counts in :data:`LAUNCHES_BY_FORM`:
   writes f32 partials (max, sum, accumulator) to scratch from
   ``torch.empty``, and a second kernel merges them in split order.
   :func:`split_kv_plain` is the same decomposition in torch ops.
+* ``"split_kv_f32"`` — the same for f32 (every f32 decode step), in splits
+  of :data:`SPLIT_COLUMNS_F32` (64) columns (:func:`split_columns`); its
+  merge writes the output alone, and its backward is the CUDA-core form.
 * ``"tensor_core"`` — bf16, D in :data:`TC_HEAD_DIMS`, more rows
   (prefill, an encoder, cross-attention over a source): ``mma.sync`` bf16 tiles with f32 accumulation; P is rounded
   to bf16 before P·V, as SDPA does.
@@ -78,8 +82,7 @@ each launch also counts in :data:`LAUNCHES_BY_FORM`:
   split into a TF32 high part and the rest, three ``mma.sync`` a
   product, f32 sums), which meets the f32 gates where TF32 alone would
   not.
-* ``"simt"`` — everything else: f32 and bf16 at D in {8, 16, 32}, f32
-  decode steps (at most :data:`SPLIT_MAX_ROWS` rows per kv head), and
+* ``"simt"`` — everything else: f32 and bf16 at D in {8, 16, 32}, and
   tensors that are not 16-byte aligned or whose (b, h, s) strides are
   not multiples of 16 bytes (8 bf16 or 4 f32 elements; the other forms
   copy rows in 16-byte pieces): f32 FMAs on the CUDA cores.
@@ -100,23 +103,25 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 #: The forward's launches by form (:func:`kernel_form`); they sum to
 #: ``LAUNCHES["flash_attention"]``.
 LAUNCHES_BY_FORM = {"tensor_core": 0, "split_kv": 0, "tensor_core_f32": 0,
-                    "simt": 0}
+                    "split_kv_f32": 0, "simt": 0}
 #: The backward's launches by form (:func:`backward_form`); they sum to
 #: ``LAUNCHES["flash_attention_bwd"]``.
 LAUNCHES_BY_BWD_FORM = {"tensor_core_bwd": 0, "tensor_core_f32_bwd": 0,
                         "simt_bwd": 0}
 
 HEAD_DIMS = (8, 16, 32, 64, 96, 128)
-#: Head dims of the tensor-core forms (bf16 and f32) and the split-KV
-#: form (bf16).
+#: Head dims of the tensor-core and split-KV forms (bf16 and f32).
 TC_HEAD_DIMS = (64, 96, 128)
-#: q rows per kv head up to which bf16 goes to the split-KV form
-#: (csrc/flash_split.cuh kMaxRows) and f32 to the CUDA-core form.
+#: q rows per kv head up to which a call goes to a split-KV form
+#: (csrc/flash_split.cuh kMaxRows).
 SPLIT_MAX_ROWS = 16
-#: KV columns per split (csrc/flash_split.cuh kSplit).
+#: KV columns per split of the bf16 and the f32 split-KV form
+#: (csrc/flash_split.cuh ``Split<T>::kColumns``): in f32 a 64-column split
+#: keeps K and V in shared memory at ~79 KB a block at D 128.
 SPLIT_COLUMNS = 128
+SPLIT_COLUMNS_F32 = 64
 _FORM_CODES = {"simt": 0, "tensor_core": 1, "split_kv": 2,
-               "tensor_core_f32": 3}
+               "tensor_core_f32": 3, "split_kv_f32": 4}
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -223,23 +228,30 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale=None,
     return (out.to(q.dtype), lse) if return_lse else out.to(q.dtype)
 
 
+def split_columns(dtype) -> int:
+    """Columns a split of the split-KV form for ``dtype``:
+    :data:`SPLIT_COLUMNS_F32` in f32, else :data:`SPLIT_COLUMNS`."""
+    return SPLIT_COLUMNS_F32 if dtype == torch.float32 else SPLIT_COLUMNS
+
+
 def split_range(sq: int, causal: bool, q_offset: int, kv_len: int,
-                window=None) -> tuple[int, int]:
-    """(first split, number of splits) that the split-KV form visits:
-    the :data:`SPLIT_COLUMNS`-column splits from the one holding the
-    first row's window edge to the one holding the last row's last
-    visible column."""
+                window=None, columns: int = SPLIT_COLUMNS) -> tuple[int, int]:
+    """(first split, number of splits) that a split-KV form visits: the
+    ``columns``-column splits from the one holding the first row's window
+    edge to the one holding the last row's last visible column."""
     end = min(kv_len, q_offset + sq) if causal else kv_len
     first = 0 if window is None else max(0, q_offset - window + 1)
-    lo = first // SPLIT_COLUMNS
-    return lo, -(-end // SPLIT_COLUMNS) - lo
+    lo = first // columns
+    return lo, -(-end // columns) - lo
 
 
 def split_kv_plain(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
-                   kv_len=None, window=None) -> torch.Tensor:
-    """The split-KV form's decomposition in torch ops: per split of
-    :data:`SPLIT_COLUMNS` columns that :func:`split_range` visits and per
-    row, the max ``m`` of the visible scores
+                   kv_len=None, window=None,
+                   columns: int = SPLIT_COLUMNS) -> torch.Tensor:
+    """A split-KV form's decomposition in torch ops: per split of
+    ``columns`` columns (:func:`split_columns` of the form's dtype) that
+    :func:`split_range` visits and per row, the max ``m`` of the visible
+    scores
     (-1e30 where the row sees none of the split), ``l = sum exp(s - m)``
     and ``acc = sum exp(s - m) v`` over the visible columns (0 for a row
     that sees none); then, in split order, ``M = max m``,
@@ -252,8 +264,8 @@ def split_kv_plain(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
     vf = v.float().repeat_interleave(h // hkv, dim=1)
     qf = q.float() * scale
     rows = torch.arange(sq, device=q.device)
-    split = SPLIT_COLUMNS
-    lo, n_splits = split_range(sq, causal, q_offset, kv_len, window)
+    split = columns
+    lo, n_splits = split_range(sq, causal, q_offset, kv_len, window, split)
     ms, ls, accs = [], [], []
     for j0 in range(lo * split, (lo + n_splits) * split, split):
         cols = torch.arange(j0, j0 + split, device=q.device)
@@ -297,19 +309,21 @@ def backward_form(q, k, v) -> str:
     copied when it is not aligned, so it does not choose):
     ``"tensor_core"`` after a bf16 tensor-core or split-KV forward,
     ``"tensor_core_f32"`` after an f32 tensor-core one, else ``"simt"``
-    (the CUDA-core form)."""
+    (the CUDA-core form, with its statistics stage: after a CUDA-core or
+    an f32 split-KV forward)."""
     form = kernel_form(q, k, v)
-    return "tensor_core" if form == "split_kv" else form
+    return {"split_kv": "tensor_core", "split_kv_f32": "simt"}.get(form,
+                                                                   form)
 
 
 def keeps_lse(q, k, v) -> bool:
     """Whether a forward under autograd writes and saves each row's
     log-sum-exp (bf16: and its output's rounding residual) and its
     output for the backward: on the card or on meta, where the backward
-    takes a tensor-core form (the forward's form is then not
-    ``"simt"``, and each of the others writes them)."""
+    takes a tensor-core form (:func:`backward_form`; the forward's form
+    then writes them)."""
     return q.device.type in ("cuda", "meta") and \
-        kernel_form(q, k, v) != "simt"
+        backward_form(q, k, v) != "simt"
 
 
 def kernel_form(q, k, v) -> str:
@@ -322,7 +336,7 @@ def kernel_form(q, k, v) -> str:
         return "simt"
     few = sq * (h // k.shape[1]) <= SPLIT_MAX_ROWS
     if q.dtype == torch.float32:
-        return "simt" if few else "tensor_core_f32"
+        return "split_kv_f32" if few else "tensor_core_f32"
     return "split_kv" if few else "tensor_core"
 
 
@@ -434,10 +448,13 @@ def _lib() -> ctypes.CDLL:
         ci, ci, ci, ci, vp, vp, vp, vp, vp,
     ]
     lib.flash_attention_fwd.restype = ci
+    lib.flash_attention_split_columns.argtypes = [ci]
+    lib.flash_attention_split_max_rows.argtypes = []
     for fn in (lib.flash_attention_split_columns,
                lib.flash_attention_split_max_rows):
-        fn.argtypes, fn.restype = [], ci
-    if (lib.flash_attention_split_columns() != SPLIT_COLUMNS
+        fn.restype = ci
+    if (any(lib.flash_attention_split_columns(code) != split_columns(dtype)
+            for dtype, code in _DTYPES.items())
             or lib.flash_attention_split_max_rows() != SPLIT_MAX_ROWS):
         raise RuntimeError("flash_attention: the library's split sizes "
                            "differ from the wrapper's")
@@ -518,15 +535,16 @@ def _forward(q, k, v, causal, scale, q_offset, kv_len, window,
     form = kernel_form(q, k, v)
     lse = out_lo = None
     if for_grad:
-        if form == "simt":
-            raise ValueError("the CUDA-core form writes no log-sum-exp")
+        if not keeps_lse(q, k, v):
+            raise ValueError(f"the {form} form writes no log-sum-exp")
         lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
         if form != "tensor_core_f32":
             out_lo = torch.empty_like(out)   # out's strides
     n_splits, part_ml, part_acc = 0, None, None
-    if form == "split_kv":
+    if form in ("split_kv", "split_kv_f32"):
         rows = sq * (h // hkv)
-        n_splits = split_range(sq, causal, q_offset, kv_len, window)[1]
+        n_splits = split_range(sq, causal, q_offset, kv_len, window,
+                               split_columns(q.dtype))[1]
         part_ml = torch.empty(b, hkv, n_splits, rows, 2,
                               dtype=torch.float32, device=dev)
         part_acc = torch.empty(b, hkv, n_splits, rows, d,

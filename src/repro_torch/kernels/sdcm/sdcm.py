@@ -3,8 +3,7 @@ kernel's wrappers and their plain PyTorch versions.
 
 The kernel (``csrc/sdcm.cu``) replaces the TPU's
 ``repro/kernels/sdcm/sdcm.py::_sdcm_kernel`` and the vmapped grid form
-``repro/api/batched.py::_phit_row``.  Three entry points share one
-device function:
+``repro/api/batched.py::_phit_row``.  Four entry points:
 
 * :func:`sdcm_rates_ragged` — the Eq. 3 rate of every row of a ragged
   grid (rows back to back at their own lengths, a ``[R, 5]`` record of
@@ -13,13 +12,24 @@ device function:
 * :func:`sdcm_rates` — ``rates[g] = sum_m probs[g, m] P(h | d[g, m])``
   with per-row ``assoc[g]``/``blocks[g]``: one padded row-shape group;
 * :func:`sdcm_hit_probs` — ``P(h | d[i])`` for a flat float32 distance
-  stream at one geometry: what ``_sdcm_kernel`` computes.
+  stream at one geometry: what ``_sdcm_kernel`` computes;
+* :func:`sdcm_hit_probs_ragged` — the same for many (stream slice,
+  geometry) records in one launch (a ``[R, 6]`` record of offset, length,
+  A, B, A_MAX bucket and output offset): what
+  ``api/batched.py::sweep_grid(inner="pallas")`` launches, once per call.
+
+The grid forms share one device function; the per-reference forms share
+another, which sums the binomial's terms from its mode by their ratios (one
+set of logarithms an element, not one a term) and agrees with
+:func:`phit_plain`, the log-space sum, to ~1e-12.
 
 A wrapper checks device, dtype, shape and contiguity.  For CPU tensors
 it returns the plain version (:func:`sdcm_rates_ragged_plain`,
-:func:`sdcm_rates_plain`, :func:`sdcm_hit_probs_plain`); for CUDA tensors
-it launches the kernel and counts the launch in :data:`LAUNCHES`, or
-raises.  A row gives the same bits in the ragged and the padded form.
+:func:`sdcm_rates_plain`, :func:`sdcm_hit_probs_plain`,
+:func:`sdcm_hit_probs_ragged_plain`); for CUDA tensors it launches the
+kernel and counts the launch in :data:`LAUNCHES`, or raises.  A row gives
+the same bits in the ragged and the padded form, and an element the same
+bits in the two per-reference forms.
 """
 from __future__ import annotations
 
@@ -35,10 +45,16 @@ from repro_torch.kernels import build, count_launch
 A_BUCKETS = (8, 16, 32, 64)
 
 #: Kernel launches per entry point; only a wrapper's launch adds to it.
-LAUNCHES = {"sdcm_rates_ragged": 0, "sdcm_rates": 0, "sdcm_hit_probs": 0}
+LAUNCHES = {"sdcm_rates_ragged": 0, "sdcm_rates": 0, "sdcm_hit_probs": 0,
+            "sdcm_hit_probs_ragged": 0}
 
 #: Columns of the ragged form's per-row record (csrc/sdcm.cu kMetaWidth).
 META_COLUMNS = ("offset", "length", "assoc", "blocks", "a_max")
+#: Columns of the ragged per-reference form's record (csrc/sdcm.cu
+#: kProbMetaWidth): the slice of the distances, the geometry, its bucket,
+#: and where its P(h|D) go in the output.
+PROB_META_COLUMNS = ("offset", "length", "assoc", "blocks", "a_max",
+                     "out_offset")
 
 
 def pow2(n: int) -> int:
@@ -130,12 +146,32 @@ def sdcm_rates_ragged_plain(d, probs, meta) -> torch.Tensor:
     return rates
 
 
-def sdcm_hit_probs_plain(d, assoc: int, blocks: int) -> torch.Tensor:
-    """P(h | D) of a flat distance stream at one geometry (float32)."""
-    a_max = a_max_bucket(assoc, blocks)
+def sdcm_hit_probs_plain(d, assoc: int, blocks: int,
+                         a_max: int | None = None) -> torch.Tensor:
+    """P(h | D) of a flat distance stream at one geometry (float32), under
+    ``a_max`` (default: the geometry's bucket)."""
+    if a_max is None:
+        a_max = a_max_bucket(assoc, blocks)
     a = torch.tensor(float(assoc), dtype=torch.float64, device=d.device)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
     b = torch.tensor(float(blocks), dtype=torch.float64, device=d.device)  # repro-lint: disable=TS103 -- plain version: runs on host tensors, on the card only to check the kernel
     return phit_plain(d, a, b, a_max).to(torch.float32)
+
+
+def sdcm_hit_probs_ragged_plain(d, meta, size: int) -> torch.Tensor:
+    """The ragged per-reference form as :func:`sdcm_hit_probs_plain` per
+    record: ``out[o:o + n] = P(h | d[off:off + n])`` at the record's
+    geometry and bucket.  A record whose slice lies outside ``d`` or that
+    names no bucket of :data:`A_BUCKETS` gives NaN; one whose output lies
+    outside ``[0, size)`` writes nothing.  Entries no record covers are
+    NaN here (the kernel leaves them as ``torch.empty`` made them)."""
+    out = torch.full((size,), math.nan, dtype=torch.float32, device=d.device)
+    for off, length, a, b, a_max, at in meta.tolist():  # repro-lint: disable=TS102 -- plain version: runs on host tensors, on the card only to check the kernel
+        off, length, at, a_max = int(off), int(length), int(at), int(a_max)
+        if (0 <= length and 0 <= at and at + length <= size and 0 <= off
+                and off + length <= d.numel() and a_max in A_BUCKETS):
+            out[at:at + length] = sdcm_hit_probs_plain(
+                d[off:off + length], int(a), int(b), a_max)
+    return out
 
 
 # --- the CUDA kernel ---------------------------------------------------------
@@ -153,6 +189,10 @@ def _lib() -> ctypes.CDLL:
         vp, vp, ctypes.c_int64, ctypes.c_double, ctypes.c_double, ci, vp,
     ]
     lib.sdcm_hit_probs.restype = ci
+    lib.sdcm_hit_probs_ragged.argtypes = [
+        vp, vp, ctypes.c_int64, vp, ctypes.c_int64, ci, vp,
+    ]
+    lib.sdcm_hit_probs_ragged.restype = ci
     lib.sdcm_error_string.argtypes = [ci]
     lib.sdcm_error_string.restype = ctypes.c_char_p
     return lib
@@ -261,7 +301,8 @@ def sdcm_rates_ragged(d: torch.Tensor, probs: torch.Tensor,
 
 def sdcm_hit_probs(d: torch.Tensor, assoc: int, blocks: int) -> torch.Tensor:
     """P(h | D) for a flat float32 distance tensor (-1 = first touch)
-    on an ``assoc``-way cache of ``blocks`` lines.  Returns float32."""
+    on an ``assoc``-way cache of ``blocks`` lines.  Returns float32; on the
+    card each element the bits :func:`sdcm_hit_probs_ragged` gives it."""
     dev = _device_of(d)
     if d.dim() != 1:
         raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
@@ -283,4 +324,51 @@ def sdcm_hit_probs(d: torch.Tensor, assoc: int, blocks: int) -> torch.Tensor:
         )
     _raise_on(code, "sdcm_hit_probs launch")
     count_launch(LAUNCHES, "sdcm_hit_probs")
+    return out
+
+
+def sdcm_hit_probs_ragged(d: torch.Tensor, meta: torch.Tensor,
+                          size: int) -> torch.Tensor:
+    """P(h | D) of many (slice of ``d``, geometry) records in one launch.
+
+    ``d``: float32 [T] (-1 = first touch); ``meta``: float64 [R, 6], per
+    record (offset, length, assoc, blocks, a_max, out_offset) as in
+    :data:`PROB_META_COLUMNS`, with ``a_max`` the geometry's bucket
+    (:func:`a_max_bucket`).  Returns float32 [``size``] with ``out[o:o +
+    n] = P(h | d[off:off + n])`` for each record.  A record whose slice
+    lies outside ``d``, that names no bucket of :data:`A_BUCKETS`, or
+    that is set-associative with ``assoc > a_max``, gives NaN; one whose
+    output lies outside ``[0, size)`` writes nothing, and entries no
+    record covers are left unwritten.  On the card the records are read
+    by the kernel, not checked on the host (that would wait for the
+    copy).
+    """
+    dev = _device_of(d)
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D [T], got shape {tuple(d.shape)}")
+    (t,) = d.shape
+    _check("d", d, torch.float32, (t,), dev)
+    if meta.dim() != 2:
+        raise ValueError(f"meta must be 2-D [R, {len(PROB_META_COLUMNS)}], "
+                         f"got shape {tuple(meta.shape)}")
+    _check("meta", meta, torch.float64,
+           (meta.shape[0], len(PROB_META_COLUMNS)), dev)
+    size, records = int(size), meta.shape[0]
+    if size < 0:
+        raise ValueError(f"size must be >= 0, got {size}")
+    if records > 65535:
+        raise ValueError(f"at most 65535 records a launch, got {records}")
+    if dev.type == "cpu":
+        return sdcm_hit_probs_ragged_plain(d, meta, size)
+    out = torch.empty(size, dtype=torch.float32, device=dev)
+    if records == 0 or t == 0 or size == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _lib().sdcm_hit_probs_ragged(
+            d.data_ptr(), meta.data_ptr(), t, out.data_ptr(), size, records,
+            stream,
+        )
+    _raise_on(code, "sdcm_hit_probs_ragged launch")
+    count_launch(LAUNCHES, "sdcm_hit_probs_ragged")
     return out

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: the SDCM kernel's two entry
-points, the reuse-histogram kernel's two flags, flash attention (B4, each
-of its three forms, with the launches counted by form, with and without
-a sliding window) and the SSD scan
+"""The port's CUDA kernels on the card: the SDCM kernel's entry points
+(the grid forms, and the per-reference forms: one geometry and ragged),
+the reuse-histogram kernel's two flags, flash attention (B4, each of its
+forms, with the launches counted by form, with and without a sliding
+window) and the SSD scan
 (B5, f32 and bf16 b/c, column blocks) against their plain PyTorch
 versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
@@ -90,6 +91,41 @@ def test_hit_probs_kernel_vs_plain(cuda_device, assoc, blocks):
     assert got.device == d.device and got.dtype == torch.float32
     want = kernel.sdcm_hit_probs_plain(d, assoc, blocks)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_ragged_hit_probs_kernel_vs_one_geometry_kernel(cuda_device):
+    """Every geometry of GEOMS over two slices of one stream (a sweep's
+    PRD and CRD) in one ragged launch: each record's P(h|D) element for
+    element the one-geometry launch's on its slice, and within 1e-6 of
+    the plain version; then streams where a sum started at k = 0 or at A
+    - 1 would underflow."""
+    d = torch.from_numpy(np.concatenate([distances(20_000, 1),
+                                         distances(7_000, 2)])).to(cuda_device)
+    slices = ((0, 20_011), (20_011, 7_011))
+    meta, at = [], 0
+    for off, n in slices:
+        for a, b in GEOMS:
+            meta.append((off, n, a, b, kernel.a_max_bucket(a, b), at))
+            at += n
+    before = dict(kernel.LAUNCHES)
+    got = kernel.sdcm_hit_probs_ragged(
+        d, torch.tensor(meta, dtype=torch.float64, device=cuda_device), at)
+    assert kernel.LAUNCHES["sdcm_hit_probs_ragged"] == \
+        before["sdcm_hit_probs_ragged"] + 1
+    assert kernel.LAUNCHES["sdcm_hit_probs"] == before["sdcm_hit_probs"]
+    for off, n, a, b, _, o in meta:
+        part = d[off:off + n]
+        assert torch.equal(got[o:o + n], kernel.sdcm_hit_probs(part, a, b))
+        want = kernel.sdcm_hit_probs_plain(part, a, b)
+        assert float((got[o:o + n] - want).abs().max()) <= 1e-6
+    rng = np.random.default_rng(7)
+    low = torch.from_numpy(np.concatenate([
+        np.arange(60, 400), [710, 720, 1000, 5000, 45_000, 1 << 20, 1 << 26],
+        rng.integers(0, 1 << 26, 2000)]).astype(np.float32)).to(cuda_device)
+    for a, b in ((63, 64), (64, 1 << 26), (16, 1 << 26), (1, 512), (8, 16)):
+        err = (kernel.sdcm_hit_probs(low, a, b)
+               - kernel.sdcm_hit_probs_plain(low, a, b)).abs().max()
+        assert float(err) <= 1e-6
 
 
 def test_rates_kernel_vs_plain_and_composition_invariance(cuda_device):
@@ -516,10 +552,11 @@ def test_flash_attention_forms_vs_plain(cuda_device, d, b, h, hkv, sq, sk,
     # the tensor-core f32 form, edge mid-tile (32-column tiles at D 128)
     (torch.float32, 64, 1, 4, 2, 200, 200, 0, 200, 77, "tensor_core_f32"),
     (torch.float32, 128, 2, 8, 2, 300, 300, 0, 300, 100, "tensor_core_f32"),
-    # the CUDA-core form in f32: at the reduced D 16, and a chunk of 4
-    # rows at D 64 (8 rows per kv head)
+    # the CUDA-core form in f32 at the reduced D 16; a chunk of 4 rows at
+    # D 64 (8 rows per kv head) on the f32 split-KV form (the id names the
+    # form it took before that form existed)
     (torch.float32, 16, 2, 4, 2, 9, 40, 20, 29, 16, "simt"),
-    (torch.float32, 64, 1, 4, 2, 4, 300, 250, 254, 77, "simt"),
+    (torch.float32, 64, 1, 4, 2, 4, 300, 250, 254, 77, "split_kv_f32"),
 ], ids=["tc-prefill", "tc-chunk", "split-decode", "split-16-rows",
         "tc-f32-prefill", "tc-f32-prefill-d128", "simt-reduced",
         "simt-f32-chunk"])
@@ -545,8 +582,9 @@ def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
     assert fa.LAUNCHES_BY_FORM[form] == before + 1
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     refs = [fa.flash_attention_plain(q, k, v, **kw)]
-    if form == "split_kv":
-        refs.append(fa.split_kv_plain(q, k, v, **kw))
+    if form in ("split_kv", "split_kv_f32"):
+        refs.append(fa.split_kv_plain(q, k, v, **kw,
+                                      columns=fa.split_columns(dtype)))
     assert torch.isfinite(got.float()).all()
     for ref in refs:
         err = float((got.float() - ref.float()).abs().max())
@@ -569,11 +607,11 @@ def test_flash_attention_window_forms_vs_plain(cuda_device, dtype, d, b, h,
     (torch.bfloat16, 96, 2, 32, 32, 1, 2080, True, 2047, 2048, "split_kv"),
     (torch.bfloat16, 96, 1, 16, 4, 4, 300, True, 126, 130, "split_kv"),
     # f32 at D 96: the tensor-core f32 form (twelve 8-wide n-tiles of
-    # P V), causal and cross; a decode step stays on the CUDA-core form
-    # (three columns a thread)
+    # P V), causal and cross; a decode step on the f32 split-KV form (the
+    # id names the form it took before that form existed)
     (torch.float32, 96, 2, 4, 4, 130, 130, True, 0, 130, "tensor_core_f32"),
     (torch.float32, 96, 1, 4, 2, 70, 150, False, 0, 140, "tensor_core_f32"),
-    (torch.float32, 96, 2, 4, 4, 1, 300, True, 200, 201, "simt"),
+    (torch.float32, 96, 2, 4, 4, 1, 300, True, 200, 201, "split_kv_f32"),
     (torch.float32, 64, 1, 4, 4, 100, 37, False, 0, 37, "tensor_core_f32"),
     # the CUDA-core form at D 32 without causality, f32 and bf16
     (torch.float32, 32, 2, 4, 4, 100, 37, False, 0, 37, "simt"),
@@ -605,14 +643,89 @@ def test_flash_attention_non_causal_and_d96_forms_vs_plain(
     assert got.dtype == dtype and got.stride() == q.stride()
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     refs = [fa.flash_attention_plain(q, k, v, **kw)]
-    if form == "split_kv":
-        refs.append(fa.split_kv_plain(q, k, v, **kw))
+    if form in ("split_kv", "split_kv_f32"):
+        refs.append(fa.split_kv_plain(q, k, v, **kw,
+                                      columns=fa.split_columns(dtype)))
     assert torch.isfinite(got.float()).all()
     for ref in refs:
         err = float((got.float() - ref.float()).abs().max())
         assert err <= atol
         if dtype == torch.bfloat16:
             assert err / float(ref.float().abs().max()) <= BF16_SCALED_TOL
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal,q_offset,kv_len,window", [
+    (4, 32, 32, 1, 2080, True, 2047, 2048, None),   # zamba2's step, 32 splits
+    (4, 32, 32, 1, 2080, True, 1999, 2000, None),   # not a multiple of 64
+    (2, 32, 8, 1, 700, True, 600, 601, None),       # GQA 4:1 (llama3)
+    (2, 32, 8, 1, 700, True, 600, 601, 200),        # window: splits 6..9
+    (1, 16, 4, 4, 1100, True, 1000, 1004, 130),     # 16 rows, own edges
+    (2, 16, 16, 1, 330, False, 0, 330, None),       # cross-attention decode
+    (2, 8, 8, 1, 16, True, 0, 1, None),             # kv_len 1
+    (1, 16, 4, 4, 300, True, 126, 130, None),       # rows 0-1 see none of
+                                                    # split 2
+], ids=["zamba2", "kv2000", "gqa", "window", "16-rows", "cross", "kv1",
+        "masked-split"])
+def test_flash_attention_split_kv_f32_vs_plain(cuda_device, d, b, h, hkv,
+                                               sq, sk, causal, q_offset,
+                                               kv_len, window):
+    """The f32 split-KV form against the plain version and its own
+    decomposition (64-column splits) at 2e-5; the launch counts under
+    ``split_kv_f32``, and a second launch gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + kv_len + d)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    q = rand(b, sq, h, d).transpose(1, 2)
+    k = rand(b, sk, hkv, d).transpose(1, 2)
+    v = rand(b, sk, hkv, d).transpose(1, 2)
+    assert fa.kernel_form(q, k, v) == "split_kv_f32"
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = dict(fa.LAUNCHES_BY_FORM)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES_BY_FORM == {
+        f: n + (f == "split_kv_f32") for f, n in before.items()}
+    assert got.dtype == torch.float32 and got.stride() == q.stride()
+    assert torch.isfinite(got).all()
+    for ref in (fa.flash_attention_plain(q, k, v, **kw),
+                fa.split_kv_plain(q, k, v, **kw,
+                                  columns=fa.SPLIT_COLUMNS_F32)):
+        assert float((got - ref).abs().max()) <= 2e-5
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+def test_flash_attention_f32_decode_backward_takes_the_cuda_core_form(
+        cuda_device):
+    """Under grad an f32 decode step runs forward on the f32 split-KV form
+    (no log-sum-exp kept) and backward on the CUDA-core form; an unaligned
+    one runs on the CUDA-core form both ways."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    mod = sys.modules[fa.flash_attention.__module__]
+    q = torch.randn(2, 1, 8, 64, generator=gen, device=cuda_device)\
+        .transpose(1, 2)
+    k, v = (torch.randn(2, 300, 2, 64, generator=gen, device=cuda_device)
+            .transpose(1, 2) for _ in range(2))
+    base = torch.randn(2, 1, 8 * 64 + 1, generator=gen, device=cuda_device)
+    unaligned = base[:, :, :8 * 64].unflatten(-1, (8, 64)).transpose(1, 2)
+    kw = dict(causal=True, q_offset=250, kv_len=251)
+    for qq, form in ((q, "split_kv_f32"), (unaligned, "simt")):
+        assert fa.kernel_form(qq, k, v) == form
+        assert fa.backward_form(qq, k, v) == "simt"
+        assert not mod.keeps_lse(qq, k, v)
+        before = dict(fa.LAUNCHES_BY_FORM), dict(fa.LAUNCHES_BY_BWD_FORM)
+        leaves = [t.detach().requires_grad_() for t in (qq, k, v)]
+        out = fa.flash_attention(*leaves, **kw)
+        g = torch.randn(out.shape, generator=gen, device=cuda_device)
+        got = torch.autograd.grad(out, leaves, g)
+        assert fa.LAUNCHES_BY_FORM[form] == before[0][form] + 1
+        assert fa.LAUNCHES_BY_BWD_FORM["simt_bwd"] == \
+            before[1]["simt_bwd"] + 1
+        assert float((out - fa.flash_attention_plain(qq, k, v, **kw))
+                     .abs().max()) <= 2e-5
+        for a, w in zip(got, fa.flash_attention_bwd(qq, k, v, g, **kw)):
+            assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_split_kv_is_deterministic(cuda_device):
@@ -1181,10 +1294,10 @@ SWEEP_SPACE = dict(sets=(64, 512, 4096, 32768), ways=(1, 4, 8, 16),
 
 @pytest.mark.parametrize("inner", ["vmap", "pallas"])
 def test_sweep_on_the_card_matches_the_cpu_port(cuda_device, inner):
-    """``sweep_grid`` on the card: one ragged launch per sweep (vmap) or
-    one per-reference launch per set-associative geometry (pallas), the
-    rates within 1e-12 (vmap) or 1e-6 (pallas) of the CPU port's and, for
-    vmap, bit-identical to ``batched_hit_rates`` on the card."""
+    """``sweep_grid`` on the card: one ragged launch per sweep, of the
+    rates form (vmap) or of the per-reference form (pallas), the rates
+    within 1e-12 (vmap) or 1e-6 (pallas) of the CPU port's and, for vmap,
+    bit-identical to ``batched_hit_rates`` on the card."""
     from repro_torch.core.runtime_model import OpCounts
     from repro_torch.explore import FusedSweepEvaluator, SearchSpace
 
@@ -1198,15 +1311,15 @@ def test_sweep_on_the_card_matches_the_cpu_port(cuda_device, inner):
                               inner=inner)
     cpu = FusedSweepEvaluator(w, space, device="cpu", counts=counts,
                               inner=inner)
-    name = "sdcm_rates_ragged" if inner == "vmap" else "sdcm_hit_probs"
+    name = ("sdcm_rates_ragged" if inner == "vmap"
+            else "sdcm_hit_probs_ragged")
     before = dict(kernel.LAUNCHES)
     got = gpu.evaluate(configs)
     launched = {k: kernel.LAUNCHES[k] - before[k] for k in before}
     assert launched[name] == gpu.stats.fused_dispatches > 0
     assert sum(launched.values()) == launched[name]
-    if inner == "vmap":
-        groups = {(c.line_size, c.cores, c.strategy) for c in configs}
-        assert launched[name] == len(groups)
+    groups = {(c.line_size, c.cores, c.strategy) for c in configs}
+    assert launched[name] == len(groups)
     want = cpu.evaluate(configs)
     # vmap folds in double on both sides; pallas folds float32 P(h|D),
     # which the card and the host may round one float32 ulp apart

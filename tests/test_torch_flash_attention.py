@@ -244,25 +244,31 @@ DISPATCH_CASES = [   # dtype, h, hkv, sq, d, form
     (torch.bfloat16, 32, 32, 17, 64, "tensor_core"),  # 17 rows
     (torch.bfloat16, 4, 4, 2048, 64, "tensor_core"),  # prefill
     (torch.float32, 4, 4, 2048, 64, "tensor_core_f32"),  # 3xTF32
-    (torch.float32, 4, 4, 1, 64, "simt"),             # an f32 decode step
+    (torch.float32, 4, 4, 1, 64, "split_kv_f32"),     # an f32 decode step
     (torch.bfloat16, 4, 4, 64, 32, "simt"),           # D 32
     (torch.bfloat16, 4, 4, 1, 8, "simt"),             # D 8
     (torch.bfloat16, 32, 32, 1, 96, "split_kv"),      # phi-3 decode step
     (torch.bfloat16, 32, 32, 2048, 96, "tensor_core"),  # phi-3 prefill
     (torch.float32, 32, 32, 2048, 96, "tensor_core_f32"),
-    # what stays on the CUDA-core form in f32: D 8-32, and at most 16 rows
-    # per kv head (decode steps, short chunks)
+    # what stays on the CUDA-core form in f32: D 8-32; at most 16 rows per
+    # kv head (decode steps, short chunks) go to the f32 split-KV form
     (torch.float32, 4, 4, 2048, 16, "simt"),
     (torch.float32, 4, 4, 2048, 32, "simt"),
-    (torch.float32, 32, 8, 4, 128, "simt"),           # 16 rows per kv head
+    (torch.float32, 32, 8, 4, 128, "split_kv_f32"),   # 16 rows per kv head
     (torch.float32, 32, 8, 5, 128, "tensor_core_f32"),  # 20 rows
     (torch.float32, 32, 32, 17, 64, "tensor_core_f32"),  # 17 rows
     (torch.float32, 32, 8, 2048, 128, "tensor_core_f32"),  # llama3 GQA
+    (torch.float32, 32, 8, 1, 128, "split_kv_f32"),   # llama3 decode step
+    (torch.float32, 32, 32, 1, 96, "split_kv_f32"),   # phi-3 decode step
+    (torch.float32, 4, 4, 1, 16, "simt"),             # the reduced D 16
+    (torch.float32, 4, 4, 1, 8, "simt"),
+    (torch.float32, 4, 4, 1, 32, "simt"),
 ]
 
 
 # the first twelve keep the ids they had when f32 always took the
-# CUDA-core form ("simt" in dtype5's and dtype11's now names their old form)
+# CUDA-core form ("simt" in dtype5's, dtype6's and dtype11's now names their
+# old form; so does "f32-16-rows"'s)
 @pytest.mark.parametrize("dtype,h,hkv,sq,d,form", DISPATCH_CASES, ids=[
     "dtype0-32-32-1-64-split_kv", "dtype1-32-8-4-128-split_kv",
     "dtype2-32-8-5-128-tensor_core", "dtype3-32-32-17-64-tensor_core",
@@ -271,7 +277,8 @@ DISPATCH_CASES = [   # dtype, h, hkv, sq, d, form
     "dtype9-32-32-1-96-split_kv", "dtype10-32-32-2048-96-tensor_core",
     "dtype11-32-32-2048-96-simt",
     "f32-d16-prefill", "f32-d32-prefill", "f32-16-rows", "f32-20-rows",
-    "f32-17-rows", "f32-gqa-d128"])
+    "f32-17-rows", "f32-gqa-d128", "f32-decode-gqa-d128", "f32-decode-d96",
+    "f32-decode-d16", "f32-decode-d8", "f32-decode-d32"])
 def test_kernel_form_dispatch(dtype, h, hkv, sq, d, form):
     q = torch.zeros(1, sq, h, d, dtype=dtype).transpose(1, 2)
     k = torch.zeros(1, 40, hkv, d, dtype=dtype).transpose(1, 2)
@@ -291,17 +298,20 @@ def test_kernel_form_sends_unaligned_rows_to_the_cuda_core_form():
                          ids=["8-bytes-off", "4-bytes-off", "decode"])
 def test_kernel_form_sends_unaligned_f32_rows_to_the_cuda_core_form(pad, sq):
     """f32 rows are copied in 16-byte pieces (4 elements) by the
-    tensor-core f32 form: a row stride that is no multiple of 4 takes
-    the CUDA-core form, forward and backward, and so does an aligned
-    decode step."""
+    tensor-core and split-KV f32 forms: a row stride that is no multiple
+    of 4 takes the CUDA-core form, forward and backward.  Aligned, a
+    decode step takes the f32 split-KV form forward and the CUDA-core
+    form backward."""
     base = torch.zeros(2, sq, 4 * 64 + pad)
     q = base[:, :, :4 * 64].unflatten(-1, (4, 64)).transpose(1, 2)
     assert any(st % 4 for st in q.stride()[:3]) and q.stride(-1) == 1
     k = torch.zeros(2, 300, 4, 64).transpose(1, 2)
     assert fa.kernel_form(q, k, k) == fa.backward_form(q, k, k) == "simt"
-    want = "simt" if sq * 4 // 4 <= fa.SPLIT_MAX_ROWS else "tensor_core_f32"
-    assert fa.kernel_form(q.contiguous(), k, k) == want
-    assert fa.backward_form(q.contiguous(), k, k) == want
+    few = sq * 4 // 4 <= fa.SPLIT_MAX_ROWS
+    assert fa.kernel_form(q.contiguous(), k, k) == (
+        "split_kv_f32" if few else "tensor_core_f32")
+    assert fa.backward_form(q.contiguous(), k, k) == (
+        "simt" if few else "tensor_core_f32")
 
 
 def test_forms_count_nothing_on_the_cpu():
@@ -312,7 +322,7 @@ def test_forms_count_nothing_on_the_cpu():
     fa.flash_attention(q, k, v, causal=True, q_offset=10, kv_len=11)
     assert fa.LAUNCHES_BY_FORM == before
     assert set(before) == {"tensor_core", "split_kv", "tensor_core_f32",
-                           "simt"}
+                           "split_kv_f32", "simt"}
 
 
 @pytest.mark.parametrize("dtype,sq,d,form", [
@@ -323,13 +333,20 @@ def test_forms_count_nothing_on_the_cpu():
     (torch.float32, 4, 64, "simt"),               # 8 rows per kv head
     (torch.float32, 40, 16, "simt"),
     (torch.bfloat16, 40, 16, "simt"),
+    # f32 decode steps: the split-KV f32 forward writes no log-sum-exp
+    (torch.float32, 1, 64, "simt"),
+    (torch.float32, 1, 128, "simt"),
+    (torch.float32, 1, 8, "simt"),
+    (torch.float32, 1, 16, "simt"),
+    (torch.float32, 1, 32, "simt"),
 ])
 def test_backward_form_follows_the_forward(dtype, sq, d, form):
     """The backward's form after each forward form: bf16 tensor-core and
     split-KV forwards write the log-sum-exp the tensor-core backward
     reads, the f32 tensor-core forward the one its f32 backward reads;
-    every other call keeps the CUDA-core form both ways (on meta, where
-    ``keeps_lse`` is decided as on the card)."""
+    every other call (the f32 split-KV form's too) keeps the CUDA-core
+    form backward (on meta, where ``keeps_lse`` is decided as on the
+    card)."""
     q = torch.empty(2, 4, sq, d, dtype=dtype, device="meta")
     k = torch.empty(2, 2, 90, d, dtype=dtype, device="meta")
     assert fa.backward_form(q, k, k) == form
@@ -438,3 +455,61 @@ def test_wrapper_rejects_bad_windows():
                            window=4)
     fa.flash_attention(q, k, k, causal=False, q_offset=15, kv_len=20,
                        window=4)
+
+
+# --- the f32 split-KV form's decomposition (64-column splits) ----------------
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d", [
+    (2, 8, 2, 2, 384, 64),     # GQA 4:1, 8 rows a kv head
+    (1, 4, 4, 1, 256, 96),     # cross-attention decode at D 96
+], ids=["gqa", "non-causal-d96"])
+def test_split_kv_f32_model_matches_the_pallas_kernel(b, h, hkv, sq, sk, d):
+    """Without causality every row sees all Sk columns: the Pallas kernel
+    in interpret mode computes that function (Sk a multiple of its
+    128-column tile)."""
+    q, k, v = make(b, h, hkv, sq, sk, d, seed=sk + d)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = fa.split_kv_plain(*t, causal=False, columns=fa.SPLIT_COLUMNS_F32)
+    assert fa.split_range(sq, False, 0, sk, None, fa.SPLIT_COLUMNS_F32) == (
+        0, -(-sk // 64))
+    kernel = np.asarray(flash_ref(q, k, v, causal=False, interpret=True))
+    np.testing.assert_allclose(got.numpy(), kernel, atol=2e-5)
+
+
+@pytest.mark.parametrize("h,hkv,d,length,max_len", [
+    (8, 2, 128, 150, 200),     # GQA at D 128, a decode step
+    (4, 4, 64, 1999, 2010),    # kv_len 2000: 31 full splits and 16 columns
+    (4, 4, 96, 70, 80),        # D 96
+], ids=["gqa-d128", "kv2000", "d96"])
+def test_split_kv_f32_model_matches_the_reference_cache_masks(h, hkv, d,
+                                                              length,
+                                                              max_len):
+    (q, k, v), _ = window_case(1, h, hkv, d, length, 1, max_len, None,
+                               seed=length)
+    rep = h // hkv
+    kv_pos = np.broadcast_to(np.arange(max_len), (1, max_len))
+    qn, kn, vn = (a.transpose(1, 2).numpy() for a in (q, k, v))
+    want = _sdpa_dense(
+        jnp.asarray(qn), jnp.asarray(np.repeat(kn, rep, axis=2)),
+        jnp.asarray(np.repeat(vn, rep, axis=2)),
+        q_positions=jnp.asarray(np.full((1, 1), length)),
+        kv_positions=jnp.asarray(kv_pos),
+        kv_valid=jnp.asarray(kv_pos < length + 1), causal=True, window=None)
+    got = fa.split_kv_plain(q, k, v, causal=True, q_offset=length,
+                            kv_len=length + 1, columns=fa.SPLIT_COLUMNS_F32)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=2e-5)
+
+
+def test_split_kv_f32_model_with_a_window_matches_reference_sdpa():
+    """mixtral's decode step past its window, at 64-column splits: the
+    splits wholly below the band are left out."""
+    (q, k, v), want = window_case(2, 8, 2, 64, 1000, 1, 1010, 300, seed=3)
+    kw = dict(causal=True, q_offset=1000, kv_len=1001, window=300)
+    assert fa.split_range(1, True, 1000, 1001, 300,
+                          fa.SPLIT_COLUMNS_F32) == (10, 6)
+    got = fa.split_kv_plain(q, k, v, columns=fa.SPLIT_COLUMNS_F32, **kw)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, atol=2e-5)
+    assert fa.split_columns(torch.float32) == fa.SPLIT_COLUMNS_F32 == 64
+    assert fa.split_columns(torch.bfloat16) == fa.SPLIT_COLUMNS == 128

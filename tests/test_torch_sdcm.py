@@ -6,6 +6,7 @@ accounting.  Tests of the CUDA kernel itself are marked ``cuda``."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -324,4 +325,211 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     d = torch.from_numpy(distances(100, 3).astype(np.float32))
     assert torch.equal(kernel.sdcm_hit_probs(d, 8, 512),
                        kernel.sdcm_hit_probs_plain(d, 8, 512))
+    assert kernel.LAUNCHES == before
+
+
+# --- the per-reference forms: ragged records, and the mode-start sum --------
+
+PHIT_TOL = 1e-6       # kernel vs plain, P(h|D) (float32 output)
+
+
+def phit_mode_emulated(d, assoc: int, blocks: int, a_max: int,
+                       stirling_from: float = 64.0) -> torch.Tensor:
+    """``csrc/sdcm.cu::phit_mode`` step for step in torch float64: T at
+    the mode from logarithms (``log_binom``: Stirling's series of both
+    lgammas from D - k + 1 = ``stirling_from``, ln n! below), then one walk
+    up the terms' ratios from T_0 = 1, rescaled by 2^-600 past 2^600, and
+    the sum read against the mode's term; the kernel's rules around the
+    sum.  The card's log, exp and tables are not torch's lgamma, so it
+    gives the kernel's numerics, not its bits."""
+    d = torch.as_tensor(d, dtype=torch.float64)
+    a, b = float(assoc), float(blocks)
+    if a >= b:                     # fully associative: the stack rule
+        return torch.where(d < 0, 0.0, (d < b).to(d.dtype))
+    p = min(max(a / b, 1e-30), 1.0 - 1e-7)
+    dd = d.clamp_min(a)            # the sum's domain, D >= A
+    mode = torch.clamp(torch.floor((dd + 1.0) * p), max=a - 1.0)
+    x, y = dd + 1.0, dd - mode + 1.0
+    r = 1.0 / (x * y)
+    ix, iy = y * r, x * r
+    series = ((y - 0.5) * torch.log1p(mode * iy) + mode * torch.log(x) - mode
+              + (ix - iy) / 12.0 - (ix ** 3 - iy ** 3) / 360.0)
+    diff = torch.where(y < stirling_from,
+                       torch.lgamma(x) - torch.lgamma(y), series)
+    log_binom = diff - torch.lgamma(mode + 1.0)
+    t_mode = torch.exp(log_binom + mode * math.log(p)
+                       + (dd - mode) * math.log1p(-p))
+    q_up = p / (1.0 - p)
+    u, total, u_mode = (torch.ones_like(dd) for _ in range(3))
+    top = dd.clone()
+    for k in range(1, int(a)):
+        u = u * (top * (1.0 / k) * q_up)
+        total = total + u
+        top = top - 1.0
+        u_mode = torch.where(mode == k, u, u_mode)
+        big = u > 2.0 ** 600
+        u, total, u_mode = (torch.where(big, t * 2.0 ** -600, t)
+                            for t in (u, total, u_mode))
+    out = (t_mode * (total / u_mode)).clamp_max(1.0)
+    if a > a_max:
+        out = torch.full_like(out, math.nan)
+    out = torch.where(d <= a - 1.0, 1.0, out)
+    return torch.where(d < 0, 0.0, out)
+
+
+def chip_mix(n: int, seed: int) -> np.ndarray:
+    """``chip_smoke.py``'s ``[hit_probs]`` draw at a CPU size: a quarter
+    first touches, a quarter below 64, a quarter below 4,096 and a
+    quarter below 2,000,000."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 4, n)
+    return np.where(kind == 0, -1,
+                    np.where(kind == 1, rng.integers(0, 64, n),
+                             np.where(kind == 2, rng.integers(0, 4096, n),
+                                      rng.integers(0, 2_000_000, n)))
+                    ).astype(np.float32)
+
+
+def chip_geometries():
+    """``chip_smoke.py``'s ``geometries()``: every level of the Table-5
+    CPUs, gpu-sm and tpu-v5e, then (1, 512), (64, 4096), (8, 8)."""
+    from repro_torch.hw.targets import ALL_TARGETS
+
+    geoms = [(lvl.effective_assoc, lvl.num_lines)
+             for name in ("i7-5960X", "Xeon E5-2699 v4", "EPYC 7702P",
+                          "gpu-sm", "tpu-v5e")
+             for lvl in ALL_TARGETS[name].levels]
+    return list(dict.fromkeys(geoms + [(1, 512), (64, 4096), (8, 8)]))
+
+
+#: where a start at k = 0 underflows ((1 - p)^D < 1e-308: p near 1, or
+#: long D) or one at A - 1 does (p^(A-1) < 1e-308: tiny p), or both
+UNDERFLOW_GEOMS = [(63, 64), (64, 1 << 26), (16, 1 << 26), (1, 512),
+                   (8, 16), (64, 4096)]
+
+
+def underflow_stream() -> np.ndarray:
+    rng = np.random.default_rng(7)
+    return np.concatenate([
+        np.arange(60, 400), np.array([710, 720, 1000, 5000, 45_000,
+                                      1 << 20, 1 << 26, 1 << 28]),
+        rng.integers(0, 1 << 26, 200)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("stream", ["chip-mix", "underflow"])
+def test_mode_start_sum_matches_the_plain_version(stream):
+    """The per-reference kernel's sum from the mode (emulated in f64)
+    against the plain version's log-space sum, both cast to float32, at
+    every geometry ``[hit_probs]`` runs and at the underflow geometries."""
+    if stream == "chip-mix":
+        d, geoms = chip_mix(4096, 0), chip_geometries()
+    else:
+        d, geoms = underflow_stream(), UNDERFLOW_GEOMS
+    dt = torch.from_numpy(d)
+    worst = 0.0
+    for assoc, blocks in geoms:
+        a_max = kernel.a_max_bucket(assoc, blocks)
+        got = phit_mode_emulated(dt, assoc, blocks, a_max).float()
+        want = kernel.sdcm_hit_probs_plain(dt, assoc, blocks)
+        assert torch.isfinite(got).all()
+        worst = max(worst, float((got - want).abs().max()))
+    assert worst <= PHIT_TOL
+
+
+@pytest.mark.parametrize("assoc,blocks,pallas", [
+    (8, 4096, True), (20, 327680, True), (63, 64, True),
+    # the Pallas kernel's float32 log-space sum is 4.9e-4 off its own
+    # float64 oracle here (at D in the millions): the oracle alone
+    (64, 1 << 26, False)])
+def test_mode_start_sum_matches_the_reference(assoc, blocks, pallas):
+    """The same against the JAX package: its float64 oracle within
+    PHIT_TOL, and its Pallas kernel (float32, interpret mode) within the
+    2e-5 that the plain version is held to against it."""
+    d = np.concatenate([chip_mix(1024, assoc), underflow_stream()])
+    got = phit_mode_emulated(torch.from_numpy(d), assoc, blocks,
+                             kernel.a_max_bucket(assoc, blocks)).float()
+    oracle = ref_sdcm.phit_given_d_np(d.astype(np.int64), assoc, blocks)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=PHIT_TOL, rtol=0)
+    if pallas:
+        kern = np.asarray(ref_sdcm_hit_probs(
+            jnp.asarray(d), assoc=assoc, blocks=blocks, interpret=True))
+        np.testing.assert_allclose(got.numpy(), kern, atol=2e-5, rtol=0)
+
+
+def test_lgamma_alone_loses_the_bound_at_large_distances():
+    """Why ``log_binom`` switches to Stirling's series: at D ~ 1e8 the
+    lgamma difference in f64 moves P(h|D) by more than it does."""
+    d = torch.tensor([1e8 + 17.0, 3e8 + 5.0, 9e8 + 1.0], dtype=torch.float64)
+    for assoc in (16, 64):
+        blocks = int(assoc * 1.0e8)   # the mode near the middle of the sum
+        series = phit_mode_emulated(d, assoc, blocks, 64)
+        direct = phit_mode_emulated(d, assoc, blocks, 64,
+                                    stirling_from=math.inf)
+        want = kernel.phit_plain(d, torch.tensor(float(assoc)),
+                                 torch.tensor(float(blocks)), 64)
+        assert float((series - want).abs().max()) < 1e-9
+        assert float((direct - series).abs().max()) > 1e-9
+
+
+def prob_records(geoms, lengths, offsets):
+    """``sdcm_hit_probs_ragged``'s records: one per (geometry, slice),
+    outputs back to back."""
+    meta, at = [], 0
+    for (a, b), n, off in zip(geoms, lengths, offsets):
+        meta.append((off, n, a, b, kernel.a_max_bucket(a, b), at))
+        at += n
+    return torch.tensor(meta, dtype=torch.float64), at
+
+
+def test_ragged_hit_probs_plain_equals_the_per_geometry_plain_version():
+    """Bit for bit, each record's slice as ``sdcm_hit_probs_plain`` gives
+    it alone: set-associative, fully associative and the A = 1 rule, over
+    two slices of one stream (a sweep's PRD and CRD)."""
+    d = torch.from_numpy(np.concatenate([chip_mix(300, 1), chip_mix(200, 2)]))
+    geoms = [(8, 512), (16, 4096), (1, 64), (20, 327680), (64, 1024),
+             (4096, 4096), (8, 512)]
+    lengths = [300, 300, 300, 200, 200, 200, 200]
+    offsets = [0, 0, 0, 300, 300, 300, 300]
+    meta, size = prob_records(geoms, lengths, offsets)
+    got = kernel.sdcm_hit_probs_ragged(d, meta, size)
+    assert got.dtype == torch.float32 and got.shape == (size,)
+    at = 0
+    for (a, b), n, off in zip(geoms, lengths, offsets):
+        want = kernel.sdcm_hit_probs_plain(d[off:off + n], a, b)
+        assert torch.equal(got[at:at + n], want)
+        at += n
+
+
+def test_ragged_hit_probs_records_out_of_range():
+    d = torch.from_numpy(chip_mix(64, 3))
+    meta = torch.tensor([
+        (0, 10, 8, 512, 8, 0),       # fine
+        (60, 10, 8, 512, 8, 10),     # past the stream: NaN
+        (0, 10, 8, 512, 12, 20),     # no such bucket: NaN
+        (0, 10, 20, 512, 8, 30),     # A above its bucket: NaN past D 19
+        (0, 10, 8, 512, 8, 45),      # output past ``size``: not written
+    ], dtype=torch.float64)
+    got = kernel.sdcm_hit_probs_ragged(d, meta, 50)
+    assert torch.equal(got[:10], kernel.sdcm_hit_probs_plain(d[:10], 8, 512))
+    assert torch.isnan(got[10:30]).all() and torch.isnan(got[40:]).all()
+    torch.testing.assert_close(
+        got[30:40], kernel.sdcm_hit_probs_plain(d[:10], 20, 512, a_max=8),
+        rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[30:40]).any() and not torch.isnan(got[30:40]).all()
+
+
+def test_ragged_hit_probs_wrapper_rejects_malformed_inputs():
+    d = torch.zeros(8)
+    meta = torch.zeros(1, 6, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        kernel.sdcm_hit_probs_ragged(d.double(), meta, 8)
+    with pytest.raises(ValueError, match="meta must be 2-D"):
+        kernel.sdcm_hit_probs_ragged(d, meta[0], 8)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.sdcm_hit_probs_ragged(d, torch.zeros(1, 5,
+                                                    dtype=torch.float64), 8)
+    with pytest.raises(ValueError, match="size"):
+        kernel.sdcm_hit_probs_ragged(d, meta, -1)
+    before = dict(kernel.LAUNCHES)
+    kernel.sdcm_hit_probs_ragged(d, meta, 8)
     assert kernel.LAUNCHES == before

@@ -5,8 +5,8 @@ predict rows and within 1e-6 of the reference's, ``t_pred_s`` within rel
 1e-12 of the port's host ``ECMRuntimeModel`` and within the reference's
 float32 bound (rel 1e-5) of the reference's, ``inner="pallas"`` (B1's
 per-reference form; the reference's Pallas kernel in interpret mode)
-within 1e-6 of ``inner="vmap"``, one SDCM call per sweep, and no new
-launch shape on a repeat sweep."""
+within 1e-6 of ``inner="vmap"``, one SDCM call per sweep in either, and
+no new launch shape on a repeat sweep."""
 from __future__ import annotations
 
 import dataclasses
@@ -134,17 +134,22 @@ def test_pallas_inner_matches_vmap_inner(setup):
 
 
 def test_one_kernel_call_per_sweep(setup, monkeypatch):
-    """``inner="vmap"``: one ragged call per ``sweep_grid`` call (one per
-    profile group of a batch); ``inner="pallas"``: one per-reference call
-    per distinct set-associative (level, assoc, blocks)."""
+    """One SDCM call per ``sweep_grid`` call (one per profile group of a
+    batch): a ragged rates call for ``inner="vmap"``, a ragged
+    per-reference call for ``inner="pallas"`` (every distinct
+    set-associative (level, assoc, blocks) of the call in it; the
+    reference dispatches once per distinct (level, assoc, blocks))."""
     w, space, session, _ev, configs, _res = setup
-    calls = {"sdcm_rates_ragged": 0, "sdcm_hit_probs": 0}
+    calls = {"sdcm_rates_ragged": 0, "sdcm_hit_probs_ragged": 0}
+    records = []
 
     def counting(name):
         fn = getattr(batched, name)
 
         def wrapped(*args):
             calls[name] += 1
+            if name == "sdcm_hit_probs_ragged":
+                records.append(args[1].shape[0])
             return fn(*args)
         return wrapped
 
@@ -154,23 +159,29 @@ def test_one_kernel_call_per_sweep(setup, monkeypatch):
     ev = FusedSweepEvaluator(w, space, session=session,
                              counts=OpCounts(**COUNTS))
     ev.evaluate(configs)
-    assert calls == {"sdcm_rates_ragged": len(groups), "sdcm_hit_probs": 0}
+    assert calls == {"sdcm_rates_ragged": len(groups),
+                     "sdcm_hit_probs_ragged": 0}
     assert ev.stats.fused_dispatches == len(groups)
 
     calls.update(sdcm_rates_ragged=0)
     pe = FusedSweepEvaluator(w, space, session=session, inner="pallas",
                              counts=OpCounts(**COUNTS))
     pe.evaluate(configs)
-    want = 0
+    assert calls == {"sdcm_rates_ragged": 0,
+                     "sdcm_hit_probs_ragged": len(groups)}
+    assert pe.stats.fused_dispatches == len(groups)
+    # each call's records: the distinct set-associative (profile, assoc,
+    # blocks) of its group
+    want = []
     for line, cores, strategy in groups:
         geom = pe._geometry([c for c in configs if (c.line_size, c.cores,
                              c.strategy) == (line, cores, strategy)],
                             line, cores)
-        for lv in range(geom.assoc.shape[1]):
-            want += len({(a, b) for a, b in zip(geom.assoc[:, lv],
-                                                geom.blocks[:, lv]) if a < b})
-    assert calls == {"sdcm_rates_ragged": 0, "sdcm_hit_probs": want}
-    assert pe.stats.fused_dispatches == want
+        want.append(len({(lv >= pe.shared_idx, a, b)
+                         for lv in range(geom.assoc.shape[1])
+                         for a, b in zip(geom.assoc[:, lv],
+                                         geom.blocks[:, lv]) if a < b}))
+    assert sorted(records) == sorted(want) and min(want) > 1
 
 
 def test_repeat_sweeps_add_no_shape(setup):
