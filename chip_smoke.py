@@ -301,7 +301,7 @@ with a non-zero exit:
     A line that syncs more than once in one call is a sync in a loop:
     the TS lint rules must report it (flagged or suppressed), or it is
     in ``KNOWN_MISSED`` with the reason they cannot see it; never
-    ``models/moe.py:193`` and never a site of a predict path.
+    ``models/moe.py:195`` and never a site of a predict path.
 
 The backward kernels' records carry ``launches_by_path`` with the
 training path, the resumed steps and ``lint_runtime``.
@@ -3005,8 +3005,10 @@ def _top(kernels, n: int = 8) -> list:
 def device_breakdown(fn, ranges: tuple = ()) -> dict:
     """Wall time of ``fn`` (ending in a synchronise), the device's busy
     time in it (the sum of every kernel's and copy's device time among a
-    ``torch.profiler`` trace's raw events; one stream, so no overlap) and
-    the idle share, with the kernels that take the most device time.
+    ``torch.profiler`` trace's raw events, not the device-side spans of
+    its ranges, the program's layer spans among them; one stream, so no
+    overlap) and the idle share, with the kernels that take the most
+    device time.
     The raw events are read because ``key_averages()`` over a training
     step's ~250,000 events takes minutes.  The profiler adds host time to
     every launch, so the idle share is an upper bound.  With ``ranges``
@@ -3019,6 +3021,8 @@ def device_breakdown(fn, ranges: tuple = ()) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.trace import _annotation
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3029,8 +3033,8 @@ def device_breakdown(fn, ranges: tuple = ()) -> dict:
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     spans = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
-             for e in events if e.name() in ranges}
-    kernels = [e for e in events if e.name() not in ranges]
+             for e in events if _annotation(e) and e.name() in ranges}
+    kernels = [e for e in events if not _annotation(e)]
     busy_ms = sum(e.duration_ns() for e in kernels) / 1e6
     if busy_ms <= 0:
         fail("the profiler saw no device time")
@@ -4516,9 +4520,9 @@ SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
 BWD_WRAPPERS = ("src/repro_torch/kernels/flash_attention/flash_attention.py",
                 "src/repro_torch/kernels/ssd_scan/ssd_scan.py")
 # repeated sync sites that the TS rules cannot see, each with the reason
-# (also in ROADMAP).  Never moe.py:193 and never a site of a predict path.
+# (also in ROADMAP).  Never moe.py:195 and never a site of a predict path.
 KNOWN_MISSED: dict[str, str] = {}
-NEVER_MISSED = ("src/repro_torch/models/moe.py:193",)
+NEVER_MISSED = ("src/repro_torch/models/moe.py:195",)
 SYNC_WARNING = "called a synchronizing CUDA operation"  # the debugger's
 
 

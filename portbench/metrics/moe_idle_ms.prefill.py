@@ -1,0 +1,7 @@
+"""moe_idle_ms.prefill: device-idle ms a request while the host is
+inside the program's ``layer.moe`` spans (``spans.idle_ms``)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "layer.moe")

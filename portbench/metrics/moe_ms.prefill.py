@@ -1,0 +1,7 @@
+"""moe_ms.prefill: device ms a request of the kernels launched inside
+the program's ``layer.moe`` spans (``spans.device_ms``)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "layer.moe")

@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.reduced import reduced as reduce_spec
 from repro_torch.device import resolve_device
+from repro_torch.runtime import tracing
 
 DEFAULT_ARCH = "llama3-8b"
 
@@ -101,11 +102,17 @@ def source_inputs(spec, cfg, rng: np.random.Generator, batch: int,
 
 def prefill_batch(cfg, tokens, sources: dict, device) -> dict:
     """The family's prefill batch on ``device``: ``tokens`` (numpy or a
-    tensor of ids) and the ``sources`` in the model's dtype."""
+    tensor of ids) and the ``sources`` in the model's dtype.  Each one
+    copied from the host to the card is a pageable copy, one sync there
+    (counted as ``host_sync.prefill_batch``)."""
     batch = {"tokens": torch.as_tensor(tokens).long().to(device)}
     for name, arr in sources.items():
         batch[name] = torch.as_tensor(arr).to(device=device,
                                               dtype=config_dtype(cfg))
+    if tracing.enabled() and batch["tokens"].is_cuda:
+        tracing.count("host_sync.prefill_batch", sum(
+            not (torch.is_tensor(a) and a.is_cuda)
+            for a in (tokens, *sources.values())))
     return batch
 
 

@@ -31,6 +31,9 @@ from typing import Callable, NamedTuple
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec, hybrid, multimodal, ssm
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime.tracing import spanned
+
+_prefill = spanned("model.prefill")     # every family's prefill
 
 
 class Family(NamedTuple):
@@ -83,9 +86,9 @@ TRANSFORMER = Family(
     name="transformer",
     init=tfm.init,
     init_caches=tfm.init_caches,
-    prefill=lambda p, batch, cfg, caches: tfm.prefill(
+    prefill=_prefill(lambda p, batch, cfg, caches: tfm.prefill(
         p, batch["tokens"], cfg, caches
-    ),
+    )),
     decode_step=lambda p, batch, cfg, caches, length: tfm.decode_step(
         p, batch["token"], cfg, caches, length
     ),
@@ -97,9 +100,9 @@ SSM = Family(
     name="ssm",
     init=ssm.init,
     init_caches=ssm.init_caches,
-    prefill=lambda p, batch, cfg, caches: ssm.prefill(
+    prefill=_prefill(lambda p, batch, cfg, caches: ssm.prefill(
         p, batch["tokens"], cfg, caches
-    ),
+    )),
     decode_step=lambda p, batch, cfg, caches, length: ssm.decode_step(
         p, batch["token"], cfg, caches, length
     ),
@@ -111,9 +114,9 @@ HYBRID = Family(
     name="hybrid",
     init=hybrid.init,
     init_caches=hybrid.init_caches,
-    prefill=lambda p, batch, cfg, caches: hybrid.prefill(
+    prefill=_prefill(lambda p, batch, cfg, caches: hybrid.prefill(
         p, batch["tokens"], cfg, caches
-    ),
+    )),
     decode_step=lambda p, batch, cfg, caches, length: hybrid.decode_step(
         p, batch["token"], cfg, caches, length
     ),
@@ -125,9 +128,9 @@ ENCDEC = Family(
     name="encdec",
     init=encdec.init,
     init_caches=encdec.init_caches,
-    prefill=lambda p, batch, cfg, caches: encdec.prefill(
+    prefill=_prefill(lambda p, batch, cfg, caches: encdec.prefill(
         p, batch["frames"], batch["tokens"], cfg, caches
-    ),
+    )),
     decode_step=lambda p, batch, cfg, caches, length: encdec.decode_step(
         p, batch["token"], cfg, caches, length
     ),
@@ -139,9 +142,9 @@ VLM = Family(
     name="vlm",
     init=multimodal.init,
     init_caches=multimodal.init_caches,
-    prefill=lambda p, batch, cfg, caches: multimodal.prefill(
+    prefill=_prefill(lambda p, batch, cfg, caches: multimodal.prefill(
         p, batch["patches"], batch["tokens"], cfg, caches
-    ),
+    )),
     decode_step=lambda p, batch, cfg, caches, length: multimodal.decode_step(
         p, batch["token"], cfg, caches, length
     ),

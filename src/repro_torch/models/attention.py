@@ -37,6 +37,7 @@ from repro_torch.dist.sharding import (
 )
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import apply_rope, fan_in_normal, param
+from repro_torch.runtime.tracing import spanned
 
 
 class KVCache(NamedTuple):
@@ -81,6 +82,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
+@spanned("layer.attention")
 def gqa_attention(
     params: Attention,
     x: torch.Tensor,                 # [B, S, D]

@@ -18,6 +18,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.sharding import lookup_rows
+from repro_torch.runtime import tracing
 
 
 # --- initializers ------------------------------------------------------------
@@ -156,6 +157,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
     freqs = torch.from_numpy(rope_frequencies(x.shape[-1], theta)).to(x.device)  # repro-lint: disable=TS103 -- ROADMAP "Decode is host-bound": RoPE frequencies copied per attention call
+    tracing.count("host_sync.rope_freqs", int(x.is_cuda))  # pageable copy
     ang = positions[..., :, None].float() * freqs        # [..., S, hd/2]
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

@@ -42,6 +42,7 @@ from repro_torch.dist.sharding import (
     pspec_for, shard, shard_index,
 )
 from repro_torch.models.layers import fan_in_normal, param
+from repro_torch.runtime import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +141,7 @@ def uniform_counts(tokens: int, cfg: MoEConfig, drop: bool,
     return counts
 
 
+@tracing.spanned("layer.moe")
 def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
               drop: bool = True):
     """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  ``drop``
@@ -191,6 +193,13 @@ def _experts(xt, gate, idx, cfg: MoEConfig, drop: bool, group: int,
     weight = gate.to(xt.dtype).float().flatten()[pairs]
     if not meta:
         counts = torch.bincount(experts, minlength=last - first).tolist()  # repro-lint: disable=TS102 -- ROADMAP "MoE decode reads the expert counts on the host once per layer"
+        if tracing.enabled():
+            # on the card bincount reads its input's least and greatest
+            # value on the host, and tolist the counts: three syncs
+            tracing.count("host_sync.moe_counts", 3 if xt.is_cuda else 0)
+            if sum(counts):
+                tracing.count("moe.expert_load",
+                              max(counts) * len(counts) / sum(counts))
     y = torch.zeros(t, d, dtype=torch.float32, device=xt.device)
     start = 0
     for ex, n in enumerate(counts):

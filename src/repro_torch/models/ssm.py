@@ -35,6 +35,7 @@ from repro_torch.dist.sharding import (
 from repro_torch.kernels import ssd_scan as scan
 from repro_torch.models import layers as L
 from repro_torch.models.layers import fan_in_normal, param
+from repro_torch.runtime.tracing import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +237,7 @@ def _scan(x, la, b, c, h0):
 # --- block apply --------------------------------------------------------------
 
 
+@spanned("layer.mamba2")
 def block_apply(cfg: Mamba2Config, params: Mamba2Block, x, *,
                 cache: SSMCache | None):
     """Pre-norm Mamba2 block; returns (x, new_cache)."""

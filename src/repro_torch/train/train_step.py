@@ -10,9 +10,9 @@ require grad); ``opt_state`` the optimizer's state by leaf
 the model's device.  ``step_fn(state, batch)`` returns the next state
 (the same model, its parameters updated) and the metrics ``loss``,
 ``grad_norm`` (before clipping) and ``param_norm`` (after the update),
-f32 scalar tensors.  The step's parts run inside ``torch.profiler``
-ranges named in :data:`RANGES`, so a profile of a step splits its device
-time into the forward, the backward and the optimizer.
+f32 scalar tensors.  The step's parts are spans named in :data:`RANGES`
+(:mod:`repro_torch.runtime.tracing`), so a profile of a step splits its
+device time into the forward, the backward and the optimizer.
 """
 from __future__ import annotations
 
@@ -20,9 +20,9 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from repro_torch.dist.sharding import is_dtensor, like, microbatches
+from repro_torch.runtime.tracing import span
 from repro_torch.train.optimizer import (
     Optimizer, leaf_tensors, param_leaves, stack_leaf,
 )
@@ -77,9 +77,9 @@ def build_train_step(
     the accumulators (arctic-480b's memory-fit knob)."""
 
     def value_and_grad(model: nn.Module, params: list, batch: dict):
-        with record_function(RANGES[0]):
+        with span(RANGES[0]):
             loss = loss_fn(model, batch)
-        with record_function(RANGES[1]):
+        with span(RANGES[1]):
             return loss, torch.autograd.grad(loss, params)
 
     def compute_grads(model: nn.Module, batch: dict):
@@ -111,7 +111,7 @@ def build_train_step(
         model = state.params
         names = [n for n, _ in model.named_parameters()]
         loss, grads = compute_grads(model, batch)
-        with torch.no_grad(), record_function(RANGES[2]):
+        with torch.no_grad(), span(RANGES[2]):
             grads = [like(g, p) for g, p in zip(grads, model.parameters())]
             gnorm = global_norm(grads)
             grads = dict(zip(names, grads))

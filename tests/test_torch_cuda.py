@@ -1241,7 +1241,7 @@ def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
     on the card under ``set_sync_debug_mode("warn")``: every port line
     that synchronises more than once in the call is a site the TS rules
     report (flagged or suppressed), the MoE's per-layer expert counts
-    (``models/moe.py:193``) among them."""
+    (``models/moe.py:195``) among them."""
     import traceback
     import warnings
     from pathlib import Path
@@ -1283,7 +1283,7 @@ def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
         path = root / rel
         ctx = ModuleContext(path, rel, path.read_text())
         ts |= {(rel, ln) for ln in torch_sync.sync_lines(ctx)}
-    assert ("src/repro_torch/models/moe.py", 193) in repeated
+    assert ("src/repro_torch/models/moe.py", 195) in repeated
     assert repeated <= ts, sorted(repeated - ts)
 
 

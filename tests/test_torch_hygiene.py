@@ -70,7 +70,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.lint.__main__, repro_torch.launch.mesh, "
         "repro_torch.launch.steps, repro_torch.launch.dryrun, "
         "repro_torch.launch.train, repro_torch.runtime.checkpoint, "
-        "repro_torch.runtime.elastic\n"
+        "repro_torch.runtime.elastic, repro_torch.runtime.tracing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

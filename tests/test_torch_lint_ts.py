@@ -53,7 +53,7 @@ MOE_SHAPE = """
 
 
 @pytest.mark.parametrize("source,want", [
-    # models/moe.py:193's shape: the helper runs once per layer
+    # models/moe.py:195's shape: the helper runs once per layer
     (MOE_SHAPE, [("TS102", 4)]),
     ("""
         import torch
@@ -342,13 +342,13 @@ def test_sync_lines_cover_a_call_that_spans_lines(tmp_path):
 
 
 def test_the_port_moe_readback_is_reported():
-    """``models/moe.py:193`` (the per-layer expert counts, the line of
+    """``models/moe.py:195`` (the per-layer expert counts, the line of
     ``torch.bincount(...).tolist()``): TS reports it, suppressed with the
     ROADMAP item that will remove it."""
     path = PORT / "models" / "moe.py"
     rel = path.relative_to(ROOT).as_posix()
     ctx = ModuleContext(path, rel, path.read_text())
-    line = 193
+    line = 195
     assert ".tolist()" in ctx.line_text(line)
     hits = [f for f in torch_sync.analyze(ctx) if f.line == line]
     assert [f.rule_id for f in hits] == ["TS102"]
