@@ -191,12 +191,29 @@ with a non-zero exit:
     B4 launches exactly 32 tensor-core and 992 split-KV; the same
     profile, teacher-forced check (bf16 and f32) and, at 8 layers in
     f32, the decode consistency.
+14b. ``[moe]``: the MoE layer's expert pipeline (``kernels/moe``) at
+    mixtral's widths (8 experts, d 4,096, f 14,336) and the mixtral
+    benchmark cells' routing, seeded (4,480 and 3,520 tokens, expert load
+    1.71 and 1.46): the dispatch and the combine bit for bit against
+    their plain versions, both grouped GEMMs within bf16 rounding of
+    theirs, the whole pipeline within 2e-2 of the host loop; the two GEMMs
+    timed (``ms``, ``graph_ms``) beside their bound (6·d·f a pair at 989
+    TFLOP/s), the plain versions, the per-expert ``torch.matmul`` calls of
+    the same products (``library_ms``), the whole pipeline and the loop;
+    ``[moe_decode]``: the pipeline and the loop at a decode step's 2 and
+    16 tokens.  ``python3 chip_smoke.py --phase moe`` builds the MoE library alone and
+    runs it.
 15. The mixtral-8x7b serve path at full widths and 16 of its 32 layers
     (the whole model does not fit one card): batch 2, prompt 6,144 past
     the 4,096-token window, 16 tokens; B4 launches exactly 16 tensor-core
-    and 240 split-KV, every one windowed; the profile, the bf16
-    teacher-forced check, and at 2 layers in f32 the decode consistency
-    over 4,200 tokens split at 4,190.
+    and 240 split-KV, every one windowed; the MoE pipeline exactly 256
+    dispatches, 512 grouped GEMMs and 256 combines (16 layers, the
+    prefill and 15 decode steps); ``[mixtral_decode_vs_loop]``, the
+    decode steps' ms with the MoE layers on the pipeline and on the host
+    loop, two rounds each; the profile, the bf16
+    teacher-forced check (the MoE layers on their grouped kernels against
+    the pipeline's plain version), and at 2 layers in f32 the decode
+    consistency over 4,200 tokens split at 4,190.
 16. The seamless-m4t-medium serve path at full width and depth (12
     encoder and 12 decoder layers, 977,860,608 parameters, bf16): batch
     4, 2,048 seeded source frames, a 2,048-token prompt, 32 tokens; B4
@@ -297,11 +314,12 @@ with a non-zero exit:
     decode steps (``serve.serve``, batch 2) of mixtral-8x7b and
     llama3-8b at full width and 2 layers and zamba2-1.2b at 8 (B4, B5),
     and zamba2-1.2b's loss and gradient at 8 layers (B4, B5 and their
-    backward kernels, whose wrappers may not sync at all).
+    backward kernels, whose wrappers may not sync at all); mixtral's
+    MoE layers on the grouped GEMM.
     A line that syncs more than once in one call is a sync in a loop:
     the TS lint rules must report it (flagged or suppressed), or it is
     in ``KNOWN_MISSED`` with the reason they cannot see it; never
-    ``models/moe.py:195`` and never a site of a predict path.
+    ``models/moe.py:210`` and never a site of a predict path.
 
 The backward kernels' records carry ``launches_by_path`` with the
 training path, the resumed steps and ``lint_runtime``.
@@ -309,7 +327,9 @@ B4's and B5's kernel records carry ``launches_by_path`` with the
 training path (``zamba2-1.2b/train``), the resumed steps
 (``zamba2-1.2b/resume``) and the pod partition
 (``pod/zamba2-1.2b/prefill_32k``), B1's with ``model_traces/train``,
-and B1's, B2's (moments), B4's and B5's with ``lint_runtime``.
+and B1's, B2's (moments), B4's and B5's with ``lint_runtime``.  The
+grouped GEMM's record (``moe_gemm``) carries the mixtral serve path's
+launches and ``lint_runtime``'s.
 Every kernel's ``ms`` times 20 calls issued one by one (what a caller
 pays, host work included), its ``graph_ms`` the same calls replayed from
 a CUDA graph (the device time).  Every predict in 7-9b and 9d must make
@@ -479,7 +499,9 @@ def geometries():
     return list(dict.fromkeys(geoms))
 
 
-def phase_device():
+def phase_device(names=None):
+    """The card, and the build of the libraries ``names`` (every one by
+    default)."""
     from repro_torch.kernels import build
 
     smi = nvidia_smi()
@@ -487,7 +509,7 @@ def phase_device():
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    report = build.build_all()
+    report = build.build_all(names)
     wall = time.perf_counter() - t0
     for name, rec in report.items():
         regs = [ln.strip() for ln in rec["log"].splitlines()
@@ -976,11 +998,13 @@ def phase_streaming_distances(n: int = 1 << 20, seed: int = 4):
 
 
 def launch_counts() -> tuple:
-    from repro_torch.kernels import flash_attention, reuse_hist, sdcm, ssd_scan
+    from repro_torch.kernels import (flash_attention, moe, reuse_hist, sdcm,
+                                     ssd_scan)
 
     return (sdcm.LAUNCHES, reuse_hist.LAUNCHES, flash_attention.LAUNCHES,
             flash_attention.LAUNCHES_BY_FORM,
-            flash_attention.LAUNCHES_BY_BWD_FORM, ssd_scan.LAUNCHES)
+            flash_attention.LAUNCHES_BY_BWD_FORM, ssd_scan.LAUNCHES,
+            moe.LAUNCHES)
 
 
 def reset_counts():
@@ -2790,28 +2814,34 @@ def sdpa_attention(q, k, v, *, causal: bool, scale=None, q_offset: int = 0,
 
 class plain_kernels:
     """Inside ``with plain_kernels():`` the models call B4's and B5's
-    plain versions on the card instead of the kernels; ``flash`` and
-    ``scan`` pick each one ("plain", "kernel", or for B4 "sdpa")."""
+    plain versions on the card instead of the kernels, and the MoE
+    layers' grouped pipeline its plain version; ``flash``, ``scan`` and
+    ``moe`` pick each one ("plain", "kernel", or for B4 "sdpa")."""
 
-    def __init__(self, flash: str = "plain", scan: str = "plain"):
-        self.flash, self.scan = flash, scan
+    def __init__(self, flash: str = "plain", scan: str = "plain",
+                 moe: str = "plain"):
+        self.flash, self.scan, self.moe = flash, scan, moe
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import moe
         from repro_torch.kernels import ssd_scan as scan
 
-        self.saved = (fa.flash_attention, scan.ssd_scan)
+        self.saved = (fa.flash_attention, scan.ssd_scan, moe.experts)
         fa.flash_attention = {"plain": fa.flash_attention_plain,
                               "kernel": fa.flash_attention,
                               "sdpa": sdpa_attention}[self.flash]
         scan.ssd_scan = {"plain": scan.ssd_scan_plain,
                          "kernel": scan.ssd_scan}[self.scan]
+        moe.experts = {"plain": moe.experts_plain,
+                       "kernel": moe.experts}[self.moe]
 
     def __exit__(self, *exc):
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import moe
         from repro_torch.kernels import ssd_scan as scan
 
-        fa.flash_attention, scan.ssd_scan = self.saved
+        fa.flash_attention, scan.ssd_scan, moe.experts = self.saved
 
 
 def teacher_forced(spec, cfg, model, res) -> torch.Tensor:
@@ -2889,9 +2919,10 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
     token's whole MLP; the kernel path's own routing is reported beside
     it, ungated (``free_routing``: its distance and flipped choices).  In
     bf16 with attention, ``spread`` also gives the distance from the
-    plain path with one kernel at a time, and with SDPA for B4 (a
+    plain path with one kernel at a time (the MoE pipeline's with MoE
+    layers), and with SDPA for B4 and every other version plain (a
     library's rounding: how far any other bf16 attention lands); the
-    gate reads only the path with both kernels."""
+    gate reads only the path with every kernel."""
     from repro_torch.launch import serve
 
     def forced(routes, **kw):
@@ -2912,7 +2943,8 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
         with plain_kernels(), moe_routing(record=routes):
             want = teacher_forced(spec, cfg_dt, model, res)
         reset_counts()
-        got, routing = forced(routes, flash="kernel", scan="kernel")
+        got, routing = forced(routes, flash="kernel", scan="kernel",
+                              moe="kernel")
         launches = read_counts()["launches"]
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             fail(f"{tag} {dt}: non-finite logits")
@@ -2944,6 +2976,8 @@ def kernel_vs_plain_logits(spec, cfg, model, res, tag: str,
             if spec.family_name == "hybrid":
                 variants += [("b4_kernel_only", dict(flash="kernel")),
                              ("b5_kernel_only", dict(scan="kernel"))]
+            if routes:
+                variants.append(("moe_kernel_only", dict(moe="kernel")))
             for name, kw in variants:
                 other, _ = forced(routes, **kw)
                 rec["spread"][name] = float(
@@ -3204,19 +3238,30 @@ def phase_mixtral_serve() -> dict:
     prompt 6,144 past the 4,096-token window (every prefill row past
     4,096 and every decode step cut by it); returns its B4 launches.
     The f32 kernel-vs-plain pass would need 94 GB of weights; the f32
-    check is the decode consistency at 2 layers, through the window."""
+    check is the decode consistency at 2 layers, through the window.
+    Each MoE layer of the prefill and of every decode step runs on the
+    grouped pipeline: one dispatch, two grouped GEMMs and one combine.
+    ``mixtral_decode_vs_loop`` times the decode steps with the MoE
+    layers on the grouped pipeline and on the host loop that it
+    replaced (``models/moe.py::_experts``), alternately."""
     layers = MIXTRAL_LAYERS
     spec, model, res, rec = serve_path(
         "mixtral-8x7b", MIXTRAL_GEN,
         {"flash_attention": layers * MIXTRAL_GEN, "tensor_core": layers,
          "split_kv": layers * (MIXTRAL_GEN - 1), "tensor_core_f32": 0,
-         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0},
+         "split_kv_f32": 0, "simt": 0, "ssd_scan": 0,
+         "moe_dispatch": layers * MIXTRAL_GEN,
+         "moe_gemm": 2 * layers * MIXTRAL_GEN,
+         "moe_combine": layers * MIXTRAL_GEN},
         batch=MIXTRAL_BATCH, prompt_len=MIXTRAL_PROMPT, layers=layers)
     if spec.config.window != MIXTRAL_WINDOW:
         fail(f"mixtral's window is {spec.config.window}")
     rec["reduced"] = {"layers": f"{layers} of 32: the whole model is 93 GB "
                                 "in bf16, one card holds 80 GB"}
     line("mixtral_serve", **rec)
+    line("mixtral_decode_vs_loop", **decode_vs_loop(
+        "mixtral-8x7b", model, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN,
+        layers))
     line("mixtral_profile", **profile_serve(spec, model, res))
     line("mixtral_serve_vs_plain", **kernel_vs_plain_logits(
         spec, spec.config, model, res, "mixtral serve", f32=False))
@@ -3226,6 +3271,224 @@ def phase_mixtral_serve() -> dict:
          **decode_consistency(spec, 2, 4200, 4190))
     torch.cuda.empty_cache()
     return rec["launches"]
+
+
+class loop_moe:
+    """Inside ``with loop_moe():`` every MoE layer runs the host loop
+    (``models/moe.py::_experts``), as before the grouped pipeline."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved = moe.grouped_path
+        moe.grouped_path = lambda *a: False
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.grouped_path = self.saved
+
+
+def decode_vs_loop(arch: str, model, batch: int, prompt_len: int, gen: int,
+                   layers: int, rounds: int = 2) -> dict:
+    """The serve path's decode steps (ms a step) with the MoE layers on
+    the grouped pipeline and on the host loop, ``rounds`` times each,
+    the loop first in each round; and the first tokens of each, which
+    the two paths' roundings may part."""
+    from repro_torch.launch import serve
+
+    def run():
+        return serve.serve(arch, batch=batch, prompt_len=prompt_len,
+                           gen=gen, seed=0, device="cuda", layers=layers,
+                           model=model)
+
+    out = {"grouped_ms_per_step": [], "loop_ms_per_step": []}
+    for _ in range(rounds):
+        with loop_moe():
+            loop = run()
+        grouped = run()
+        out["loop_ms_per_step"].append(loop["decode_ms_per_step"])
+        out["grouped_ms_per_step"].append(grouped["decode_ms_per_step"])
+    out["loop_prefill_s"], out["grouped_prefill_s"] = (
+        loop["prefill_s"], grouped["prefill_s"])
+    out["same_first_tokens"] = bool(
+        (loop["tokens"][:, :4] == grouped["tokens"][:, :4]).all())
+    return dict(arch=arch, batch=batch, prompt_len=prompt_len, gen=gen,
+                layers=layers, **out)
+
+
+#: The benchmark's mixtral cells' routing: tokens a layer (the long mix's
+#: mean prompt, a chat batch of 4 at the mean length) and the weight of
+#: expert 0 in the seeded draw of each token's two experts (the others
+#: 1).  At the phase's seed that gives expert loads of 1.71 (long) and
+#: 1.46 (chat), near the cells' traced 1.63 and 1.42.
+MOE_CELLS = {"prefill-long": (4480, 2.0), "prefill-chat": (3520, 1.6)}
+#: Decode steps' tokens a layer (the serve path's batch, and a batch of
+#: 16, whose 32 pairs spread over the experts), uniform routing: the
+#: pipeline against the host loop it replaced.
+MOE_DECODE = (2, 16)
+MOE_D, MOE_F, MOE_E = 4096, 14336, 8
+
+
+def moe_library_loop(xs, h, bounds, wi, wg, wo):
+    """The per-expert ``torch.matmul`` calls of the same three products
+    (the library yardstick; the offsets read beforehand)."""
+    for ex, (a, b) in enumerate(zip(bounds, bounds[1:])):
+        if b > a:
+            xs[a:b] @ wg[ex]
+            xs[a:b] @ wi[ex]
+            h[a:b] @ wo[ex]
+
+
+def phase_moe(seed: int = 11) -> dict:
+    """``[moe]``: the MoE layer's expert pipeline (``kernels/moe``) at
+    mixtral's widths and the mixtral cells' routing, seeded: the two
+    grouped GEMMs against their plain versions (bf16 rounding, the
+    test suite's bound), the dispatch and the combine bit for bit, the
+    whole pipeline against the host loop (``models/moe.py::_experts``,
+    bf16).  Times
+    (20 calls, eager and replayed): the two grouped GEMMs (``ms``,
+    ``graph_ms``) beside their bound (6·d·f a pair at 989 TFLOP/s), the
+    plain versions (``plain_ms``, f32 sums), the per-expert
+    ``torch.matmul`` calls of the same products (``library_ms``,
+    ``library_graph_ms``), the whole pipeline and the loop it replaces.
+    ``[moe_decode]``: the whole pipeline against the loop at a decode
+    step's tokens (:data:`MOE_DECODE`), beside the bound of reading the
+    experts' weights that the step touches.  The record's launches are
+    the main paths', which ``main`` fills in."""
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                / shape[-2] ** 0.5).bfloat16()
+
+    wi, wg, wo = (draw(MOE_E, MOE_D, MOE_F), draw(MOE_E, MOE_D, MOE_F),
+                  draw(MOE_E, MOE_F, MOE_D))
+    cfg = moe.MoEConfig(num_experts=MOE_E, top_k=2)
+    out = {}
+    for cell, (tokens, hot) in MOE_CELLS.items():
+        cpu = torch.Generator().manual_seed(seed + tokens)
+        p = torch.ones(MOE_E)
+        p[0] = hot
+        idx = torch.multinomial(p.expand(tokens, MOE_E), 2,
+                                generator=cpu).cuda()
+        gate = torch.rand(tokens, 2, generator=cpu) + 0.1
+        gate = (gate / gate.sum(-1, keepdim=True)).cuda()
+        xt = torch.randn(tokens, MOE_D, generator=g,
+                         device="cuda").bfloat16()
+        offs, slot, xs = kmoe.dispatch(xt, idx, MOE_E)
+        want = kmoe.dispatch_plain(xt, idx, MOE_E)
+        if not all(torch.equal(a, b) for a, b in zip((offs, slot, xs), want)):
+            fail(f"moe {cell}: the dispatch differs from its plain version")
+        h = kmoe.grouped_swiglu(xs, offs, wg, wi)
+        yp = kmoe.grouped_down(h, offs, wo)
+        errs = {}
+        for name, got, ref in (
+                ("h", h, kmoe.grouped_swiglu_plain(xs, offs, wg, wi)),
+                ("yp", yp, kmoe.grouped_down_plain(h, offs, wo))):
+            excess = (got.float() - ref.float()).abs() - 2 ** -7 * \
+                ref.float().abs() - 1e-4 * float(ref.float().abs().max())
+            errs[name] = float((got.float() - ref.float()).abs().max())
+            if float(excess.max()) > 0:
+                fail(f"moe {cell}: grouped GEMM {name} differs from its "
+                     f"plain version beyond bf16 rounding ({errs[name]})")
+        y = kmoe.combine(yp, slot, gate, idx)
+        if not torch.equal(y, kmoe.combine_plain(yp, slot, gate, idx)):
+            fail(f"moe {cell}: the combine differs from its plain version")
+        loop = moe._experts(xt, gate, idx, cfg, False, tokens, 0,
+                            (wi, wg, wo)).bfloat16()
+        rel = float((y.float() - loop.float()).abs().max()) / float(
+            loop.float().abs().max())
+        if not rel <= 2e-2:
+            fail(f"moe {cell}: the pipeline is {rel} from the loop")
+        bounds = offs.tolist()
+        counts = np.diff(bounds)
+        pairs = tokens * 2
+        ops = kmoe.gemm_ops(pairs, MOE_D, MOE_F)
+        reset_counts()
+        gemms = lambda: kmoe.grouped_down(  # noqa: E731
+            kmoe.grouped_swiglu(xs, offs, wg, wi), offs, wo)
+        ms = cuda_ms(gemms)
+        launches = read_counts()["launches"]["moe_gemm"]
+        if launches != 2 * 22:
+            fail(f"moe {cell}: {launches} GEMM launches for 22 calls")
+        library = lambda: moe_library_loop(  # noqa: E731
+            xs, h, bounds, wi, wg, wo)
+        rec = dict(
+            cell=cell, tokens=tokens, pairs=pairs, d=MOE_D, f=MOE_F,
+            experts=MOE_E, counts=counts.tolist(),
+            expert_load=float(counts.max() * MOE_E / pairs),
+            ms=ms, graph_ms=graph_ms(gemms),
+            bound_ms=ops / PEAK_BF16_S * 1e3, bound_by="operations",
+            tflops=ops / ms / 1e9,
+            plain_ms=cuda_ms(lambda: kmoe.grouped_down_plain(
+                kmoe.grouped_swiglu_plain(xs, offs, wg, wi), offs, wo),
+                reps=3, warmup=1),
+            library_ms=cuda_ms(library),
+            library_graph_ms=graph_ms(library),
+            pipeline_ms=cuda_ms(lambda: kmoe.experts(xt, gate, idx, wi, wg,
+                                                      wo)),
+            pipeline_graph_ms=graph_ms(lambda: kmoe.experts(
+                xt, gate, idx, wi, wg, wo)),
+            loop_ms=cuda_ms(lambda: moe._experts(
+                xt, gate, idx, cfg, False, tokens, 0, (wi, wg, wo)), reps=5),
+            dispatch_ms=cuda_ms(lambda: kmoe.dispatch(xt, idx, MOE_E)),
+            combine_ms=cuda_ms(lambda: kmoe.combine(yp, slot, gate, idx)),
+            max_abs_err=errs, pipeline_vs_loop=rel)
+        rec["bound_ratio"] = rec["ms"] / rec["bound_ms"]
+        line("moe", **rec)
+        out[cell] = rec
+        del h, yp, xs, y, loop
+        torch.cuda.empty_cache()
+    decode = {}
+    for tokens in MOE_DECODE:
+        cpu = torch.Generator().manual_seed(seed + tokens)
+        idx = torch.multinomial(torch.ones(tokens, MOE_E), 2,
+                                generator=cpu).cuda()
+        gate = torch.rand(tokens, 2, generator=cpu) + 0.1
+        gate = (gate / gate.sum(-1, keepdim=True)).cuda()
+        xt = torch.randn(tokens, MOE_D, generator=g,
+                         device="cuda").bfloat16()
+        y, _ = kmoe.experts(xt, gate, idx, wi, wg, wo)
+        loop = moe._experts(xt, gate, idx, cfg, False, tokens, 0,
+                            (wi, wg, wo)).bfloat16()
+        rel = float((y.float() - loop.float()).abs().max()) / float(
+            loop.float().abs().max())
+        if not rel <= 2e-2:
+            fail(f"moe decode {tokens}: the pipeline is {rel} from the loop")
+        touched = int(idx.unique().numel())
+        rec = dict(
+            tokens=tokens, pairs=2 * tokens, experts_touched=touched,
+            bound_ms=3 * touched * MOE_D * MOE_F * 2 / PEAK_BYTES_S * 1e3,
+            bound_by="bytes",
+            pipeline_ms=cuda_ms(lambda: kmoe.experts(xt, gate, idx, wi, wg,
+                                                      wo)),
+            pipeline_graph_ms=graph_ms(lambda: kmoe.experts(
+                xt, gate, idx, wi, wg, wo)),
+            loop_ms=cuda_ms(lambda: moe._experts(
+                xt, gate, idx, cfg, False, tokens, 0, (wi, wg, wo))),
+            pipeline_vs_loop=rel)
+        line("moe_decode", **rec)
+        decode[tokens] = rec
+    long = out["prefill-long"]
+    return {
+        "name": "moe_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe/csrc/moe.cu",
+        "replaces": "none (src/repro/models/moe.py::moe_apply's expert "
+                    "products, left to XLA)",
+        "max_abs_err": max(max(r["max_abs_err"].values())
+                           for r in out.values()),
+        "case": "prefill-long",
+        **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "graph_ms",
+                                "library_graph_ms")},
+        "cells": out,
+        "decode": decode,
+    }
 
 
 def phase_seamless_serve() -> dict:
@@ -4515,14 +4778,16 @@ SYNC_KERNELS = ("sdcm_rates_ragged", "reuse_hist_moments", "flash_attention",
                 "tensor_core", "split_kv", "tensor_core_f32", "split_kv_f32",
                 "simt",
                 "ssd_scan", "flash_attention_bwd", "tensor_core_bwd",
-                "tensor_core_f32_bwd", "simt_bwd", "ssd_scan_bwd")
+                "tensor_core_f32_bwd", "simt_bwd", "ssd_scan_bwd",
+                "moe_dispatch", "moe_gemm", "moe_combine")
 # the backward kernels' wrappers: no host sync at all on the training path
 BWD_WRAPPERS = ("src/repro_torch/kernels/flash_attention/flash_attention.py",
                 "src/repro_torch/kernels/ssd_scan/ssd_scan.py")
 # repeated sync sites that the TS rules cannot see, each with the reason
-# (also in ROADMAP).  Never moe.py:195 and never a site of a predict path.
+# (also in ROADMAP).  Never moe.py:210 (the loop's expert counts) and never
+# a site of a predict path.
 KNOWN_MISSED: dict[str, str] = {}
-NEVER_MISSED = ("src/repro_torch/models/moe.py:195",)
+NEVER_MISSED = ("src/repro_torch/models/moe.py:210",)
 SYNC_WARNING = "called a synchronizing CUDA operation"  # the debugger's
 
 
@@ -4691,7 +4956,7 @@ def sync_paths(exact) -> list:
          lambda res: close_to_exact(res, exact, "lint_runtime binned")),
         ("predict_streaming", True, ("sdcm_rates_ragged",),
          lambda: predict(window_size=STREAM_WINDOW), same),
-        ("mixtral-8x7b/decode", False, ("flash_attention",),
+        ("mixtral-8x7b/decode", False, ("flash_attention", "moe_gemm"),
          served("mixtral-8x7b"), tokens),
         ("llama3-8b/decode", False, ("flash_attention",),
          served("llama3-8b"), tokens),
@@ -4771,20 +5036,21 @@ def main() -> int:
                     help="also write the kernels record here as JSON")
     ap.add_argument("--phase", choices=("dryrun_partition", "flash",
                                         "hit_probs", "kernel_backward",
-                                        "sweep"), default=None,
+                                        "moe", "sweep"), default=None,
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_device()
+    smi = phase_device(("moe",) if args.phase == "moe" else None)
     if args.phase is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         run = {"dryrun_partition": phase_dryrun_partition,
                "flash": lambda smi: phase_flash(),
                "hit_probs": lambda smi: phase_hit_probs(),
                "kernel_backward": phase_kernel_backward,
+               "moe": lambda smi: phase_moe(),
                "sweep": lambda smi: phase_sweep()}[args.phase]
         out, secs = timed(lambda: run(smi))
         line("phase_alone", phase=args.phase, seconds=secs, result=out)
@@ -4830,6 +5096,7 @@ def main() -> int:
     phase_mamba2_serve()
     by_path = {"zamba2-1.2b": serve_launches}
     by_path["llama3-8b"] = phase_llama3_serve()
+    moe_kernel = phase_moe()
     by_path["mixtral-8x7b"] = phase_mixtral_serve()
     by_path["seamless-m4t-medium"] = phase_seamless_serve()
     by_path["phi-3-vision-4.2b"] = phase_phi3v_serve()
@@ -4873,11 +5140,14 @@ def main() -> int:
     phase_more_workloads(t_start)
     phase_lint(smi)
     synced = phase_lint_runtime(smi, exact)
+    # the grouped GEMM: the mixtral serve path and the sync debugger's
+    moe_kernel["launches_by_path"] = {
+        "mixtral-8x7b": by_path["mixtral-8x7b"]["moe_gemm"]}
     for rec, name in ((sdcm_kernel, "sdcm_rates_ragged"),
                       *((r, r["name"]) for r in hist_kernels
                         if r["name"] == "reuse_hist_moments"),
                       (flash_kernel, "flash_attention"),
-                      (ssd_kernel, "ssd_scan")):
+                      (ssd_kernel, "ssd_scan"), (moe_kernel, "moe_gemm")):
         rec["launches_by_path"]["lint_runtime"] = sum(
             n[name] for n in synced.values())
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -4913,7 +5183,8 @@ def main() -> int:
         if not rec["launches"]:
             fail(f"{rec['name']} never launched on its path")
     kernels = ([sdcm_kernel, hit_probs_kernel] + hist_kernels
-               + [flash_kernel, ssd_kernel] + bwd_kernels + f32_kernels)
+               + [flash_kernel, ssd_kernel] + bwd_kernels + f32_kernels
+               + [moe_kernel])
     for rec in kernels:  # the worst error over every path's own inputs
         for errs in (binned_errs, streaming_errs):
             rec["max_abs_err"] = max(rec["max_abs_err"],

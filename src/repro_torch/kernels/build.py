@@ -42,6 +42,7 @@ SOURCES: dict[str, Path] = {
     "ssd_scan_bwd": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
     "flash_attention_bwd": (_KERNELS / "flash_attention" / "csrc"
                             / "flash_bwd.cu"),
+    "moe": _KERNELS / "moe" / "csrc" / "moe.cu",
 }
 
 NVCC_FLAGS = (

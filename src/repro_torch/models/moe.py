@@ -15,6 +15,14 @@ weighted by its gate.  At mixtral's prefill (12,288 tokens) the masks
 would be 0.8 GB each and the dispatch einsum alone ~3e15 operations a
 layer.
 
+On the card, serving in bf16 takes another path with the same routing
+(:func:`grouped_path`): the expert pipeline of
+:mod:`repro_torch.kernels.moe`, in which no count reaches the host
+(dispatch, one grouped GEMM for the gate and up products with the
+SwiGLU in its epilogue, one for the down product, a combine pass).  The
+loop needs autograd and capacity drops, the grouped kernels neither, so
+the two share :func:`route` and nothing else.
+
 ``drop=True`` (every path without a cache: training) is the reference's
 Switch/GShard routing: tokens in groups of ``tokens_per_group`` (the
 largest divisor of the token count up to it), each expert taking
@@ -41,6 +49,7 @@ from repro_torch.dist.sharding import (
     current_rules, from_local, is_dtensor, local_shard, place_for, placements,
     pspec_for, shard, shard_index,
 )
+from repro_torch.kernels import moe as kmoe
 from repro_torch.models.layers import fan_in_normal, param
 from repro_torch.runtime import tracing
 
@@ -147,15 +156,21 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, *,
     """x ``[B, S, D]`` -> (y in x's dtype, Switch aux loss).  ``drop``
     routes by capacity (:func:`capacity_keep`), else every pair.  On the
     meta device every expert takes :func:`uniform_counts`' pairs.  A
-    DTensor x is routed on each partition (:func:`_partitioned`)."""
+    DTensor x is routed on each partition (:func:`_partitioned`).  Where
+    :func:`grouped_path` holds, the experts run on the device-side
+    pipeline (:func:`_grouped`), else in the loop (:func:`_experts`)."""
     if is_dtensor(x):
         return _partitioned(params, x, cfg, drop)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate, idx = route(params, xt, cfg)
     e = cfg.num_experts
-    y = _experts(xt, gate, idx, cfg, drop, group_size(b * s, cfg), 0,
-                 (params.wi, params.wg, params.wo))
+    weights = (params.wi, params.wg, params.wo)
+    if grouped_path(params, x, cfg, drop):
+        y = _grouped(xt, gate, idx, weights)
+    else:
+        y = _experts(xt, gate, idx, cfg, drop, group_size(b * s, cfg), 0,
+                     weights)
     # Switch aux loss: E * sum_e fraction_routed_e * mean_router_prob_e
     frac = F.one_hot(idx[:, 0], e).float().mean(dim=0)   # top-1 routing
     aux = cfg.aux_loss_weight * e * torch.sum(frac * probs.mean(dim=0))
@@ -211,6 +226,35 @@ def _experts(xt, gate, idx, cfg: MoEConfig, drop: bool, group: int,
         y.index_add_(0, rows, (h @ wo[ex]).float()
                      * weight[start:start + n, None])
         start += n
+    return y
+
+
+def grouped_path(params: MoE, x, cfg: MoEConfig, drop: bool) -> bool:
+    """Whether a call takes the device-side grouped pipeline: serving
+    routing (``drop=False``) of a plain (not DTensor) CUDA tensor in
+    bf16, no gradient recorded, and shapes the kernels take
+    (:func:`repro_torch.kernels.moe.supports`).  Training, partitions,
+    the meta device, the CPU and f32 keep the loop."""
+    e, d, f = params.wi.shape
+    recorded = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, params.router, params.wi, params.wg,
+                                  params.wo))
+    return (not drop and not is_dtensor(x) and x.is_cuda
+            and x.dtype == torch.bfloat16 and not recorded
+            and kmoe.supports(d, f, e, cfg.top_k))
+
+
+def _grouped(xt, gate, idx, weights) -> torch.Tensor:
+    """``[T, d]`` in xt's dtype: every (token, choice) pair through the
+    grouped pipeline (``weights`` = ``(wi, wg, wo)``).  Nothing is read on
+    the host: the expert load is kept as a 0-dim device tensor, which
+    :func:`repro_torch.runtime.tracing.take` reads after the window."""
+    y, offs = kmoe.experts(xt, gate, idx, *weights)
+    if tracing.enabled():
+        tracing.count("moe.device_dispatch")
+        counts = offs[1:] - offs[:-1]
+        tracing.count("moe.expert_load",
+                      counts.max().double() * counts.numel() / idx.numel())
     return y
 
 

@@ -10,8 +10,11 @@
   for none): remat recomputes layers on autograd's own thread, whose
   spans do not nest in the caller's.
 * :func:`count` keeps ``(name, t_ns, value, parent)``: how often a site
-  synchronised the host with the device, or what a layer observed.
-* :func:`take` returns what was kept since the last call and forgets it.
+  synchronised the host with the device, or what a layer observed.  A
+  value may be a 0-dim device tensor, kept as it is: reading it would
+  synchronise inside the traced window.
+* :func:`take` returns what was kept since the last call and forgets it,
+  every value as a Python number (a tensor read then, after the window).
 
 The switch is the profiler itself (``_profiler_enabled``); there is no
 flag.  With no profiler a span is one shared no-op context and a count
@@ -85,7 +88,8 @@ def spanned(name: str):
 
 
 def count(name: str, value=1) -> None:
-    """Keep ``value`` under ``name`` while a profiler runs."""
+    """Keep ``value`` (a number, or a 0-dim tensor read at :func:`take`)
+    under ``name`` while a profiler runs."""
     if enabled():
         stack = _stack()
         _counts.append([name, time.time_ns(), value,
@@ -97,7 +101,7 @@ def take() -> tuple[list, list]:
     (``(name, start_ns, end_ns, parent, thread)`` and ``(name, t_ns,
     value, parent)``, ``parent`` an index into the spans returned, -1
     for none), in the order they began; they are forgotten, spans still
-    open are kept."""
+    open are kept.  A tensor value is read here (``.item()``)."""
     global _spans, _counts
     spans, counts = _spans, _counts
     _spans = [r for r in spans if r[2] is None]
@@ -109,4 +113,5 @@ def take() -> tuple[list, list]:
         return -1 if rec is None else index.get(id(rec), -1)
 
     return ([(n, s, e, parent(p), t) for n, s, e, p, t in done],
-            [(n, t, v, parent(p)) for n, t, v, p in counts])
+            [(n, t, v.item() if isinstance(v, torch.Tensor) else v,
+              parent(p)) for n, t, v, p in counts])

@@ -6,7 +6,9 @@ window) and the SSD scan
 (B5, f32 and bf16 b/c, column blocks) against their plain PyTorch
 versions, launch counting,
 composition invariance of the SDCM grid form, bit-reproducibility of
-the histogram (from two threads and streams at once too), streaming reuse distances, a binned Session and the
+the histogram (from two threads and streams at once too), the MoE
+layer's dispatch, grouped GEMM and combine kernels (and the layer
+without a host sync), streaming reuse distances, a binned Session and the
 reduced serving paths on the card (zamba2, and the windowed MoE
 transformer), B4's and B5's gradients (their ``autograd.Function``s)
 and a reduced training step, the repeated host syncs of a reduced
@@ -34,11 +36,12 @@ from repro_torch.core.reuse.distance import (
 )
 from repro_torch.core.reuse.profile import ReuseProfile
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe as kmoe
 from repro_torch.kernels import reuse_hist
 from repro_torch.kernels import ssd_scan as scan
 from repro_torch.configs.reduced import reduced_arch
 from repro_torch.launch import serve
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, moe, transformer
 from repro_torch.kernels import sdcm as kernel
 from repro_torch.workloads.polybench import make_atax
 
@@ -1236,12 +1239,16 @@ def test_reduced_mixtral_serve_on_the_card(cuda_device):
     np.testing.assert_array_equal(res["tokens"], cpu["tokens"])
 
 
-def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device, dtype):
     """The reduced mixtral (2 layers) prefilled and decoded three steps
     on the card under ``set_sync_debug_mode("warn")``: every port line
     that synchronises more than once in the call is a site the TS rules
-    report (flagged or suppressed), the MoE's per-layer expert counts
-    (``models/moe.py:195``) among them."""
+    report (flagged or suppressed).  In bf16 the MoE layers take the
+    grouped pipeline and no line of ``models/moe.py`` syncs; in f32 they
+    take the loop, whose per-layer expert counts (the ``bincount`` line)
+    are among the repeated sites."""
     import traceback
     import warnings
     from pathlib import Path
@@ -1251,7 +1258,12 @@ def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
 
     root = Path(__file__).resolve().parents[1]
     port = root / "src" / "repro_torch"
-    cfg = reduced_arch("mixtral-8x7b").config
+    moe_py = "src/repro_torch/models/moe.py"
+    count_line = next(
+        i for i, text in enumerate((root / moe_py).read_text().splitlines(),
+                                   1) if "torch.bincount(experts" in text)
+    cfg = dataclasses.replace(reduced_arch("mixtral-8x7b").config,
+                              dtype=dtype)
     model = transformer.init(cfg, device=cuda_device, seed=1)
     sites: dict = {}
 
@@ -1273,7 +1285,7 @@ def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
         try:
             res = serve.serve("mixtral-8x7b", reduced=True, batch=2,
                               prompt_len=24, gen=4, device=cuda_device,
-                              model=model)
+                              model=model, dtype=dtype)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert res["tokens"].shape == (2, 4)
@@ -1283,7 +1295,10 @@ def test_repeated_syncs_of_a_mixtral_decode_are_ts_sites(cuda_device):
         path = root / rel
         ctx = ModuleContext(path, rel, path.read_text())
         ts |= {(rel, ln) for ln in torch_sync.sync_lines(ctx)}
-    assert ("src/repro_torch/models/moe.py", 195) in repeated
+    if dtype == torch.bfloat16:
+        assert not [s for s in sites if s[0] == moe_py], sites
+    else:
+        assert (moe_py, count_line) in repeated
     assert repeated <= ts, sorted(repeated - ts)
 
 
@@ -1385,3 +1400,149 @@ def test_model_cell_predict_on_the_card_equals_the_cpu(cuda_device, name):
         assert (a.target, a.cores) == (b.target, b.cores)
         for lvl in a.hit_rates:
             assert abs(a.hit_rates[lvl] - b.hit_rates[lvl]) <= 1e-6
+
+
+# --- the MoE layer's expert pipeline (kernels/moe) ---------------------------
+
+MOE_D, MOE_F, MOE_E = 4096, 14336, 8
+
+
+def moe_routing_case(tokens: int, load: str, experts: int = MOE_E,
+                     seed: int = 0):
+    """Seeded top-2 choices ``idx [T, 2]`` (distinct experts a token) and
+    renormalised gates: ``uniform``; ``skewed``, expert 3 chosen by 60 %
+    of the tokens; ``empty``, experts 1 and 5 chosen by none."""
+    g = torch.Generator().manual_seed(seed)
+    if load == "empty":
+        pool = torch.tensor([e for e in range(experts) if e not in (1, 5)])
+    else:
+        pool = torch.arange(experts)
+    choice = torch.stack([pool[torch.randperm(len(pool), generator=g)[:2]]
+                          for _ in range(tokens)])
+    if load == "skewed":
+        hot = torch.rand(tokens, generator=g) < 0.6
+        other = choice[:, 0].clone()
+        other[other == 3] = choice[other == 3, 1]
+        choice[hot] = torch.stack([torch.full_like(other, 3), other], 1)[hot]
+    gate = torch.rand(tokens, 2, generator=g) + 0.1
+    return choice.long(), gate / gate.sum(-1, keepdim=True)
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    """bf16 ``(wi, wg, wo)`` of 8 experts at mixtral's widths (fan-in
+    scaled), drawn once on the card for every case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    def draw(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                / shape[-2] ** 0.5).bfloat16()
+    return (draw(MOE_E, MOE_D, MOE_F), draw(MOE_E, MOE_D, MOE_F),
+            draw(MOE_E, MOE_F, MOE_D))
+
+
+MOE_CASES = [(t, load) for t in (1, 256 * 4, 8192)
+             for load in ("uniform", "skewed", "empty")]
+
+
+@pytest.mark.parametrize("tokens,load", MOE_CASES)
+def test_moe_dispatch_kernel_vs_plain(cuda_device, tokens, load):
+    """Offsets, slots and the gathered rows: equal to the plain version
+    (an exact integer and copy pass)."""
+    idx, _ = moe_routing_case(tokens, load)
+    idx = idx.to(cuda_device)
+    xt = torch.randn(tokens, MOE_D, device=cuda_device).bfloat16()
+    before = kmoe.LAUNCHES["moe_dispatch"]
+    got = kmoe.dispatch(xt, idx, MOE_E)
+    assert kmoe.LAUNCHES["moe_dispatch"] == before + 1
+    want = kmoe.dispatch_plain(xt, idx, MOE_E)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def assert_bf16_close(got, want):
+    """Both sides round the same f32 sums, taken in another order, to
+    bf16 once: at most a unit in the last place apart (2^-7 of the
+    value), plus the f32 order's error near zero (1e-4 of the scale)."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("tokens,load", MOE_CASES)
+def test_moe_grouped_gemm_kernel_vs_plain(cuda_device, moe_weights, tokens,
+                                          load):
+    """Both grouped GEMMs (one launch each) against their plain versions
+    at mixtral's widths: h = silu(x wg) * (x wi) and yp = h wo, every
+    expert's rows in one launch, an expert with no rows skipped."""
+    wi, wg, wo = moe_weights
+    idx, _ = moe_routing_case(tokens, load, seed=1)
+    xt = torch.randn(tokens, MOE_D, device=cuda_device).bfloat16()
+    offs, _, xs = kmoe.dispatch_plain(xt, idx.to(cuda_device), MOE_E)
+    before = kmoe.LAUNCHES["moe_gemm"]
+    h = kmoe.grouped_swiglu(xs, offs, wg, wi)
+    assert_bf16_close(h, kmoe.grouped_swiglu_plain(xs, offs, wg, wi))
+    yp = kmoe.grouped_down(h, offs, wo)
+    assert_bf16_close(yp, kmoe.grouped_down_plain(h, offs, wo))
+    assert kmoe.LAUNCHES["moe_gemm"] == before + 2
+
+
+@pytest.mark.parametrize("tokens,load", MOE_CASES)
+def test_moe_combine_kernel_vs_plain(cuda_device, tokens, load):
+    """The combine on the same rows: bit for bit the plain version (the
+    same products and sums, in expert order, unfused)."""
+    idx, gate = moe_routing_case(tokens, load, seed=2)
+    idx, gate = idx.to(cuda_device), gate.to(cuda_device)
+    _, slot, _ = kmoe.dispatch_plain(
+        torch.zeros(tokens, 8, device=cuda_device), idx, MOE_E)
+    yp = torch.randn(tokens * 2, MOE_D, device=cuda_device).bfloat16()
+    got = kmoe.combine(yp, slot, gate, idx)
+    assert torch.equal(got, kmoe.combine_plain(yp, slot, gate, idx))
+
+
+def moe_layer(device, d=MOE_D, f=MOE_F, dtype=torch.bfloat16):
+    cfg = moe.MoEConfig(num_experts=MOE_E, top_k=2)
+    mod = moe.moe_init(d, f, cfg, dtype, device=device,
+                       generator=torch.Generator(device=device).manual_seed(3))
+    return cfg, mod
+
+
+def test_moe_layer_makes_no_host_sync(cuda_device):
+    """``moe_apply(drop=False)`` in bf16 without gradients: the grouped
+    path under the sync debugger set to raise, two GEMM launches; the
+    result within bf16's rounding of the loop's."""
+    cfg, mod = moe_layer(cuda_device)
+    x = torch.randn(2, 300, MOE_D, device=cuda_device).bfloat16()
+    before = dict(kmoe.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            y, _ = moe.moe_apply(mod, x, cfg, drop=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: kmoe.LAUNCHES[k] - before[k] for k in before} == {
+        "moe_dispatch": 1, "moe_gemm": 2, "moe_combine": 1}
+    xt = x.reshape(-1, MOE_D)
+    with torch.no_grad():
+        _, gate, idx = moe.route(mod, xt, cfg)
+        want = moe._experts(xt, gate, idx, cfg, False, 600, 0,
+                            (mod.wi, mod.wg, mod.wo)).to(x.dtype)
+    scale = float(want.float().abs().max())
+    assert float((y.reshape(-1, MOE_D).float() - want.float()).abs().max()
+                 ) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("case", ["drop", "grad", "f32"])
+def test_the_loop_never_launches_the_grouped_gemm(cuda_device, case):
+    """Training routing, a recorded gradient and f32 keep the loop: no
+    launch of the pipeline's kernels."""
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    cfg, mod = moe_layer(cuda_device, d=256, f=512, dtype=dtype)
+    x = torch.randn(1, 64, 256, device=cuda_device).to(dtype)
+    x.requires_grad_(case == "grad")
+    before = dict(kmoe.LAUNCHES)
+    with torch.set_grad_enabled(case == "grad"):
+        moe.moe_apply(mod, x, cfg, drop=case == "drop")
+    assert kmoe.LAUNCHES == before

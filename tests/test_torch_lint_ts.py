@@ -53,7 +53,8 @@ MOE_SHAPE = """
 
 
 @pytest.mark.parametrize("source,want", [
-    # models/moe.py:195's shape: the helper runs once per layer
+    # the shape of models/moe.py's loop-path count read: the helper runs
+    # once per layer
     (MOE_SHAPE, [("TS102", 4)]),
     ("""
         import torch
@@ -342,13 +343,15 @@ def test_sync_lines_cover_a_call_that_spans_lines(tmp_path):
 
 
 def test_the_port_moe_readback_is_reported():
-    """``models/moe.py:195`` (the per-layer expert counts, the line of
-    ``torch.bincount(...).tolist()``): TS reports it, suppressed with the
-    ROADMAP item that will remove it."""
+    """The loop path's per-layer expert counts in ``models/moe.py`` (the
+    line of ``torch.bincount(...).tolist()``; the grouped path reads no
+    count on the host): TS reports it, suppressed with the ROADMAP item
+    that removed it from the serving path."""
     path = PORT / "models" / "moe.py"
     rel = path.relative_to(ROOT).as_posix()
     ctx = ModuleContext(path, rel, path.read_text())
-    line = 195
+    line = next(i for i, text in enumerate(path.read_text().splitlines(), 1)
+                if "torch.bincount(experts" in text)
     assert ".tolist()" in ctx.line_text(line)
     hits = [f for f in torch_sync.analyze(ctx) if f.line == line]
     assert [f.rule_id for f in hits] == ["TS102"]

@@ -21,6 +21,7 @@ import torch
 from repro.models import moe as ref_moe
 from repro.models.layers import unzip_params
 from repro_torch.interop import copy_params
+from repro_torch.kernels import moe as kmoe
 from repro_torch.models import moe
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -133,3 +134,187 @@ def test_capacity_drop_routing_raises():
     assert torch.equal(y[0, 4:], torch.zeros(4, d))
     torch.testing.assert_close(y[0, :4], full[0, :4], rtol=0, atol=0)
     assert bool((full[0, 4:] != 0).any())
+
+
+# --- the grouped pipeline (kernels/moe) and the path choice ------------------
+
+def reduced_layer(e=4, k=2, d=64, f=128, seed=0):
+    """A reduced MoE layer in f32 on the CPU (mixtral's reduced widths by
+    default) with its config."""
+    cfg = moe.MoEConfig(num_experts=e, top_k=k)
+    mod = moe.moe_init(d, f, cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    return cfg, mod
+
+
+def routing_case(case: str, t: int, e: int, k: int, seed: int = 0):
+    """Seeded ``(idx [t, k], gate [t, k])``: distinct experts a token,
+    renormalised gates; ``empty``: expert 2 chosen by none; ``one``:
+    every pair on expert 0 (k = 1); ``uneven``: expert 0 chosen by
+    every token."""
+    g = torch.Generator().manual_seed(seed)
+    pool = [x for x in range(e) if not (case == "empty" and x == 2)]
+    idx = torch.stack([torch.tensor(pool)[torch.randperm(len(pool),
+                                                         generator=g)[:k]]
+                       for _ in range(t)])
+    if case == "one":
+        idx = torch.zeros(t, k, dtype=torch.long)
+    if case == "uneven":
+        idx[:, 0] = 0
+        idx[:, 1:] = 1 + torch.stack([torch.randperm(e - 1, generator=g)[
+            :k - 1] for _ in range(t)])
+    gate = torch.rand(t, k, generator=g) + 0.1
+    return idx.long(), gate / gate.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("case,t,e,k", [
+    ("uneven", 40, 4, 2), ("empty", 40, 4, 2), ("one", 37, 4, 1),
+    ("decode", 1, 4, 2), ("ragged", 131, 8, 2), ("top-3", 29, 6, 3),
+])
+def test_the_grouped_pipeline_equals_the_loop(case, t, e, k):
+    """The grouped pipeline's plain version (dispatch, the two grouped
+    products, the combine) against the host loop at the reduced widths,
+    in f32: every expert's rows in the loop's order and the sum in the
+    loop's order, so the two agree to f32 rounding.  Cases: one expert
+    chosen by every token, an expert with no pairs, every pair on one
+    expert, one token (decode), a token count that is no multiple of any
+    tile, three choices a token."""
+    cfg, mod = reduced_layer(e=e, k=k)
+    idx, gate = routing_case(case, t, e, k, seed=t)
+    xt = torch.randn(t, 64, generator=torch.Generator().manual_seed(1))
+    weights = (mod.wi, mod.wg, mod.wo)
+    want = moe._experts(xt, gate, idx, cfg, False, t, 0, weights)
+    got, offs = kmoe.experts_plain(xt, gate, idx, *weights)
+    counts = torch.bincount(idx.flatten(), minlength=e)
+    assert offs.tolist() == [0] + counts.cumsum(0).tolist()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # the wrappers take the plain version for CPU tensors
+    got_w, _ = kmoe.experts(xt, gate, idx, *weights)
+    assert torch.equal(got_w, got)
+
+
+def test_the_dispatch_is_stable_and_the_combine_sums_in_expert_order():
+    """Slots put an expert's pairs in token order; the combine's sum runs
+    over a token's pairs in expert order, whatever their choice order."""
+    idx = torch.tensor([[2, 0], [0, 1], [1, 2], [0, 2]])
+    offs, slot, xs = kmoe.dispatch_plain(torch.arange(4.)[:, None], idx, 3)
+    assert offs.tolist() == [0, 3, 5, 8]
+    assert slot.tolist() == [5, 0, 1, 3, 4, 6, 2, 7]
+    assert xs.flatten().tolist() == [0, 1, 3, 1, 2, 0, 2, 3]
+    yp = torch.tensor([[1.0], [2.0], [3.0], [4.0], [5.0], [6.0], [7.0],
+                       [8.0]])
+    gate = torch.tensor([[0.25, 0.75]] * 4)
+    y = kmoe.combine_plain(yp, slot, gate, idx)
+    # token 0: expert 0 (slot 0, gate 0.75) then expert 2 (slot 5, 0.25)
+    assert y[0].item() == 0.75 * 1.0 + 0.25 * 6.0
+
+
+class _CudaLike:
+    """What :func:`moe.grouped_path` reads of x: a plain CUDA tensor."""
+
+    is_cuda = True
+
+    def __init__(self, dtype, requires_grad=False):
+        self.dtype, self.requires_grad = dtype, requires_grad
+
+
+class DTensor(_CudaLike):
+    device_mesh = None
+
+
+@pytest.mark.parametrize("kind,drop,want", [
+    ("cuda-bf16", False, True),
+    ("cuda-bf16-recorded", False, False),
+    ("cuda-bf16-no-grad-mode", False, True),
+    ("drop", True, False),
+    ("dtensor", False, False),
+    ("meta", False, False),
+    ("cpu", False, False),
+    ("cuda-f32", False, False),
+])
+def test_the_path_choice_by_input_kind(kind, drop, want):
+    """The grouped path serves ``drop=False`` for a plain CUDA tensor in
+    bf16 with no gradient recorded; training routing, a recorded gradient,
+    a DTensor, the meta device, the CPU and f32 keep the loop."""
+    cfg, mod = reduced_layer()
+    x = {"cuda-bf16": _CudaLike(torch.bfloat16),
+         "cuda-bf16-recorded": _CudaLike(torch.bfloat16, requires_grad=True),
+         "cuda-bf16-no-grad-mode": _CudaLike(torch.bfloat16,
+                                             requires_grad=True),
+         "drop": _CudaLike(torch.bfloat16),
+         "dtensor": DTensor(torch.bfloat16),
+         "meta": torch.empty(1, 4, 64, dtype=torch.bfloat16, device="meta"),
+         "cpu": torch.zeros(1, 4, 64, dtype=torch.bfloat16),
+         "cuda-f32": _CudaLike(torch.float32)}[kind]
+    with torch.set_grad_enabled(kind != "cuda-bf16-no-grad-mode"):
+        assert moe.grouped_path(mod, x, cfg, drop) is want
+
+
+def test_the_path_choice_needs_shapes_the_kernels_take():
+    cfg, mod = reduced_layer(d=96, f=128)
+    assert not moe.grouped_path(mod, _CudaLike(torch.bfloat16), cfg, False)
+    assert not kmoe.supports(96, 128, 4, 2)
+    assert kmoe.supports(4096, 14336, 8, 2)
+    assert not kmoe.supports(4096, 14336, kmoe.MAX_EXPERTS + 1, 2)
+
+
+def test_the_path_choice_limits_are_the_kernels_table_sizes():
+    """``supports`` decides on the sizes of the kernels' shared-memory
+    tables, which the CUDA source states."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kmoe.__file__).parent / "csrc" / "moe.cu").read_text()
+    sizes = dict(re.findall(r"constexpr int (kMax\w+) = (\d+);", src))
+    assert (int(sizes["kMaxExperts"]), int(sizes["kMaxK"])) == (
+        kmoe.MAX_EXPERTS, kmoe.MAX_K)
+
+
+def _traced_layer(monkeypatch, grouped: bool):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import tracing
+
+    cfg, mod = reduced_layer(e=4, k=2)
+    x = torch.randn(2, 21, 64, generator=torch.Generator().manual_seed(3))
+    monkeypatch.setattr(moe, "grouped_path", lambda *a: grouped)
+    tracing.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        y, _ = moe.moe_apply(mod, x, cfg, drop=False)
+    return y, tracing.take()[1]
+
+
+def test_the_grouped_path_counts_a_device_dispatch_and_no_host_sync(
+        monkeypatch):
+    """A grouped call records ``moe.device_dispatch`` once and no
+    ``host_sync.moe_counts``; the loop records the counts' syncs and no
+    device dispatch; both give the same y."""
+    y, counts = _traced_layer(monkeypatch, True)
+    names = [c[0] for c in counts]
+    assert names.count("moe.device_dispatch") == 1
+    assert "host_sync.moe_counts" not in names
+    y_loop, counts_loop = _traced_layer(monkeypatch, False)
+    names = [c[0] for c in counts_loop]
+    assert "moe.device_dispatch" not in names
+    assert names.count("host_sync.moe_counts") == 1
+    torch.testing.assert_close(y, y_loop, rtol=1e-6, atol=1e-6)
+
+
+def test_a_tensor_expert_load_is_read_as_the_loops_float(monkeypatch):
+    """The grouped path keeps ``moe.expert_load`` as a 0-dim tensor (no
+    read inside the window); ``tracing.take`` returns it as a float equal
+    to the loop's."""
+    from repro_torch.runtime import tracing
+
+    tracing.take()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        tracing.count("probe", torch.tensor(2.5, dtype=torch.float64))
+        assert isinstance(tracing._counts[-1][2], torch.Tensor)
+    assert tracing.take()[1][0][2] == 2.5
+    _, counts = _traced_layer(monkeypatch, True)
+    _, counts_loop = _traced_layer(monkeypatch, False)
+    load = [c[2] for c in counts if c[0] == "moe.expert_load"]
+    load_loop = [c[2] for c in counts_loop if c[0] == "moe.expert_load"]
+    assert len(load) == 1 and type(load[0]) is float
+    assert load == load_loop
