@@ -1,7 +1,8 @@
 """The least work the mathematics needs, from a cell's shapes and its
 configuration alone: never from the program, so that a faster kernel can
 never read above its roofline.  ``counts/<family>.py`` lists a family's
-matrix parameters and its kernel calls; this module turns them into
+matrix parameters and its kernel calls (``attention_calls``,
+``scan_calls``, ``expert_calls``); this module turns them into
 operations and bytes.
 
 * Attention (B4), forward: ``4 D`` operations a visible (query, key)
@@ -11,6 +12,8 @@ operations and bytes.
 * SSD scan (B5), forward: ``4 N P`` a token and head (the state update
   ``b x^T`` and the readout ``c^T h``); backward: ``8 N P`` (dX, dB, dC
   and the state's gradient).
+* The MoE layer's grouped expert GEMMs, forward: ``6 d f`` a (token,
+  expert) pair (gate, up and down).
 * Bytes: every input read once and every output written once, at the
   configuration's element size (2 for bfloat16) whatever the program
   holds them in.
@@ -71,6 +74,24 @@ def scan_bytes(call: dict, elem: int, backward: bool = False) -> float:
         return float(elem * (4 * tok * h * p + 2 * tok * h + 4 * tok * n))
     return float(elem * (2 * tok * h * p + tok * h + 2 * tok * n
                          + 2 * b * h * n * p))
+
+
+def expert_flops(call: dict, backward: bool = False) -> float:
+    """``call``: ``tokens``, ``pairs`` (tokens x top-k), ``d``, ``f``,
+    ``experts``.  No cell trains the grouped GEMMs: forward only."""
+    if backward:
+        raise ValueError("the expert GEMMs are counted forward only")
+    return float(6 * call["d"] * call["f"] * call["pairs"])
+
+
+def expert_bytes(call: dict, elem: int, backward: bool = False) -> float:
+    """The three matrices of every expert that a pair can reach (at most
+    ``pairs`` of them), x's rows read and each pair's output written."""
+    if backward:
+        raise ValueError("the expert GEMMs are counted forward only")
+    touched = min(call["experts"], call["pairs"])
+    return float(elem * call["d"] * (3 * touched * call["f"]
+                                     + call["tokens"] + call["pairs"]))
 
 
 def step_flops(cfg: dict, batch: int, seq: int, train: bool) -> float:

@@ -28,3 +28,7 @@ def scan_calls(s: dict, batch: int, seq: int) -> list[dict]:
     call = dict(b=batch, s=seq, h=di // s["head_dim"], n=s["ssm_state"],
                 p=s["head_dim"])
     return [call] * s["layers"]
+
+
+def expert_calls(s: dict, batch: int, seq: int) -> list[dict]:
+    return []

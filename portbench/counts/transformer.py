@@ -24,3 +24,13 @@ def attention_calls(s: dict, batch: int, seq: int) -> list[dict]:
 
 def scan_calls(s: dict, batch: int, seq: int) -> list[dict]:
     return []
+
+
+def expert_calls(s: dict, batch: int, seq: int) -> list[dict]:
+    """Each MoE layer's grouped expert GEMMs: every token to its top-k."""
+    if not s.get("moe"):
+        return []
+    tokens = batch * seq
+    call = dict(tokens=tokens, pairs=tokens * s["moe"]["top_k"],
+                d=s["d_model"], f=s["d_ff"], experts=s["moe"]["num_experts"])
+    return [call] * s["layers"]

@@ -21,28 +21,31 @@ B4_BWD = re.compile(r"\bflash_bwd_(?:simt|tc|tf32)::")
 #: backward's kernels.
 B5_FWD = re.compile(r"\b(?:cb_kernel|ssd_scan_kernel)\b")
 B5_BWD = re.compile(r"\bssd_bwd::")
+#: The MoE layer's grouped expert GEMMs (``kernels/moe``): gate/up with
+#: the SwiGLU epilogue (``<0>``) and down (``<1>``).
+MOE_GEMM = re.compile(r"\bgrouped_gemm_kernel\b")
 
-
-def _calls(ctx, kernel: str) -> list:
-    fam = counts.family(ctx.cell.config)
-    get = fam.attention_calls if kernel == "attention" else fam.scan_calls
-    return [c for rows, seq in ctx.work
-            for c in get(ctx.cell.config["sizes"], rows, seq)]
+#: Each kernel's calls (``counts/<family>.py``), operations and bytes.
+KERNELS = {
+    "attention": ("attention_calls", counts.attention_flops,
+                  counts.attention_bytes),
+    "scan": ("scan_calls", counts.scan_flops, counts.scan_bytes),
+    "expert": ("expert_calls", counts.expert_flops, counts.expert_bytes),
+}
 
 
 def roofline(ctx, pattern, kernel: str, backward: bool):
-    """Percent of the least time of every call of ``kernel``
-    (``"attention"`` or ``"scan"``) in the window, forward or backward,
-    over the device time of the kernels ``pattern`` names."""
+    """Percent of the least time of every call of ``kernel`` (a key of
+    :data:`KERNELS`) in the window, forward or backward, over the device
+    time of the kernels ``pattern`` names."""
+    calls_of, fl, by = KERNELS[kernel]
+    get = getattr(counts.family(ctx.cell.config), calls_of)
+    calls = [c for rows, seq in ctx.work
+             for c in get(ctx.cell.config["sizes"], rows, seq)]
     dev = ctx.trace.device_s(lambda n: bool(pattern.search(n)))
-    calls = _calls(ctx, kernel)
     if not dev or not calls or ctx.peak is None:
         return None
     elem = counts.ELEMENT_BYTES[ctx.cell.config["sizes"]["dtype"]]
-    fl = counts.attention_flops if kernel == "attention" else \
-        counts.scan_flops
-    by = counts.attention_bytes if kernel == "attention" else \
-        counts.scan_bytes
     least = max(sum(fl(c, backward) for c in calls)
                 / ctx.peak["bfloat16_flops"],
                 sum(by(c, elem, backward) for c in calls)

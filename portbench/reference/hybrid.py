@@ -26,6 +26,12 @@ from portbench.reference.common import (
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+#: Sizes at which the control (``control.py``) runs on the CPU in
+#: seconds, deep and wide enough that its rounding grows through the
+#: layers as at the cells' own sizes (``small.control_cell``).
+CONTROL_SIZES = dict(layers=12, d_model=128, heads=4, kv_heads=4,
+                     head_dim=32, d_ff=256, ssm_state=16, vocab=2048)
+
 
 def _dims(cfg: dict) -> dict:
     d = cfg["d_model"]

@@ -19,6 +19,12 @@ from portbench.reference.common import (
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+#: Sizes at which the control (``control.py``) runs on the CPU in
+#: seconds, deep and wide enough that its rounding grows through the
+#: layers as at the cells' own sizes (``small.control_cell``).
+CONTROL_SIZES = dict(layers=8, d_model=256, heads=8, kv_heads=2,
+                     head_dim=32, d_ff=512, vocab=2048, window=128)
+
 
 def padded_vocab(cfg: dict) -> int:
     m = cfg["vocab_pad_multiple"]

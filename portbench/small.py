@@ -44,26 +44,16 @@ def small_cell(workload: str, dtype: str = "bfloat16"):
     return cell, spec
 
 
-#: Sizes at which the control (the reference in float8 against itself in
-#: float32) runs on the CPU in seconds, deep and wide enough that its
-#: rounding grows through the layers as at the cells' own sizes.
-CONTROL_SIZES = {
-    "transformer": dict(layers=8, d_model=256, heads=8, kv_heads=2,
-                        head_dim=32, d_ff=512, vocab=2048, window=128),
-    "hybrid": dict(layers=12, d_model=128, heads=4, kv_heads=4, head_dim=32,
-                   d_ff=256, ssm_state=16, vocab=2048),
-}
-
-
 def control_cell(workload: str):
-    """The cell at :data:`CONTROL_SIZES` with prompts of 64-256 tokens,
-    for ``control.reading`` (which runs the reference alone); a training
+    """The cell at its family's ``CONTROL_SIZES`` (declared by
+    ``reference/<family>.py``) with prompts of 64-256 tokens, for
+    ``control.reading`` (which runs the reference alone); a training
     cell at the reduced sizes of :func:`small_cell`."""
     cell = core.find_cell(workload)
     if cell.mix["kind"] == "train":
         return small_cell(workload)[0]
     cell.config = {**cell.config, "sizes": {
-        **cell.config["sizes"], **CONTROL_SIZES[cell.family]}}
+        **cell.config["sizes"], **cell.module("reference").CONTROL_SIZES}}
     cell.mix = {**cell.mix, "check_requests": 4, "check_span": 8,
                 "lengths": {"min": 64, "max": 256, "count": 4,
                             "multiple": 32}}

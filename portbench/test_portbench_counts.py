@@ -1,5 +1,6 @@
 """The counts: visible pairs against a brute-force count, and a model
-step's operations against a hand count for tiny configurations."""
+step's operations and the expert GEMMs' counts against a hand count for
+tiny configurations."""
 from __future__ import annotations
 
 import pytest
@@ -60,3 +61,20 @@ def test_bytes_count_each_input_and_output_once():
     scan = dict(b=1, s=8, h=2, n=4, p=3)
     want = 2 * (2 * 8 * 2 * 3 + 8 * 2 + 2 * 8 * 4 + 2 * 2 * 4 * 3)
     assert counts.scan_bytes(scan, 2) == want
+
+
+def test_expert_counts_by_hand():
+    sizes = {"layers": 2, "d_model": 8, "d_ff": 6, "dense_ff": False,
+             "moe": {"num_experts": 4, "top_k": 2}}
+    calls = counts.family({"family": "transformer"}).expert_calls(sizes, 2, 5)
+    assert calls == [dict(tokens=10, pairs=20, d=8, f=6, experts=4)] * 2
+    c = calls[0]
+    assert counts.expert_flops(c) == 6 * 8 * 6 * 20     # gate, up, down
+    # four experts' three matrices, 10 rows of x, 20 pairs' outputs
+    assert counts.expert_bytes(c, 2) == 2 * (4 * 3 * 8 * 6 + 10 * 8 + 20 * 8)
+    # one token (two pairs) can reach only two experts' weights
+    one = counts.family({"family": "transformer"}).expert_calls(sizes, 1, 1)
+    assert counts.expert_bytes(one[0], 2) == 2 * (2 * 3 * 8 * 6 + 8 + 2 * 8)
+    assert counts.family({"family": "hybrid"}).expert_calls({}, 2, 5) == []
+    with pytest.raises(ValueError):
+        counts.expert_flops(c, backward=True)

@@ -40,24 +40,28 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_references_load_nothing_of_the_program():
+    """The reference of each configuration's family at the family's
+    ``CONTROL_SIZES`` (a prefill in float8), and each training cell's
+    reference (a step), found by the cells' names alone."""
     mods = _loaded(
         "import numpy as np\n"
-        "from portbench import control, core\n"
-        "from portbench.reference import hybrid, transformer, common\n"
+        "from portbench import core\n"
         "from portbench.reference.common import Precision\n"
-        "sizes = {'layers': 3, 'd_model': 16, 'vocab': 64, 'heads': 2,\n"
-        "         'kv_heads': 2, 'd_ff': 32, 'ssm_state': 8, 'head_dim': 8,\n"
-        "         'expand': 2, 'conv_width': 4, 'attn_every': 2,\n"
-        "         'rope_theta': 1e4, 'dtype': 'float32',\n"
-        "         'vocab_pad_multiple': 32, 'norm_eps': 1e-6, 'zloss': 1e-4}\n"
-        "tok = np.arange(24, dtype=np.int32).reshape(2, 12) % 64\n"
-        "pk = [{'positions': [0, 11], 'heads': [1]}]\n"
-        "hybrid.prefill(sizes, 1, [tok], pk, 'cpu', Precision('fp8'))\n"
-        "opt = {'peak_lr': 3e-4, 'b1': 0.9, 'b2': 0.95, 'eps': 1e-8,\n"
-        "       'weight_decay': 0.1, 'grad_clip': 1.0,\n"
-        "       'final_fraction': 0.1, 'total_steps': 40, 'warmup': 5}\n"
-        "hybrid.train(sizes, opt, 1, [(tok, tok)], 'cpu', Precision('f32'))\n"
-        "t = dict(sizes, window=5, dense_ff=False,\n"
-        "         moe={'num_experts': 4, 'top_k': 2})\n"
-        "transformer.prefill(t, 1, [tok], pk, 'cpu', Precision('f32'))\n")
+        "bench = core.load_json(core.ROOT / 'BENCHMARK.json')\n"
+        "tok = np.arange(24, dtype=np.int32).reshape(2, 12)\n"
+        "seen = set()\n"
+        "for w in bench['workloads']:\n"
+        "    cell = core.find_cell(w['name'], bench)\n"
+        "    ref = cell.module('reference')\n"
+        "    sizes = {**cell.config['sizes'], **ref.CONTROL_SIZES}\n"
+        "    if cell.mix['kind'] == 'train':\n"
+        "        opt = {**cell.config['optimizer'], **cell.mix['schedule']}\n"
+        "        ref.train(sizes, opt, 1, [(tok, tok)], 'cpu',\n"
+        "                  Precision('f32'))\n"
+        "    if w['config'] not in seen:\n"
+        "        seen.add(w['config'])\n"
+        "        heads = [0] if ref.state_heads(sizes) else []\n"
+        "        pk = [{'positions': [0, 11], 'heads': heads}]\n"
+        "        ref.prefill(sizes, 1, [tok], pk, 'cpu', Precision('fp8'))\n"
+        "assert seen == {w['config'] for w in bench['workloads']}\n")
     assert not _tops(mods) & (set(BANNED) | {"repro_torch"})

@@ -28,10 +28,25 @@ def test_reference_agrees_with_the_plain_cpu_path(workload):
     assert all(v["value"] > 0 for v in out["metrics"].values())
 
 
-FAULTS = [(w, f) for w in CELLS for f in
-          (("unchanged", "half_batch") if w.endswith("train-4k") else
-           ("token", "half_batch", "slot") if w.endswith("chat") else
-           ("token", "window") if w.startswith("mixtral") else ("token",))]
+def faults(workload: str) -> tuple:
+    """The faults a cell can have, from its files: a training step's
+    state left unchanged and half its batch; a prefill's token altered,
+    half its batch and one slot wrong where a request holds more than
+    one prompt, and the window left out where the configuration has one
+    and the mix's longest prompt passes it."""
+    cell = core.find_cell(workload)
+    mix, window = cell.mix, cell.config["sizes"].get("window")
+    if mix["kind"] == "train":
+        return ("unchanged", "half_batch")
+    out = ("token",)
+    if mix["batch"] > 1:
+        out += ("half_batch", "slot")
+    if window and mix["lengths"]["max"] > window:
+        out += ("window",)
+    return out
+
+
+FAULTS = [(w, f) for w in CELLS for f in faults(w)]
 #: The number that each fault, confined to some rows or positions, has
 #: to fail by itself: the others may not see it.
 CAUGHT_BY = {"window": "cache_err_far", "slot": "cache_err_slot"}

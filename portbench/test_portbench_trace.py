@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from portbench import core, counts, readers
-from portbench.run import Context
+from portbench.run import Context, read_metric
 from portbench.trace import Trace, _breakdown, _merge
 
 PEAK = {"bfloat16_flops": 989e12, "bytes_per_s": 3.35e12}
@@ -56,6 +56,33 @@ def test_a_kernel_at_its_least_time_reads_100_percent():
     assert readers.roofline(ctx, readers.B4_FWD, "attention", False) is None
 
 
+GEMM = ("void (anonymous namespace)::grouped_gemm_kernel<{}>(CUtensorMap, "
+        "CUtensorMap, CUtensorMap, int const*, __nv_bfloat16*, int, int, int)")
+
+
+def test_the_expert_gemms_at_their_least_time_read_100_percent():
+    work = [(1, 2048), (4, 512)]
+    cell = core.find_cell("mixtral-8x7b-16l.prefill-chat")
+    calls = [c for r, s in work for c in counts.family(cell.config)
+             .expert_calls(cell.config["sizes"], r, s)]
+    assert len(calls) == 2 * 16
+    least = max(sum(counts.expert_flops(c) for c in calls)
+                / PEAK["bfloat16_flops"],
+                sum(counts.expert_bytes(c, 2) for c in calls)
+                / PEAK["bytes_per_s"])
+    ns = int(round(least * 1e9))
+    kern = [(GEMM.format(0), 0, ns // 3), (GEMM.format(1), ns // 3, ns),
+            ("void (anonymous namespace)::moe_combine_kernel(x)", ns, 2 * ns)]
+    ctx = _ctx(cell.name, kern, work=work)
+    got = read_metric("moe_gemm_roofline.prefill", ctx)
+    assert got == pytest.approx(100.0, rel=1e-6)
+    ctx.trace.kernels = [(n, 2 * s, 2 * e) for n, s, e in kern[:2]]
+    assert read_metric("moe_gemm_roofline.prefill", ctx) == pytest.approx(
+        50.0, rel=1e-6)
+    zamba = _ctx("zamba2-1.2b.prefill-long", kern, work=work)
+    assert read_metric("moe_gemm_roofline.prefill", zamba) is None
+
+
 def test_a_step_splits_into_its_ranges():
     spans = {"train_step.forward": [(0, 100), (1000, 1100)],
              "train_step.optimizer": [(500, 600), (1500, 1600)]}
@@ -78,9 +105,12 @@ def test_kernel_names_match_their_own_kernel_only():
         "void (anonymous namespace)::cb_kernel<__nv_bfloat16>(P)": "b5f",
         "void ssd_bwd::grad_kernel<__nv_bfloat16>(ssd_bwd::P)": "b5b",
         "ampere_bf16_s16816gemm_bf16_128x128_ldg8_f2f_tn": None,
+        GEMM.format(0): "moe", GEMM.format(1): "moe",
+        "void (anonymous namespace)::moe_gather_kernel(x)": None,
     }
     pats = {"b4f": readers.B4_FWD, "b4b": readers.B4_BWD,
-            "b5f": readers.B5_FWD, "b5b": readers.B5_BWD}
+            "b5f": readers.B5_FWD, "b5b": readers.B5_BWD,
+            "moe": readers.MOE_GEMM}
     for name, want in names.items():
         got = [k for k, p in pats.items() if p.search(name)]
         assert got == ([want] if want else []), name
